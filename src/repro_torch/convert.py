@@ -1,0 +1,54 @@
+"""Carry state from the reference package into the port, as numpy.
+
+The port imports nothing of the JAX package; what crosses over is plain
+arrays.  A caller holding JAX-side objects turns them into numpy first
+(``np.asarray`` on each field) and hands them here.
+
+  * ``lattice_from_numpy`` — an unbatched lattice dict (the builders'
+    format) or the fields of a batched JAX ``Lattice`` -> the port's
+    ``Lattice`` on a device, with the reference's dtypes.
+  * ``stream_checkpoint_from_numpy`` — a JAX ``StreamSession.
+    checkpoint``, i.e. ``(done, alpha, c_alpha)``, loaded into a port
+    ``StreamSession`` so its next ``rescore`` resumes from it.
+
+This slice has no model weights; the acoustic-parameter converter comes
+with the training slice.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.losses.lattice import Lattice, as_tensor, batch_lattices
+from repro_torch.serving.streaming import StreamSession
+
+
+def lattice_from_numpy(lat, device=DEFAULT_DEVICE) -> Lattice:
+    """``lat``: an unbatched lattice dict ({field: array}, ``start_t`` of
+    shape (A,)), or a batched lattice given as a mapping or a NamedTuple
+    of arrays (a JAX ``Lattice`` whose fields went through ``np.asarray``
+    or still are arrays that convert).  Returns the port's ``Lattice``."""
+    fields = lat._asdict() if hasattr(lat, "_asdict") else dict(lat)
+    missing = [k for k in Lattice._fields[:-1] if k not in fields]
+    if missing:
+        raise ValueError(f"lattice_from_numpy: missing fields {missing}")
+    if np.asarray(fields["start_t"]).ndim == 1:
+        return batch_lattices([{k: np.asarray(v) for k, v in fields.items()
+                                if k in Lattice._fields}], device=device)
+    dev = resolve_device(device)
+    return Lattice(**{k: (None if fields.get(k) is None
+                          else as_tensor(np.asarray(fields[k]), dev))
+                      for k in Lattice._fields})
+
+
+def stream_checkpoint_from_numpy(session: StreamSession,
+                                 checkpoint) -> StreamSession:
+    """Load a reference ``StreamSession.checkpoint`` — ``(done, alpha,
+    c_alpha)`` over the session bucket's arcs — into ``session`` and
+    return it.  The next ``session.rescore`` resumes from that frontier."""
+    if checkpoint is None:
+        raise ValueError("stream_checkpoint_from_numpy: the session had "
+                         "no checkpoint yet (rescore was never called)")
+    done, alpha, c_alpha = (np.asarray(x) for x in checkpoint)
+    session.restore(done, alpha, c_alpha)
+    return session
