@@ -1,29 +1,51 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
-Drives the port's lattice-rescoring service on one CUDA card at the
-acoustic model's full output width (K = 6000 tied triphone states,
-utterances of up to T = 1000 frames), through the entry points a user
-calls, and holds every hand-written kernel of that path against its
-plain PyTorch version on the card:
+Drives the port's two paths on one CUDA card through the entry points a
+user calls, at the paper's full widths, and holds every hand-written
+kernel of those paths against its plain PyTorch version on the card:
+
+  * serving: the lattice-rescoring service at the acoustic model's output
+    width (K = 6000 tied triphone states, utterances of up to T = 1000
+    frames) and a streaming session;
+  * training: NGHF lattice-MPE training of the paper's LSTM (input 80,
+    hidden 1000, 2 LSTM layers + 1 FF, K = 6000; 19,335,000 parameters)
+    through ``launch.train.train_sequence``.
+
+Phases:
 
   1. environment: the card, torch/CUDA versions, the kernels' build;
   2. each kernel against its plain version (``kernels/ref.py``) on the
-     card: the five adversarial corpus cases, full-size B=8 random-DAG
-     and sausage buckets, and a streaming session's bucket (W = A);
+     card: the DAG kernels on the five adversarial corpus cases, full-size
+     B=8 random-DAG and sausage buckets and a streaming session's bucket
+     (W = A); the sausage kernels at the training shapes (B=32 and B=8,
+     S=50, A=3) with padded, fully masked and A=40 cases; the fused CG
+     update at N = 19,335,000 in f32 and bf16, and bitwise on a repeat;
   3. the service (``RescoringService.run``) over a Poisson mix of 48
      requests — every request ``ok``, results equal to the plain
      levelized path on the card, batch-mix independence bitwise, and
      ``dag_loss_only`` launched on the way;
   4. streaming: checkpoint half the levels of a T=1000 lattice, resume,
-     bit-exact against from-scratch, ``dag_forward``/``dag_backward``
-     launched on the way; the kernels held against their plain versions
-     on the resume lattice that the session dispatched, and the forward
-     kernel's own final-arc fold bit-exact between resume and scratch;
-  5. times: each kernel against its plain version at the service's and
-     the session's shapes (outputs compared, then timed with CUDA
-     events), the bound from the bytes each must move, one
-     ``{"kernels": [...]}`` line.
+     bit-exact against from-scratch, ``dag_forward`` launched on the way
+     and ``dag_backward`` not (the session runs the forward recursion
+     alone); the kernels held against their plain versions on the resume
+     lattice, and the forward kernel's own final-arc fold bit-exact
+     between resume and scratch;
+  5. training: ``train_sequence(arch="lstm-asr", optimizer="nghf",
+     loss="mpe", steps=3, batch=32, cg_batch=8, frames=200, kappa=0.5,
+     cg_iters=6, ng_iters=2, cg_fused=True, device="cuda")`` — finite
+     metrics, every accepted update below its Δθ=0 baseline, the launches
+     per update of the sausage and CG kernels, each update timed and
+     split into stages; one update through the plain path
+     (``backend="levelized"``, ``cg_fused=False``) from the same
+     parameters and batches makes the same decision as the kernel path
+     (best iterate — or a tie within the paths' f32 spread, printed —
+     and acceptance), and without candidate selection the two paths'
+     last CG iterates agree; one update on
+     general-DAG lattices runs the DAG kernels under training;
+  6. times: each kernel against its plain version at its path's shapes
+     (outputs compared, then timed with CUDA events), the bound from the
+     bytes or operations it must do, one ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; without a card, or outside a checkout of the repo,
@@ -65,8 +87,44 @@ TPU_KERNELS = {
     "dag_forward": "src/repro/kernels/lattice_fb.py:419",
     "dag_backward": "src/repro/kernels/lattice_fb.py:465",
     "dag_loss_only": "src/repro/kernels/lattice_fb.py:563",
+    "sausage_forward": "src/repro/kernels/lattice_fb.py:154",
+    "sausage_backward": "src/repro/kernels/lattice_fb.py:610",
+    "sausage_loss_only": "src/repro/kernels/lattice_fb.py:249",
+    "cg_fused_update": "src/repro/kernels/cg_fused.py:43",
 }
-SOURCE = "src/repro_torch/kernels/csrc/lattice_dag.cu"
+SOURCES = {
+    "dag_forward": "src/repro_torch/kernels/csrc/lattice_dag.cu",
+    "dag_backward": "src/repro_torch/kernels/csrc/lattice_dag.cu",
+    "dag_loss_only": "src/repro_torch/kernels/csrc/lattice_dag.cu",
+    "sausage_forward": "src/repro_torch/kernels/csrc/lattice_sausage.cu",
+    "sausage_backward": "src/repro_torch/kernels/csrc/lattice_sausage.cu",
+    "sausage_loss_only": "src/repro_torch/kernels/csrc/lattice_sausage.cu",
+    "cg_fused_update": "src/repro_torch/kernels/csrc/cg_fused.cu",
+}
+# the training phase: the paper's LSTM at full width, cut in length
+# (T = 200 frames) and in steps; synthetic sausages (seg_len 4, 3 arcs)
+TRAIN = dict(arch="lstm-asr", optimizer="nghf", loss="mpe", steps=3,
+             batch=32, cg_batch=8, frames=200, kappa=KAPPA, cg_iters=6,
+             ng_iters=2, cg_fused=True)
+LSTM_PARAMS = 19_335_000
+# launches per NGHF update with TRAIN's settings (cold start, fixed
+# budget): 1 gradient + ng_iters Fisher + cg_iters GN statistics passes,
+# ng_iters + cg_iters fused CG updates; the loss-only kernel runs once per
+# evaluated candidate plus the Δθ=0 baseline
+PER_UPDATE = {"forward": 1 + 2 + 6, "backward": 1 + 2 + 6, "cg": 2 + 6}
+# kernel path vs plain path, one update from the same parameters without
+# candidate selection: the last CG iterate's Δθ, relative L2.  f32 on
+# both paths with lattice sums in other orders, the rounding amplified
+# through 8 curvature products of a badly scaled system (from a random
+# initialisation the outer CG's vᵀBv grows by orders of magnitude per
+# iteration); the plain path's autograd scatters with atomics, so even
+# its own repeat differs, and the script logs that repeat beside this
+# bound.  The CPU parity tests reach 1e-6 at smoke size.
+DELTA_REL_L2 = 2e-2
+# the fused CG update against its plain version: x, r bitwise in f32 (the
+# same two roundings per element), rr within 1e-6 relative (a fixed tile
+# tree against PyTorch's sum)
+RR_RTOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -380,8 +438,8 @@ def phase_streaming(dev, errs: dict) -> dict:
     launches = {"dag_forward": K.dag_forward.launches,
                 "dag_backward": K.dag_backward.launches,
                 "dag_loss_only": K.dag_loss_only.launches}
-    check(launches["dag_forward"] > 0 and launches["dag_backward"] > 0,
-          f"streaming: full-statistics kernels not launched {launches}")
+    check(launches["dag_forward"] > 0 and launches["dag_backward"] == 0,
+          f"streaming: the session must run dag_forward alone {launches}")
     scratch = sess.rescore_from_scratch(d, lp)
     check(resumed.logZ == scratch.logZ and resumed.c_avg == scratch.c_avg,
           f"streaming resume ({resumed.logZ!r}, {resumed.c_avg!r}) != "
@@ -424,13 +482,19 @@ def phase_streaming(dev, errs: dict) -> dict:
             "lat": lat, "lp": lp_dev}
 
 
-def phase_times(service: dict, stream: dict, errs: dict) -> list:
+def dag_times(service: dict, stream: dict, training: dict,
+              errs: dict) -> list:
+    """The DAG kernels timed at the shape of the path each entry's
+    launches come from: ``dag_loss_only`` at the service bucket,
+    ``dag_forward`` at the streaming session's, ``dag_backward`` (no longer
+    on the session's path) at the general-DAG training batch's."""
     from repro_torch.kernels import lattice_fb as K
     from repro_torch.kernels import ref as R
     rows = []
     rel_errs: dict = {}
-    shapes = {"service": service, "session": stream}
-    for where in ("service", "session"):
+    shapes = {"service": service, "session": stream,
+              "dag_train": training["dag"]}
+    for where in shapes:
         sh = shapes[where]
         lat, lp = sh["lat"], sh["lp"]
         fwd, bwd, fr = level_inputs(lat, lp)
@@ -469,29 +533,467 @@ def phase_times(service: dict, stream: dict, errs: dict) -> list:
                 + ", ".join(f"{k} {v:.6g}" for k, v in row.items()
                             if isinstance(v, float)))
     main = {"dag_loss_only": "service", "dag_forward": "session",
-            "dag_backward": "session"}
+            "dag_backward": "dag_train"}
+    launches = {"dag_loss_only": (service["launches"],
+                                  service["launches_per_dispatch"],
+                                  "service dispatch"),
+                "dag_forward": (stream["launches"]["dag_forward"],
+                                stream["launches"]["dag_forward"]
+                                / stream["dispatches"], "session dispatch"),
+                "dag_backward": (training["dag"]["launches"]["dag_backward"],
+                                 training["dag"]["launches"]["dag_backward"],
+                                 "NGHF update on DAG lattices")}
     out = []
     for name in ("dag_forward", "dag_backward", "dag_loss_only"):
         row = next(r for r in rows
                    if r["name"] == name and r["shape"] == main[name])
-        path = shapes[main[name]]
-        launches = path["launches"] if name == "dag_loss_only" else \
-            stream["launches"][name]
-        per_dispatch = (service["launches_per_dispatch"]
-                        if name == "dag_loss_only"
-                        else launches / stream["dispatches"])
+        total, per, per_what = launches[name]
         err = max(v for k, v in errs.items() if k.startswith(name + "["))
-        entry = {"name": name, "route": "cuda", "source": SOURCE,
-                 "replaces": TPU_KERNELS[name], "launches": launches,
+        entry = {"name": name, "route": "cuda", "source": SOURCES[name],
+                 "replaces": TPU_KERNELS[name], "launches": total,
                  "max_abs_err": err, "ms": row["ms"],
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"], "library_ms": None,
-                 "launches_per_dispatch": per_dispatch,
+                 "launches_per": per, "per": per_what,
                  "shape": f"{main[name]} B,L,W={row['B_L_W']}"}
         for extra in ("prologue_ms", "kernel_only_ms"):
             if extra in row:
                 entry[extra] = row[extra]
         out.append(entry)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# training: the sausage kernels, the fused CG update, NGHF on the LSTM
+# ---------------------------------------------------------------------------
+
+def sausage_tiles(lat, lp):
+    """The sausage kernels' (S, W) inputs for ``lat`` as the CUDA backend
+    builds them: (scores, corr, mask)."""
+    from repro_torch.lattice_engine.common import arc_scores
+    from repro_torch.kernels.ref import gather_sausage_ref
+    from repro_torch.lattice_engine.common import NEG
+    la = lat.level_arcs
+    scores = gather_sausage_ref(arc_scores(lat, lp, KAPPA) + lat.lm, la, NEG)
+    corr = gather_sausage_ref(lat.corr.float(), la, 0.0)
+    mask = gather_sausage_ref(lat.arc_mask.float(), la, 0.0)
+    return scores.contiguous(), corr.contiguous(), mask.contiguous()
+
+
+def adversarial_tiles(dev, B, S, A, seed):
+    """Padded tail segments, a fully masked segment, a fully masked
+    utterance and ragged last alternatives."""
+    from repro_torch.lattice_engine.common import NEG
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    scores = torch.randn(B, S, A, generator=gen, device=dev) * 3.0
+    corr = (torch.rand(B, S, A, generator=gen, device=dev) > 0.6).float()
+    mask = torch.ones(B, S, A, device=dev)
+    mask[0, S // 2:] = 0.0
+    mask[1, 1] = 0.0
+    mask[2] = 0.0
+    mask[:, :, A - 1] *= (torch.rand(B, S, generator=gen, device=dev)
+                          > 0.3).float()
+    return torch.where(mask > 0, scores, torch.full_like(scores, NEG)), \
+        corr, mask
+
+
+def sausage_lattice(dev, batch, frames, n_alt, seed):
+    """Ragged sausages (every other one 8 frames shorter) packed into one
+    bucket: padded arcs and padded trailing segments."""
+    from repro_torch.losses.lattice import make_sausage_lattice
+    from repro_torch.serving import packing
+    rng = np.random.default_rng(seed)
+    dicts = [make_sausage_lattice(rng, num_frames=frames - 8 * (b % 2),
+                                  num_states=NUM_STATES, n_alt=n_alt)
+             for b in range(batch)]
+    spec = packing.derive_buckets(dicts, batch=batch, tiers=1)[0]
+    return packing.pack_requests(dicts, spec, device=dev)[0]
+
+
+def loss_only_args(lat, lp):
+    return (lp, lat.start_t, lat.end_t, lat.label, lat.lm, lat.corr,
+            lat.arc_mask, lat.level_arcs)
+
+
+def phase_sausage_kernels(dev, errs: dict) -> None:
+    from repro_torch.data.synthetic import asr_batch
+    from repro_torch.kernels import cg_fused as CG
+    from repro_torch.kernels import lattice_fb as K
+    from repro_torch.kernels import ref as R
+    rel_errs: dict = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    frames = TRAIN["frames"]
+    for tag, lat in (
+            ("train_b32", asr_batch(SEED, batch=32, num_frames=frames,
+                                    num_states=NUM_STATES, input_dim=80,
+                                    device=dev)["lattice"]),
+            ("train_b8", asr_batch(SEED + 1, batch=8, num_frames=frames,
+                                   num_states=NUM_STATES, input_dim=80,
+                                   device=dev)["lattice"]),
+            ("ragged_a40", sausage_lattice(dev, 4, frames, 40, SEED + 2))):
+        lp = torch.randn(lat.start_t.shape[0], frames, NUM_STATES,
+                         generator=gen, device=dev).log_softmax(-1)
+        tiles = sausage_tiles(lat, lp)
+        compare(f"sausage_forward[{tag}]", K.sausage_forward(*tiles),
+                R.sausage_forward_ref(*tiles), errs, rel_errs)
+        compare(f"sausage_backward[{tag}]", K.sausage_backward(*tiles),
+                R.sausage_backward_ref(*tiles), errs, rel_errs)
+        args = loss_only_args(lat, lp)
+        compare(f"sausage_loss_only[{tag}]",
+                K.sausage_loss_only(*args, kappa=KAPPA),
+                R.sausage_loss_only_ref(*args, kappa=KAPPA), errs, rel_errs)
+        torch.cuda.synchronize()
+        log(f"sausage kernels == plain at {tag}: (B, S, W) "
+            f"{tuple(lat.level_arcs.shape)}, T={frames}, K={NUM_STATES}")
+    for shape in ((32, 50, 3), (8, 50, 3), (4, 7, 40)):
+        tiles = adversarial_tiles(dev, *shape, seed=sum(shape))
+        tag = "masked_" + "x".join(map(str, shape))
+        compare(f"sausage_forward[{tag}]", K.sausage_forward(*tiles),
+                R.sausage_forward_ref(*tiles), errs, rel_errs)
+        compare(f"sausage_backward[{tag}]", K.sausage_backward(*tiles),
+                R.sausage_backward_ref(*tiles), errs, rel_errs)
+    torch.cuda.synchronize()
+    log("sausage kernels == plain on padded, fully masked segment / "
+        "utterance and A=40 tiles; max abs / max rel diff by case: "
+        + ", ".join(f"{k} {v:.3g} / {rel_errs[k]:.3g}"
+                    for k, v in sorted(errs.items())
+                    if k.startswith("sausage")))
+    for dtype in (torch.float32, torch.bfloat16):
+        x, v, r, bv = (torch.randn(LSTM_PARAMS, generator=gen,
+                                   device=dev).to(dtype) for _ in range(4))
+        alpha = torch.tensor(0.37, device=dev)
+        got = CG.cg_fused_update(alpha, x, v, r, bv)
+        want = R.cg_fused_update_ref(alpha, x, v, r, bv)
+        again = CG.cg_fused_update(alpha, x, v, r, bv)
+        for name, g, w in (("x", got[0], want[0]), ("r", got[1], want[1])):
+            check(g.dtype == dtype and torch.equal(g, w),
+                  f"cg_fused_update {dtype} {name}: not the plain "
+                  f"version's bits (max |d| "
+                  f"{float((g.float() - w.float()).abs().max()):.3g})")
+        d_rr = abs(float(got[2]) - float(want[2]))
+        check(d_rr <= RR_RTOL * float(want[2]),
+              f"cg_fused_update {dtype} rr {float(got[2])} vs plain "
+              f"{float(want[2])}")
+        check(torch.equal(got[2], again[2]) and torch.equal(got[0],
+                                                            again[0]),
+              f"cg_fused_update {dtype}: two launches gave other bits")
+        errs[f"cg_fused_update[{str(dtype)[6:]}]"] = d_rr
+        log(f"cg_fused_update == plain at N={LSTM_PARAMS} {dtype}: x, r "
+            f"bitwise, rr |d| {d_rr:.3g} of {float(want[2]):.6g}; a "
+            f"repeat launch bitwise")
+    del x, v, r, bv, got, want, again
+    torch.cuda.empty_cache()
+
+
+def reset_counts() -> None:
+    from repro_torch.kernels import cg_fused as CG
+    from repro_torch.kernels import lattice_fb as K
+    K.reset_launch_counts()
+    CG.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels import cg_fused as CG
+    from repro_torch.kernels import lattice_fb as K
+    return {fn.__name__: fn.launches for fn in K.KERNELS + CG.KERNELS}
+
+
+def delta_rel_l2(new_a: dict, new_b: dict, base: dict) -> float:
+    num = sum(float(((new_a[k] - new_b[k]) ** 2).sum()) for k in base)
+    den = sum(float(((new_b[k] - base[k]) ** 2).sum()) for k in base)
+    return (num / max(den, 1e-30)) ** 0.5
+
+
+def dag_asr_batch(seed: int, n: int, frames: int, input_dim: int, dev):
+    """An ``asr_batch`` twin on random general-DAG lattices (packed into
+    one bucket), features from the same class embeddings + noise."""
+    from repro_torch.losses.lattice import make_random_dag_lattice
+    from repro_torch.serving import packing
+    rng = np.random.default_rng(seed)
+    dicts = [make_random_dag_lattice(rng, num_frames=frames,
+                                     num_states=NUM_STATES)
+             for _ in range(n)]
+    spec = packing.derive_buckets(dicts, batch=n, tiers=1)[0]
+    lat, _ = packing.pack_requests(dicts, spec, device=dev)
+    emb = np.random.default_rng(777).normal(
+        size=(NUM_STATES, input_dim)).astype(np.float32)
+    feats = emb[lat.ref_states.cpu().numpy()] + rng.normal(
+        scale=1.2, size=(n, frames, input_dim)).astype(np.float32)
+    return {"feats": torch.from_numpy(feats).to(dev),
+            "labels": lat.ref_states, "lattice": lat}
+
+
+def one_update(acfg, params, gb, cb, counts, backend, fused, **overrides):
+    """One NGHF update from ``params`` through the optimiser's ``step``
+    (all metrics, the CG histories included); (new params, metrics as
+    floats / lists, seconds)."""
+    from repro_torch.launch.steps import build_sequence_step
+    _, opt = build_sequence_step(
+        acfg, "nghf", loss="mpe", kappa=KAPPA, backend=backend,
+        share_counts=counts, cg_iters=TRAIN["cg_iters"],
+        ng_iters=TRAIN["ng_iters"], cg_fused=fused, **overrides)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, _, m = opt.step(params, opt.init(params), gb, cb)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return new, {k: (v.tolist() if torch.is_tensor(v) else float(v))
+                 for k, v in m.items()}, dt
+
+
+def check_update(tag: str, m: dict) -> None:
+    check(all(np.isfinite(v) for v in m.values()
+              if isinstance(v, float)), f"{tag}: non-finite metrics {m}")
+    if m["cg_accepted"]:
+        check(m["cg_best_loss"] < m["cg_base_loss"],
+              f"{tag}: accepted candidate {m['cg_best_loss']} not below "
+              f"the Δθ=0 baseline {m['cg_base_loss']}")
+
+
+def same_choice(tag: str, m_k: dict, m_p: dict) -> str:
+    """The kernel and the plain path make the same decision.
+
+    Acceptance must agree (the log prints the margin between the best
+    candidate and the Δθ=0 baseline beside the paths' disagreement).
+    The best iterate must agree too — unless the two picks tie within
+    the paths' disagreement: far from the optimum the candidates' lattice
+    posteriors saturate, the MPE loss then moves in steps of one arc's
+    correctness, and an argmin between candidates a step or two apart is
+    decided by f32 noise (the plain path's autograd also scatters with
+    atomics, so it varies between runs).  Returns the log text."""
+    i_k, i_p = int(m_k["cg_best_iter"]), int(m_p["cg_best_iter"])
+    l_k, l_p = m_k["cg_losses"], m_p["cg_losses"]
+    both = [j for j in range(len(l_k))
+            if np.isfinite(l_k[j]) and np.isfinite(l_p[j])]
+    spread = max((abs(l_k[j] - l_p[j]) for j in both), default=0.0)
+    check(m_k["cg_accepted"] == m_p["cg_accepted"],
+          f"{tag}: accepted {m_k['cg_accepted']} vs {m_p['cg_accepted']}")
+    margin = min(abs(m["cg_best_loss"] - m.get("cg_base_loss", np.nan))
+                 for m in (m_k, m_p))
+    tie = i_k == i_p or (
+        i_k in both and i_p in both
+        and abs(l_k[i_k] - l_k[i_p]) <= 2 * spread
+        and abs(l_p[i_k] - l_p[i_p]) <= 2 * spread)
+    check(tie, f"{tag}: best iterate {i_k} (kernel path) vs {i_p} (plain "
+          f"path); losses kernel {l_k}, plain {l_p}")
+    return (f"best iterate {i_k} vs {i_p}"
+            + ("" if i_k == i_p else " (a tie within the paths' spread)")
+            + f", accepted {bool(m_k['cg_accepted'])} (best-to-baseline "
+            f"margin {margin:.3g}); candidate losses kernel "
+            f"{[round(x, 7) for x in l_k]}, plain "
+            f"{[round(x, 7) for x in l_p]} (max spread {spread:.3g}, "
+            f"baseline {m_k.get('cg_base_loss', float('nan')):.7f}); "
+            f"vᵀBv per outer iteration {['%.3g' % c for c in m_k['cg_curv']]}"
+            f", |Δθ| {m_k['update_norm']:.4g}")
+
+
+def compare_paths(tag: str, acfg, params, gb, cb, counts) -> tuple:
+    """The kernel path (``backend="auto"``, fused CG) against the plain
+    path (``backend="levelized"``, unfused): the same decision
+    (``same_choice``), and — without candidate selection, so that the
+    returned step is the last CG iterate on both paths whatever an
+    argmin or a rejection does — Δθ within ``DELTA_REL_L2``."""
+    _, m_k, t_k = one_update(acfg, params, gb, cb, counts, "auto", True)
+    _, m_p, t_p = one_update(acfg, params, gb, cb, counts, "levelized",
+                             False)
+    text = same_choice(tag, m_k, m_p)
+    new_k, m_n, _ = one_update(acfg, params, gb, cb, counts, "auto", True,
+                               eval_candidates=False)
+    new_p, _, _ = one_update(acfg, params, gb, cb, counts, "levelized",
+                             False, eval_candidates=False)
+    rel = delta_rel_l2(new_k, new_p, params)
+    check(rel <= DELTA_REL_L2, f"{tag}: last-iterate Δθ kernel vs plain "
+          f"path rel-L2 {rel:.3g}")
+    # the plain path's own run-to-run spread, for scale
+    new_p2, _, _ = one_update(acfg, params, gb, cb, counts, "levelized",
+                              False, eval_candidates=False)
+    rel_pp = delta_rel_l2(new_p2, new_p, params)
+    log(f"{tag}: kernel path == plain path (levelized, unfused): {text}; "
+        f"last-iterate Δθ rel-L2 {rel:.3g} (limit {DELTA_REL_L2}; the "
+        f"plain path against its own repeat {rel_pp:.3g}; last-iterate "
+        f"|Δθ| {m_n['update_norm']:.4g}); update {t_k * 1e3:.3f} ms vs "
+        f"plain {t_p * 1e3:.3f} ms (untimed)")
+    return m_k
+
+
+def phase_training(dev) -> dict:
+    from repro_torch.configs.acoustic import get_acoustic_config
+    from repro_torch.core.timing import StageTimer
+    from repro_torch.data.synthetic import EpochPlan, asr_batch
+    from repro_torch.lattice_engine import lattice_is_sausage
+    from repro_torch.launch.train import train_sequence
+    from repro_torch.models import acoustic
+    acfg = get_acoustic_config(TRAIN["arch"])
+    params0 = acoustic.init_params(acfg, SEED, device=dev)
+    n_params = acoustic.param_count(params0)
+    check(n_params == LSTM_PARAMS, f"LSTM has {n_params} parameters")
+    timer = StageTimer(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    _, logs = train_sequence(**TRAIN, init_params=params0, device=dev,
+                             timer=timer, verbose=False)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    steps = TRAIN["steps"]
+    for m in logs:
+        check_update(f"update {m['step']}", m)
+    evals = sum(int(m["cg_evaluated"]) + 1 for m in logs)
+    want = {"sausage_forward": PER_UPDATE["forward"] * steps,
+            "sausage_backward": PER_UPDATE["backward"] * steps,
+            "sausage_loss_only": evals,
+            "cg_fused_update": PER_UPDATE["cg"] * steps,
+            "dag_forward": 0, "dag_backward": 0, "dag_loss_only": 0}
+    check(launches == want, f"training launches {launches} != {want}")
+    check(logs[-1]["mpe_acc"] > 0.0, "training: MPE accuracy is zero")
+    for m in logs:
+        stages = {k[6:-2]: v for k, v in m.items() if k.startswith("stage_")}
+        rest = m["time_s"] - sum(stages.values())
+        log(f"NGHF update {m['step']}: {m['time_s'] * 1e3:.3f} ms "
+            + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in stages.items())
+            + f", CG vector work and the rest {rest * 1e3:.3f} ms; "
+            f"mpe_acc {m['mpe_acc']:.6f} loss {m['loss']:.6f} "
+            f"best_iter {m['cg_best_iter']:.0f} accepted "
+            f"{bool(m['cg_accepted'])} best {m['cg_best_loss']:.6f} "
+            f"base {m['cg_base_loss']:.6f} host syncs "
+            f"{m['cg_host_syncs']:.0f}; candidates evaluated "
+            f"{m['cg_evaluated']:.0f} of {TRAIN['cg_iters']}, iterations "
+            f"frozen by vᵀBv <= 0: {m['cg_negative_curvature']:.0f}")
+    log(f"training: {steps} NGHF updates of the {LSTM_PARAMS}-parameter "
+        f"LSTM in {wall:.3f} s; launches {launches} (per update: forward "
+        f"{PER_UPDATE['forward']}, backward {PER_UPDATE['backward']}, "
+        f"cg {PER_UPDATE['cg']}, loss-only = evaluated candidates + 1)")
+
+    # the kernel path against the plain path, update 0's batches
+    plan = EpochPlan(num_updates_per_epoch=steps, base_seed=SEED)
+    kw = dict(num_frames=TRAIN["frames"], num_states=acfg.num_outputs,
+              input_dim=acfg.input_dim, noise=1.2, device=dev)
+    gb = asr_batch(plan.grad_seed(0, 0), batch=TRAIN["batch"], **kw)
+    cb = asr_batch(plan.cg_seed(0, 0), batch=TRAIN["cg_batch"], **kw)
+    counts = acoustic.share_counts(acfg, params0)
+    compare_paths("update 0", acfg, params0, gb, cb, counts)
+
+    # NGHF on general-DAG lattices: the DAG kernels under training
+    dgb = dag_asr_batch(SEED + 7, 8, 100, acfg.input_dim, dev)
+    dcb = dag_asr_batch(SEED + 8, 4, 100, acfg.input_dim, dev)
+    check(not lattice_is_sausage(dgb["lattice"]),
+          "the DAG training batch is a sausage")
+    reset_counts()
+    _, m_d, t_d = one_update(acfg, params0, dgb, dcb, counts, "auto", True)
+    dag_launches = read_counts()
+    check_update("DAG update", m_d)
+    want = {"dag_forward": PER_UPDATE["forward"],
+            "dag_backward": PER_UPDATE["backward"],
+            "dag_loss_only": int(m_d["cg_evaluated"]) + 1,
+            "cg_fused_update": PER_UPDATE["cg"],
+            "sausage_forward": 0, "sausage_backward": 0,
+            "sausage_loss_only": 0}
+    check(dag_launches == want, f"DAG training launches {dag_launches} != "
+          f"{want}")
+    log(f"NGHF update on random-DAG lattices (B=8, T=100, bucket "
+        f"{tuple(dgb['lattice'].level_arcs.shape)}): {t_d * 1e3:.3f} ms, "
+        f"launches {dag_launches}")
+    compare_paths("DAG update", acfg, params0, dgb, dcb, counts)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    lat = dgb["lattice"]
+    return {"logs": logs, "launches": launches, "gb": gb, "cb": cb,
+            "device": dev,
+            "dag": {"launches": dag_launches, "lat": lat,
+                    "lp": torch.randn(lat.start_t.shape[0], 100, NUM_STATES,
+                                      generator=gen,
+                                      device=dev).log_softmax(-1)}}
+
+
+def sausage_work(tiles, backward: bool) -> tuple:
+    """(bytes, flops) of the sausage recursion: scores, corr, mask read
+    once, alpha/c_alpha (or beta/c_beta) written once, logZ/c_avg for
+    the forward; per arc a max, two exps, a log share and a few adds."""
+    scores = tiles[0]
+    n = scores.numel()
+    B = scores.shape[0]
+    byt = 4 * 3 * n + 4 * 2 * n + (0 if backward else 8 * B)
+    return byt, 12 * n
+
+
+def train_times(training: dict, errs: dict) -> list:
+    from repro_torch.kernels import cg_fused as CG
+    from repro_torch.kernels import lattice_fb as K
+    from repro_torch.kernels import ref as R
+    rel_errs: dict = {}
+    dev = training["device"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    gb, cb = training["gb"], training["cb"]
+    frames = TRAIN["frames"]
+    lat_g, lat_c = gb["lattice"], cb["lattice"]
+    lp_g = torch.randn(lat_g.start_t.shape[0], frames, NUM_STATES,
+                       generator=gen, device=dev).log_softmax(-1)
+    lp_c = torch.randn(lat_c.start_t.shape[0], frames, NUM_STATES,
+                       generator=gen, device=dev).log_softmax(-1)
+    tiles = sausage_tiles(lat_g, lp_g)
+    args = loss_only_args(lat_c, lp_c)
+    zeros = torch.zeros_like(lat_c.arc_mask)
+    pro = K.loss_only_prologue(*args[:7], zeros, zeros, KAPPA)
+    x, v, r, bv = (torch.randn(LSTM_PARAMS, generator=gen, device=dev)
+                   for _ in range(4))
+    alpha = torch.tensor(0.37, device=dev)
+    B_c, A_c = lat_c.start_t.shape
+    lo_bytes = (4 * lp_c.numel() + B_c * A_c * (4 * 5 + 1)
+                + 4 * lat_c.level_arcs.numel() + 8 * B_c)
+    timed = {
+        "sausage_forward": (lambda: K.sausage_forward(*tiles),
+                            lambda: R.sausage_forward_ref(*tiles),
+                            sausage_work(tiles, False),
+                            f"gradient batch (B,S,W)="
+                            f"{tuple(tiles[0].shape)}"),
+        "sausage_backward": (lambda: K.sausage_backward(*tiles),
+                             lambda: R.sausage_backward_ref(*tiles),
+                             sausage_work(tiles, True),
+                             f"gradient batch (B,S,W)="
+                             f"{tuple(tiles[0].shape)}"),
+        "sausage_loss_only": (lambda: K.sausage_loss_only(*args,
+                                                          kappa=KAPPA),
+                              lambda: R.sausage_loss_only_ref(*args,
+                                                              kappa=KAPPA),
+                              (lo_bytes, 4 * lp_c.numel()
+                               + 12 * lat_c.level_arcs.numel()),
+                              f"CG batch B={B_c}, T={frames}, "
+                              f"K={NUM_STATES}, (S,W)="
+                              f"{tuple(lat_c.level_arcs.shape[1:])}"),
+        "cg_fused_update": (lambda: CG.cg_fused_update(alpha, x, v, r, bv),
+                            lambda: R.cg_fused_update_ref(alpha, x, v, r,
+                                                          bv),
+                            (6 * 4 * LSTM_PARAMS, 6 * LSTM_PARAMS),
+                            f"N={LSTM_PARAMS} f32"),
+    }
+    per_update = {"sausage_forward": PER_UPDATE["forward"],
+                  "sausage_backward": PER_UPDATE["backward"],
+                  "cg_fused_update": PER_UPDATE["cg"]}
+    out = []
+    for name, (kern, plain, (byt, flops), shape) in timed.items():
+        compare(f"{name}[timed]", kern(), plain(), errs, rel_errs)
+        ms = cuda_time_ms(kern, 20)
+        plain_ms = cuda_time_ms(plain, 3)
+        b_ms, b_by = bound(byt, flops)
+        total = training["launches"][name]
+        entry = {"name": name, "route": "cuda", "source": SOURCES[name],
+                 "replaces": TPU_KERNELS[name], "launches": total,
+                 "max_abs_err": max(v for k, v in errs.items()
+                                    if k.startswith(name + "[")),
+                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": None,
+                 "launches_per": per_update.get(
+                     name, total / TRAIN["steps"]),
+                 "per": "NGHF update", "shape": shape}
+        if name == "sausage_loss_only":
+            entry["prologue_ms"] = cuda_time_ms(
+                lambda: K.loss_only_prologue(*args[:7], zeros, zeros,
+                                             KAPPA), 20)
+            entry["kernel_only_ms"] = cuda_time_ms(
+                lambda: K.sausage_loss_only_from_grid(*pro,
+                                                      lat_c.level_arcs), 20)
+        out.append(entry)
+        log(f"{name} timed at {shape}: "
+            + ", ".join(f"{k} {v:.6g}" for k, v in entry.items()
+                        if isinstance(v, float)))
     return out
 
 
@@ -514,11 +1016,19 @@ def main() -> int:
     for line in build.build_log("lattice_dag").splitlines():
         if "registers" in line or "spill" in line:
             log(f"ptxas: {line.strip()}")
+    for stem in ("lattice_sausage", "cg_fused"):
+        for line in build.build_log(stem).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {stem}: {line.strip()}")
     errs: dict = {}
     phase_kernels(dev, errs)
+    phase_sausage_kernels(dev, errs)
     service = phase_service(dev)
     stream = phase_streaming(dev, errs)
-    kernels = phase_times(service, stream, errs)
+    training = phase_training(dev)
+    kernels = dag_times(service, stream, training, errs) \
+        + train_times(training, errs)
+    check(len(kernels) == len(TPU_KERNELS), "a kernel has no entry")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

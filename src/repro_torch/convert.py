@@ -11,12 +11,15 @@ arrays.  A caller holding JAX-side objects turns them into numpy first
     checkpoint``, i.e. ``(done, alpha, c_alpha)``, loaded into a port
     ``StreamSession`` so its next ``rescore`` resumes from it.
 
-This slice has no model weights; the acoustic-parameter converter comes
-with the training slice.
+  * ``acoustic_params_from_numpy`` — a JAX acoustic-model pytree
+    (``{"rec0": {"w": ..., "b": ...}, ...}``) -> the port's flat
+    ``{"rec0.w": ..., "rec0.b": ...}`` dict, same layouts.
 """
 from __future__ import annotations
 
 import numpy as np
+
+import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.losses.lattice import Lattice, as_tensor, batch_lattices
@@ -52,3 +55,18 @@ def stream_checkpoint_from_numpy(session: StreamSession,
     done, alpha, c_alpha = (np.asarray(x) for x in checkpoint)
     session.restore(done, alpha, c_alpha)
     return session
+
+
+def acoustic_params_from_numpy(tree, device=DEFAULT_DEVICE) -> dict:
+    """Nested {layer: {"w": array, "b": array}} (a reference acoustic
+    parameter pytree, leaves as arrays or anything ``np.asarray`` takes)
+    -> flat {"layer.w": f32 tensor, ...} on ``device``.  The reference's
+    weight layout (``x @ w + b``, w of shape (d_in, d_out)) and LSTM gate
+    order are the port's, so no leaf is transposed or reordered."""
+    dev = resolve_device(device)
+    out = {}
+    for layer, leaves in tree.items():
+        for name, value in leaves.items():
+            out[f"{layer}.{name}"] = torch.from_numpy(
+                np.array(value, dtype=np.float32)).to(dev)
+    return out

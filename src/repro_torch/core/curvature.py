@@ -1,0 +1,213 @@
+"""Curvature-matrix-vector products (paper Secs. 3.4 and 5.2).
+
+Port of ``repro.core.curvature``.  The Gauss-Newton product
+G v = Jᵀ (H^ (J v)) and the empirical-Fisher product F v = Jᵀ (F^ (J v))
+are computed matrix-free:
+
+  * ``J v`` — the R-operator — is ``torch.func.jvp`` through the model
+    (forward mode through the written-out LSTM loop; Eqn. 13's gating
+    rule is what the JVP does for Hadamard products);
+  * ``H^ ·`` / ``F^ ·`` are the loss spec's per-frame factors, computed
+    OUTSIDE any transform from the plain primal logits (they call
+    ``logit_grad``, an autograd call of their own);
+  * ``Jᵀ u`` is ``torch.func.vjp``'s pullback with the factor's output
+    as cotangent.
+
+``mode="rematvp"`` runs one jvp and one vjp per product (live tensors
+only); ``mode="linearize"`` builds ``torch.func.linearize`` once plus
+one ``vjp`` pullback and reuses both for every product of the CG stage.
+
+Sec. 4.2 stabilisation: with ``stabilize=True`` the product runs on
+v' = (‖θ‖/‖v‖) v and is rescaled by the inverse factor — a no-op for the
+linear G, and what keeps the directional derivative precise when
+‖θ‖ ≫ ‖v‖.
+"""
+from __future__ import annotations
+
+import inspect
+from typing import Callable, NamedTuple
+
+import torch
+import torch.func
+
+from repro_torch.core import tree_math as tm
+from repro_torch.losses.lattice import Lattice
+
+
+class CurvatureOps(NamedTuple):
+    """Matrix-free operators bound to (params, cg_batch)."""
+
+    gnvp: Callable        # v -> G v      (Gauss-Newton)
+    fvp: Callable         # v -> F v      (empirical Fisher, from MMI/CE)
+    eval_loss: Callable   # delta -> loss(params + delta) on the FULL CG batch
+    logits: torch.Tensor  # primal logits on the curvature batch (linearize)
+
+
+def batch_size(batch) -> int:
+    """Leading dim of the first tensor leaf (keys sorted, as JAX's tree
+    order), Lattice fields included."""
+    for leaf in _leaves(batch):
+        if leaf.dim() >= 1:
+            return leaf.shape[0]
+    raise ValueError("batch has no tensor with a leading dimension")
+
+
+def _leaves(batch):
+    if isinstance(batch, torch.Tensor):
+        yield batch
+    elif isinstance(batch, Lattice):
+        for f in batch:
+            if f is not None:
+                yield f
+    elif isinstance(batch, dict):
+        for k in sorted(batch):
+            yield from _leaves(batch[k])
+
+
+def map_batch(fn, batch, B: int):
+    """Apply ``fn`` to every tensor of ``batch`` (dicts and ``Lattice``
+    tuples) whose leading dim is B; everything else passes untouched."""
+    if isinstance(batch, torch.Tensor):
+        return fn(batch) if batch.dim() >= 1 and batch.shape[0] == B \
+            else batch
+    if isinstance(batch, Lattice):
+        return Lattice(*(None if f is None else map_batch(fn, f, B)
+                         for f in batch))
+    if isinstance(batch, dict):
+        return {k: map_batch(fn, v, B) for k, v in batch.items()}
+    return batch
+
+
+def subsample_batch(batch, fraction: float):
+    """Deterministic leading-dim prefix of a batch: keeps
+    ``max(1, round(B * fraction))`` utterances of every batch-leading
+    tensor.  The CG batch is itself drawn at random (Sec. 4.1), so a
+    prefix is an unbiased sample."""
+    B = batch_size(batch)
+    n = max(1, int(round(B * float(fraction))))
+    if n >= B:
+        return batch
+    return map_batch(lambda x: x[:n], batch, B)
+
+
+def _eval_kwargs(loss_spec, eval_accumulators: str) -> dict:
+    """Pass ``accumulators`` only to loss specs that declare it."""
+    if eval_accumulators == "full":
+        return {}
+    try:
+        sig = inspect.signature(loss_spec.value).parameters
+    except (TypeError, ValueError):
+        return {}
+    accepts = "accumulators" in sig or any(
+        p.kind is inspect.Parameter.VAR_KEYWORD for p in sig.values())
+    return {"accumulators": eval_accumulators} if accepts else {}
+
+
+def make_curvature_ops(forward_fn, loss_spec, params: dict, batch, *,
+                       stabilize: bool = True, theta_norm=None,
+                       mode: str = "rematvp",
+                       eval_accumulators: str = "full",
+                       curvature_sample: float = 1.0) -> CurvatureOps:
+    """forward_fn(params, batch) -> (logits, aux).
+
+    eval_accumulators: statistics mode of ``eval_loss`` (candidate
+    evaluation); "loss_only" asks the loss spec for its value-only path.
+    curvature_sample: fraction of the CG batch the GN/Fisher products run
+    on (a deterministic prefix); ``eval_loss`` always sees the full batch.
+    """
+    if mode not in ("rematvp", "linearize"):
+        raise ValueError(f"unknown curvature mode {mode!r} "
+                         "(rematvp | linearize)")
+    curv_batch = (batch if curvature_sample >= 1.0
+                  else subsample_batch(batch, curvature_sample))
+
+    def f(p):
+        return forward_fn(p, curv_batch)[0]
+
+    logits = None
+    if mode == "linearize":
+        logits, jvp_fn = torch.func.linearize(f, params)
+        _, vjp_fn = torch.func.vjp(f, params)
+
+    if theta_norm is None:
+        theta_norm = tm.norm(params)
+
+    def _product(factor_vp, v):
+        if stabilize:
+            s = theta_norm / tm.norm(v).clamp(min=1e-30)
+            v_in = tm.scale(v, s)
+        else:
+            v_in = v
+        # the JVP needs tangent dtype == primal dtype (bf16 CG state vs
+        # f32 parameters)
+        v_in = tm.cast_like(v_in, params)
+        if mode == "linearize":
+            out_primal, jv = logits, jvp_fn(v_in)
+            (out,) = vjp_fn(factor_vp(out_primal, curv_batch, jv))
+        else:
+            out_primal, jv = torch.func.jvp(f, (params,), (v_in,))
+            hu = factor_vp(out_primal, curv_batch, jv)
+            _, pullback = torch.func.vjp(f, params)
+            (out,) = pullback(hu)
+        return tm.scale(out, 1.0 / s) if stabilize else out
+
+    def gnvp(v):
+        return _product(loss_spec.gn_vp, v)
+
+    def fvp(v):
+        return _product(loss_spec.fisher_vp, v)
+
+    eval_kw = _eval_kwargs(loss_spec, eval_accumulators)
+
+    def eval_loss(delta):
+        # ranks candidates by the SAME objective the gradient stage
+        # minimises (loss + aux)
+        with torch.no_grad():
+            lg, aux = forward_fn(tm.add(params, tm.cast_like(delta, params)),
+                                 batch)
+            return loss_spec.value(lg, batch, **eval_kw)[0] + aux
+
+    return CurvatureOps(gnvp=gnvp, fvp=fvp, eval_loss=eval_loss,
+                        logits=logits)
+
+
+def grad_and_loss(forward_fn, loss_spec, params: dict, batch, *,
+                  microbatches: int = 1):
+    """Gradient stage: (mean loss, metrics, grads) over the gradient
+    batch, by ``torch.autograd.grad``.  ``microbatches > 1`` splits the
+    batch's leading dim and accumulates the gradient sequentially (grads
+    and loss divided by the count, metrics averaged)."""
+    keys = list(params)
+
+    def one(b):
+        leaves = {k: params[k].detach().requires_grad_(True) for k in keys}
+        with torch.enable_grad():
+            logits, aux = forward_fn(leaves, b)
+            loss, metrics = loss_spec.value(logits, b)
+            loss = loss + aux
+            grads = torch.autograd.grad(loss, [leaves[k] for k in keys])
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                dict(zip(keys, grads)))
+
+    if microbatches <= 1:
+        return one(batch)
+    B = batch_size(batch)
+    k = microbatches
+    if B % k:
+        raise ValueError(f"batch of {B} does not split into {k} "
+                         f"microbatches")
+    n = B // k
+    loss, metrics, grads = None, None, None
+    for i in range(k):
+        lo, mo, go = one(map_batch(lambda x, i=i: x[i * n:(i + 1) * n],
+                                   batch, B))
+        go = {key: g / k for key, g in go.items()}
+        if grads is None:
+            loss, metrics, grads = lo / k, [mo], go
+        else:
+            loss = loss + lo / k
+            metrics.append(mo)
+            grads = tm.add(grads, go)
+    metrics = {key: torch.stack([m[key] for m in metrics]).mean()
+               for key in metrics[0]}
+    return loss, metrics, grads

@@ -1,0 +1,109 @@
+"""Vector-space helpers over theta-sized values, used by the CG/NGHF
+machinery.
+
+Port of ``repro.core.tree_math``.  A theta-sized value is either a flat
+``dict[str, Tensor]`` mirroring the parameter dict (``"rec0.w"`` ...) or
+a single tensor (the flat buffer of the fused CG path); every helper
+takes either.  Reductions are f32: ``vdot`` takes one f32 sum per leaf,
+then sums the leaves in key order.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def tmap(f, *trees):
+    """Apply ``f`` leafwise; a tensor is a one-leaf tree."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: f(*(t[k] for t in trees)) for k in first}
+    return f(*trees)
+
+
+def leaves(tree) -> list:
+    return list(tree.values()) if isinstance(tree, dict) else [tree]
+
+
+def scalar_like(s, x: torch.Tensor):
+    """``s`` (Python number or 0-d tensor) in ``x``'s dtype, as
+    ``jnp.asarray(s, x.dtype)``: a tensor stays on its device (no host
+    sync), a number is rounded to ``x``'s dtype on the host."""
+    if isinstance(s, torch.Tensor):
+        return s.to(dtype=x.dtype)
+    return torch.tensor(s, dtype=x.dtype).item()
+
+
+def add(a, b):
+    return tmap(lambda x, y: x + y, a, b)
+
+
+def sub(a, b):
+    return tmap(lambda x, y: x - y, a, b)
+
+
+def scale(a, s):
+    """s * a, preserving each leaf's dtype."""
+    return tmap(lambda x: scalar_like(s, x) * x, a)
+
+
+def axpy(alpha, x, y):
+    """alpha * x + y, result in y's dtype."""
+    return tmap(lambda xi, yi: (scalar_like(alpha, xi) * xi
+                                + yi.to(xi.dtype)).to(yi.dtype), x, y)
+
+
+def vdot(a, b) -> torch.Tensor:
+    out = None
+    for x, y in zip(leaves(a), leaves(b)):
+        s = (x.to(torch.float32) * y.to(torch.float32)).sum()
+        out = s if out is None else out + s
+    return out
+
+
+def norm(a) -> torch.Tensor:
+    return torch.sqrt(vdot(a, a))
+
+
+def zeros_like(a):
+    return tmap(torch.zeros_like, a)
+
+
+def div(a, b):
+    return tmap(lambda x, y: x / scalar_like(y, x), a, b)
+
+
+def where(pred, a, b):
+    return tmap(lambda x, y: torch.where(pred, x, y), a, b)
+
+
+def cast_like(a, ref):
+    return tmap(lambda x, r: x.to(r.dtype), a, ref)
+
+
+def astype(a, dtype):
+    return tmap(lambda x: x.to(dtype), a)
+
+
+def flat_keys(tree: dict) -> list:
+    """``tree``'s keys in JAX's ``ravel_pytree`` leaf order: sorted by
+    the dotted path (``"out.b"`` before ``"out.w"``, ``"rec1.*"`` before
+    ``"rec10.*"``)."""
+    return sorted(tree, key=lambda k: tuple(k.split(".")))
+
+
+def ravel(tree: dict):
+    """(flat (N,) tensor, unravel) in ``ravel_pytree``'s leaf order, so
+    fixed-size blocks of the flat buffer cover the same elements as in
+    the reference.  ``unravel(flat)`` returns a dict of views, keyed in
+    ``tree``'s own order (``torch.func`` matches dicts by key order)."""
+    keys = flat_keys(tree)
+    shapes = [tree[k].shape for k in keys]
+    sizes = [tree[k].numel() for k in keys]
+    flat = torch.cat([tree[k].reshape(-1) for k in keys])
+    order = list(tree)
+
+    def unravel(f):
+        parts = dict(zip(keys, torch.split(f, sizes)))
+        return {k: parts[k].view(shapes[keys.index(k)]) for k in order}
+
+    return flat, unravel

@@ -17,9 +17,10 @@ DEFAULT_DEVICE = "cuda"
 def set_numerics() -> None:
     """Full-f32 products on the card: TF32 off for matmul and cuDNN.
 
-    The lattice path does no matrix product, but later slices (acoustic
-    models, curvature products) compare against f32 references, and the
-    cuDNN default is TF32 (about three decimal digits)."""
+    The acoustic models and their curvature products are held against
+    f32 references (TF32 keeps about three decimal digits, and the GN
+    products would drift from the reference), and the cuDNN default is
+    TF32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")

@@ -96,12 +96,31 @@ def build_log(stem: str) -> str:
 def library(stem: str, signatures: dict) -> ctypes.CDLL:
     """The loaded library of ``csrc/<stem>.cu``, built if missing, with
     ``argtypes`` from ``signatures`` ({function: [ctypes types]}) and an
-    ``int`` (cudaError_t) result for every function."""
+    ``int`` (cudaError_t) result for every function, plus its
+    ``<stem>_error_string(int) -> char*``."""
     if stem not in _LIBS:
         lib = ctypes.CDLL(str(build_all()[stem]))
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
+        err_fn = getattr(lib, f"{stem}_error_string")
+        err_fn.argtypes = [ctypes.c_int]
+        err_fn.restype = ctypes.c_char_p
         _LIBS[stem] = lib
     return _LIBS[stem]
+
+
+def launch(stem: str, signatures: dict, fn: str, device, *args) -> None:
+    """Call launcher ``fn`` of ``csrc/<stem>.cu`` with ``args`` and the
+    current stream of CUDA ``device``; raise if it returns a CUDA error
+    (a refused launch never runs, and no synchronize would report it)."""
+    import torch
+
+    lib = library(stem, signatures)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn)(*args, stream)
+    if err != 0:
+        msg = getattr(lib, f"{stem}_error_string")(err).decode()
+        raise RuntimeError(f"{fn}: CUDA error {err} ({msg})")

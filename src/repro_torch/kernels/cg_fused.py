@@ -1,0 +1,82 @@
+"""Wrapper of the hand-written Hopper fused CG update (``csrc/cg_fused.cu``).
+
+Port of ``repro.kernels.cg_fused.cg_fused_update`` and
+``repro.kernels.ops.cg_fused_update``: one CG iteration's vector work,
+
+    x <- x + alpha v,   r <- r - alpha Bv,   rr = <r, r>,
+
+in one pass over flat (N,) buffers (f32 arithmetic, x and r stored in
+the buffers' dtype, float32 or bfloat16; rr in f32 from the unrounded
+residual).  For tensors on the CPU the wrapper returns the plain version
+``kernels.ref.cg_fused_update_ref``; for CUDA tensors it checks dtype
+and contiguity, allocates the outputs and the per-tile partials, and
+launches the kernel (a tile pass and an index-order fold of the tile
+partials) on the current stream, or raises.  ``alpha`` may be a Python
+float or a 0-d f32 tensor on the buffers' device; the kernel reads it
+from device memory, so the host never waits for it.
+
+``cg_fused_update.launches`` counts kernel launches (one per call on the
+card) and nothing else.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.lattice_fb import (_check_kernel_input,
+                                            _check_shape, _on_cuda)
+
+TILE = 65536                         # elements per thread block
+_STORAGE = {torch.float32: 0, torch.bfloat16: 1}
+
+_PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# alpha x v r bv x_out r_out partial rr | n storage
+_SIGNATURES = {"cg_fused_update_launch": [_PTR] * 9 + [_LL, _INT, _PTR]}
+
+
+def cg_fused_update(alpha, x, v, r, bv):
+    """Flat (N,) buffers -> (x_new, r_new, rr 0-d f32).  x, v, r, bv share
+    one dtype (float32 or bfloat16) and one device."""
+    name = "cg_fused_update"
+    (N,) = x.shape
+    for arg, t in (("v", v), ("r", r), ("bv", bv)):
+        _check_shape(name, arg, t, (N,))
+    if not _on_cuda(name, x, v, r, bv):
+        return ref.cg_fused_update_ref(alpha, x, v, r, bv)
+    if x.dtype not in _STORAGE:
+        raise TypeError(f"{name}: x is {x.dtype}, the kernel stores "
+                        f"float32 or bfloat16")
+    for arg, t in (("x", x), ("v", v), ("r", r), ("bv", bv)):
+        _check_kernel_input(name, arg, t, x.dtype)
+    dev = x.device
+    if isinstance(alpha, torch.Tensor):
+        if alpha.numel() != 1 or alpha.device != dev:
+            raise ValueError(f"{name}: alpha must be one value on {dev}")
+        alpha_t = alpha.reshape(1).to(torch.float32).contiguous()
+    else:
+        alpha_t = torch.full((1,), float(alpha), dtype=torch.float32,
+                             device=dev)
+    x_out = torch.empty_like(x)
+    r_out = torch.empty_like(r)
+    partial = torch.empty((max(1, -(-N // TILE)),), dtype=torch.float32,
+                          device=dev)
+    rr = torch.empty((), dtype=torch.float32, device=dev)
+    build.launch("cg_fused", _SIGNATURES, "cg_fused_update_launch", dev,
+                 alpha_t.data_ptr(), x.data_ptr(), v.data_ptr(),
+                 r.data_ptr(), bv.data_ptr(), x_out.data_ptr(),
+                 r_out.data_ptr(), partial.data_ptr(), rr.data_ptr(), N,
+                 _STORAGE[x.dtype])
+    cg_fused_update.launches += 1
+    return x_out, r_out, rr
+
+
+cg_fused_update.launches = 0
+
+KERNELS = (cg_fused_update,)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0

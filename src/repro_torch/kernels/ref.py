@@ -1,8 +1,10 @@
-"""Plain PyTorch versions of the lattice kernels (the allclose targets).
+"""Plain PyTorch versions of the lattice and CG kernels (the allclose
+targets).
 
-Port of the lattice half of ``repro.kernels.ref``, with ``vmap`` written
-out as a batch dimension.  These are what the kernel wrappers in
-``kernels.lattice_fb`` run for tensors on the CPU, and what
+Port of ``repro.kernels.ref`` (all but ``swa_attention_ref``), with
+``vmap`` and ``lax.scan`` written out as a batch dimension and a Python
+loop.  These are what the kernel wrappers in ``kernels.lattice_fb`` and
+``kernels.cg_fused`` run for tensors on the CPU, and what
 ``chip_smoke.py`` holds the CUDA kernels against on the card.  They
 repeat the kernels' arithmetic with PyTorch ops and are no yardstick of
 speed.  Index tensors must be in range (``losses.lattice.
@@ -39,6 +41,29 @@ def sausage_arc_scores_ref(log_probs, start, end, label, kappa: float):
     span = (end - start).reshape(B, -1).to(torch.float32)
     mu_lab = mu[:, 0, :].gather(1, lab)
     return (kappa * (hi - lo + span * mu_lab)).reshape(shp)
+
+
+def sausage_arc_scores_vjp(ds, start, end, label, num_frames: int,
+                           num_states: int, kappa: float):
+    """Transpose of :func:`sausage_arc_scores_ref` (which is linear in the
+    log-probs): (B, ...) score cotangents -> (B, T, K) log-prob
+    cotangent.  The endpoint gathers become scatter-adds into the
+    (T+1, K) cumsum grid, the cumsum a reverse cumsum, and the centring
+    (and the ``span * mu`` term) a per-state mean over the frames."""
+    B = ds.shape[0]
+    T, K = num_frames, num_states
+    g = ds.reshape(B, -1).to(torch.float32) * kappa
+    lab = label.reshape(B, -1).long()
+    grid = torch.zeros(B, (T + 1) * K, dtype=torch.float32, device=ds.device)
+    grid.scatter_add_(1, end.reshape(B, -1).long() * K + lab, g)
+    grid.scatter_add_(1, start.reshape(B, -1).long() * K + lab, -g)
+    span = (end - start).reshape(B, -1).to(torch.float32)
+    dmu = torch.zeros(B, K, dtype=torch.float32, device=ds.device)
+    dmu.scatter_add_(1, lab, span * g)
+    grid = grid.reshape(B, T + 1, K)[:, 1:]
+    # cum[t] = sum_{t' < t} (lp[t'] - mu): d(lp - mu)[t'] = sum_{t > t'} grid[t]
+    dx = grid.flip(1).cumsum(1).flip(1)
+    return dx + ((dmu - dx.sum(1)) / T)[:, None, :]
 
 
 def gather_sausage_ref(values, level_arcs, fill):
@@ -164,3 +189,97 @@ def dag_loss_only_ref(log_probs, start, end, label, lm, corr, arc_mask,
                              0.0) * ok
     _, _, logz, cavg = dag_forward_ref(own, co, st, ok, fin, pidx)
     return logz, cavg
+
+
+def _sausage_step(sc, co, mk, carry_log, carry_c):
+    """One segment of the masked sausage recursion over (B, A) rows: the
+    arithmetic of ``lattice_fb.py::_fwd_kernel``/``_bwd_kernel``.  Returns
+    the masked row, the new carry (a fully masked segment passes it) and
+    the row's softmax weights."""
+    valid = mk > 0.5
+    seg_valid = mk.amax(dim=-1) > 0.5
+    row = torch.where(valid, sc + carry_log[:, None], torch.full_like(sc, NEG))
+    mx = row.amax(dim=-1)
+    e = torch.exp(row - mx[:, None]) * mk
+    z = e.sum(dim=-1)
+    new_log = torch.where(seg_valid, torch.log(z.clamp(min=EPS)) + mx,
+                          carry_log)
+    w = e / z.clamp(min=EPS)[:, None]
+    return valid, seg_valid, row, new_log, w
+
+
+def sausage_forward_ref(scores, corr, mask=None):
+    """Plain version of the sausage forward kernel.  scores/corr: (B, S, A)
+    per-arc acoustic+lm scores and correctness; mask: optional (B, S, A),
+    nonzero = valid arc.  Segments run in order; a fully masked segment
+    passes the carry (in_log, c_in) through unchanged.
+
+    Returns (alpha (B,S,A), c_alpha (B,S,A), logZ (B,), c_avg (B,))."""
+    B, S, A = scores.shape
+    sc = scores.to(torch.float32)
+    co = corr.to(torch.float32)
+    mk = (torch.ones_like(sc) if mask is None else mask.to(torch.float32))
+    in_log = torch.zeros(B, dtype=torch.float32, device=sc.device)
+    c_in = torch.zeros_like(in_log)
+    alpha, c_alpha = [], []
+    for s in range(S):
+        valid, seg_valid, row, new_log, w = _sausage_step(
+            sc[:, s], co[:, s], mk[:, s], in_log, c_in)
+        c_row = torch.where(valid, co[:, s] + c_in[:, None],
+                            torch.zeros_like(row))
+        c_in = torch.where(seg_valid, (w * c_row).sum(dim=-1), c_in)
+        in_log = new_log
+        alpha.append(row)
+        c_alpha.append(c_row)
+    return torch.stack(alpha, 1), torch.stack(c_alpha, 1), in_log, c_in
+
+
+def sausage_backward_ref(scores, corr, mask=None):
+    """Plain version of the sausage backward kernel: (beta (B,S,A),
+    c_beta (B,S,A)) by the reverse recursion; beta excludes the arc's own
+    score (FBStats convention), so gamma = exp(alpha + beta - logZ)."""
+    B, S, A = scores.shape
+    sc = scores.to(torch.float32)
+    co = corr.to(torch.float32)
+    mk = (torch.ones_like(sc) if mask is None else mask.to(torch.float32))
+    out_log = torch.zeros(B, dtype=torch.float32, device=sc.device)
+    c_out = torch.zeros_like(out_log)
+    beta, c_beta = [None] * S, [None] * S
+    for s in range(S - 1, -1, -1):
+        valid = mk[:, s] > 0.5
+        b_row = torch.where(valid, out_log[:, None].expand(B, A),
+                            torch.full_like(sc[:, s], NEG))
+        cb_row = torch.where(valid, c_out[:, None].expand(B, A),
+                             torch.zeros_like(sc[:, s]))
+        beta[s], c_beta[s] = b_row, cb_row
+        # the row is score + b_row (b_row = out_log on valid arcs)
+        _, seg_valid, _, new_log, w = _sausage_step(
+            sc[:, s], co[:, s], mk[:, s], out_log, c_out)
+        c_out = torch.where(seg_valid, (w * (co[:, s] + cb_row)).sum(dim=-1),
+                            c_out)
+        out_log = new_log
+    return torch.stack(beta, 1), torch.stack(c_beta, 1)
+
+
+def sausage_loss_only_ref(log_probs, start, end, label, lm, corr, arc_mask,
+                          level_arcs, *, kappa: float = 1.0):
+    """Plain version of the fused sausage loss-only kernel: score
+    construction, arc -> (S, W) gather via ``level_arcs`` (-1 slots are
+    masked), and the forward recursion; only (logZ (B,), c_avg (B,))."""
+    score_arc = sausage_arc_scores_ref(log_probs, start, end, label, kappa) \
+        + lm.to(torch.float32)                                 # (B, A)
+    scores = gather_sausage_ref(score_arc, level_arcs, 0.0)
+    co = gather_sausage_ref(corr.to(torch.float32), level_arcs, 0.0)
+    mk = gather_sausage_ref(arc_mask.to(torch.float32), level_arcs, 0.0)
+    _, _, logz, cavg = sausage_forward_ref(scores, co, mk)
+    return logz, cavg
+
+
+def cg_fused_update_ref(alpha, x, v, r, bv):
+    """Plain version of the fused CG vector update over flat (N,) buffers:
+    x + alpha v and r - alpha Bv computed in f32 and stored in x's / r's
+    dtype, and rr = sum((r - alpha Bv)^2) in f32 (before the store)."""
+    xf, vf = x.to(torch.float32), v.to(torch.float32)
+    rf, bvf = r.to(torch.float32), bv.to(torch.float32)
+    rn = rf - alpha * bvf
+    return (xf + alpha * vf).to(x.dtype), rn.to(r.dtype), (rn * rn).sum()

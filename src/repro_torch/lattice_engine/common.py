@@ -1,12 +1,14 @@
 """Shared pieces of the lattice engine: the FBStats contract, arc scoring,
-log-semiring helpers, and the final reduction from (alpha, beta) to
-(logZ, gamma, c_avg).
+log-semiring helpers, the final reduction from (alpha, beta) to
+(logZ, gamma, c_avg), and the sausage-topology check that picks the
+CUDA backend's kernels.
 
 Port of ``repro.lattice_engine.common``.  Every backend produces the
 same ``FBStats`` in arc layout (B, A), so callers are backend-agnostic.
 """
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -127,3 +129,59 @@ def finalize(lat: Lattice, alpha, beta, c_alpha, c_beta) -> FBStats:
     return FBStats(alpha=alpha, beta=beta, logZ=logZ, gamma=gamma,
                    c_alpha=c_alpha, c_beta=c_beta, c_avg=c_avg,
                    c_arc=c_alpha + c_beta)
+
+
+def _is_sausage_uncached(lat: Lattice) -> bool:
+    # host copies of the index fields; inside a torch.func transform even
+    # untransformed tensors refuse .numpy() unless functorch is paused
+    with torch._C._DisableFuncTorch():
+        la, preds, mask, is_start, is_final = (
+            t.cpu().numpy() for t in (lat.level_arcs, lat.preds,
+                                      lat.arc_mask, lat.is_start,
+                                      lat.is_final))
+    for b in range(la.shape[0]):
+        levels = [set(row[row >= 0].tolist()) for row in la[b]]
+        levels = [lv for lv in levels if lv]
+        if not levels:
+            return False
+        for li, lv in enumerate(levels):
+            prev = levels[li - 1] if li > 0 else set()
+            last = li == len(levels) - 1
+            for a in lv:
+                p = preds[b, a]
+                p = {int(x) for x in p[p >= 0] if mask[b, x]}
+                if li == 0:
+                    if not is_start[b, a] and p:
+                        return False
+                elif p != prev:
+                    return False
+                if bool(is_final[b, a]) != last:
+                    return False
+    return True
+
+
+_SAUSAGE_CACHE: dict = {}
+
+
+def lattice_is_sausage(lat: Lattice) -> bool:
+    """Topology check: True iff every level is fully connected to the
+    previous one and exactly the last level's arcs are final — the
+    contract of the sausage kernels.
+
+    The walk needs host copies of the lattice's index fields (one device
+    sync), so it is memoized per ``level_arcs`` tensor, as the reference
+    memoizes per array: a lattice's tensors are treated as immutable, and
+    a training loop pays the walk once per batch, not once per
+    statistics call."""
+    key_obj = lat.level_arcs
+    if key_obj is None:
+        return False
+    k = id(key_obj)
+    hit = _SAUSAGE_CACHE.get(k)
+    if hit is not None and hit[0]() is key_obj:
+        return hit[1]
+    val = _is_sausage_uncached(lat)
+    if len(_SAUSAGE_CACHE) > 256:
+        _SAUSAGE_CACHE.clear()
+    _SAUSAGE_CACHE[k] = (weakref.ref(key_obj), val)
+    return val

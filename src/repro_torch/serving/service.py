@@ -88,8 +88,11 @@ class RescoringService:
         shapes.add((tuple(lat.level_arcs.shape), tuple(lat.preds.shape),
                     tuple(lp.shape)))
         self.traces[spec] = len(shapes)
+        # DAG kernels for every bucket, sausages included, as the jitted
+        # reference service runs them: a request's bits must not depend on
+        # whether its batch mates make the batch a sausage
         return lattice_stats(lat, lp, self.kappa, backend=self.backend,
-                             accumulators="loss_only")
+                             accumulators="loss_only", topology="dag")
 
     def warmup(self, num_states: int):
         """Run every bucket once off the serving clock (builds the kernels

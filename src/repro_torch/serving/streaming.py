@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
-from repro_torch.lattice_engine import lattice_stats
+from repro_torch.lattice_engine import lattice_forward
 from repro_torch.lattice_engine.common import LossStats, finalize_loss_only
 from repro_torch.losses.lattice import batch_lattices, levelize_arcs
 from repro_torch.serving.packing import (BucketSpec, fits, lattice_dims,
@@ -149,13 +149,13 @@ class StreamSession:
     def _run(self, lat, lp):
         self._shapes.add((tuple(lat.level_arcs.shape),
                           tuple(lat.preds.shape), tuple(lp.shape)))
-        # As in the reference, only alpha/c_alpha of the full statistics
-        # are kept; eager PyTorch still computes beta and gamma (ROADMAP:
-        # a forward-only mode).
-        st = lattice_stats(lat, lp, self.kappa, backend=self.backend,
-                           accumulators="full")
-        fin = finalize_loss_only(lat, st.alpha, st.c_alpha)
-        return st.alpha, st.c_alpha, fin
+        # The reference asks for the full statistics and XLA drops all but
+        # alpha/c_alpha; eager PyTorch would run them all, so the session
+        # runs the forward recursion alone (one dag_forward on the card)
+        # and reduces (logZ, c_avg) in arc layout, as the reference does.
+        alpha, c_alpha = lattice_forward(lat, lp, self.kappa,
+                                         backend=self.backend)
+        return alpha, c_alpha, finalize_loss_only(lat, alpha, c_alpha)
 
     def _dispatch(self, d: dict, log_probs,
                   spec: BucketSpec | None = None) -> tuple:

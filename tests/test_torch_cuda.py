@@ -1,5 +1,6 @@
 """The port's CUDA path on a card: kernels against their plain versions,
-the service and the streaming session through the kernels.
+the service and the streaming session through the kernels, gradients
+through the kernels, and a training update on the card.
 
 These tests need a CUDA card and skip without one (decided inside the
 ``cuda`` fixture, never at import).  They import no JAX, so they run on
@@ -11,12 +12,19 @@ the machine with the card:
 
 Tolerance against the plain versions: |d| <= 1e-4 + 1e-5 |ref| (f32,
 sequential per-slot sums in the kernels against PyTorch's reductions).
+The fused CG update: x and r bitwise in f32 (the same two roundings per
+element; nvcc builds with -fmad=false) and within one bf16 rounding in
+bf16; its rr within 1e-6 relative (a fixed tile tree against PyTorch's
+sum), and bitwise between two launches.
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import numpy as np  # noqa: E402
+
 from repro_torch.analysis.corpus import ADVERSARIAL_CASES  # noqa: E402
+from repro_torch.kernels import cg_fused as CG  # noqa: E402
 from repro_torch.kernels import lattice_fb as K  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
 from repro_torch.lattice_engine.cuda_backend import dag_level_tensors  # noqa: E402,E501
@@ -63,7 +71,8 @@ def test_kernels_match_plain_versions(cuda, case):
     _close(K.dag_loss_only(*args, kappa=KAPPA),
            R.dag_loss_only_ref(*args, kappa=KAPPA))
     torch.cuda.synchronize()
-    assert [k.launches for k in K.KERNELS] == [c + 1 for c in counts]
+    assert [k.launches for k in K.KERNELS[:3]] == [c + 1
+                                                   for c in counts[:3]]
 
 
 def test_wrapper_rejects_what_the_kernel_cannot_take(cuda):
@@ -95,4 +104,101 @@ def test_service_and_streaming_through_the_kernels(cuda):
     resumed = sess.rescore(d, reqs[2].log_probs)
     scratch = sess.rescore_from_scratch(d, reqs[2].log_probs)
     assert resumed.logZ == scratch.logZ and resumed.c_avg == scratch.c_avg
-    assert K.dag_forward.launches > 0 and K.dag_backward.launches > 0
+    # the session runs the forward recursion alone
+    assert K.dag_forward.launches > 0 and K.dag_backward.launches == 0
+
+
+def _sausage_case(dev, B, S, A, seed, ragged=True):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    scores = torch.randn(B, S, A, generator=gen, device=dev) * 3.0
+    corr = (torch.rand(B, S, A, generator=gen, device=dev) > 0.6).float()
+    mask = torch.ones(B, S, A, device=dev)
+    if ragged:
+        mask[0, S // 2:] = 0.0           # padded tail segments
+        mask[1, 1] = 0.0                 # a fully masked segment inside
+        mask[2 % B] = 0.0                # a fully masked utterance
+        mask[:, :, A - 1] *= (torch.rand(B, S, device=dev,
+                                         generator=gen) > 0.3).float()
+    return scores, corr, mask
+
+
+@pytest.mark.parametrize("shape", [(32, 50, 3), (8, 50, 3), (4, 7, 40)])
+def test_sausage_kernels_match_plain_versions(cuda, shape):
+    B, S, A = shape
+    scores, corr, mask = _sausage_case(cuda, B, S, A, seed=B + A)
+    counts = (K.sausage_forward.launches, K.sausage_backward.launches)
+    _close(K.sausage_forward(scores, corr, mask),
+           R.sausage_forward_ref(scores, corr, mask))
+    _close(K.sausage_backward(scores, corr, mask),
+           R.sausage_backward_ref(scores, corr, mask))
+    torch.cuda.synchronize()
+    assert (K.sausage_forward.launches, K.sausage_backward.launches) == \
+        (counts[0] + 1, counts[1] + 1)
+
+
+@pytest.mark.parametrize("batch", [8, 32])
+def test_sausage_loss_only_matches_plain_version(cuda, batch):
+    from repro_torch.data.synthetic import asr_batch
+    lat = asr_batch(batch, batch=batch, num_frames=200, num_states=6000,
+                    input_dim=8, device=cuda)["lattice"]
+    gen = torch.Generator(device=cuda).manual_seed(batch)
+    lp = torch.randn(batch, 200, 6000, generator=gen,
+                     device=cuda).log_softmax(-1)
+    args = (lp, lat.start_t, lat.end_t, lat.label, lat.lm, lat.corr,
+            lat.arc_mask, lat.level_arcs)
+    n = K.sausage_loss_only.launches
+    _close(K.sausage_loss_only(*args, kappa=KAPPA),
+           R.sausage_loss_only_ref(*args, kappa=KAPPA))
+    torch.cuda.synchronize()
+    assert K.sausage_loss_only.launches == n + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cg_fused_update_matches_plain_version(cuda, dtype):
+    n = 3 * CG.TILE + 1234                 # a ragged last tile
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x, v, r, bv = (torch.randn(n, generator=gen, device=cuda).to(dtype)
+                   for _ in range(4))
+    alpha = torch.tensor(0.37, device=cuda)
+    got = CG.cg_fused_update(alpha, x, v, r, bv)
+    want = R.cg_fused_update_ref(alpha, x, v, r, bv)
+    tol = 0 if dtype == torch.float32 else 1e-2
+    for g, w in zip(got[:2], want[:2]):
+        assert g.dtype == dtype
+        assert torch.all((g.float() - w.float()).abs()
+                         <= tol * w.float().abs())
+    assert abs(float(got[2]) - float(want[2])) <= 1e-6 * float(want[2])
+    again = CG.cg_fused_update(alpha, x, v, r, bv)
+    assert torch.equal(got[2], again[2])
+
+
+def test_gradients_through_the_kernels(cuda):
+    from repro_torch.data.synthetic import asr_batch
+    from repro_torch.lattice_engine import lattice_stats
+    lat = asr_batch(3, batch=4, num_frames=40, num_states=50, input_dim=8,
+                    device=cuda)["lattice"]
+    lp = torch.randn(4, 40, 50, device=cuda).log_softmax(-1)
+    grads = {}
+    for backend in ("cuda", "levelized"):
+        for acc in ("full", "loss_only"):
+            x = lp.clone().requires_grad_()
+            st = lattice_stats(lat, x, KAPPA, backend=backend,
+                               accumulators=acc)
+            grads[backend, acc] = torch.autograd.grad(
+                st.logZ.sum() + st.c_avg.sum(), x)[0]
+    for acc in ("full", "loss_only"):
+        _close([grads["cuda", acc]], [grads["levelized", acc]])
+
+
+def test_one_nghf_update_on_the_card(cuda):
+    from repro_torch.launch.train import train_sequence
+    K.reset_launch_counts()
+    CG.reset_launch_counts()
+    _, log = train_sequence(arch="lstm-asr", smoke=True, steps=1, batch=8,
+                            cg_batch=4, frames=24, cg_iters=3, ng_iters=2,
+                            cg_fused=True, device=cuda, verbose=False)
+    m = log[0]
+    assert np.isfinite([v for v in m.values()]).all()
+    assert K.sausage_forward.launches == K.sausage_backward.launches == 6
+    assert CG.cg_fused_update.launches == 5
+    assert K.sausage_loss_only.launches >= 1

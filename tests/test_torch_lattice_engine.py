@@ -110,9 +110,18 @@ def test_backend_resolution_and_errors(batch):
     with pytest.raises(ValueError, match="accumulators"):
         lattice_stats(lat, torch.from_numpy(lp), KAPPA,
                       accumulators="partial")
-    lpg = torch.from_numpy(lp).requires_grad_()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        lattice_stats(lat, lpg, KAPPA, backend="cuda")
+    with pytest.raises(ValueError, match="topology"):
+        lattice_stats(lat, torch.from_numpy(lp), KAPPA, backend="cuda",
+                      topology="sausage")
+    # inputs that require grad are differentiated (the occupancy-identity
+    # Functions), with the levelized backend's autograd as the oracle
+    grads = []
+    for backend in BACKENDS:
+        lpg = torch.from_numpy(lp).requires_grad_()
+        st = lattice_stats(lat, lpg, KAPPA, backend=backend)
+        grads.append(torch.autograd.grad(st.logZ.sum() + st.c_avg.sum(),
+                                         lpg)[0])
+    torch.testing.assert_close(grads[0], grads[1], rtol=RTOL, atol=ATOL)
 
 
 def test_log_semiring_helpers_match_jax():

@@ -172,3 +172,37 @@ def test_lattice_from_numpy_dict_and_batched():
         {f: getattr(lat, f).numpy() for f in lat._fields}, device="cpu")
     for f in lat._fields:
         assert torch.equal(getattr(batched, f), getattr(lat, f))
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_session_never_runs_the_backward_recursion(backend, monkeypatch):
+    """The session's dispatch is the forward recursion alone (one
+    ``dag_forward`` on the card): reaching a backward recursion of either
+    backend fails the test."""
+    from repro_torch.lattice_engine import cuda_backend, levelized
+
+    def refuse(*_a, **_k):
+        raise AssertionError("the streaming session ran the backward "
+                             "recursion / full statistics")
+
+    for mod, name in ((cuda_backend, "dag_backward"),
+                      (cuda_backend, "sausage_backward"),
+                      (levelized, "_backward_levels")):
+        monkeypatch.setattr(mod, name, refuse)
+    d, lp = _case("dag", seed=5)
+    sess = _session(d, backend)
+    cut = max(1, d["level_arcs"].shape[0] // 2)
+    sess.rescore(truncate_levels(d, cut), lp)
+    _assert_bits(sess.rescore(d, lp), sess.rescore_from_scratch(d, lp))
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_forward_only_alpha_is_the_full_statistics_alpha(backend):
+    from repro_torch.lattice_engine import lattice_forward, lattice_stats
+    d, lp = _case("dag", seed=6)
+    lat = convert.lattice_from_numpy(d, device="cpu")
+    lpt = torch.from_numpy(lp)[None]
+    alpha, c_alpha = lattice_forward(lat, lpt, KAPPA, backend=backend)
+    full = lattice_stats(lat, lpt, KAPPA, backend=backend, topology="dag")
+    assert torch.equal(alpha, full.alpha)
+    assert torch.equal(c_alpha, full.c_alpha)
