@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
-Drives the port's two paths on one CUDA card through the entry points a
-user calls, at the paper's full widths, and holds every hand-written
-kernel of those paths against its plain PyTorch version on the card:
+Drives the port's three paths on one CUDA card through the entry points a
+user calls, at full widths, and holds every hand-written kernel of those
+paths against its plain PyTorch version on the card:
 
   * serving: the lattice-rescoring service at the acoustic model's output
     width (K = 6000 tied triphone states, utterances of up to T = 1000
     frames) and a streaming session;
   * training: NGHF lattice-MPE training of the paper's LSTM (input 80,
     hidden 1000, 2 LSTM layers + 1 FF, K = 6000; 19,335,000 parameters)
-    through ``launch.train.train_sequence``.
+    through ``launch.train.train_sequence``;
+  * LM serving: recurrentgemma-9b at full width and depth (38 layers,
+    10,444,771,328 parameters, random weights from a seed) through
+    ``launch.steps.build_prefill_step`` and ``launch.serve.serve``.
 
 Phases:
 
@@ -21,6 +24,10 @@ Phases:
      (W = A); the sausage kernels at the training shapes (B=32 and B=8,
      S=50, A=3) with padded, fully masked and A=40 cases; the fused CG
      update at N = 19,335,000 in f32 and bf16, and bitwise on a repeat;
+     ``swa_attention`` on adversarial shapes (T = 1, T <= window, ragged
+     T, window 0, a window past T, MHA/GQA/MQA, hd 32-256, f32 and bf16)
+     and at the prefill shape (B=2, T=32768, H=16, K=1, hd=256, window
+     2048, bf16), and bitwise on a repeat;
   3. the service (``RescoringService.run``) over a Poisson mix of 48
      requests — every request ``ok``, results equal to the plain
      levelized path on the card, batch-mix independence bitwise, and
@@ -45,7 +52,23 @@ Phases:
      general-DAG lattices runs the DAG kernels under training;
   6. times: each kernel against its plain version at its path's shapes
      (outputs compared, then timed with CUDA events), the bound from the
-     bytes or operations it must do, one ``{"kernels": [...]}`` line.
+     bytes or operations it must do, one ``{"kernels": [...]}`` line
+     (``swa_attention``'s row is timed after phase 7, on a freed card,
+     with ``scaled_dot_product_attention`` as its library yardstick);
+  7. LM serving, recurrentgemma-9b: parameters drawn on the card;
+     ``build_prefill_step`` over B=2 prompts of T=32768 tokens (prefill_32k
+     with its batch cut from 32 to 2) — logits (2, 1, 256000) finite,
+     ``swa_attention`` launched exactly 12 times (the 12 local layers);
+     the same prefill through the plain path on the card: at f32 compute
+     (B=1) within relative L2 1e-4, at bf16 within a limit below a
+     control's reading (the plain path with P rounded to bf16) and no
+     farther from the f32 logits than the plain path's (x1.5); at f32
+     compute,
+     prefill's last logits against 64 decode
+     steps within relative max 1e-3 (T = 64 <= window, where the
+     reference's prefill and ring decode agree); ``serve`` over 8
+     requests of 4-11 prompt tokens and 16 new tokens; prefill, layer and
+     decode times, peak device memory.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; without a card, or outside a checkout of the repo,
@@ -91,6 +114,7 @@ TPU_KERNELS = {
     "sausage_backward": "src/repro/kernels/lattice_fb.py:610",
     "sausage_loss_only": "src/repro/kernels/lattice_fb.py:249",
     "cg_fused_update": "src/repro/kernels/cg_fused.py:43",
+    "swa_attention": "src/repro/kernels/swa_attention.py:79",
 }
 SOURCES = {
     "dag_forward": "src/repro_torch/kernels/csrc/lattice_dag.cu",
@@ -100,6 +124,7 @@ SOURCES = {
     "sausage_backward": "src/repro_torch/kernels/csrc/lattice_sausage.cu",
     "sausage_loss_only": "src/repro_torch/kernels/csrc/lattice_sausage.cu",
     "cg_fused_update": "src/repro_torch/kernels/csrc/cg_fused.cu",
+    "swa_attention": "src/repro_torch/kernels/csrc/swa_attention.cu",
 }
 # the training phase: the paper's LSTM at full width, cut in length
 # (T = 200 frames) and in steps; synthetic sausages (seg_len 4, 3 arcs)
@@ -125,6 +150,61 @@ DELTA_REL_L2 = 2e-2
 # same two roundings per element), rr within 1e-6 relative (a fixed tile
 # tree against PyTorch's sum)
 RR_RTOL = 1e-6
+# LM serving: recurrentgemma-9b at full width and depth; prefill_32k's
+# T = 32768 with its batch cut from 32 to 2; the server as serve.main
+LM_ARCH = "recurrentgemma-9b"
+LM_PARAMS = 10_444_771_328
+PREFILL_BATCH, PREFILL_T = 2, 32768
+LOCAL_LAYERS = 12                  # 38 layers of (rglru, rglru, local)
+SERVE_REQUESTS, SERVE_NEW = 8, 16
+DECODE_PROMPT = 64                 # < window: prefill and decode agree
+# swa_attention against its plain version, |d| <= atol + rtol |plain|:
+# f32, the same f32 arithmetic in another order (measured max 9e-7); bf16,
+# both round to bf16 f32 values that differ in the last f32 bits, so an
+# entry may differ by one bf16 ulp, at most 2^-7 |plain| (measured max
+# 0.0039 at |o| ~ 1), plus an atol far above the f32 differences
+SWA_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 2.0 ** -7)}
+# and in bf16 at most this share of the entries differ at all: a flip
+# needs an f32 value within ~1e-7 of a rounding midpoint (measured at
+# most 0.00075 on the H100), while rounding P to bf16 before P.V (the
+# control swa_p_bf16) makes 0.424 of the entries differ, by up to 0.0156,
+# at the prefill shape (PERF.md)
+SWA_BF16_DIFF_SHARE = 0.01
+# the prefill's last logits, kernel path vs plain path (attention's plain
+# version), relative L2.  At f32 compute (B=1, T=32768): 1e-4, the same
+# f32 arithmetic in another order through 38 layers (measured 6.95e-6).
+# At the config's bf16 the two paths' attention outputs differ by one ulp
+# in 0.075 % of the entries, and 38 bf16 layers of a random model grow
+# that to 0.03087, near half the bf16 noise floor (the plain path's own
+# bf16 logits are 0.0707 from its f32 ones).  Any perturbation grows about
+# as far: the control, P rounded to bf16 before P.V (0.424 of the entries
+# differ), reaches 0.03351.  The limit lies between those two readings;
+# both paths are deterministic (the kernel path's reading was the same in
+# every run on the H100), and a kernel that sums in another order needs
+# both taken anew.  The share check above is
+# the one that tells the two apart by a wide margin.  The kernel path's
+# bf16 logits must also be no farther from the f32 logits than the plain
+# path's, within a factor PREFILL_BF16_FACTOR.
+PREFILL_F32_REL_L2 = 1e-4
+PREFILL_BF16_REL_L2 = 0.032
+PREFILL_BF16_FACTOR = 1.5
+# prefill vs decode at f32 compute (relative max)
+DECODE_REL = 1e-3
+# (B, T, H, K, hd, window) of the prefill's attention, and adversarial
+# shapes for phase 2 (dtype per case)
+SWA_FULL = (PREFILL_BATCH, PREFILL_T, 16, 1, 256, 2048)
+SWA_CASES = (
+    ((1, 1, 4, 4, 64, 16), torch.float32),        # T = 1
+    ((2, 100, 4, 1, 64, 128), torch.float32),     # T <= window, MQA
+    ((2, 333, 8, 2, 128, 64), torch.float32),     # ragged T, GQA
+    ((1, 200, 2, 2, 256, 0), torch.float32),      # window 0
+    ((1, 300, 4, 4, 32, 1000), torch.float32),    # window past T, hd 32
+    ((1, 513, 4, 4, 80, 96), torch.bfloat16),     # hd 80, ragged, MHA
+    ((2, 1000, 16, 1, 256, 200), torch.bfloat16),
+    ((1, 4100, 16, 1, 256, 2048), torch.bfloat16),  # ragged past window
+    ((1, 4100, 16, 1, 256, 2048), torch.float32),
+)
+BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
 
 
 def log(msg: str) -> None:
@@ -997,6 +1077,355 @@ def train_times(training: dict, errs: dict) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# LM serving: sliding-window attention and recurrentgemma-9b
+# ---------------------------------------------------------------------------
+
+def swa_inputs(dev, shape, dtype, seed: int):
+    B, T, H, K, hd, _ = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(B, T, h, hd, generator=gen, device=dev).to(dtype)
+            for h in (H, K, K)]
+
+
+def compare_swa(tag: str, got, want, dtype, errs: dict) -> float:
+    atol, rtol = SWA_TOL[dtype]
+    diff = (got.float() - want.float()).abs()
+    bad = diff > atol + rtol * want.float().abs()
+    check(got.dtype == want.dtype == dtype and got.shape == want.shape,
+          f"swa_attention[{tag}]: {got.dtype} {tuple(got.shape)} vs plain "
+          f"{want.dtype} {tuple(want.shape)}")
+    check(not bool(bad.any()),
+          f"swa_attention[{tag}]: {int(bad.sum())} entries outside |d| <= "
+          f"{atol} + {rtol:.3g}|ref| (max |d| {float(diff.max()):.3g})")
+    if dtype == torch.bfloat16:
+        share = float((got != want).float().mean())
+        check(share <= SWA_BF16_DIFF_SHARE,
+              f"swa_attention[{tag}]: {share:.3g} of the bf16 entries differ "
+              f"from the plain version's (limit {SWA_BF16_DIFF_SHARE})")
+    err = float(diff.max())
+    errs[f"swa_attention[{tag}]"] = err
+    return err
+
+
+def phase_swa_kernel(dev, errs: dict) -> None:
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import swa_attention as SWA
+    for i, (shape, dtype) in enumerate(SWA_CASES + ((SWA_FULL,
+                                                     torch.bfloat16),)):
+        q, k, v = swa_inputs(dev, shape, dtype, SEED + 30 + i)
+        window = shape[-1]
+        got = SWA.swa_attention(q, k, v, window)
+        again = SWA.swa_attention(q, k, v, window)
+        want = R.swa_attention_ref(q, k, v, window)
+        torch.cuda.synchronize()
+        tag = "x".join(map(str, shape)) + f"_{str(dtype)[6:]}"
+        err = compare_swa(tag, got, want, dtype, errs)
+        check(torch.equal(got, again),
+              f"swa_attention[{tag}]: two launches gave other bits")
+        log(f"swa_attention == plain at (B,T,H,K,hd,window)={shape} "
+            f"{dtype}: max |d| {err:.3g} (atol, rtol {SWA_TOL[dtype]}), "
+            f"{float((got != want).float().mean()):.3g} of the entries "
+            f"differ; a repeat launch bitwise")
+    ctl = swa_p_bf16(q, k, v, window)
+    log(f"control, the plain version with P rounded to bf16, at {shape}: "
+        f"max |d| {float((ctl.float() - want.float()).abs().max()):.3g} "
+        f"from the plain version, "
+        f"{float((ctl != want).float().mean()):.3g} of the entries differ")
+    del q, k, v, got, again, want, ctl
+    torch.cuda.empty_cache()
+
+
+def swa_p_bf16(q, k, v, window: int, *, q_chunk: int = 512,
+               q_offset: int = 0):
+    """A control, never on the port's path: ``ref.swa_attention_ref``
+    with P rounded to bf16 before P.V, the bf16-only fault a faster
+    kernel could make (the reference multiplies an f32 P)."""
+    import math
+    B, T, H, hd = q.shape
+    S, K = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    for t0 in range(0, T, q_chunk):
+        t1 = min(t0 + q_chunk, T)
+        lo = max(0, q_offset + t0 - window)
+        hi = min(S, q_offset + t1)
+        qb = q[:, t0:t1].float().reshape(B, t1 - t0, K, H // K, hd)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qb, k[:, lo:hi].float()) \
+            / math.sqrt(hd)
+        qpos = q_offset + torch.arange(t0, t1, device=q.device)[:, None]
+        kpos = torch.arange(lo, hi, device=q.device)[None, :]
+        s = s.masked_fill((kpos > qpos) | (kpos <= qpos - window - 1), -1e30)
+        p = torch.softmax(s, dim=-1).to(torch.bfloat16).float()
+        o = torch.einsum("bkgqs,bskd->bqkgd", p, v[:, lo:hi].float())
+        out[:, t0:t1] = o.reshape(B, t1 - t0, H, hd).to(q.dtype)
+    return out
+
+
+class plain_attention:
+    """Within the block, the model's windowed attention runs ``fn`` on
+    the card, by default the kernel's plain version (the comparison paths
+    only; the port's wrapper itself never falls back)."""
+
+    def __init__(self, fn=None):
+        self._fn = fn
+
+    def __enter__(self):
+        from repro_torch.kernels import ref as R
+        from repro_torch.models import layers
+        self._saved = layers.swa_attention
+        layers.swa_attention = self._fn or R.swa_attention_ref
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+        layers.swa_attention = self._saved
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
+def phase_lm(dev) -> dict:
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import swa_attention as SWA
+    from repro_torch.launch.serve import make_requests, serve
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.models import blocks
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.registry import get_model
+    cfg = get_config(LM_ARCH)
+    model = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in params.values())
+    check(n_params == LM_PARAMS == model.param_count(),
+          f"{LM_ARCH} has {n_params} parameters")
+    log(f"{LM_ARCH}: {n_params} parameters (f32, "
+        f"{4 * n_params / 1e9:.1f} GB) drawn on the card in "
+        f"{time.perf_counter() - t0:.3f} s")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_T),
+                           generator=gen, device=dev)
+    batch = {"tokens": tokens}
+    prefill = build_prefill_step(cfg)
+
+    # the main path: counts at 0 just before, read just after
+    reset_counts()
+    SWA.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = SWA.swa_attention.launches
+    check(launches == LOCAL_LAYERS,
+          f"prefill launched swa_attention {launches} times, expected "
+          f"{LOCAL_LAYERS}")
+    check(read_counts() == {k: 0 for k in read_counts()},
+          f"prefill launched lattice/CG kernels {read_counts()}")
+    check(tuple(logits.shape) == (PREFILL_BATCH, 1, cfg.vocab_size)
+          and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()),
+          f"prefill logits {tuple(logits.shape)} {logits.dtype}, finite "
+          f"{bool(torch.isfinite(logits).all())}")
+    log(f"prefill B={PREFILL_BATCH} T={PREFILL_T}: logits "
+        f"{tuple(logits.shape)} finite, swa_attention launches {launches} "
+        f"(one per local layer), first call {first_s * 1e3:.3f} ms")
+
+    # the plain path on the card, same parameters and tokens; then both
+    # paths at f32 compute on the first prompt
+    with plain_attention():
+        t0 = time.perf_counter()
+        plain = prefill(params, batch)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    cfg32 = cfg.replace(compute_dtype="float32")
+    prefill32 = build_prefill_step(cfg32)
+    row0 = {"tokens": tokens[:1]}
+    kern32 = prefill32(params, row0)
+    with plain_attention():
+        plain32 = prefill32(params, row0)
+    check(SWA.swa_attention.launches == launches + LOCAL_LAYERS,
+          "the plain path launched the kernel")
+    rel32 = rel_l2(kern32, plain32)
+    check(rel32 <= PREFILL_F32_REL_L2, f"f32 prefill logits kernel vs plain "
+          f"path rel-L2 {rel32:.3g} > {PREFILL_F32_REL_L2}")
+    rel = rel_l2(logits, plain)
+    with plain_attention(swa_p_bf16):
+        rel_ctl = rel_l2(prefill(params, batch), plain)
+    k_f32, p_f32 = rel_l2(logits[:1], plain32), rel_l2(plain[:1], plain32)
+    log(f"prefill kernel path == plain path (attention's plain version on "
+        f"the card): at f32 compute (B=1) last-position logits rel-L2 "
+        f"{rel32:.3g} (limit {PREFILL_F32_REL_L2}); at bf16 rel-L2 "
+        f"{rel:.4g} kernel vs plain (limit {PREFILL_BF16_REL_L2}; the "
+        f"control with P rounded to bf16: {rel_ctl:.4g}), max |d| "
+        f"{float((logits - plain).abs().max()):.3g} of max |logit| "
+        f"{float(plain.abs().max()):.3g}; from the f32 logits: kernel path "
+        f"{k_f32:.4g}, plain path {p_f32:.4g} (limit {PREFILL_BF16_FACTOR}x"
+        f"); plain bf16 prefill {plain_s * 1e3:.3f} ms")
+    check(rel <= PREFILL_BF16_REL_L2, f"bf16 prefill logits kernel vs plain "
+          f"path rel-L2 {rel:.4g} > {PREFILL_BF16_REL_L2}")
+    check(k_f32 <= PREFILL_BF16_FACTOR * p_f32,
+          f"bf16 prefill logits: kernel path {k_f32:.3g} from the f32 "
+          f"logits, plain path {p_f32:.3g}")
+    del kern32, plain32
+
+    # warm prefill time and where it goes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    with torch.no_grad():
+        x = TT.nest(params, "embed.")["table"][tokens].to(cfg.cdtype)
+        pos = torch.arange(PREFILL_T, device=dev)
+        layer_ms = {}
+        for slot, kind in enumerate(cfg.block_pattern[1:], start=1):
+            p = TT.nest(params, f"periods.slot{slot}.", 0)
+            layer_ms[kind] = cuda_time_ms(
+                lambda: blocks.block_apply(cfg, kind, p, x, pos), 2)
+        head = TT.head_matrix(cfg, params)
+        layer_ms["head"] = cuda_time_ms(
+            lambda: x[:, -1:] @ head.to(x.dtype), 2)
+        del x
+    n_rglru = cfg.num_layers - LOCAL_LAYERS
+    log(f"prefill (warm) {prefill_ms:.3f} ms: rglru block "
+        f"{layer_ms['rglru']:.3f} ms x {n_rglru} = "
+        f"{layer_ms['rglru'] * n_rglru:.3f} ms, local block "
+        f"{layer_ms['local']:.3f} ms x {LOCAL_LAYERS} = "
+        f"{layer_ms['local'] * LOCAL_LAYERS:.3f} ms, LM head "
+        f"{layer_ms['head']:.3f} ms")
+    del logits, plain
+    torch.cuda.empty_cache()
+
+    # prefill against decode at f32 compute, T = 64 < window
+    prompt = tokens[:1, :DECODE_PROMPT]
+    want = prefill32(params, {"tokens": prompt})
+    step32 = build_serve_step(cfg32)
+    cache = get_model(cfg32).init_cache(1, DECODE_PROMPT, device=dev)
+    for t in range(DECODE_PROMPT):
+        got, cache = step32(params, cache, prompt[:, t:t + 1], t)
+    rel_max = float((got - want).abs().max() / want.abs().max())
+    check(rel_max <= DECODE_REL, f"f32 prefill vs {DECODE_PROMPT} decode "
+          f"steps: relative max {rel_max:.3g} > {DECODE_REL}")
+    log(f"f32 compute: prefill's last logits == {DECODE_PROMPT} decode "
+        f"steps' (relative max {rel_max:.3g}, limit {DECODE_REL})")
+    del cache, got, want
+
+    # the server, as serve.main draws its requests
+    reqs = make_requests(cfg, SERVE_REQUESTS, SERVE_NEW, seed=SEED)
+    reqs, stats = serve(cfg, model, params, reqs)
+    check(all(r.done and len(r.generated) == SERVE_NEW for r in reqs),
+          "serve: a request did not finish")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+          "serve: a token out of range")
+    log(f"serve: {len(reqs)} requests (prompts "
+        f"{[len(r.prompt) for r in reqs]} tokens, {SERVE_NEW} new each) in "
+        f"{stats['steps']} steps, {stats['wall_s'] * 1e3:.3f} ms: "
+        f"{stats['tokens_per_s']:.3f} tokens/s, p50 "
+        f"{stats['latency_p50_s'] * 1e3:.3f} ms, p99 "
+        f"{stats['latency_p99_s'] * 1e3:.3f} ms")
+    step = build_serve_step(cfg)
+    cache = model.init_cache(SERVE_REQUESTS, 256, device=dev)
+    tok = tokens[:1, :1].expand(SERVE_REQUESTS, 1).contiguous()
+    decode_ms = cuda_time_ms(lambda: step(params, cache, tok, 0), 5)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"decode step B={SERVE_REQUESTS}: {decode_ms:.3f} ms per token "
+        f"step; peak device memory {peak / 1e9:.3f} GB")
+    del params, cache
+    torch.cuda.empty_cache()
+    return {"launches": launches, "prefill_ms": prefill_ms,
+            "layer_ms": layer_ms, "decode_ms": decode_ms, "peak": peak,
+            "stats": stats}
+
+
+def swa_work(shape, dtype) -> tuple:
+    """(bytes, flops): q, k, v read once and o written once; QK^T and PV
+    over the window + 1 keys each query sees (clipped at 0)."""
+    B, T, H, K, hd, w = shape
+    size = torch.finfo(dtype).bits // 8
+    byt = size * B * T * (2 * H + 2 * K) * hd
+    keys = (min(T, w) * (min(T, w) + 1) // 2) + (w + 1) * max(0, T - w)
+    return byt, 4 * B * H * hd * keys
+
+
+def sdpa_ms(q, k, v, window: int) -> tuple:
+    """One ``scaled_dot_product_attention`` call with the band mask (the
+    yardstick, never on the port's path), at the largest T from the
+    prefill's down that runs; (ms, T, max |d| vs the kernel there)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import swa_attention as SWA
+    B, T, H, hd = q.shape
+    while T >= 1024:
+        qt = q[:, :T].transpose(1, 2)
+        kt = k[:, :T].transpose(1, 2).expand(B, H, T, hd)
+        vt = v[:, :T].transpose(1, 2).expand(B, H, T, hd)
+        pos = torch.arange(T, device=q.device)
+        mask = ((pos[None, :] <= pos[:, None])
+                & (pos[None, :] >= pos[:, None] - window))
+        try:
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION,
+                              SDPBackend.CUDNN_ATTENTION]):
+                fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    qt, kt, vt, attn_mask=mask)
+                out = fn().transpose(1, 2)
+                ms = cuda_time_ms(fn, 3)
+        except RuntimeError as exc:
+            log(f"scaled_dot_product_attention at T={T}: "
+                f"{str(exc).splitlines()[0][:200]}")
+            T //= 2
+            continue
+        ref = SWA.swa_attention(q[:, :T].contiguous(), k[:, :T].contiguous(),
+                                v[:, :T].contiguous(), window)
+        return ms, T, float((out.float() - ref.float()).abs().max())
+    return None, None, None
+
+
+def swa_times(lm: dict, errs: dict, dev) -> dict:
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import swa_attention as SWA
+    dtype = torch.bfloat16
+    q, k, v = swa_inputs(dev, SWA_FULL, dtype, SEED + 50)
+    window = SWA_FULL[-1]
+    n = SWA.swa_attention.launches
+    got = SWA.swa_attention(q, k, v, window)
+    compare_swa("timed", got, R.swa_attention_ref(q, k, v, window), dtype,
+                errs)
+    ms = cuda_time_ms(lambda: SWA.swa_attention(q, k, v, window), 5)
+    plain_ms = cuda_time_ms(lambda: R.swa_attention_ref(q, k, v, window), 2)
+    lib_ms, lib_t, lib_d = sdpa_ms(q, k, v, window)
+    SWA.swa_attention.launches = n       # comparison and timing launches
+    byt, flops = swa_work(SWA_FULL, dtype)
+    t_bytes = byt / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                               "operations")
+    entry = {"name": "swa_attention", "route": "cuda",
+             "source": SOURCES["swa_attention"],
+             "replaces": TPU_KERNELS["swa_attention"],
+             "launches": lm["launches"],
+             "max_abs_err": max(v for k, v in errs.items()
+                                if k.startswith("swa_attention[")),
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+             "bound_by": b_by, "library_ms": lib_ms,
+             "launches_per": lm["launches"],
+             "per": f"{LM_ARCH} prefill (0 per decode token)",
+             "shape": f"B,T,H,K,hd,window={list(SWA_FULL)} bf16"}
+    log(f"swa_attention timed at {entry['shape']}: "
+        + ", ".join(f"{k} {v:.6g}" for k, v in entry.items()
+                    if isinstance(v, float))
+        + f"; useful work {flops} flops, {byt} bytes, "
+        f"{flops / ms * 1e-9:.3f} TFLOP/s; scaled_dot_product_attention "
+        f"(band mask) at T={lib_t}, max |d| vs the kernel {lib_d}")
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    return entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[chip_smoke] torch.cuda.is_available() is False: this "
@@ -1005,6 +1434,7 @@ def main() -> int:
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build
 
+    t_start = time.perf_counter()
     dev = resolve_device("cuda")
     card = card_line()
     log(f"card: {card}")
@@ -1016,19 +1446,25 @@ def main() -> int:
     for line in build.build_log("lattice_dag").splitlines():
         if "registers" in line or "spill" in line:
             log(f"ptxas: {line.strip()}")
-    for stem in ("lattice_sausage", "cg_fused"):
+    for stem in ("lattice_sausage", "cg_fused", "swa_attention"):
         for line in build.build_log(stem).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {stem}: {line.strip()}")
     errs: dict = {}
     phase_kernels(dev, errs)
     phase_sausage_kernels(dev, errs)
+    phase_swa_kernel(dev, errs)
     service = phase_service(dev)
     stream = phase_streaming(dev, errs)
     training = phase_training(dev)
     kernels = dag_times(service, stream, training, errs) \
         + train_times(training, errs)
+    del service, stream, training
+    torch.cuda.empty_cache()
+    lm = phase_lm(dev)
+    kernels.append(swa_times(lm, errs, dev))
     check(len(kernels) == len(TPU_KERNELS), "a kernel has no entry")
+    log(f"total {time.perf_counter() - t_start:.3f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

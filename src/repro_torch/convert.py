@@ -14,6 +14,10 @@ arrays.  A caller holding JAX-side objects turns them into numpy first
   * ``acoustic_params_from_numpy`` — a JAX acoustic-model pytree
     (``{"rec0": {"w": ..., "b": ...}, ...}``) -> the port's flat
     ``{"rec0.w": ..., "rec0.b": ...}`` dict, same layouts.
+  * ``lm_params_from_numpy`` — a JAX language-model pytree
+    (``{"embed": {...}, "periods": {"slot0": {...}}, ...}``, leaves
+    stacked over periods) -> the port's flat dict keyed by tree path
+    (``"periods.slot2.attn.wq"``), same layouts and stacking.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.losses.lattice import Lattice, as_tensor, batch_lattices
+from repro_torch.models.transformer import flatten
 from repro_torch.serving.streaming import StreamSession
 
 
@@ -69,4 +74,23 @@ def acoustic_params_from_numpy(tree, device=DEFAULT_DEVICE) -> dict:
         for name, value in leaves.items():
             out[f"{layer}.{name}"] = torch.from_numpy(
                 np.array(value, dtype=np.float32)).to(dev)
+    return out
+
+
+def lm_params_from_numpy(tree, device=DEFAULT_DEVICE) -> dict:
+    """Nested dict of arrays (a reference LM parameter pytree, leaves as
+    numpy or anything ``np.asarray`` takes; ``periods.slotN.*`` stacked
+    over periods) -> flat {"path.to.leaf": tensor} on ``device``, in
+    the leaves' dtypes (bfloat16 leaves stay bfloat16).  Nothing is
+    transposed or reordered: the port's models use the reference's
+    layouts and stacking."""
+    dev = resolve_device(device)
+    out = {}
+    for path, value in flatten(tree).items():
+        arr = np.asarray(value)
+        if arr.dtype.name == "bfloat16":
+            t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(arr))
+        out[path] = t.to(dev)
     return out

@@ -1,10 +1,10 @@
-"""Plain PyTorch versions of the lattice and CG kernels (the allclose
-targets).
+"""Plain PyTorch versions of the lattice, CG and attention kernels (the
+allclose targets).
 
-Port of ``repro.kernels.ref`` (all but ``swa_attention_ref``), with
-``vmap`` and ``lax.scan`` written out as a batch dimension and a Python
-loop.  These are what the kernel wrappers in ``kernels.lattice_fb`` and
-``kernels.cg_fused`` run for tensors on the CPU, and what
+Port of ``repro.kernels.ref``, with ``vmap`` and ``lax.scan`` written
+out as a batch dimension and a Python loop.  These are what the kernel
+wrappers in ``kernels.lattice_fb``, ``kernels.cg_fused`` and
+``kernels.swa_attention`` run for tensors on the CPU, and what
 ``chip_smoke.py`` holds the CUDA kernels against on the card.  They
 repeat the kernels' arithmetic with PyTorch ops and are no yardstick of
 speed.  Index tensors must be in range (``losses.lattice.
@@ -12,6 +12,8 @@ lattice_frontiers`` builds them so); the CUDA kernels additionally map
 an out-of-range position to the dump slot instead of faulting.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -283,3 +285,42 @@ def cg_fused_update_ref(alpha, x, v, r, bv):
     rf, bvf = r.to(torch.float32), bv.to(torch.float32)
     rn = rf - alpha * bvf
     return (xf + alpha * vf).to(x.dtype), rn.to(r.dtype), (rn * rn).sum()
+
+
+def swa_attention_ref(q, k, v, window: int, *, q_chunk: int = 512,
+                      q_offset: int = 0):
+    """Sliding-window causal attention, chunked over queries.
+
+    q: (B, T, H, hd); k/v: (B, S, K, hd) with H a multiple of K (query
+    head h reads kv head h // (H // K); nothing is repeated).  Query t
+    sits at absolute position ``q_offset + t`` and sees the keys at
+    positions p - window ... p (window + 1 keys, clipped at 0), as
+    ``repro.kernels.ref.swa_attention_ref`` and the Pallas kernel.
+    Scores scaled by 1/sqrt(hd), softmax and P.V in f32, output in q's
+    dtype.  Each chunk of ``q_chunk`` queries meets only its
+    (window + chunk) key span, so memory is O(chunk x span), not
+    O(T^2): the reference's dense (B, H, T, T) would not fit at
+    T = 32768.
+    """
+    B, T, H, hd = q.shape
+    S, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = 1.0 / math.sqrt(hd)
+    out = torch.empty_like(q)
+    for t0 in range(0, T, q_chunk):
+        t1 = min(t0 + q_chunk, T)
+        lo = max(0, q_offset + t0 - window)
+        hi = min(S, q_offset + t1)
+        qb = q[:, t0:t1].float().reshape(B, t1 - t0, K, G, hd)
+        kb = k[:, lo:hi].float()
+        vb = v[:, lo:hi].float()
+        s = torch.einsum("bqkgd,bskd->bkgqs", qb, kb) * scale
+        qpos = q_offset + torch.arange(t0, t1, device=q.device)
+        kpos = torch.arange(lo, hi, device=q.device)
+        mask = ((kpos[None, :] <= qpos[:, None])
+                & (kpos[None, :] > qpos[:, None] - window - 1))
+        s = torch.where(mask, s, torch.full_like(s, NEG))
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgqs,bskd->bqkgd", p, vb)
+        out[:, t0:t1] = o.reshape(B, t1 - t0, H, hd).to(q.dtype)
+    return out

@@ -1,7 +1,9 @@
-"""Step builder for lattice sequence training.
+"""Step builders: lattice sequence training and LM serving.
 
-Port of ``repro.launch.steps.acoustic_forward_fn`` and
-``build_sequence_step``: one uniform update for any registered optimiser
+Port of ``repro.launch.steps.acoustic_forward_fn``,
+``build_sequence_step``, ``build_prefill_step`` and ``build_serve_step``.
+
+Sequence training is one uniform update for any registered optimiser
 — the paper's SGD/Adam-vs-NGHF comparison included —
 
     step, opt = build_sequence_step(acfg, "nghf", loss="mpe", kappa=0.5)
@@ -14,14 +16,23 @@ the whole training set (Sec. 4.1); first-order optimisers ignore it
 (``opt.uses_cg_batch``).  The port runs on one device: ``mesh`` and
 ``state_sharding`` raise ``NotImplementedError`` until the distribution
 slice.
+
+LM serving: ``build_prefill_step(cfg)`` runs a prompt batch through the
+backbone and returns the last position's logits (the prefill_32k step;
+its windowed-attention layers go through the hand-written kernel on the
+card); ``build_serve_step(cfg)`` is one token of batched decode.  Both
+run without autograd (``torch.no_grad``).
 """
 from __future__ import annotations
 
 from typing import Callable, Tuple
 
+import torch
+
 from repro_torch.core.optim import Optimizer, get_optimizer
 from repro_torch.losses.sequence import get_loss
 from repro_torch.models import acoustic
+from repro_torch.models.registry import get_model
 
 
 def scalar_metrics(metrics: dict) -> dict:
@@ -66,3 +77,30 @@ def build_sequence_step(acfg, opt_spec, *, loss: str = "mpe",
         return new_params, new_state, scalar_metrics(metrics)
 
     return sequence_step, opt
+
+
+def build_prefill_step(cfg) -> Callable:
+    """``prefill_step(params, batch) -> (B, 1, V) f32`` logits of the last
+    position, ``batch["tokens"]`` of shape (B, T)."""
+    model = get_model(cfg)
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        hidden, _ = model.forward_hidden(params, batch)
+        last = hidden[:, -1:]
+        logits = last @ model.head_matrix(params).to(last.dtype)
+        return logits.float()
+
+    return prefill_step
+
+
+def build_serve_step(cfg) -> Callable:
+    """``serve_step(params, cache, tokens, pos) -> (logits (B,1,V) f32,
+    cache)``; the cache is updated in place."""
+    model = get_model(cfg)
+
+    @torch.no_grad()
+    def serve_step(params, cache, tokens, pos):
+        return model.decode_step(params, cache, tokens, pos)
+
+    return serve_step

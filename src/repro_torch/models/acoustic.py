@@ -24,6 +24,8 @@ import math
 
 import torch
 
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+
 
 def _act(name: str, x):
     if name == "relu":
@@ -38,11 +40,13 @@ def _fc(gen: torch.Generator, d_in: int, d_out: int, prefix: str) -> dict:
     return {f"{prefix}.w": w, f"{prefix}.b": torch.zeros(d_out)}
 
 
-def init_params(cfg, seed: int = 0, device="cpu") -> dict:
+def init_params(cfg, seed: int = 0, device=DEFAULT_DEVICE) -> dict:
     """Random parameters: N(0, 1/d_in) weights, zero biases, drawn on the
     CPU from a ``torch.Generator`` seeded with ``seed`` and placed on
-    ``device``.  (The reference draws with ``jax.random``; carry its
-    parameters across with ``convert.acoustic_params_from_numpy``.)"""
+    ``device`` (default the card; raises without one).  (The reference
+    draws with ``jax.random``; carry its parameters across with
+    ``convert.acoustic_params_from_numpy``.)"""
+    dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     h = cfg.hidden_dim
     params = {}
@@ -64,7 +68,7 @@ def init_params(cfg, seed: int = 0, device="cpu") -> dict:
         params.update(_fc(gen, d_in, cfg.num_outputs, "out"))
     else:
         raise ValueError(cfg.kind)
-    return {k: v.to(device) for k, v in params.items()}
+    return {k: v.to(dev) for k, v in params.items()}
 
 
 def _fc_apply(params: dict, prefix: str, x):

@@ -1,0 +1,229 @@
+"""Core neural-net layers of the language models.
+
+Port of the subset of ``repro.models.layers`` that the ported archs use
+(recurrentgemma-9b): initialisers, RMSNorm, RoPE, attention projections,
+sliding-window and decode attention, the GeGLU MLP, embedding and untied
+LM head.  The reference's other options (q/k/v biases, q/k norms,
+LayerNorm, other activations, tied or learned embeddings) come with the
+archs that use them: ``models.transformer.check_ported`` rejects them.
+Parameters are dicts of tensors with the reference's leaf names and
+layouts (``x @ w``, ``w`` of shape (d_in, d_out)); a matrix is cast to
+the activations' dtype at each use, as the reference does.
+
+``windowed_attention`` goes through ``kernels.swa_attention``: on a CUDA
+tensor that is the hand-written kernel, on a CPU tensor its plain
+version.  ``decode_attention`` is plain PyTorch, as the reference's is
+jnp.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.swa_attention import swa_attention
+
+NEG = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Initialisers
+# ---------------------------------------------------------------------------
+
+class Init:
+    """Draws parameters on one device from one ``torch.Generator`` on
+    that device.  ``Init("meta")`` (no generator) builds the same tree of
+    shapes and dtypes without allocating anything."""
+
+    def __init__(self, device, gen: Optional[torch.Generator] = None):
+        self.device = torch.device(device)
+        self.gen = gen
+
+    def normal(self, shape, scale: float, dtype):
+        w = torch.randn(*shape, generator=self.gen, device=self.device)
+        return w.mul_(scale).to(dtype)
+
+    def full(self, shape, value: float, dtype):
+        return torch.full(tuple(shape), value, dtype=dtype,
+                          device=self.device)
+
+
+def dense_init(init: Init, d_in: int, d_out: int, dtype,
+               scale: Optional[float] = None, *, lead=()):
+    """N(0, scale^2) of shape (*lead, d_in, d_out), default scale
+    1/sqrt(d_in); ``lead`` stacks independent draws (the reference's
+    vmap over periods)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    return init.normal((*lead, d_in, d_out), scale, dtype)
+
+
+def embed_init(init: Init, vocab: int, d: int, dtype):
+    return init.normal((vocab, d), 0.02, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def init_norm(cfg, init: Init, d: int, *, lead=()):
+    return {"scale": init.full((*lead, d), 1.0, cfg.pdtype)}
+
+
+def norm_apply(cfg, p, x):
+    """RMSNorm in f32, output in x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + 1e-6)
+    return (x * p["scale"].float()).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope(x, positions, theta: float, rotary_pct: float = 1.0):
+    """Apply rotary embeddings.  x: (..., T, H, hd), positions: (..., T)."""
+    hd = x.shape[-1]
+    rot = int(hd * rotary_pct)
+    rot -= rot % 2
+    if rot == 0:
+        return x
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    half = rot // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., None].float() * freqs                     # (..., T, half)
+    ang = ang[..., None, :]                                        # broadcast over heads
+    cos, sin = torch.cos(ang).to(x.dtype), torch.sin(ang).to(x.dtype)
+    x1, x2 = x_rot[..., :half], x_rot[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    if x_pass.shape[-1]:
+        out = torch.cat([out, x_pass], dim=-1)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Attention projections
+# ---------------------------------------------------------------------------
+
+def init_attention(cfg, init: Init, *, lead=()):
+    d, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    return {
+        "wq": dense_init(init, d, H * hd, cfg.pdtype, lead=lead),
+        "wk": dense_init(init, d, K * hd, cfg.pdtype, lead=lead),
+        "wv": dense_init(init, d, K * hd, cfg.pdtype, lead=lead),
+        "wo": dense_init(init, H * hd, d, cfg.pdtype, lead=lead),
+    }
+
+
+def qkv_project(cfg, p, x, positions):
+    """x: (B, T, d) -> q (B,T,H,hd), k/v (B,T,K,hd), RoPE on q and k."""
+    B, T, _ = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    dt = x.dtype
+    q = (x @ p["wq"].to(dt)).reshape(B, T, H, hd)
+    k = (x @ p["wk"].to(dt)).reshape(B, T, K, hd)
+    v = (x @ p["wv"].to(dt)).reshape(B, T, K, hd)
+    q = rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
+    k = rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
+    return q, k, v
+
+
+def out_project(cfg, p, ctx):
+    B, T, H, hd = ctx.shape
+    return ctx.reshape(B, T, H * hd) @ p["wo"].to(ctx.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention cores
+# ---------------------------------------------------------------------------
+
+def repeat_kv(k, H: int):
+    """GQA -> MHA: repeat the kv heads of (B, S, K, hd) to H (a copy).
+    The attention cores below read the kv head of each query head
+    instead; this is for callers that want the MHA layout."""
+    K = k.shape[2]
+    if K == H:
+        return k
+    return torch.repeat_interleave(k, H // K, dim=2)
+
+
+def windowed_attention(q, k, v, window: int, *, q_chunk=512, q_offset=0):
+    """Sliding-window causal attention: token t attends (t-window-1, t].
+
+    q: (B,T,H,hd), k/v: (B,S,K,hd) -> (B,T,H,hd) in q's dtype.  On a CUDA
+    tensor the hand-written kernel (``kernels.swa_attention``), on a CPU
+    tensor its plain version, chunked over ``q_chunk`` queries as the
+    reference's jnp path is."""
+    return swa_attention(q, k, v, window, q_chunk=q_chunk,
+                         q_offset=q_offset)
+
+
+def decode_attention(q, k_cache, v_cache, valid_len):
+    """Single-token attention against a cache.
+
+    q: (B,1,H,hd); k/v_cache: (B,S,K,hd); valid_len: an int or (B,)
+    number of valid cache positions (including the newly-written token).
+    Scores, softmax and P.V in f32, as the reference's
+    ``preferred_element_type=f32`` einsums.
+    """
+    B, _, H, hd = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    G = H // K
+    qb = q.reshape(B, 1, K, G, hd).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qb, k_cache.float()) \
+        * (1.0 / math.sqrt(hd))                                   # (B,K,G,1,S)
+    pos = torch.arange(S, device=q.device)
+    if isinstance(valid_len, torch.Tensor):
+        valid = pos[None] < valid_len.reshape(-1, 1)
+    else:
+        valid = (pos < valid_len)[None]
+    s = torch.where(valid[:, None, None, None, :], s, NEG)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v_cache.float())
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# FFN
+# ---------------------------------------------------------------------------
+
+def init_mlp(cfg, init: Init, d_ff: Optional[int] = None, *, lead=()):
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    return {"w_in": dense_init(init, d, ff, cfg.pdtype, lead=lead),
+            "w_out": dense_init(init, ff, d, cfg.pdtype, lead=lead),
+            "w_gate": dense_init(init, d, ff, cfg.pdtype, lead=lead)}
+
+
+def mlp_apply(cfg, p, x):
+    """GeGLU: gelu(x w_gate) * (x w_in), then w_out.  ``jax.nn.gelu``
+    defaults to the tanh approximation."""
+    dt = x.dtype
+    h = F.gelu(x @ p["w_gate"].to(dt), approximate="tanh") \
+        * (x @ p["w_in"].to(dt))
+    return h @ p["w_out"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Embeddings / LM head
+# ---------------------------------------------------------------------------
+
+def init_embedding(cfg, init: Init):
+    return {"table": embed_init(init, cfg.vocab_size, cfg.d_model,
+                                cfg.pdtype),
+            "lm_head": dense_init(init, cfg.d_model, cfg.vocab_size,
+                                  cfg.pdtype)}
+
+
+def embed_apply(cfg, p, tokens):
+    """Rows of the table in the compute dtype.  The reference casts the
+    whole table and then gathers; gathering first and casting the rows
+    gives the same numbers without a copy of the table."""
+    return p["table"][tokens].to(cfg.cdtype)
+
+
+def lm_head_apply(cfg, p, x):
+    return x @ p["lm_head"].to(x.dtype)

@@ -1,0 +1,207 @@
+"""Decoder-only backbone of the language models.
+
+Port of ``repro.models.transformer``.  Depth is ``block_pattern`` cycled
+over ``num_layers``: ``num_layers // len(pattern)`` *periods*, each slot's
+parameters stacked over periods (leading dimension), plus an unrolled
+remainder of ``rest`` layers.  The reference's ``lax.scan`` over periods
+is a Python loop here; its remat and FSDP gathers have nothing to do on
+one device (with no mesh they are identities in the reference too), so
+parameters stay in their stored dtype (f32) and a matrix is cast at each
+use, as the reference does.
+
+Parameters are a flat dict keyed by the reference's pytree path, leaves
+stacked over periods as in the reference:
+
+    "embed.table", "embed.lm_head", "final_norm.scale",
+    "periods.slot0.w_x" (n_periods, d, rg), ...,
+    "periods.slot2.attn.wq" (n_periods, d, H*hd), ...,
+    "rest.rest0.w_x" (d, rg), ...
+
+so ``convert.lm_params_from_numpy`` carries a reference tree across
+without a transpose.  The decode cache is a flat dict of the same kind
+(``"periods.slot2.k"`` of shape (n_periods, B, slots, K, hd), ...), and
+``decode_step`` updates it in place.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.models import blocks as B
+from repro_torch.models import layers as L
+
+
+# options of the reference's ArchConfig that no ported arch uses, with
+# the value the port runs
+_PORTED = {"qkv_bias": False, "qk_norm": False, "norm": "rmsnorm",
+           "activation": "geglu", "tie_embeddings": False,
+           "learned_positions": False, "is_encoder_decoder": False}
+
+
+def check_ported(cfg):
+    """Raise ``NotImplementedError`` for a config that asks for an option
+    the port does not run yet (each comes with an arch that uses it)."""
+    for field, value in _PORTED.items():
+        if getattr(cfg, field) != value:
+            raise NotImplementedError(
+                f"{cfg.name}: {field}={getattr(cfg, field)!r} is not "
+                f"ported yet (the port runs {field}={value!r}; ROADMAP.md "
+                f"lists the archs still to port)")
+
+
+def layer_plan(cfg):
+    """(pattern, n_periods, rest) of ``cfg``; every path through the
+    backbone starts here, so it also checks that ``cfg`` is ported."""
+    check_ported(cfg)
+    pattern = cfg.block_pattern
+    per = len(pattern)
+    n_periods = cfg.num_layers // per
+    rest = tuple(pattern[i] for i in range(cfg.num_layers - n_periods * per))
+    return pattern, n_periods, rest
+
+
+def flatten(tree: dict, prefix: str = "") -> dict:
+    """Nested dict -> flat {"a.b.c": leaf}."""
+    out = {}
+    for key, val in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(val, dict):
+            out.update(flatten(val, path + "."))
+        else:
+            out[path] = val
+    return out
+
+
+def nest(flat: dict, prefix: str, index=None) -> dict:
+    """The leaves of ``flat`` under ``prefix`` as a nested dict (the
+    reference's block parameter layout), each indexed by ``index`` (a
+    period) when given: views, no copies."""
+    out: dict = {}
+    n = len(prefix)
+    for key, val in flat.items():
+        if not key.startswith(prefix):
+            continue
+        parts = key[n:].split(".")
+        node = out
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = val if index is None else val[index]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _init_tree(cfg, init: L.Init) -> dict:
+    pattern, n_periods, rest = layer_plan(cfg)
+    tree = {"embed": L.init_embedding(cfg, init),
+            "final_norm": L.init_norm(cfg, init, cfg.d_model)}
+    if n_periods:
+        tree["periods"] = {
+            f"slot{s}": B.init_block(cfg, init, kind, lead=(n_periods,))
+            for s, kind in enumerate(pattern)}
+    tree["rest"] = {f"rest{i}": B.init_block(cfg, init, kind)
+                    for i, kind in enumerate(rest)}
+    return flatten(tree)
+
+
+def init_params(cfg, seed: int = 0, device=DEFAULT_DEVICE) -> dict:
+    """Random parameters drawn on ``device`` from a ``torch.Generator`` on
+    that device seeded with ``seed`` (at full width a host draw would
+    need the whole f32 tree in host memory).  The reference draws with
+    ``jax.random``; carry its parameters across with
+    ``convert.lm_params_from_numpy``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return _init_tree(cfg, L.Init(dev, gen))
+
+
+def param_shapes(cfg) -> dict:
+    """{path: (shape, dtype)} of ``init_params``'s tree, built on the
+    meta device: nothing is allocated."""
+    return {k: (tuple(v.shape), v.dtype)
+            for k, v in _init_tree(cfg, L.Init("meta")).items()}
+
+
+def param_count(cfg) -> int:
+    return sum(math.prod(shape) for shape, _ in param_shapes(cfg).values())
+
+
+def _layers(cfg, tree: dict) -> list:
+    """[(kind, nested leaves of that layer)] in depth order, for the
+    parameters or the decode cache."""
+    pattern, n_periods, rest = layer_plan(cfg)
+    out = []
+    for i in range(n_periods):
+        for s, kind in enumerate(pattern):
+            out.append((kind, nest(tree, f"periods.slot{s}.", i)))
+    for i, kind in enumerate(rest):
+        out.append((kind, nest(tree, f"rest.rest{i}.")))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# sequence forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+def head_matrix(cfg, params):
+    """(d, V) LM head."""
+    return params["embed.lm_head"]
+
+
+def forward_hidden(cfg, params, batch):
+    """As ``forward`` but stops before the LM head: (hidden (B,T,d), aux)."""
+    tokens = batch["tokens"]
+    T = tokens.shape[1]
+    x = L.embed_apply(cfg, nest(params, "embed."), tokens)
+    positions = torch.arange(T, device=tokens.device)
+    aux = 0.0
+    for kind, p in _layers(cfg, params):
+        x, a = B.block_apply(cfg, kind, p, x, positions)
+        aux = aux + a
+    x = L.norm_apply(cfg, nest(params, "final_norm."), x)
+    return x, aux
+
+
+def forward(cfg, params, batch):
+    """batch["tokens"]: (B, T) integer.  Returns (logits (B,T,V) f32, aux)."""
+    x, aux = forward_hidden(cfg, params, batch)
+    logits = L.lm_head_apply(cfg, nest(params, "embed."), x)
+    return logits.float(), aux
+
+
+# ---------------------------------------------------------------------------
+# decode (serving)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg, batch_size: int, cache_len: int, *,
+               device=DEFAULT_DEVICE) -> dict:
+    dev = resolve_device(device)
+    pattern, n_periods, rest = layer_plan(cfg)
+    tree = {"periods": {}, "rest": {}}
+    if n_periods:
+        for s, kind in enumerate(pattern):
+            tree["periods"][f"slot{s}"] = B.init_block_cache(
+                cfg, kind, batch_size, cache_len, lead=(n_periods,),
+                device=dev)
+    for i, kind in enumerate(rest):
+        tree["rest"][f"rest{i}"] = B.init_block_cache(
+            cfg, kind, batch_size, cache_len, device=dev)
+    return flatten(tree)
+
+
+def decode_step(cfg, params, cache, tokens, pos: int):
+    """One decode step.  tokens: (B,1) integer; pos: the absolute position
+    being written (an int).  Returns (logits (B,1,V) f32, cache), the
+    cache updated in place."""
+    pos = int(pos)
+    emb = nest(params, "embed.")
+    x = L.embed_apply(cfg, emb, tokens)
+    for (kind, p), (_, c) in zip(_layers(cfg, params), _layers(cfg, cache)):
+        x, _ = B.block_decode(cfg, kind, p, x, c, pos)
+    x = L.norm_apply(cfg, nest(params, "final_norm."), x)
+    logits = L.lm_head_apply(cfg, emb, x)
+    return logits.float(), cache

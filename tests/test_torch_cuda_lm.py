@@ -1,0 +1,106 @@
+"""The port's LM serving path on a card: the sliding-window attention
+kernel against its plain version, and the smoke recurrentgemma-9b
+through the kernel against the plain path on the CPU.
+
+These tests need a CUDA card and skip without one (decided inside the
+``cuda`` fixture, never at import).  They import no JAX, so they run on
+the machine with the card:
+
+    PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda_lm.py
+
+Tolerances against the plain version on the same inputs, |d| <= atol +
+rtol |plain|: f32 2e-5 and 2e-5 (the same f32 arithmetic, sums in another
+order); bf16 1e-4 and 2^-7, one bf16 ulp (both round to bf16 f32 values
+that differ in the last f32 bits), and at most 1 % of the bf16 entries
+differ at all (a P rounded to bf16 before P.V makes about 40 % differ).
+A repeat launch is bitwise equal (no atomics).
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.kernels import ref as R  # noqa: E402
+from repro_torch.kernels import swa_attention as SWA  # noqa: E402
+from repro_torch.launch.serve import make_requests, serve  # noqa: E402
+from repro_torch.launch.steps import build_prefill_step  # noqa: E402
+from repro_torch.models.registry import get_model  # noqa: E402
+
+TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 2.0 ** -7)}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _qkv(dev, B, T, H, K, hd, dtype, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(B, T, h, hd, generator=gen, device=dev).to(dtype)
+            for h in (H, K, K)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,K,hd,window", [
+    (1, 1, 4, 4, 64, 16),          # T = 1
+    (2, 100, 4, 1, 64, 128),       # T <= window, MQA
+    (2, 333, 8, 2, 128, 64),       # ragged T, GQA
+    (1, 200, 2, 2, 256, 0),        # window 0: the diagonal only
+    (1, 300, 4, 4, 32, 1000),      # window past T, hd 32 (padded to 64)
+    (1, 513, 4, 4, 80, 96),        # hd 80 (padded to 128)
+    (2, 1000, 16, 1, 256, 200),    # recurrentgemma's heads, short window
+])
+def test_kernel_matches_plain_version(cuda, B, T, H, K, hd, window, dtype):
+    q, k, v = _qkv(cuda, B, T, H, K, hd, dtype, seed=T + hd)
+    n = SWA.swa_attention.launches
+    got = SWA.swa_attention(q, k, v, window)
+    again = SWA.swa_attention(q, k, v, window)
+    want = R.swa_attention_ref(q, k, v, window)
+    torch.cuda.synchronize()
+    assert SWA.swa_attention.launches == n + 2
+    assert got.dtype == dtype and got.shape == (B, T, H, hd)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    if dtype == torch.bfloat16:
+        assert float((got != want).float().mean()) <= 0.01
+    assert torch.equal(got, again)
+
+
+def test_kernel_rejects_what_it_cannot_take(cuda):
+    q, k, v = _qkv(cuda, 1, 64, 2, 1, 32, torch.float32)
+    with pytest.raises(NotImplementedError, match="q_offset"):
+        SWA.swa_attention(q, k, v, 8, q_offset=4)
+    with pytest.raises(TypeError, match="float16"):
+        SWA.swa_attention(q.half(), k.half(), v.half(), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        SWA.swa_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                          k, v, 8)
+    big = _qkv(cuda, 1, 8, 1, 1, 320, torch.float32)
+    with pytest.raises(ValueError, match="head dim"):
+        SWA.swa_attention(*big, 8)
+
+
+def test_smoke_prefill_and_serve_on_the_card_match_the_cpu(cuda):
+    """The smoke model at f32 compute: prefill through the kernel (one
+    launch for its one local layer) against the CPU's plain path, and
+    greedy serving token for token."""
+    cfg = get_config("recurrentgemma-9b").smoke().replace(
+        compute_dtype="float32")
+    model = get_model(cfg)
+    params = model.init(0, device=cuda)
+    cpu = {k: v.cpu() for k, v in params.items()}
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 48), generator=gen)
+    step = build_prefill_step(cfg)
+    n = SWA.swa_attention.launches
+    got = step(params, {"tokens": tokens.to(cuda)})
+    torch.cuda.synchronize()
+    assert SWA.swa_attention.launches == n + 1
+    want = step(cpu, {"tokens": tokens})
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    reqs_gpu, _ = serve(cfg, model, params, make_requests(cfg, 3, 6))
+    reqs_cpu, _ = serve(cfg, model, cpu, make_requests(cfg, 3, 6))
+    assert [r.generated for r in reqs_gpu] == [r.generated for r in reqs_cpu]

@@ -33,7 +33,8 @@ def _forbidden(name: str) -> bool:
 
 def test_port_tree_is_nonempty():
     assert len(PORT_FILES) > 10
-    for src in ("lattice_dag.cu", "lattice_sausage.cu", "cg_fused.cu"):
+    for src in ("lattice_dag.cu", "lattice_sausage.cu", "cg_fused.cu",
+                "swa_attention.cu"):
         assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
                 / src).exists()
 
@@ -54,7 +55,8 @@ def test_service_import_leaves_jax_out():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     code = ("import sys, repro_torch.serving.service, repro_torch.convert, "
             "repro_torch.analysis.corpus, repro_torch.launch.train, "
-            "repro_torch.kernels.cg_fused; "
+            "repro_torch.kernels.cg_fused, repro_torch.launch.serve, "
+            "repro_torch.kernels.swa_attention, repro_torch.models.registry; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')); print(bad); sys.exit(1 if bad else 0)")

@@ -58,7 +58,7 @@ def test_share_counts_and_params_match_jax(name):
     for key, c in got.items():
         layer, leaf = key.split(".")
         assert c == float(want[layer][leaf])
-    init = TA.init_params(tcfg, seed=3)
+    init = TA.init_params(tcfg, seed=3, device="cpu")
     assert {k: tuple(v.shape) for k, v in init.items()} == \
         {k: tuple(v.shape) for k, v in tp.items()}
     assert TA.param_count(init) == sum(
@@ -66,7 +66,8 @@ def test_share_counts_and_params_match_jax(name):
 
 
 def test_full_width_lstm_has_the_papers_parameter_count():
-    shapes = TA.init_params(TC.LSTM.replace(num_outputs=6000), seed=0)
+    shapes = TA.init_params(TC.LSTM.replace(num_outputs=6000), seed=0,
+                            device="cpu")
     assert TA.param_count(shapes) == 19_335_000
 
 
