@@ -25,7 +25,9 @@ Phases:
      S=50, A=3) with padded, fully masked and A=40 cases; the fused CG
      update at N = 19,335,000 in f32 and bf16, and bitwise on a repeat;
      ``swa_attention`` on adversarial shapes (T = 1, T <= window, ragged
-     T, window 0, a window past T, MHA/GQA/MQA, hd 32-256, f32 and bf16)
+     T, window 0, a window past T, MHA/GQA/MQA, hd 32-256, f32 through
+     the CUDA-core kernel and bf16 through the tensor-core kernel, whose
+     tiles of 128 (query, head) rows take G = H / K of 1, 2, 3, 4 and 16)
      and at the prefill shape (B=2, T=32768, H=16, K=1, hd=256, window
      2048, bf16), and bitwise on a repeat;
   3. the service (``RescoringService.run``) over a Poisson mix of 48
@@ -54,11 +56,16 @@ Phases:
      (outputs compared, then timed with CUDA events), the bound from the
      bytes or operations it must do, one ``{"kernels": [...]}`` line
      (``swa_attention``'s row is timed after phase 7, on a freed card,
-     with ``scaled_dot_product_attention`` as its library yardstick);
+     in turns with the CUDA-core kernel at the same bf16 shape, the plain
+     version and ``scaled_dot_product_attention``, its library
+     yardstick);
   7. LM serving, recurrentgemma-9b: parameters drawn on the card;
      ``build_prefill_step`` over B=2 prompts of T=32768 tokens (prefill_32k
      with its batch cut from 32 to 2) — logits (2, 1, 256000) finite,
-     ``swa_attention`` launched exactly 12 times (the 12 local layers);
+     the tensor-core ``swa_attention`` kernel launched exactly 12 times
+     (the 12 local layers) and the CUDA-core kernel never; the f32
+     prefill launches the CUDA-core kernel 12 times, the plain path
+     neither;
      the same prefill through the plain path on the card: at f32 compute
      (B=1) within relative L2 1e-4, at bf16 within a limit below a
      control's reading (the plain path with P rounded to bf16) and no
@@ -124,7 +131,7 @@ SOURCES = {
     "sausage_backward": "src/repro_torch/kernels/csrc/lattice_sausage.cu",
     "sausage_loss_only": "src/repro_torch/kernels/csrc/lattice_sausage.cu",
     "cg_fused_update": "src/repro_torch/kernels/csrc/cg_fused.cu",
-    "swa_attention": "src/repro_torch/kernels/csrc/swa_attention.cu",
+    "swa_attention": "src/repro_torch/kernels/csrc/swa_attention_sm90.cu",
 }
 # the training phase: the paper's LSTM at full width, cut in length
 # (T = 200 frames) and in steps; synthetic sausages (seg_len 4, 3 arcs)
@@ -203,6 +210,15 @@ SWA_CASES = (
     ((2, 1000, 16, 1, 256, 200), torch.bfloat16),
     ((1, 4100, 16, 1, 256, 2048), torch.bfloat16),  # ragged past window
     ((1, 4100, 16, 1, 256, 2048), torch.float32),
+    # the tensor-core kernel's tiles: G = H / K of 1 (128 queries x 1
+    # head), 2, 3 (42 queries, two rows masked), 4 and 16 (8 x 16)
+    ((1, 1, 4, 4, 64, 16), torch.bfloat16),       # T = 1, G = 1
+    ((1, 7, 16, 1, 128, 0), torch.bfloat16),      # T < 8 queries, window 0
+    ((2, 9, 32, 2, 256, 100), torch.bfloat16),    # ragged T, window past T
+    ((1, 300, 6, 2, 64, 37), torch.bfloat16),     # G = 3
+    ((2, 333, 8, 4, 128, 64), torch.bfloat16),    # G = 2
+    ((1, 200, 2, 2, 256, 0), torch.bfloat16),     # MHA, window 0
+    ((2, 100, 4, 1, 64, 128), torch.bfloat16),    # MQA, T <= window
 )
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
 
@@ -1222,8 +1238,11 @@ def phase_lm(dev) -> dict:
     first_s = time.perf_counter() - t0
     launches = SWA.swa_attention.launches
     check(launches == LOCAL_LAYERS,
-          f"prefill launched swa_attention {launches} times, expected "
-          f"{LOCAL_LAYERS}")
+          f"prefill launched the tensor-core swa_attention kernel "
+          f"{launches} times, expected {LOCAL_LAYERS}")
+    check(SWA.swa_attention.cuda_core_launches == 0,
+          f"the bf16 prefill launched the CUDA-core swa_attention kernel "
+          f"{SWA.swa_attention.cuda_core_launches} times")
     check(read_counts() == {k: 0 for k in read_counts()},
           f"prefill launched lattice/CG kernels {read_counts()}")
     check(tuple(logits.shape) == (PREFILL_BATCH, 1, cfg.vocab_size)
@@ -1232,8 +1251,9 @@ def phase_lm(dev) -> dict:
           f"prefill logits {tuple(logits.shape)} {logits.dtype}, finite "
           f"{bool(torch.isfinite(logits).all())}")
     log(f"prefill B={PREFILL_BATCH} T={PREFILL_T}: logits "
-        f"{tuple(logits.shape)} finite, swa_attention launches {launches} "
-        f"(one per local layer), first call {first_s * 1e3:.3f} ms")
+        f"{tuple(logits.shape)} finite, tensor-core swa_attention "
+        f"launches {launches} (one per local layer), CUDA-core 0, first "
+        f"call {first_s * 1e3:.3f} ms")
 
     # the plain path on the card, same parameters and tokens; then both
     # paths at f32 compute on the first prompt
@@ -1245,11 +1265,23 @@ def phase_lm(dev) -> dict:
     cfg32 = cfg.replace(compute_dtype="float32")
     prefill32 = build_prefill_step(cfg32)
     row0 = {"tokens": tokens[:1]}
+    check((SWA.swa_attention.launches,
+           SWA.swa_attention.cuda_core_launches) == (launches, 0),
+          "the plain bf16 path launched a kernel")
     kern32 = prefill32(params, row0)
+    check((SWA.swa_attention.launches,
+           SWA.swa_attention.cuda_core_launches) == (launches,
+                                                      LOCAL_LAYERS),
+          f"the f32 prefill launched the tensor-core kernel "
+          f"{SWA.swa_attention.launches - launches} and the CUDA-core "
+          f"kernel {SWA.swa_attention.cuda_core_launches} times, expected "
+          f"0 and {LOCAL_LAYERS}")
     with plain_attention():
         plain32 = prefill32(params, row0)
-    check(SWA.swa_attention.launches == launches + LOCAL_LAYERS,
-          "the plain path launched the kernel")
+    check((SWA.swa_attention.launches,
+           SWA.swa_attention.cuda_core_launches) == (launches,
+                                                      LOCAL_LAYERS),
+          "the plain f32 path launched a kernel")
     rel32 = rel_l2(kern32, plain32)
     check(rel32 <= PREFILL_F32_REL_L2, f"f32 prefill logits kernel vs plain "
           f"path rel-L2 {rel32:.3g} > {PREFILL_F32_REL_L2}")
@@ -1352,10 +1384,11 @@ def swa_work(shape, dtype) -> tuple:
     return byt, 4 * B * H * hd * keys
 
 
-def sdpa_ms(q, k, v, window: int) -> tuple:
-    """One ``scaled_dot_product_attention`` call with the band mask (the
-    yardstick, never on the port's path), at the largest T from the
-    prefill's down that runs; (ms, T, max |d| vs the kernel there)."""
+def sdpa_call(q, k, v, window: int) -> tuple:
+    """``scaled_dot_product_attention`` with the band mask (the yardstick,
+    never on the port's path) at the largest T from the prefill's down
+    that runs; (a call of it, T, max |d| vs the kernel there), or
+    (None, None, None)."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels import swa_attention as SWA
@@ -1367,13 +1400,15 @@ def sdpa_ms(q, k, v, window: int) -> tuple:
         pos = torch.arange(T, device=q.device)
         mask = ((pos[None, :] <= pos[:, None])
                 & (pos[None, :] >= pos[:, None] - window))
-        try:
+
+        def fn(qt=qt, kt=kt, vt=vt, mask=mask):
             with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION,
                               SDPBackend.CUDNN_ATTENTION]):
-                fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                    qt, kt, vt, attn_mask=mask)
-                out = fn().transpose(1, 2)
-                ms = cuda_time_ms(fn, 3)
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask)
+        try:
+            out = fn().transpose(1, 2)
+            torch.cuda.synchronize()
         except RuntimeError as exc:
             log(f"scaled_dot_product_attention at T={T}: "
                 f"{str(exc).splitlines()[0][:200]}")
@@ -1381,24 +1416,42 @@ def sdpa_ms(q, k, v, window: int) -> tuple:
             continue
         ref = SWA.swa_attention(q[:, :T].contiguous(), k[:, :T].contiguous(),
                                 v[:, :T].contiguous(), window)
-        return ms, T, float((out.float() - ref.float()).abs().max())
+        return fn, T, float((out.float() - ref.float()).abs().max())
     return None, None, None
 
 
 def swa_times(lm: dict, errs: dict, dev) -> dict:
+    """The tensor-core kernel at the prefill shape, timed in turns (ABCD
+    DCBA, in one call on one card) with the CUDA-core kernel at the same
+    bf16 shape, the plain version and SDPA; each time the mean of its two
+    turns."""
     from repro_torch.kernels import ref as R
     from repro_torch.kernels import swa_attention as SWA
     dtype = torch.bfloat16
     q, k, v = swa_inputs(dev, SWA_FULL, dtype, SEED + 50)
     window = SWA_FULL[-1]
-    n = SWA.swa_attention.launches
+    n = (SWA.swa_attention.launches, SWA.swa_attention.cuda_core_launches)
     got = SWA.swa_attention(q, k, v, window)
-    compare_swa("timed", got, R.swa_attention_ref(q, k, v, window), dtype,
-                errs)
-    ms = cuda_time_ms(lambda: SWA.swa_attention(q, k, v, window), 5)
-    plain_ms = cuda_time_ms(lambda: R.swa_attention_ref(q, k, v, window), 2)
-    lib_ms, lib_t, lib_d = sdpa_ms(q, k, v, window)
-    SWA.swa_attention.launches = n       # comparison and timing launches
+    want = R.swa_attention_ref(q, k, v, window)
+    compare_swa("timed", got, want, dtype, errs)
+    core = SWA.cuda_core_swa_attention(q, k, v, window)
+    core_d = float((core.float() - want.float()).abs().max())
+    core_share = float((core != want).float().mean())
+    del core, want
+    lib_fn, lib_t, lib_d = sdpa_call(q, k, v, window)
+    fns = {"kernel": (lambda: SWA.swa_attention(q, k, v, window), 5),
+           "cuda_core": (lambda: SWA.cuda_core_swa_attention(q, k, v,
+                                                             window), 2),
+           "plain": (lambda: R.swa_attention_ref(q, k, v, window), 2),
+           "library": (lib_fn, 2)}
+    order = [name for name in fns if fns[name][0] is not None]
+    turns: dict = {name: [] for name in order}
+    for name in order + order[::-1]:
+        fn, reps = fns[name]
+        turns[name].append(cuda_time_ms(fn, reps))
+    t = {name: sum(ms) / len(ms) for name, ms in turns.items()}
+    # comparison and timing launches are not the main path's
+    SWA.swa_attention.launches, SWA.swa_attention.cuda_core_launches = n
     byt, flops = swa_work(SWA_FULL, dtype)
     t_bytes = byt / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS * 1e3
@@ -1410,8 +1463,8 @@ def swa_times(lm: dict, errs: dict, dev) -> dict:
              "launches": lm["launches"],
              "max_abs_err": max(v for k, v in errs.items()
                                 if k.startswith("swa_attention[")),
-             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-             "bound_by": b_by, "library_ms": lib_ms,
+             "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": b_ms,
+             "bound_by": b_by, "library_ms": t.get("library"),
              "launches_per": lm["launches"],
              "per": f"{LM_ARCH} prefill (0 per decode token)",
              "shape": f"B,T,H,K,hd,window={list(SWA_FULL)} bf16"}
@@ -1419,8 +1472,15 @@ def swa_times(lm: dict, errs: dict, dev) -> dict:
         + ", ".join(f"{k} {v:.6g}" for k, v in entry.items()
                     if isinstance(v, float))
         + f"; useful work {flops} flops, {byt} bytes, "
-        f"{flops / ms * 1e-9:.3f} TFLOP/s; scaled_dot_product_attention "
-        f"(band mask) at T={lib_t}, max |d| vs the kernel {lib_d}")
+        f"{flops / t['kernel'] * 1e-9:.3f} TFLOP/s; CUDA-core kernel "
+        f"(csrc/swa_attention.cu) at the same bf16 shape "
+        f"{t['cuda_core']:.6g} ms ({flops / t['cuda_core'] * 1e-9:.3f} "
+        f"TFLOP/s; max |d| {core_d:.3g} from the plain version, "
+        f"{core_share:.3g} of the entries differ); turns (ms) "
+        + ", ".join(f"{k} {[round(x, 3) for x in v]}"
+                    for k, v in turns.items())
+        + f"; scaled_dot_product_attention (band mask) at T={lib_t}, "
+        f"max |d| vs the kernel {lib_d}")
     del q, k, v, got
     torch.cuda.empty_cache()
     return entry
@@ -1446,10 +1506,16 @@ def main() -> int:
     for line in build.build_log("lattice_dag").splitlines():
         if "registers" in line or "spill" in line:
             log(f"ptxas: {line.strip()}")
-    for stem in ("lattice_sausage", "cg_fused", "swa_attention"):
+    for stem in ("lattice_sausage", "cg_fused", "swa_attention",
+                 "swa_attention_sm90"):
         for line in build.build_log(stem).splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "C7519",
+                                       "wgmma")):
                 log(f"ptxas {stem}: {line.strip()}")
+    from repro_torch.kernels import swa_attention as SWA
+    log("swa_attention_sm90 dynamic shared memory at hd_pad 64/128/256: "
+        + "/".join(str(SWA.sm90_smem_bytes(p)) for p in (64, 128, 256))
+        + " bytes")
     errs: dict = {}
     phase_kernels(dev, errs)
     phase_sausage_kernels(dev, errs)

@@ -1,6 +1,10 @@
 """The port's LM serving path on a card: the sliding-window attention
-kernel against its plain version, and the smoke recurrentgemma-9b
+kernels against their plain version, and the smoke recurrentgemma-9b
 through the kernel against the plain path on the CPU.
+
+bf16 inputs go to the tensor-core kernel (``csrc/swa_attention_sm90.cu``,
+counted by ``swa_attention.launches``), f32 inputs to the CUDA-core
+kernel (``csrc/swa_attention.cu``, ``swa_attention.cuda_core_launches``).
 
 These tests need a CUDA card and skip without one (decided inside the
 ``cuda`` fixture, never at import).  They import no JAX, so they run on
@@ -54,19 +58,74 @@ def _qkv(dev, B, T, H, K, hd, dtype, seed=0):
 ])
 def test_kernel_matches_plain_version(cuda, B, T, H, K, hd, window, dtype):
     q, k, v = _qkv(cuda, B, T, H, K, hd, dtype, seed=T + hd)
-    n = SWA.swa_attention.launches
+    counts = _counts()
     got = SWA.swa_attention(q, k, v, window)
     again = SWA.swa_attention(q, k, v, window)
     want = R.swa_attention_ref(q, k, v, window)
     torch.cuda.synchronize()
-    assert SWA.swa_attention.launches == n + 2
-    assert got.dtype == dtype and got.shape == (B, T, H, hd)
+    tc = 2 if dtype == torch.bfloat16 else 0
+    assert _counts() == (counts[0] + tc, counts[1] + 2 - tc)
+    _check(got, want, again, dtype, (B, T, H, hd))
+
+
+def _counts():
+    return SWA.swa_attention.launches, SWA.swa_attention.cuda_core_launches
+
+
+def _check(got, want, again, dtype, shape):
+    assert got.dtype == dtype and got.shape == shape
     atol, rtol = TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
     if dtype == torch.bfloat16:
         assert float((got != want).float().mean()) <= 0.01
     assert torch.equal(got, again)
+
+
+# the tensor-core kernel's tiles: G = H // K heads per kv head in
+# {1, 2, 3, 16} (128 queries x 1 head, 64 x 2, 42 x 3 with two rows
+# masked, 8 x 16), ragged T around a tile's 8 queries, window 0, a
+# window inside T and one past it; hd cycles through 64, 80, 128, 256
+_TC_CASES = [(B, T, G * K, K, (64, 80, 128, 256)[i % 4], w)
+             for i, (B, K, G, T) in enumerate(
+                 (B, K, G, T) for B, K in ((1, 1), (2, 2))
+                 for G in (1, 2, 3, 16) for T in (1, 7, 8, 9, 4100))
+             for w in (0, 37, T + 5)]
+
+
+@pytest.mark.parametrize("B,T,H,K,hd,window", _TC_CASES + [
+    (1, 4100, 16, 1, hd, 2048) for hd in (64, 80, 128, 256)] + [
+    (1, 9, 130, 1, 64, 4),         # G > 128: two head tiles
+])
+def test_tensor_core_kernel_matches_plain_version(cuda, B, T, H, K, hd,
+                                                  window):
+    q, k, v = _qkv(cuda, B, T, H, K, hd, torch.bfloat16, seed=T + H + hd)
+    counts = _counts()
+    got = SWA.swa_attention(q, k, v, window)
+    again = SWA.swa_attention(q, k, v, window)
+    want = R.swa_attention_ref(q, k, v, window)
+    torch.cuda.synchronize()
+    assert _counts() == (counts[0] + 2, counts[1])
+    _check(got, want, again, torch.bfloat16, (B, T, H, hd))
+
+
+def test_routing_by_dtype_and_head_dim(cuda):
+    """bf16 (hd % 8 == 0) to the tensor-core kernel, f32 and bf16 with
+    hd % 8 != 0 to the CUDA-core kernel; CPU tensors to neither."""
+    for dtype, hd, tc in ((torch.bfloat16, 64, 1), (torch.float32, 64, 0),
+                          (torch.bfloat16, 36, 0)):
+        q, k, v = _qkv(cuda, 1, 40, 4, 2, hd, dtype)
+        counts = _counts()
+        got = SWA.swa_attention(q, k, v, 16)
+        torch.cuda.synchronize()
+        assert _counts() == (counts[0] + tc, counts[1] + 1 - tc)
+        want = R.swa_attention_ref(q, k, v, 16)
+        atol, rtol = TOL[dtype]
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+    counts = _counts()
+    SWA.swa_attention(q.cpu(), k.cpu(), v.cpu(), 16)
+    assert _counts() == counts
 
 
 def test_kernel_rejects_what_it_cannot_take(cuda):
@@ -95,10 +154,10 @@ def test_smoke_prefill_and_serve_on_the_card_match_the_cpu(cuda):
     gen = torch.Generator().manual_seed(0)
     tokens = torch.randint(0, cfg.vocab_size, (2, 48), generator=gen)
     step = build_prefill_step(cfg)
-    n = SWA.swa_attention.launches
+    n = SWA.swa_attention.cuda_core_launches
     got = step(params, {"tokens": tokens.to(cuda)})
     torch.cuda.synchronize()
-    assert SWA.swa_attention.launches == n + 1
+    assert SWA.swa_attention.cuda_core_launches == n + 1
     want = step(cpu, {"tokens": tokens})
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
     reqs_gpu, _ = serve(cfg, model, params, make_requests(cfg, 3, 6))
