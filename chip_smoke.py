@@ -21,8 +21,16 @@ Phases:
   2. each kernel against its plain version (``kernels/ref.py``) on the
      card: the DAG kernels on the five adversarial corpus cases, full-size
      B=8 random-DAG and sausage buckets and a streaming session's bucket
-     (W = A); the sausage kernels at the training shapes (B=32 and B=8,
-     S=50, A=3) with padded, fully masked and A=40 cases; the fused CG
+     (W = A); ``dag_forward`` also on each of its compacted design's four
+     branches (the warp or the block-barrier chain, with its compact
+     state in shared or global memory: each case logs the branch it
+     took), an utterance with no valid slot, P = 1, predecessors on the
+     slot's own and later levels, and bitwise on a repeat; the sausage
+     kernels at the training shapes (B=32 and B=8, S=50, A=3) with padded,
+     fully masked and A=40 cases; ``sausage_loss_only`` also on
+     adversarial spans (zero-length, ending at T, label K-1, masked arcs
+     with out-of-range labels, T = 1, T = 1000 with spans up to T, 16,000
+     slots), and bitwise on a repeat; the fused CG
      update at N = 19,335,000 in f32 and bf16, and bitwise on a repeat;
      ``swa_attention`` on adversarial shapes (T = 1, T <= window, ragged
      T, window 0, a window past T, MHA/GQA/MQA, hd 32-256, f32 through
@@ -35,11 +43,12 @@ Phases:
      levelized path on the card, batch-mix independence bitwise, and
      ``dag_loss_only`` launched on the way;
   4. streaming: checkpoint half the levels of a T=1000 lattice, resume,
-     bit-exact against from-scratch, ``dag_forward`` launched on the way
-     and ``dag_backward`` not (the session runs the forward recursion
-     alone); the kernels held against their plain versions on the resume
-     lattice, and the forward kernel's own final-arc fold bit-exact
-     between resume and scratch;
+     bit-exact against from-scratch, ``dag_forward`` launched once per
+     dispatch and ``dag_backward`` not (the session runs the forward
+     recursion alone); the kernels held against their plain versions on
+     the resume lattice, and the forward kernel's own final-arc fold
+     bit-exact between resume and scratch; one whole session dispatch
+     timed on the host clock and split into its stages;
   5. training: ``train_sequence(arch="lstm-asr", optimizer="nghf",
      loss="mpe", steps=3, batch=32, cg_batch=8, frames=200, kappa=0.5,
      cg_iters=6, ng_iters=2, cg_fused=True, device="cuda")`` — finite
@@ -54,7 +63,10 @@ Phases:
      general-DAG lattices runs the DAG kernels under training;
   6. times: each kernel against its plain version at its path's shapes
      (outputs compared, then timed with CUDA events), the bound from the
-     bytes or operations it must do, one ``{"kernels": [...]}`` line
+     bytes or operations it must do (``dag_forward`` at all three DAG
+     shapes with its time a level; ``dag_forward`` and
+     ``sausage_loss_only`` also alone, one launch behind a busy stream),
+     one ``{"kernels": [...]}`` line
      (``swa_attention``'s row is timed after phase 7, on a freed card,
      in turns with the CUDA-core kernel at the same bf16 shape, the plain
      version and ``scaled_dot_product_attention``, its library
@@ -107,9 +119,11 @@ N_REQUESTS = 48
 BATCH = 8
 # Kernel vs plain version: |kernel - plain| <= ATOL + RTOL * |plain|.  Both
 # are f32; they sum in different orders (sequential per slot in the
-# kernel, PyTorch's reductions in the plain version) and the fused kernel
-# scales the cumsum grid by kappa before the endpoint difference.  Scores
-# reach |alpha| ~ 5e3 at T=1000, where one f32 ulp is 4.9e-4.
+# kernel, PyTorch's reductions in the plain version); the fused DAG kernel
+# scales the cumsum grid by kappa before the endpoint difference, and the
+# fused sausage kernel sums each span directly where the plain version
+# takes a centred cumsum difference.  Scores reach |alpha| ~ 5e3 at
+# T=1000, where one f32 ulp is 4.9e-4.
 ATOL, RTOL = 1e-3, 1e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak rate
 F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
@@ -287,18 +301,88 @@ def loss_only_inputs(lat, lp, fr):
             fr.pidx)
 
 
-def check_kernels(lat, lp, errs: dict, rel_errs: dict, tag: str) -> None:
+def check_kernels(lat, lp, errs: dict, rel_errs: dict, tag: str) -> list:
+    """The three DAG kernels against their plain versions; returns the
+    branches ``dag_forward``'s kernel took (``check_dag_forward``)."""
     from repro_torch.kernels import lattice_fb as K
     from repro_torch.kernels import ref as R
     fwd, bwd, fr = level_inputs(lat, lp)
-    compare(f"dag_forward[{tag}]", K.dag_forward(*fwd),
-            R.dag_forward_ref(*fwd), errs, rel_errs)
+    branches = check_dag_forward(fwd, errs, rel_errs, tag)
     compare(f"dag_backward[{tag}]", K.dag_backward(*bwd),
             R.dag_backward_ref(*bwd), errs, rel_errs)
     lo = loss_only_inputs(lat, lp, fr)
     compare(f"dag_loss_only[{tag}]", K.dag_loss_only(*lo, kappa=KAPPA),
             R.dag_loss_only_ref(*lo, kappa=KAPPA), errs, rel_errs)
     torch.cuda.synchronize()
+    return branches
+
+
+def check_dag_forward(fwd, errs: dict, rel_errs: dict, tag: str) -> list:
+    """dag_forward against its plain version, and bitwise on a repeat;
+    returns the sorted distinct (chain, state) branches its kernel took
+    over the utterances (``lattice_fb.dag_forward_branches``)."""
+    from repro_torch.kernels import lattice_fb as K
+    from repro_torch.kernels import ref as R
+    got = K.dag_forward(*fwd)
+    compare(f"dag_forward[{tag}]", got, R.dag_forward_ref(*fwd), errs,
+            rel_errs)
+    again = K.dag_forward(*fwd)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"dag_forward[{tag}]: two launches gave other bits")
+    return sorted(set(K.dag_forward_branches(fwd[2], fwd[3],
+                                             fwd[5].shape[-1])))
+
+
+# the branch (chain, compact state) each case is built to take
+DAG_BRANCH_CASES = {"wide_a40_t100": ("block", "shared"),
+                    "global_a40_t1000": ("block", "global"),
+                    "global_a20_t1000": ("warp", "global"),
+                    "p1": ("warp", "shared")}
+
+
+def dag_forward_cases(dev, rng, gen) -> dict:
+    """tag -> dag_forward inputs for the branches of its compacted design:
+    sausages of 40 alternatives (levels of 40 slots: the block-barrier
+    chain) at T = 100 (state in shared memory) and T = 1000 (10,000 valid
+    slots at P = 40: the global-memory state), sausages of 20
+    alternatives at T = 1000 (the warp chain on a global-memory state of
+    about 5,000 slots at P = 20), an utterance with no valid slot, P = 1,
+    and random predecessor positions that reach the slot's own level,
+    later levels and the dump slot (the plain version reads NEG / 0
+    there)."""
+    from repro_torch.losses.lattice import (make_random_dag_lattice,
+                                            make_sausage_lattice)
+    from repro_torch.serving import packing
+    cases = {}
+    for tag, frames, n_alt in (("wide_a40_t100", 100, 40),
+                               ("global_a40_t1000", 1000, 40),
+                               ("global_a20_t1000", 1000, 20)):
+        dicts = [make_sausage_lattice(rng, num_frames=frames - 8 * b,
+                                      num_states=NUM_STATES, n_alt=n_alt)
+                 for b in range(2)]
+        spec = packing.derive_buckets(dicts, batch=2, tiers=1)[0]
+        lat, _ = packing.pack_requests(dicts, spec, device=dev)
+        lp = torch.stack([log_probs(gen, spec.num_frames, dev)
+                          for _ in range(2)])
+        cases[tag] = level_inputs(lat, lp)[0]
+    dicts = [make_random_dag_lattice(rng, num_frames=300,
+                                     num_states=NUM_STATES)
+             for _ in range(4)]
+    spec = packing.derive_buckets(dicts, batch=4, tiers=1)[0]
+    lat, _ = packing.pack_requests(dicts, spec, device=dev)
+    lp = torch.stack([log_probs(gen, spec.num_frames, dev)
+                      for _ in range(4)])
+    own, corr, start, ok, final, pidx = level_inputs(lat, lp)[0]
+    empty = ok.clone()
+    empty[1] = 0.0
+    cases["no_valid_slot"] = (own, corr, start, empty, final, pidx)
+    cases["p1"] = (own, corr, start, ok, final,
+                   pidx[..., :1].contiguous())
+    B, L, W, P = pidx.shape
+    wild = torch.randint(0, L * W + 1, (B, L, W, P), generator=gen,
+                         device=dev, dtype=torch.int32)
+    cases["cross_level_preds"] = (own, corr, start, ok, final, wild)
+    return cases
 
 
 def full_width_workload(dev):
@@ -409,15 +493,31 @@ def phase_kernels(dev, errs: dict) -> None:
         lat, _ = packing.pack_requests(dicts, spec, device=dev)
         lp = torch.stack([log_probs(gen, spec.num_frames, dev)
                           for _ in range(BATCH)])
-        check_kernels(lat, lp, errs, rel_errs, tag)
-        log(f"kernels == plain at {tag}: bucket {tuple(spec)}")
+        branches = check_kernels(lat, lp, errs, rel_errs, tag)
+        log(f"kernels == plain at {tag}: bucket {tuple(spec)}, "
+            f"dag_forward branches {branches}")
     d = make_random_dag_lattice(rng, num_frames=1000, num_states=NUM_STATES)
     spec = session_bucket(d)
     lat, _ = packing.pack_requests([d], spec, device=dev)
-    check_kernels(lat, log_probs(gen, spec.num_frames, dev)[None], errs,
-                  rel_errs, "stream_bucket")
+    branches = check_kernels(lat, log_probs(gen, spec.num_frames, dev)[None],
+                             errs, rel_errs, "stream_bucket")
     log(f"kernels == plain at the streaming bucket {tuple(spec)} "
-        f"(W = A)")
+        f"(W = A), dag_forward branches {branches}")
+    seen = set()
+    for tag, fwd in dag_forward_cases(dev, rng, gen).items():
+        branches = check_dag_forward(fwd, errs, rel_errs, tag)
+        seen.update(branches)
+        log(f"dag_forward == plain, and bitwise on a repeat, at {tag}: "
+            f"(B, L, W, P) {tuple(fwd[5].shape)}, widest level "
+            f"{int((fwd[3] > 0.5).sum(-1).max())} valid slots, branches "
+            f"{branches}")
+        want = DAG_BRANCH_CASES.get(tag)
+        check(want is None or branches == [want],
+              f"{tag}: dag_forward took {branches}, not {want}")
+    check(seen >= set(DAG_BRANCH_CASES.values()),
+          f"dag_forward's branches {sorted(seen)} miss one of "
+          f"{sorted(DAG_BRANCH_CASES.values())}")
+    torch.cuda.synchronize()
     log(f"every case within |kernel - plain| <= {ATOL} + {RTOL}|plain|; "
         f"max abs / max rel diff by case: "
         + ", ".join(f"{k} {v:.3g} / {rel_errs[k]:.3g}"
@@ -534,8 +634,10 @@ def phase_streaming(dev, errs: dict) -> dict:
     launches = {"dag_forward": K.dag_forward.launches,
                 "dag_backward": K.dag_backward.launches,
                 "dag_loss_only": K.dag_loss_only.launches}
-    check(launches["dag_forward"] > 0 and launches["dag_backward"] == 0,
-          f"streaming: the session must run dag_forward alone {launches}")
+    check(launches == {"dag_forward": 2, "dag_backward": 0,
+                       "dag_loss_only": 0},
+          f"streaming: the session must run dag_forward alone, once per "
+          f"dispatch (2 dispatches): {launches}")
     scratch = sess.rescore_from_scratch(d, lp)
     check(resumed.logZ == scratch.logZ and resumed.c_avg == scratch.c_avg,
           f"streaming resume ({resumed.logZ!r}, {resumed.c_avg!r}) != "
@@ -560,7 +662,8 @@ def phase_streaming(dev, errs: dict) -> dict:
     rd = resume_lattice_dict(pad_to_bucket(d, spec), *half)
     lat_resume = batch_lattices([pad_to_bucket(rd, spec)], device=dev)
     rel_errs: dict = {}
-    check_kernels(lat_resume, lp_dev, errs, rel_errs, "stream_resume")
+    resume_branches = check_kernels(lat_resume, lp_dev, errs, rel_errs,
+                                    "stream_resume")
     lat, _ = pack_requests([pad_to_bucket(d, spec)], spec, device=dev)
     folds = [lattice_stats(x, lp_dev, KAPPA, backend="cuda",
                            accumulators="full") for x in (lat_resume, lat)]
@@ -571,11 +674,70 @@ def phase_streaming(dev, errs: dict) -> dict:
               f"lattice {a.tolist()} != from scratch {b.tolist()}")
     log(f"kernels == plain on the resume lattice (max |d| forward "
         f"{errs['dag_forward[stream_resume]']:.3g}, backward "
-        f"{errs['dag_backward[stream_resume]']:.3g}); dag_forward's own "
+        f"{errs['dag_backward[stream_resume]']:.3g}; dag_forward branches "
+        f"{resume_branches}); dag_forward's own "
         f"final fold bit-exact resume vs scratch (logZ "
         f"{float(folds[0].logZ[0])!r}, c_avg {float(folds[0].c_avg[0])!r})")
+    split = session_dispatch_split(sess, d, lp, dev)
     return {"launches": launches, "dispatches": 2, "bucket": spec,
-            "lat": lat, "lp": lp_dev}
+            "lat": lat, "lp": lp_dev, "split": split}
+
+
+def session_dispatch_split(sess, d, lp, dev) -> dict:
+    """Host clock around one whole session dispatch (from scratch, ended
+    by a synchronize), then its stages timed alone the same way, each
+    the min of 3: packing and frontiers, the log-prob copy to the card,
+    the arc scores and level tensors, the dag_forward launch, and the
+    scatter back to arcs with the device-to-host copies."""
+    from repro_torch.kernels import lattice_fb as K
+    from repro_torch.lattice_engine.common import (arc_scores,
+                                                   finalize_loss_only,
+                                                   from_level_major)
+    from repro_torch.lattice_engine.cuda_backend import dag_level_tensors
+    from repro_torch.losses.lattice import batch_lattices, lattice_frontiers
+    from repro_torch.serving.packing import pack_log_probs, pad_to_bucket
+    spec = sess.spec
+    n = K.dag_forward.launches
+
+    def timed(fn):
+        best, out = float("inf"), None
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+        return best, out
+
+    whole, _ = timed(lambda: sess.rescore_from_scratch(d, lp))
+    t_pack, (lat, fr) = timed(lambda: (lambda lat: (
+        lat, lattice_frontiers(lat)))(batch_lattices(
+            [pad_to_bucket(d, spec)], device=dev)))
+    t_copy, lp_dev = timed(lambda: torch.from_numpy(
+        pack_log_probs([lp], spec)).to(dev))
+    t_levels, lv = timed(lambda: dag_level_tensors(
+        lat, arc_scores(lat, lp_dev, KAPPA) + lat.lm, fr))
+    t_kernel, out = timed(lambda: K.dag_forward(*lv, fr.pidx))
+
+    def back():
+        A = lat.num_arcs
+        alpha = from_level_major(out[0], fr.arc_pos, A, -1e30)
+        c_alpha = from_level_major(out[1], fr.arc_pos, A, 0.0)
+        fin = finalize_loss_only(lat, alpha, c_alpha)
+        return (alpha[0].cpu().numpy(), c_alpha[0].cpu().numpy(),
+                fin.logZ.cpu().numpy()[0], fin.c_avg.cpu().numpy()[0])
+    t_back, _ = timed(back)
+    K.dag_forward.launches = n       # timing launches are not the path's
+    split = {"whole_ms": whole, "pack_frontiers_ms": t_pack,
+             "log_prob_copy_ms": t_copy, "scores_levels_ms": t_levels,
+             "dag_forward_ms": t_kernel, "back_to_host_ms": t_back}
+    log(f"one session dispatch (bucket {tuple(spec)}, host clock, min of "
+        f"3): {whole:.6g} ms whole; stages alone: "
+        + ", ".join(f"{k[:-3]} {v:.6g} ms" for k, v in split.items()
+                    if k != "whole_ms")
+        + f" (sum {sum(split.values()) - whole:.6g} ms; the log-probs are "
+        f"{lp.nbytes / 1e6:.3g} MB from pageable host memory)")
+    return split
 
 
 def dag_times(service: dict, stream: dict, training: dict,
@@ -616,6 +778,8 @@ def dag_times(service: dict, stream: dict, training: dict,
                    "B_L_W": list(lat.level_arcs.shape),
                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                    "bound_by": b_by, "bytes": byt}
+            if name == "dag_forward":
+                row["kernel_alone_ms"] = kernel_alone_ms(kern)
             if name == "dag_loss_only":
                 row["prologue_ms"] = cuda_time_ms(
                     lambda: K.loss_only_prologue(*lo[:9], KAPPA), 20)
@@ -623,6 +787,8 @@ def dag_times(service: dict, stream: dict, training: dict,
                     lambda: K.dag_loss_only_from_grid(*pro, lat.level_arcs,
                                                       fr.pidx), 20)
             rows.append(row)
+            if name == "dag_forward":    # derived: for the log only
+                row["ms_per_level"] = ms / lat.level_arcs.shape[1]
             log(f"{name} == plain at the {where} shape {row['B_L_W']} "
                 f"(max |d| {errs[f'{name}[{where}]']:.3g}, max rel "
                 f"{rel_errs[f'{name}[{where}]']:.3g}); time: "
@@ -652,9 +818,18 @@ def dag_times(service: dict, stream: dict, training: dict,
                  "bound_by": row["bound_by"], "library_ms": None,
                  "launches_per": per, "per": per_what,
                  "shape": f"{main[name]} B,L,W={row['B_L_W']}"}
-        for extra in ("prologue_ms", "kernel_only_ms"):
+        for extra in ("prologue_ms", "kernel_only_ms", "kernel_alone_ms"):
             if extra in row:
                 entry[extra] = row[extra]
+        if name == "dag_forward":    # its other paths' shapes too
+            for r in rows:
+                if r["name"] == name and r["shape"] != main[name]:
+                    entry[f"ms_{r['shape']}"] = r["ms"]
+            log("dag_forward by shape: " + ", ".join(
+                f"{r['shape']} {r['B_L_W']} {r['ms']:.6g} ms "
+                f"({r['ms_per_level']:.6g} ms a level, alone "
+                f"{r['kernel_alone_ms']:.6g})"
+                for r in rows if r["name"] == name))
         out.append(entry)
     return out
 
@@ -711,6 +886,73 @@ def loss_only_args(lat, lp):
             lat.arc_mask, lat.level_arcs)
 
 
+def span_case(gen, dev, B, T, S, W, *, max_span, float_mask=False):
+    """Inputs of ``sausage_loss_only`` (kernel args, plain-version args)
+    with adversarial arcs: zero-length spans, spans ending at frame T,
+    label K-1, level slots of -1, a fully masked utterance, and masked
+    arcs whose labels lie outside [0, K) (the plain version, whose
+    gathers would fault on them, gets them clamped: a masked arc never
+    reaches the recursion).  Spans up to ``max_span`` frames; with
+    ``float_mask`` a float mask of 0 / 0.7 / 1 (0.7 weighs its arc)."""
+    A = S * W
+    r = lambda *shape: torch.rand(*shape, generator=gen, device=dev)  # noqa
+    ri = lambda hi, *shape: torch.randint(  # noqa: E731
+        0, hi, shape, generator=gen, device=dev, dtype=torch.int32)
+    start = ri(T + 1, B, A)
+    span = (r(B, A) ** 2 * (max_span + 1)).to(torch.int32)
+    end = torch.minimum(start + span, torch.full_like(start, T))
+    end[:, 1::7] = start[:, 1::7]                    # zero-length spans
+    end[:, 2::7] = T                                 # arcs ending at T
+    if max_span >= T:
+        start[:, 3::11], end[:, 3::11] = 0, T        # whole-utterance arcs
+    label = ri(NUM_STATES, B, A)
+    label[:, ::5] = NUM_STATES - 1                   # the last column
+    mask = r(B, A) > 0.15
+    mask[B - 1] = False                              # an empty utterance
+    bad = ~mask & (r(B, A) > 0.5)
+    label_kernel = torch.where(bad, torch.where(
+        r(B, A) > 0.5, label + NUM_STATES, -1 - label), label)
+    lm = torch.randn(B, A, generator=gen, device=dev)
+    corr = (r(B, A) > 0.6).float()
+    la = torch.stack([torch.randperm(A, generator=gen, device=dev)
+                      for _ in range(B)]).to(torch.int32).reshape(B, S, W)
+    la[:, ::3, W - 1] = -1                           # padded slots
+    if float_mask:
+        mask = torch.where(mask, torch.where(r(B, A) > 0.5, 1.0, 0.7), 0.0)
+    lp = torch.randn(B, T, NUM_STATES, generator=gen,
+                     device=dev).log_softmax(-1)
+    return ((lp, start, end, label_kernel, lm, corr, mask, la),
+            (lp, start, end, label, lm, corr, mask, la))
+
+
+def span_cases(dev, gen) -> dict:
+    """tag -> ``span_case`` inputs: the CG batch's shape, T = 1, T = 1000
+    with spans up to T (the warp-summed long spans), and 16,000 slots (the
+    slots in global memory, not shared)."""
+    return {
+        "spans_t200": span_case(gen, dev, 8, 200, 50, 3, max_span=12),
+        "spans_t1": span_case(gen, dev, 3, 1, 4, 3, max_span=1,
+                              float_mask=True),
+        "spans_t1000": span_case(gen, dev, 3, 1000, 6, 5, max_span=1000,
+                                 float_mask=True),
+        "spans_16000_slots": span_case(gen, dev, 2, 1000, 1000, 16,
+                                       max_span=40),
+    }
+
+
+def check_loss_only(args, ref_args, errs, rel_errs, tag: str) -> None:
+    """sausage_loss_only against its plain version, and bitwise on a
+    repeat."""
+    from repro_torch.kernels import lattice_fb as K
+    from repro_torch.kernels import ref as R
+    got = K.sausage_loss_only(*args, kappa=KAPPA)
+    compare(f"sausage_loss_only[{tag}]", got,
+            R.sausage_loss_only_ref(*ref_args, kappa=KAPPA), errs, rel_errs)
+    again = K.sausage_loss_only(*args, kappa=KAPPA)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"sausage_loss_only[{tag}]: two launches gave other bits")
+
+
 def phase_sausage_kernels(dev, errs: dict) -> None:
     from repro_torch.data.synthetic import asr_batch
     from repro_torch.kernels import cg_fused as CG
@@ -735,9 +977,7 @@ def phase_sausage_kernels(dev, errs: dict) -> None:
         compare(f"sausage_backward[{tag}]", K.sausage_backward(*tiles),
                 R.sausage_backward_ref(*tiles), errs, rel_errs)
         args = loss_only_args(lat, lp)
-        compare(f"sausage_loss_only[{tag}]",
-                K.sausage_loss_only(*args, kappa=KAPPA),
-                R.sausage_loss_only_ref(*args, kappa=KAPPA), errs, rel_errs)
+        check_loss_only(args, args, errs, rel_errs, tag)
         torch.cuda.synchronize()
         log(f"sausage kernels == plain at {tag}: (B, S, W) "
             f"{tuple(lat.level_arcs.shape)}, T={frames}, K={NUM_STATES}")
@@ -748,6 +988,13 @@ def phase_sausage_kernels(dev, errs: dict) -> None:
                 R.sausage_forward_ref(*tiles), errs, rel_errs)
         compare(f"sausage_backward[{tag}]", K.sausage_backward(*tiles),
                 R.sausage_backward_ref(*tiles), errs, rel_errs)
+    for tag, (args, ref_args) in span_cases(dev, gen).items():
+        check_loss_only(args, ref_args, errs, rel_errs, tag)
+        log(f"sausage_loss_only == plain, and bitwise on a repeat, at {tag}: "
+            f"(B, T) {tuple(args[0].shape[:2])}, (S, W) "
+            f"{tuple(args[7].shape[1:])}, spans up to "
+            f"{int((args[2] - args[1]).max())} frames, mask "
+            f"{args[6].dtype}")
     torch.cuda.synchronize()
     log("sausage kernels == plain on padded, fully masked segment / "
         "utterance and A=40 tiles; max abs / max rel diff by case: "
@@ -1010,6 +1257,50 @@ def sausage_work(tiles, backward: bool) -> tuple:
     return byt, 12 * n
 
 
+def loss_only_span_work(args) -> tuple:
+    """(bytes, flops) the function must move / do on these inputs, then
+    the same for the cumsum-grid design it replaced.  Now: the log-probs
+    under the valid arcs' spans, the mask of every arc a slot names,
+    start/end/label/lm/corr of the valid ones, level_arcs, two (B,)
+    outputs; an add per frame and the recursion's ~12 operations a slot.
+    The grid design read every log-prob (its cumsum needs all of them)."""
+    lp, start, end, _, _, _, mask, la = args
+    B, T, _ = lp.shape
+    A = start.shape[1]
+    ids = la.long().flatten(1)
+    named = (ids >= 0) & (ids < A)
+    safe = ids.clamp(0, max(A - 1, 0))
+    valid = named & (mask.float().gather(1, safe) > 0.5)
+    span = (end.clamp(0, T) - start.clamp(0, T)).abs().gather(1, safe)
+    frames = int((span * valid).sum())
+    n_named, n_valid = int(named.sum()), int(valid.sum())
+    byt = (4 * frames + mask.element_size() * n_named + 20 * n_valid
+           + 4 * la.numel() + 8 * B)
+    grid_byt = (4 * lp.numel() + B * A * (4 * 5 + 1) + 4 * la.numel()
+                + 8 * B)
+    return (byt, frames + 2 * n_valid + 12 * la.numel(),
+            grid_byt, 4 * lp.numel() + 12 * la.numel())
+
+
+def kernel_alone_ms(fn, reps: int = 5) -> float:
+    """One call of ``fn`` between two events queued behind a sleeping
+    kernel, so that the host's enqueue cost is hidden: the device time of
+    its launches alone (min over ``reps``)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000)
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return min(times)
+
+
 def train_times(training: dict, errs: dict) -> list:
     from repro_torch.kernels import cg_fused as CG
     from repro_torch.kernels import lattice_fb as K
@@ -1026,14 +1317,10 @@ def train_times(training: dict, errs: dict) -> list:
                        generator=gen, device=dev).log_softmax(-1)
     tiles = sausage_tiles(lat_g, lp_g)
     args = loss_only_args(lat_c, lp_c)
-    zeros = torch.zeros_like(lat_c.arc_mask)
-    pro = K.loss_only_prologue(*args[:7], zeros, zeros, KAPPA)
     x, v, r, bv = (torch.randn(LSTM_PARAMS, generator=gen, device=dev)
                    for _ in range(4))
     alpha = torch.tensor(0.37, device=dev)
-    B_c, A_c = lat_c.start_t.shape
-    lo_bytes = (4 * lp_c.numel() + B_c * A_c * (4 * 5 + 1)
-                + 4 * lat_c.level_arcs.numel() + 8 * B_c)
+    B_c = lat_c.start_t.shape[0]
     timed = {
         "sausage_forward": (lambda: K.sausage_forward(*tiles),
                             lambda: R.sausage_forward_ref(*tiles),
@@ -1049,8 +1336,7 @@ def train_times(training: dict, errs: dict) -> list:
                                                           kappa=KAPPA),
                               lambda: R.sausage_loss_only_ref(*args,
                                                               kappa=KAPPA),
-                              (lo_bytes, 4 * lp_c.numel()
-                               + 12 * lat_c.level_arcs.numel()),
+                              loss_only_span_work(args)[:2],
                               f"CG batch B={B_c}, T={frames}, "
                               f"K={NUM_STATES}, (S,W)="
                               f"{tuple(lat_c.level_arcs.shape[1:])}"),
@@ -1080,16 +1366,17 @@ def train_times(training: dict, errs: dict) -> list:
                      name, total / TRAIN["steps"]),
                  "per": "NGHF update", "shape": shape}
         if name == "sausage_loss_only":
-            entry["prologue_ms"] = cuda_time_ms(
-                lambda: K.loss_only_prologue(*args[:7], zeros, zeros,
-                                             KAPPA), 20)
-            entry["kernel_only_ms"] = cuda_time_ms(
-                lambda: K.sausage_loss_only_from_grid(*pro,
-                                                      lat_c.level_arcs), 20)
+            # the kernel alone, one launch between events behind a busy
+            # stream (no host time in it)
+            entry["kernel_alone_ms"] = kernel_alone_ms(kern)
         out.append(entry)
         log(f"{name} timed at {shape}: "
             + ", ".join(f"{k} {v:.6g}" for k, v in entry.items()
                         if isinstance(v, float)))
+        if name == "sausage_loss_only":
+            log(f"sausage_loss_only bound of the old cumsum-grid design "
+                f"at {shape} (every log-prob read; for comparison only): "
+                f"{bound(*loss_only_span_work(args)[2:])[0]:.6g} ms")
     return out
 
 

@@ -118,9 +118,12 @@ def launch(stem: str, signatures: dict, fn: str, device, *args) -> None:
     import torch
 
     lib = library(stem, signatures)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn)(*args, stream)
+    if device.index in (None, torch.cuda.current_device()):
+        err = getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = getattr(lib, fn)(*args, stream)
     if err != 0:
         msg = getattr(lib, f"{stem}_error_string")(err).decode()
         raise RuntimeError(f"{fn}: CUDA error {err} ({msg})")

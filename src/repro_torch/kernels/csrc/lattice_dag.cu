@@ -10,32 +10,56 @@
 //
 // What bounds them on this card: the chain of L dependent levels, not
 // bytes and not arithmetic.  Level l reads what level l-1 wrote, so a
-// level costs at least one round trip to L2 for the predecessor gather
-// plus a block barrier, whatever the width; the bytes each kernel must
-// move are a few MB at the service's shapes (microseconds at 3.35 TB/s).
-// The design keeps that chain as short as the data allows and nothing
-// else in it:
+// level costs at least one round trip to the memory that holds the state
+// plus a barrier, whatever the width; the bytes each kernel must move are
+// a few MB at the service's shapes (microseconds at 3.35 TB/s).
+//
+// Shared by all three:
 //   * one thread block per utterance (grid = B); blocks never exchange
 //     data, so a request's result does not depend on its batch mates;
-//   * threads stride over the W slots of a level, each reducing its
-//     slot's P predecessors (S successors) sequentially with exactly the
-//     semantics of _masked_lse_rows: valid = x > NEG/2, pivot 0 for an
-//     all-masked row, lse = NEG and all-zero weights for such a row,
-//     max(z, EPS) guards;
-//   * __syncthreads() between levels takes the place of the TPU's
-//     in-order grid;
-//   * the (L*W+1) alpha/beta buffers live in global memory (scratch the
-//     wrapper allocates, dump slot at L*W), not in shared memory: a
-//     streaming session bucket has W = A, e.g. 250 levels x 900 slots =
-//     1.8 MB per utterance for alpha + c_alpha, far over the 227 KB a
-//     block may hold.  They stay hot in the 50 MB L2.
-//   * deterministic: no atomics; the final-arc reduction over the L*W
-//     slots is folded by one warp in flat level-major order (ballot over
-//     32 slots, then the final lanes in ascending order), so it depends
-//     only on the sequence of final slots.  Masked slots add exact zeros.
-//   * an out-of-range position in pidx/sidx reads the dump slot, an
-//     out-of-range arc id in level_arcs is an empty slot, and a gather
+//   * each slot reduces its P predecessors (S successors) sequentially
+//     with exactly the semantics of _masked_lse_rows: valid = x > NEG/2,
+//     pivot 0 for an all-masked row, lse = NEG and all-zero weights for
+//     such a row, max(z, EPS) guards (masked_lse_row below);
+//   * deterministic: no atomics on values; the final-arc reduction is
+//     folded by one warp in flat level-major order (ballot over 32 slots,
+//     then the final lanes in ascending order), so it depends only on the
+//     sequence of final slots;
+//   * an out-of-range position in pidx/sidx reads NEG / 0 (the dump slot),
+//     an out-of-range arc id in level_arcs is an empty slot, and a gather
 //     position into the cumsum grid is clamped: no input can fault.
+//
+// dag_forward: a compacted recursion in shared memory.  A streaming
+// session's bucket has W = A (resume collapses completed levels into
+// level 0), e.g. 204 levels x 750 slots for 750 arcs: about 4 valid slots
+// a level.  Striding every level over all W slots in global memory, as
+// dag_backward and dag_loss_only still do, spends each of the L dependent
+// steps on empty slots and on two dependent L2 loads per predecessor.  So:
+//   1. prepass: the block scans the ok flags in flat level-major order
+//      (ballots and one block scan per chunk) and gives each valid slot a
+//      compact id 1..N; level l's valid slots are then the contiguous ids
+//      off[l]+1 .. off[l+1].  A position -> id map (global scratch, L*W+1
+//      ints) sends the dump slot, out-of-range positions, non-valid slots
+//      and predecessors on the slot's own or a later level (not yet
+//      computed when the slot is: NEG / 0, as in the plain version) to
+//      the reserved id 0, which holds NEG / 0;
+//   2. the compact state -- alpha (starting as own), c_alpha (starting as
+//      corr), start/final flags, translated predecessor rows and the level
+//      offsets, (9 + 4P) bytes a valid slot -- goes to shared memory when
+//      it fits (about 5,000 slots at P = 9), else to global scratch the
+//      wrapper allocates (the kernel decides after its prepass: N depends
+//      on the data); the same code, compiled once for each place;
+//   3. chain: level by level over the compact ranges, each slot through
+//      masked_lse_row (same passes, same row order), so alpha and c_alpha
+//      are bit-identical to the per-slot global-memory recursion.  When
+//      no level has more than 32 slots that take a step (start slots take
+//      none), warp 0 runs the whole chain with __syncwarp() between
+//      levels while the other warps write the empty slots' NEG / 0 into
+//      the outputs; else every level ends in a block barrier and the block
+//      writes the NEG / 0 after the chain;
+//   4. fold over the final slots in compact (= flat level-major) order,
+//      the same sequential fold as before; the valid slots' alpha /
+//      c_alpha are scattered into the (L*W+1) outputs over the NEG / 0.
 //
 // The kernels allocate nothing and launch on the stream they are given.
 // Plain C interface (ctypes); each launcher returns cudaGetLastError().
@@ -238,20 +262,297 @@ __device__ void final_reduce(const float* fin, const float* abuf,
   }
 }
 
-__global__ void dag_forward_kernel(const float* own, const float* corr,
-                                   const float* start, const float* ok,
-                                   const float* fin, const int* pidx,
-                                   float* abuf, float* cbuf, float* logz,
-                                   float* cavg, int L, int W, int P) {
+// ---------------------------------------------------------------------------
+// dag_forward: the compacted recursion (see the top of the file)
+// ---------------------------------------------------------------------------
+
+constexpr int kScanItems = 32;  // ok flags per lane per prepass chunk
+
+// Entry of the position -> compact id map: q + 1 for a valid slot, ~q
+// (negative) for any other, q = the number of valid slots before it.
+__device__ __forceinline__ int map_id(int m) { return m > 0 ? m : 0; }
+__device__ __forceinline__ int map_prefix(int m) { return m > 0 ? m - 1 : ~m; }
+
+// Bytes of the compact state for N valid slots (kept equal to
+// lattice_fb.dag_forward_state_bytes).
+__host__ __device__ __forceinline__ long long compact_bytes(long long N,
+                                                            int L, int P) {
+  return 9 * (N + 1) + 4LL * (L + 1) + 4 * N * P;
+}
+
+// One utterance's compact state: ids 1..N, id 0 reserved (NEG / 0).
+struct Compact {
+  float* x;             // (N+1) alpha; own until the slot is computed
+  float* c;             // (N+1) c_alpha; corr until the slot is computed
+  int* off;             // (L+1) level l holds ids off[l]+1 .. off[l+1]
+  int* pred;            // (N*P) predecessor ids, id i's row at (i-1)*P
+  unsigned char* flag;  // (N+1) bit 0 start, bit 1 final
+
+  __device__ Compact(unsigned char* base, int N, int L, int P) {
+    x = reinterpret_cast<float*>(base);
+    c = x + (N + 1);
+    off = reinterpret_cast<int*>(c + (N + 1));
+    pred = off + (L + 1);
+    flag = reinterpret_cast<unsigned char*>(pred + (long long)N * P);
+  }
+};
+
+// forward row over the compact arrays: predecessor ids into x / c
+struct CompactRow {
+  const float* xs;
+  const float* cs;
+  const int* ids;
+  __device__ float x(int j) const { return xs[ids[j]]; }
+  __device__ float c(int j) const { return cs[ids[j]]; }
+};
+
+// One slot's step: masked_lse_row over its predecessor row.
+__device__ __forceinline__ void forward_slot(const Compact& st, int id,
+                                             int P) {
+  if (st.flag[id] & 1) return;  // start: alpha = own, c_alpha = corr + 0
+  float in_log, c_in;
+  masked_lse_row(CompactRow{st.x, st.c, st.pred + (long long)(id - 1) * P},
+                 P, in_log, c_in);
+  st.x[id] = st.x[id] + in_log;
+  st.c[id] = st.c[id] + c_in;
+}
+
+// Phases 2-4 of one utterance on its compact state at `base`: shared
+// memory (kShared, so the compiler emits shared-memory loads) or global
+// scratch, the same code.
+template <bool kShared>
+__device__ __forceinline__ void compact_forward(
+    unsigned char* base, int N, const float* __restrict__ own,
+    const float* __restrict__ corr, const float* __restrict__ start,
+    const float* __restrict__ fin, const int* __restrict__ pidx,
+    const int* __restrict__ map, const int* __restrict__ pos, float* ab,
+    float* cb, float* logz, float* cavg, int L, int W, int P,
+    int* wide_level) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const Compact st(base, N, L, P);
+  for (int l = threadIdx.x; l <= L; l += blockDim.x)
+    st.off[l] = map_prefix(map[(long long)l * W]);  // l = L: the dump slot
+  if (threadIdx.x == 0) {
+    st.x[0] = kNeg;
+    st.c[0] = 0.f;
+    st.flag[0] = 0;
+  }
+  for (int i = threadIdx.x; i < N; i += blockDim.x) {
+    const long long s = pos[i];
+    const bool is_start = is_set(start[s]);
+    st.x[i + 1] = own[s];
+    st.c[i + 1] = is_start ? corr[s] + 0.f : corr[s];
+    st.flag[i + 1] = (is_start ? 1 : 0) | (is_set(fin[s]) ? 2 : 0);
+    if (is_start) continue;
+    // only earlier levels hold computed values; the slot's own level, a
+    // later one, the dump slot and out-of-range positions read id 0
+    const long long level_start = (s / W) * W;
+    const int* row = pidx + s * P;
+    int* out = st.pred + (long long)i * P;
+    for (int j = 0; j < P; ++j) {
+      const int p = row[j];
+      out[j] = (p >= 0 && p < level_start) ? map_id(map[p]) : 0;
+    }
+  }
+  __syncthreads();
+
+  // 3. the chain of levels.  A level is wide when more than 32 of its
+  // slots take a step: start slots take none (a resume lattice's
+  // collapsed level 0 holds only start slots), so they do not count.
+  for (int l = warp; l < L; l += nwarps) {
+    const int hi = st.off[l + 1];
+    int steps = 0;
+    for (int first = st.off[l] + 1; first <= hi; first += 32) {
+      const int id = first + lane;
+      steps += __popc(__ballot_sync(0xffffffffu,
+                                    id <= hi && !(st.flag[id] & 1)));
+    }
+    if (steps > 32 && lane == 0) *wide_level = 1;
+  }
+  __syncthreads();
+  const bool wide = *wide_level;
+  if (wide || warp == 0) {  // the whole block, or warp 0 alone
+    const int team = wide ? blockDim.x : 32;
+    for (int l = 0; l < L; ++l) {
+      for (int id = st.off[l] + 1 + threadIdx.x; id <= st.off[l + 1];
+           id += team)
+        forward_slot(st, id, P);
+      if (wide)
+        __syncthreads();
+      else
+        __syncwarp();
+    }
+  }
+  // the empty slots' NEG / 0 into the outputs: by the warps the chain
+  // leaves idle while warp 0 runs it, else by the block after it
+  if (wide || warp > 0) {
+    const int skip = wide ? 0 : 32;
+    for (long long s = (long long)threadIdx.x - skip; s <= (long long)L * W;
+         s += blockDim.x - skip) {
+      ab[s] = kNeg;
+      cb[s] = 0.f;
+    }
+  }
+  __syncthreads();
+
+  // 4. fold over the final slots in compact (flat level-major) order:
+  // order-free exact max, then warp 0 adds exp-sums and weighted
+  // correctness lane by lane in ascending order
+  if (warp == 0) {
+    float m = kNeg;
+    for (int id = 1 + lane; id <= N; id += 32) {
+      if (st.flag[id] & 2) {
+        const float x = st.x[id];
+        if (x > kHalfNeg) m = fmaxf(m, x);
+      }
+    }
+    for (int d = 16; d > 0; d >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, d));
+    const bool has = m > kHalfNeg;
+    const float m0 = has ? m : 0.f;
+    float z = 0.f;
+    for (int first = 1; first <= N; first += 32) {
+      const int id = first + lane;
+      float e = 0.f;
+      bool v = false;
+      if (id <= N && (st.flag[id] & 2)) {
+        const float x = st.x[id];
+        if (x > kHalfNeg) {
+          v = true;
+          e = expf(x - m0);
+        }
+      }
+      unsigned mask = __ballot_sync(0xffffffffu, v);
+      while (mask) {
+        const int j = __ffs(mask) - 1;
+        z += __shfl_sync(0xffffffffu, e, j);
+        mask &= mask - 1;
+      }
+    }
+    const float zc = fmaxf(z, kEps);
+    float c = 0.f;
+    for (int first = 1; first <= N; first += 32) {
+      const int id = first + lane;
+      float t = 0.f;
+      bool v = false;
+      if (id <= N && (st.flag[id] & 2)) {
+        const float x = st.x[id];
+        if (x > kHalfNeg) {
+          v = true;
+          t = (expf(x - m0) / zc) * st.c[id];
+        }
+      }
+      unsigned mask = __ballot_sync(0xffffffffu, v);
+      while (mask) {
+        const int j = __ffs(mask) - 1;
+        c += __shfl_sync(0xffffffffu, t, j);
+        mask &= mask - 1;
+      }
+    }
+    if (lane == 0) {
+      *logz = has ? fmaxf(logf(zc) + m0, kNeg) : kNeg;
+      *cavg = c;
+    }
+  }
+
+  // write-out: the valid slots' alpha / c_alpha over the NEG / 0
+  for (int i = threadIdx.x; i < N; i += blockDim.x) {
+    const long long s = pos[i];
+    ab[s] = st.x[i + 1];
+    cb[s] = st.c[i + 1];
+  }
+}
+
+// own/corr/start/ok/fin (B, L*W), pidx (B, L*W, P).  Scratch: map
+// (B, L*W+1) and pos (B, L*W) ints; gstate (B x gstride bytes) holds the
+// compact state of an utterance whose state exceeds smem_bytes (null when
+// the wrapper knows every utterance fits).  Out: abuf/cbuf (B, L*W+1),
+// logz/cavg (B,).
+__global__ void __launch_bounds__(512)
+dag_forward_kernel(const float* __restrict__ own,
+                   const float* __restrict__ corr,
+                   const float* __restrict__ start,
+                   const float* __restrict__ ok,
+                   const float* __restrict__ fin,
+                   const int* __restrict__ pidx, int* __restrict__ map_buf,
+                   int* __restrict__ pos_buf, unsigned char* gstate,
+                   long long gstride, float* __restrict__ abuf,
+                   float* __restrict__ cbuf, float* __restrict__ logz,
+                   float* __restrict__ cavg, int L, int W, int P,
+                   int smem_bytes) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int warp_tot[32];
+  __shared__ int wide_level;
   const long long LW = (long long)L * W;
   const long long b = blockIdx.x;
   const long long o = b * LW;
+  ok += o;
+  int* map = map_buf + b * (LW + 1);
+  int* pos = pos_buf + b * LW;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+
+  // 1. prepass: compact ids by a block-wide exclusive scan of the ok
+  // flags, chunk by chunk; warp w takes 32 * kScanItems consecutive slots
+  // of a chunk, lane-interleaved, so every load is coalesced.
+  if (threadIdx.x == 0) wide_level = 0;
+  int running = 0;
+  const long long chunk = (long long)blockDim.x * kScanItems;
+  for (long long first0 = 0; first0 < LW; first0 += chunk) {
+    const long long first = first0 + (long long)warp * 32 * kScanItems + lane;
+    bool v[kScanItems];
+#pragma unroll
+    for (int k = 0; k < kScanItems; ++k) {
+      const long long s = first + 32 * k;
+      v[k] = s < LW && is_set(ok[s]);
+    }
+    unsigned masks[kScanItems];
+    int cnt = 0;
+#pragma unroll
+    for (int k = 0; k < kScanItems; ++k) {
+      masks[k] = __ballot_sync(0xffffffffu, v[k]);
+      cnt += __popc(masks[k]);
+    }
+    if (lane == 0) warp_tot[warp] = cnt;
+    __syncthreads();
+    int pre = running, tot = 0;
+    for (int i = 0; i < nwarps; ++i) {
+      const int t = warp_tot[i];
+      pre += i < warp ? t : 0;
+      tot += t;
+    }
+    __syncthreads();  // warp_tot is rewritten by the next chunk
+#pragma unroll
+    for (int k = 0; k < kScanItems; ++k) {
+      const long long s = first + 32 * k;
+      const int q = pre + __popc(masks[k] & below);
+      if (s < LW) {
+        map[s] = v[k] ? q + 1 : ~q;
+        if (v[k]) pos[q] = (int)s;
+      }
+      pre += __popc(masks[k]);
+    }
+    running += tot;
+  }
+  const int N = running;
+  if (threadIdx.x == 0) map[LW] = ~N;  // the dump slot
+  __syncthreads();
+
+  // 2-4. the compact state in shared memory when it fits
   float* ab = abuf + b * (LW + 1);
   float* cb = cbuf + b * (LW + 1);
-  init_buffers(ab, cb, LW);
-  forward_levels(own + o, corr + o, start + o, ok + o, pidx + o * P, ab, cb,
-                 L, W, P);
-  final_reduce(fin + o, ab, cb, LW, logz + b, cavg + b);
+  if (compact_bytes(N, L, P) <= smem_bytes)
+    compact_forward<true>(smem, N, own + o, corr + o, start + o, fin + o,
+                          pidx + o * P, map, pos, ab, cb, logz + b,
+                          cavg + b, L, W, P, &wide_level);
+  else
+    compact_forward<false>(gstate + b * gstride, N, own + o, corr + o,
+                           start + o, fin + o, pidx + o * P, map, pos, ab,
+                           cb, logz + b, cavg + b, L, W, P, &wide_level);
 }
 
 __global__ void dag_backward_kernel(const float* own, const float* corr,
@@ -352,11 +653,20 @@ const char* lattice_dag_error_string(int err) {
 
 int dag_forward_launch(const float* own, const float* corr,
                        const float* start, const float* ok, const float* fin,
-                       const int* pidx, float* abuf, float* cbuf, float* logz,
-                       float* cavg, int B, int L, int W, int P, int threads,
-                       void* stream) {
-  dag_forward_kernel<<<B, threads, 0, (cudaStream_t)stream>>>(
-      own, corr, start, ok, fin, pidx, abuf, cbuf, logz, cavg, L, W, P);
+                       const int* pidx, int* map, int* pos, void* gstate,
+                       long long gstride, float* abuf, float* cbuf,
+                       float* logz, float* cavg, int B, int L, int W, int P,
+                       int threads, int smem_bytes, void* stream) {
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dag_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dag_forward_kernel<<<B, threads, smem_bytes, (cudaStream_t)stream>>>(
+      own, corr, start, ok, fin, pidx, map, pos,
+      static_cast<unsigned char*>(gstate), gstride, abuf, cbuf, logz, cavg,
+      L, W, P, smem_bytes);
   return (int)cudaGetLastError();
 }
 

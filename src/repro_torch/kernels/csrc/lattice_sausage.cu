@@ -6,9 +6,8 @@
 //   sausage_forward_kernel   <- sausage_forward   (:154, body _fwd_kernel :89)
 //   sausage_backward_kernel  <- sausage_backward  (:610, body _bwd_kernel :119)
 //   sausage_loss_only_kernel <- sausage_loss_only (:249, body
-//                               _loss_only_kernel :189; its host prologue,
-//                               the kappa-scaled centred cumsum grid, stays
-//                               in the PyTorch wrapper, as in JAX)
+//                               _loss_only_kernel :189, and the host
+//                               prologue that builds its cumsum grid)
 //
 // What bounds them on this card: the chain of S dependent segments, not
 // bytes and not arithmetic.  Segment s needs the carry (in_log, c_in) of
@@ -17,9 +16,10 @@
 // A=3) the forward kernel moves about 96 KB, a few hundredths of a
 // microsecond at 3.35 TB/s, so the kernels are latency-bound on the S
 // dependent steps.  The design keeps each step inside one warp:
-//   * one warp per utterance, four utterances per block; warps never
-//     exchange data, so an utterance's result does not depend on its
-//     batch mates;
+//   * one warp per utterance, four utterances per block (the forward and
+//     backward kernels; the loss-only kernel has a block each, below);
+//     utterances never exchange data, so an utterance's result does not
+//     depend on its batch mates;
 //   * the A alternatives of a segment sit on the lanes (chunks of 32 when
 //     A > 32); the carry lives in registers, replicated on every lane;
 //   * max and sums over the row by warp shuffle (xor butterfly: a fixed
@@ -28,8 +28,28 @@
 //   * the mask is honoured exactly as the TPU kernel does: valid = m > 0.5,
 //     the exp weight is multiplied by m, a segment with no valid arc
 //     passes the carry through, and z is clamped to EPS;
-//   * an out-of-range arc id in level_arcs is a masked slot and a gather
-//     position into the cumsum grid is clamped: no input can fault.
+//   * an out-of-range arc id in level_arcs is a masked slot: no input can
+//     fault.
+//
+// sausage_loss_only starts from the raw (B, T, K) log-probs.  The TPU
+// version builds a kappa-scaled, mean-centred cumsum grid over all T*K
+// log-probs (six passes over 38 MB at the CG batch) and then reads three
+// entries of it per arc.  Here an arc's acoustic score is its span sum,
+// kappa * sum_{t=start}^{end-1} lp[t, label]: the same number before
+// rounding, with no endpoint cancellation (the only reason for the
+// centring), read from the W*T/S log-probs the arcs cover instead of all
+// T*K.  One block per utterance:
+//   * gather: every (segment, alternative) slot loads its arc fields and
+//     sums its span in parallel, one thread a slot; a span longer than
+//     kShortSpan frames is summed by a whole warp afterwards (lane j takes
+//     frames j, j+32, ..., then an xor butterfly: a fixed order), so a
+//     T-frame arc does not serialise one lane.  Scores, correctness and
+//     mask go to shared memory (global scratch when S*W slots do not fit);
+//     none of this waits on the carry;
+//   * chain: warp 0 runs the S-segment recursion (segment_step, as the
+//     forward kernel) over the gathered rows.  Frames are clamped to
+//     [0, T], labels to [0, K), and an arc with end < start sums
+//     -sum_{end}^{start-1} (the cumsum difference), so no input can fault.
 //
 // The kernels allocate nothing and launch on the stream they are given.
 // Plain C interface (ctypes); each launcher returns cudaGetLastError().
@@ -153,33 +173,18 @@ struct NoWrite {
   __device__ void put(int, float, float) {}
 };
 
-// An (S, W) row gathered from arc layout through level_arcs, with the
-// arc scores built from the kappa-scaled centred cumsum grid.
-struct GridRow {
-  const float* cum;  // (G,) one utterance's grid row
-  long long G;
-  const int* idx;    // (3A,) [end | start | mean] positions into cum
-  const float* fcs;  // (6, A) [span, lm, corr, arc_mask, is_start, is_final]
-  const int* la;     // (W,) this segment's slots
-  int A;
-  __device__ long long pos(int p) const {
-    return p < 0 ? 0LL : ((long long)p < G ? (long long)p : G - 1);
+// An (S, W) row of the gathered slots (shared memory or global scratch).
+struct SlotRow {
+  const float* sc;
+  const float* co;
+  const float* mk;
+  __device__ void load(int w, float& s, float& c, float& m) const {
+    s = sc[w];
+    c = co[w];
+    m = mk[w];
   }
-  __device__ void load(int w, float& sc, float& co, float& m) const {
-    const int a = la[w];
-    if (a < 0 || a >= A) {
-      sc = 0.f;
-      co = 0.f;
-      m = 0.f;
-      return;
-    }
-    sc = (cum[pos(idx[a])] - cum[pos(idx[A + a])] +
-          fcs[a] * cum[pos(idx[2 * A + a])]) + fcs[A + a];
-    co = fcs[2 * A + a];
-    m = fcs[3 * A + a];
-  }
-  __device__ float weight_value(bool valid, float co, float carry_c) const {
-    return valid ? co + carry_c : 0.f;
+  __device__ float weight_value(bool valid, float c, float carry_c) const {
+    return valid ? c + carry_c : 0.f;
   }
 };
 
@@ -228,23 +233,100 @@ __global__ void sausage_backward_kernel(const float* score, const float* corr,
   }
 }
 
-__global__ void sausage_loss_only_kernel(const float* cum, long long G,
-                                         const int* idx, const float* fcs,
-                                         const int* level_arcs, float* logz,
-                                         float* cavg, int B, int A, int S,
-                                         int W) {
-  const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (b >= B) return;
-  const long long sw = (long long)S * W;
-  float in_log = 0.f, c_in = 0.f;
-  for (int s = 0; s < S; ++s) {
-    GridRow row{cum + (long long)b * G, G, idx + (long long)b * 3 * A,
-                fcs + (long long)b * 6 * A, level_arcs + b * sw + (long long)s * W,
-                A};
-    NoWrite sink;
-    segment_step(row, W, in_log, c_in, sink);
+constexpr int kShortSpan = 32;  // longer spans are summed by a warp
+
+// An arc's span [lo, hi) and sign after clamping (frames to [0, T]).
+__device__ __forceinline__ void arc_span(int start, int end, int T, int& lo,
+                                         int& hi, float& sign) {
+  const int s = min(max(start, 0), T);
+  const int e = min(max(end, 0), T);
+  lo = min(s, e);
+  hi = max(s, e);
+  sign = e < s ? -1.f : 1.f;
+}
+
+// lp (B, T, K) f32; start/end/label (B, A) int32; lm/corr (B, A) f32;
+// mask (B, A) bool (mask_is_bool) or f32; level_arcs (B, S, W) int32.
+// scratch: (B, 4, S*W) floats when the slots do not fit in shared memory,
+// else null.  Out: logz/cavg (B,).
+__global__ void sausage_loss_only_kernel(
+    const float* __restrict__ lp, const int* __restrict__ start,
+    const int* __restrict__ end, const int* __restrict__ label,
+    const float* __restrict__ lm, const float* __restrict__ corr,
+    const void* __restrict__ mask, int mask_is_bool,
+    const int* __restrict__ level_arcs, float* scratch, float* logz,
+    float* cavg, float kappa, int T, int K, int A, int S, int W) {
+  extern __shared__ __align__(16) float slots[];
+  __shared__ int n_long;
+  const long long b = blockIdx.x;
+  const int SW = S * W;
+  float* sc = scratch ? scratch + b * 4LL * SW : slots;
+  float* co = sc + SW;
+  float* mk = co + SW;
+  int* longs = reinterpret_cast<int*>(mk + SW);
+  lp += b * (long long)T * K;
+  start += b * A;
+  end += b * A;
+  label += b * A;
+  lm += b * A;
+  corr += b * A;
+  level_arcs += b * (long long)SW;
+  if (threadIdx.x == 0) n_long = 0;
+  __syncthreads();
+  // gather: arc fields and short spans, one thread a slot
+  for (int i = threadIdx.x; i < SW; i += blockDim.x) {
+    const int a = level_arcs[i];
+    float s = 0.f, c = 0.f, m = 0.f;
+    if (a >= 0 && a < A) {
+      c = corr[a];
+      m = mask_is_bool
+              ? (static_cast<const unsigned char*>(mask)[b * A + a] ? 1.f
+                                                                    : 0.f)
+              : static_cast<const float*>(mask)[b * A + a];
+      if (m > 0.5f) {  // masked arcs never reach the recursion
+        int lo, hi;
+        float sign;
+        arc_span(start[a], end[a], T, lo, hi, sign);
+        if (hi - lo > kShortSpan) {
+          longs[atomicAdd(&n_long, 1)] = i;  // summed below by a warp
+        } else {
+          const float* col = lp + min(max(label[a], 0), K - 1);
+          float acc = 0.f;
+#pragma unroll 4
+          for (int t = lo; t < hi; ++t) acc += col[(long long)t * K];
+          s = kappa * (sign * acc) + lm[a];
+        }
+      }
+    }
+    sc[i] = s;
+    co[i] = c;
+    mk[i] = m;
   }
-  if ((threadIdx.x & 31) == 0) {
+  __syncthreads();
+  // long spans: one warp each, lane j over frames lo+j, lo+j+32, ...
+  const int lane = threadIdx.x & 31;
+  for (int j = threadIdx.x >> 5; j < n_long; j += blockDim.x >> 5) {
+    const int i = longs[j];
+    const int a = level_arcs[i];
+    int lo, hi;
+    float sign;
+    arc_span(start[a], end[a], T, lo, hi, sign);
+    const float* col = lp + min(max(label[a], 0), K - 1);
+    float acc = 0.f;
+    for (int t = lo + lane; t < hi; t += 32) acc += col[(long long)t * K];
+    acc = warp_sum(acc);
+    if (lane == 0) sc[i] = kappa * (sign * acc) + lm[a];
+  }
+  __syncthreads();
+  if (threadIdx.x >= 32) return;
+  // the chain: S dependent segments over the gathered rows
+  float in_log = 0.f, c_in = 0.f;
+  NoWrite sink;
+  for (int s = 0; s < S; ++s) {
+    const long long r = (long long)s * W;
+    segment_step(SlotRow{sc + r, co + r, mk + r}, W, in_log, c_in, sink);
+  }
+  if (lane == 0) {
     logz[b] = in_log;
     cavg[b] = c_in;
   }
@@ -279,14 +361,24 @@ int sausage_backward_launch(const float* score, const float* corr,
   return (int)cudaGetLastError();
 }
 
-int sausage_loss_only_launch(const float* cum, long long G, const int* idx,
-                             const float* fcs, const int* level_arcs,
-                             float* logz, float* cavg, int B, int A, int S,
-                             int W, void* stream) {
-  sausage_loss_only_kernel<<<blocks_for(B), 32 * kWarpsPerBlock, 0,
-                             (cudaStream_t)stream>>>(cum, G, idx, fcs,
-                                                     level_arcs, logz, cavg,
-                                                     B, A, S, W);
+int sausage_loss_only_launch(const float* lp, const int* start,
+                             const int* end, const int* label,
+                             const float* lm, const float* corr,
+                             const void* mask, int mask_is_bool,
+                             const int* level_arcs, float* scratch,
+                             float* logz, float* cavg, float kappa, int B,
+                             int T, int K, int A, int S, int W, int threads,
+                             int smem_bytes, void* stream) {
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        sausage_loss_only_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  sausage_loss_only_kernel<<<B, threads, smem_bytes,
+                             (cudaStream_t)stream>>>(
+      lp, start, end, label, lm, corr, mask, mask_is_bool, level_arcs,
+      scratch, logz, cavg, kappa, T, K, A, S, W);
   return (int)cudaGetLastError();
 }
 

@@ -202,3 +202,124 @@ def test_one_nghf_update_on_the_card(cuda):
     assert K.sausage_forward.launches == K.sausage_backward.launches == 6
     assert CG.cg_fused_update.launches == 5
     assert K.sausage_loss_only.launches >= 1
+
+
+def _dag_inputs(dev, dicts):
+    spec = packing.derive_buckets(dicts, batch=len(dicts), tiers=1)[0]
+    lat, _ = packing.pack_requests(dicts, spec, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(len(dicts))
+    lp = torch.randn(len(dicts), spec.num_frames, 11, generator=gen,
+                     device=dev).log_softmax(-1)
+    fr = lattice_frontiers(lat)
+    am = arc_scores(lat, lp, KAPPA) + lat.lm
+    return (*dag_level_tensors(lat, am, fr), fr.pidx)
+
+
+# sausage cases: (frames, alternatives), and the (chain, state) branch
+# each takes
+SAUSAGE_BRANCH_CASES = {"wide_levels": (100, 40), "global_state": (1000, 40),
+                        "global_warp_chain": (1000, 20)}
+BRANCHES = {"wide_levels": ("block", "shared"),
+            "global_state": ("block", "global"),
+            "global_warp_chain": ("warp", "global"),
+            "p1": ("warp", "shared")}
+
+
+def _dag_branch_case(dev, case):
+    """dag_forward inputs for each branch of its compacted design."""
+    from repro_torch.losses.lattice import (make_random_dag_lattice,
+                                            make_sausage_lattice)
+    rng = np.random.default_rng(3)
+    if case in SAUSAGE_BRANCH_CASES:
+        frames, n_alt = SAUSAGE_BRANCH_CASES[case]
+        return _dag_inputs(dev, [make_sausage_lattice(
+            rng, num_frames=frames - 8 * b, num_states=11, n_alt=n_alt)
+            for b in range(2)])
+    own, corr, start, ok, final, pidx = _dag_inputs(dev, [
+        make_random_dag_lattice(rng, num_frames=200, num_states=11)
+        for _ in range(3)])
+    if case == "no_valid_slot":
+        ok = ok.clone()
+        ok[1] = 0.0
+    elif case == "p1":
+        pidx = pidx[..., :1].contiguous()
+    elif case == "cross_level_preds":
+        B, L, W, P = pidx.shape
+        gen = torch.Generator(device=dev).manual_seed(4)
+        pidx = torch.randint(0, L * W + 1, (B, L, W, P), generator=gen,
+                             device=dev, dtype=torch.int32)
+    return own, corr, start, ok, final, pidx
+
+
+@pytest.mark.parametrize("case", ["wide_levels", "global_state",
+                                  "global_warp_chain", "no_valid_slot",
+                                  "p1", "cross_level_preds"])
+def test_dag_forward_branches_match_plain_version(cuda, case):
+    """Each branch of the compacted design: levels wider than a warp (the
+    block-barrier chain) with the state in shared memory, and too large
+    for it (10,000 valid slots at P = 40); the warp chain on a global
+    state (5,000 slots at P = 20) and on a shared one; an utterance with
+    no valid slot, P = 1, and predecessor positions on the slot's own and
+    later levels and the dump slot; bitwise on a repeat."""
+    fwd = _dag_branch_case(cuda, case)
+    _, _, start, ok, _, pidx = fwd
+    if case in BRANCHES:
+        assert set(K.dag_forward_branches(start, ok, pidx.shape[-1])) == \
+            {BRANCHES[case]}
+    got = K.dag_forward(*fwd)
+    _close(got, R.dag_forward_ref(*fwd))
+    again = K.dag_forward(*fwd)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _span_inputs(dev, B, T, S, W, max_span, Kc=6000, seed=0):
+    """sausage_loss_only inputs with zero-length spans, spans ending at
+    frame T, label K-1, -1 slots, an empty utterance and masked arcs with
+    labels outside [0, K) (clamped for the plain version, whose gathers
+    would fault on them; a masked arc never reaches the recursion)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    A = S * W
+    start = torch.randint(0, T + 1, (B, A), generator=gen, device=dev,
+                          dtype=torch.int32)
+    span = (torch.rand(B, A, generator=gen, device=dev) ** 2
+            * (max_span + 1)).to(torch.int32)
+    end = torch.minimum(start + span, torch.full_like(start, T))
+    end[:, 1::7] = start[:, 1::7]
+    end[:, 2::7] = T
+    if max_span >= T:
+        start[:, 3::11], end[:, 3::11] = 0, T
+    label = torch.randint(0, Kc, (B, A), generator=gen, device=dev,
+                          dtype=torch.int32)
+    label[:, ::5] = Kc - 1
+    mask = torch.rand(B, A, generator=gen, device=dev) > 0.15
+    mask[B - 1] = False
+    bad = ~mask & (torch.rand(B, A, generator=gen, device=dev) > 0.5)
+    label_kernel = torch.where(bad, label + Kc, label)
+    lm = torch.randn(B, A, generator=gen, device=dev)
+    corr = (torch.rand(B, A, generator=gen, device=dev) > 0.6).float()
+    la = torch.stack([torch.randperm(A, generator=gen, device=dev)
+                      for _ in range(B)]).to(torch.int32).reshape(B, S, W)
+    la[:, ::3, W - 1] = -1
+    lp = torch.randn(B, T, Kc, generator=gen, device=dev).log_softmax(-1)
+    return ((lp, start, end, label_kernel, lm, corr, mask, la),
+            (lp, start, end, label, lm, corr, mask, la))
+
+
+@pytest.mark.parametrize("shape", [(8, 200, 50, 3, 12), (3, 1, 4, 3, 1),
+                                   (3, 1000, 6, 5, 1000)])
+def test_sausage_loss_only_adversarial_spans(cuda, shape):
+    """The kernel's direct span sums against the plain version's centred
+    cumsum: zero-length spans, arcs ending at T, label K-1, masked arcs
+    with out-of-range labels, T = 1, and T = 1000 with spans up to T (the
+    warp-summed long spans); bitwise on a repeat.  Tolerance: |d| <= 1e-3
+    + 1e-5 |ref| (chip_smoke.py's; scores reach |s| ~ 4e3 at T = 1000)."""
+    B, T, S, W, max_span = shape
+    args, ref_args = _span_inputs(cuda, B, T, S, W, max_span)
+    got = K.sausage_loss_only(*args, kappa=KAPPA)
+    want = R.sausage_loss_only_ref(*ref_args, kappa=KAPPA)
+    again = K.sausage_loss_only(*args, kappa=KAPPA)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.all((g - w).abs() <= 1e-3 + 1e-5 * w.abs())
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
