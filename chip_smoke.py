@@ -21,13 +21,14 @@ Phases:
   2. each kernel against its plain version (``kernels/ref.py``) on the
      card: the DAG kernels on the five adversarial corpus cases, full-size
      B=8 random-DAG and sausage buckets and a streaming session's bucket
-     (W = A); ``dag_forward`` also on each of its compacted design's four
-     branches (the warp or the block-barrier chain, with its compact
-     state in shared or global memory: each case logs the branch it
-     took), an utterance with no valid slot, P = 1, predecessors on the
-     slot's own and later levels, and bitwise on a repeat; the sausage
-     kernels at the training shapes (B=32 and B=8, S=50, A=3) with padded,
-     fully masked and A=40 cases; ``sausage_loss_only`` also on
+     (W = A), each bitwise on a repeat; all three also on each of the
+     compacted design's four branches (the warp or the block-barrier
+     chain, with the compact state in shared or global memory: each case
+     logs the branch each kernel took, and every kernel must take all
+     four), an utterance with no valid slot, rows of one entry, and
+     neighbour rows into the slot's own, earlier and later levels; the
+     sausage kernels at the training shapes (B=32 and B=8, S=50, A=3)
+     with padded, fully masked and A=40 cases; ``sausage_loss_only`` also on
      adversarial spans (zero-length, ending at T, label K-1, masked arcs
      with out-of-range labels, T = 1, T = 1000 with spans up to T, 16,000
      slots), and bitwise on a repeat; the fused CG
@@ -41,7 +42,7 @@ Phases:
   3. the service (``RescoringService.run``) over a Poisson mix of 48
      requests — every request ``ok``, results equal to the plain
      levelized path on the card, batch-mix independence bitwise, and
-     ``dag_loss_only`` launched on the way;
+     ``dag_loss_only`` launched exactly once per dispatch;
   4. streaming: checkpoint half the levels of a T=1000 lattice, resume,
      bit-exact against from-scratch, ``dag_forward`` launched once per
      dispatch and ``dag_backward`` not (the session runs the forward
@@ -63,8 +64,9 @@ Phases:
      general-DAG lattices runs the DAG kernels under training;
   6. times: each kernel against its plain version at its path's shapes
      (outputs compared, then timed with CUDA events), the bound from the
-     bytes or operations it must do (``dag_forward`` at all three DAG
-     shapes with its time a level; ``dag_forward`` and
+     bytes or operations it must do (the DAG kernels at all four DAG
+     shapes, the service's, the session's and the DAG training's gradient
+     and CG batches, with their time a level; the DAG kernels and
      ``sausage_loss_only`` also alone, one launch behind a busy stream),
      one ``{"kernels": [...]}`` line
      (``swa_attention``'s row is timed after phase 7, on a freed card,
@@ -119,11 +121,10 @@ N_REQUESTS = 48
 BATCH = 8
 # Kernel vs plain version: |kernel - plain| <= ATOL + RTOL * |plain|.  Both
 # are f32; they sum in different orders (sequential per slot in the
-# kernel, PyTorch's reductions in the plain version); the fused DAG kernel
-# scales the cumsum grid by kappa before the endpoint difference, and the
-# fused sausage kernel sums each span directly where the plain version
-# takes a centred cumsum difference.  Scores reach |alpha| ~ 5e3 at
-# T=1000, where one f32 ulp is 4.9e-4.
+# kernel, PyTorch's reductions in the plain version), and the two fused
+# loss-only kernels sum each span directly where the plain version takes
+# a centred cumsum difference.  Scores reach |alpha| ~ 5e3 at T=1000,
+# where one f32 ulp is 4.9e-4.
 ATOL, RTOL = 1e-3, 1e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak rate
 F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
@@ -301,55 +302,67 @@ def loss_only_inputs(lat, lp, fr):
             fr.pidx)
 
 
-def check_kernels(lat, lp, errs: dict, rel_errs: dict, tag: str) -> list:
-    """The three DAG kernels against their plain versions; returns the
-    branches ``dag_forward``'s kernel took (``check_dag_forward``)."""
+def check_dag(name: str, args, branch, errs: dict, rel_errs: dict,
+              tag: str) -> list:
+    """DAG kernel ``name`` against its plain version, and bitwise on a
+    repeat; returns the sorted distinct (chain, state) branches its kernel
+    took over the utterances (``lattice_fb.dag_branches`` on ``branch``:
+    the skip flags, ok flags and row width)."""
     from repro_torch.kernels import lattice_fb as K
     from repro_torch.kernels import ref as R
-    fwd, bwd, fr = level_inputs(lat, lp)
-    branches = check_dag_forward(fwd, errs, rel_errs, tag)
-    compare(f"dag_backward[{tag}]", K.dag_backward(*bwd),
-            R.dag_backward_ref(*bwd), errs, rel_errs)
-    lo = loss_only_inputs(lat, lp, fr)
-    compare(f"dag_loss_only[{tag}]", K.dag_loss_only(*lo, kappa=KAPPA),
-            R.dag_loss_only_ref(*lo, kappa=KAPPA), errs, rel_errs)
+    kw = {"kappa": KAPPA} if name == "dag_loss_only" else {}
+    kern, plain = getattr(K, name), getattr(R, f"{name}_ref")
+    got = kern(*args, **kw)
+    compare(f"{name}[{tag}]", got, plain(*args, **kw), errs, rel_errs)
+    again = kern(*args, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{name}[{tag}]: two launches gave other bits")
+    return sorted(set(K.dag_branches(name, *branch)))
+
+
+def check_dags(fwd, bwd, lo, errs: dict, rel_errs: dict, tag: str) -> dict:
+    """The three DAG kernels (``check_dag``); {kernel: branches}.  The
+    loss-only kernel's slots are the frontiers' ok / start flags."""
+    branches = {
+        "dag_forward": check_dag("dag_forward", fwd,
+                                 (fwd[2], fwd[3], fwd[5].shape[-1]), errs,
+                                 rel_errs, tag),
+        "dag_backward": check_dag("dag_backward", bwd,
+                                  (bwd[2], bwd[3], bwd[4].shape[-1]), errs,
+                                  rel_errs, tag),
+        "dag_loss_only": check_dag("dag_loss_only", lo,
+                                   (fwd[2], fwd[3], lo[-1].shape[-1]), errs,
+                                   rel_errs, tag)}
     torch.cuda.synchronize()
     return branches
 
 
-def check_dag_forward(fwd, errs: dict, rel_errs: dict, tag: str) -> list:
-    """dag_forward against its plain version, and bitwise on a repeat;
-    returns the sorted distinct (chain, state) branches its kernel took
-    over the utterances (``lattice_fb.dag_forward_branches``)."""
-    from repro_torch.kernels import lattice_fb as K
-    from repro_torch.kernels import ref as R
-    got = K.dag_forward(*fwd)
-    compare(f"dag_forward[{tag}]", got, R.dag_forward_ref(*fwd), errs,
-            rel_errs)
-    again = K.dag_forward(*fwd)
-    check(all(torch.equal(a, b) for a, b in zip(got, again)),
-          f"dag_forward[{tag}]: two launches gave other bits")
-    return sorted(set(K.dag_forward_branches(fwd[2], fwd[3],
-                                             fwd[5].shape[-1])))
+def check_kernels(lat, lp, errs: dict, rel_errs: dict, tag: str) -> dict:
+    """The three DAG kernels on ``lat`` as the CUDA backend feeds them."""
+    fwd, bwd, fr = level_inputs(lat, lp)
+    return check_dags(fwd, bwd, loss_only_inputs(lat, lp, fr), errs,
+                      rel_errs, tag)
 
 
-# the branch (chain, compact state) each case is built to take
+# the branch (chain, compact state) each case is built to take, the same
+# for all three DAG kernels
 DAG_BRANCH_CASES = {"wide_a40_t100": ("block", "shared"),
                     "global_a40_t1000": ("block", "global"),
                     "global_a20_t1000": ("warp", "global"),
                     "p1": ("warp", "shared")}
 
 
-def dag_forward_cases(dev, rng, gen) -> dict:
-    """tag -> dag_forward inputs for the branches of its compacted design:
-    sausages of 40 alternatives (levels of 40 slots: the block-barrier
-    chain) at T = 100 (state in shared memory) and T = 1000 (10,000 valid
-    slots at P = 40: the global-memory state), sausages of 20
-    alternatives at T = 1000 (the warp chain on a global-memory state of
-    about 5,000 slots at P = 20), an utterance with no valid slot, P = 1,
-    and random predecessor positions that reach the slot's own level,
-    later levels and the dump slot (the plain version reads NEG / 0
-    there)."""
+def dag_branch_cases(dev, rng, gen) -> dict:
+    """tag -> (dag_forward, dag_backward, dag_loss_only inputs) for the
+    branches of the compacted design: sausages of 40 alternatives (levels
+    of 40 slots: the block-barrier chain) at T = 100 (state in shared
+    memory) and T = 1000 (10,000 valid slots at P = S = 40: the
+    global-memory state), sausages of 20 alternatives at T = 1000 (the
+    warp chain on a global-memory state of about 5,000 slots at 20 a
+    row), an utterance with no valid slot, rows of one entry, and random
+    neighbour positions that reach the slot's own level, earlier and
+    later levels and the dump slot (the plain versions read NEG / 0 where
+    a level is not computed yet)."""
     from repro_torch.losses.lattice import (make_random_dag_lattice,
                                             make_sausage_lattice)
     from repro_torch.serving import packing
@@ -364,7 +377,8 @@ def dag_forward_cases(dev, rng, gen) -> dict:
         lat, _ = packing.pack_requests(dicts, spec, device=dev)
         lp = torch.stack([log_probs(gen, spec.num_frames, dev)
                           for _ in range(2)])
-        cases[tag] = level_inputs(lat, lp)[0]
+        fwd, bwd, fr = level_inputs(lat, lp)
+        cases[tag] = (fwd, bwd, loss_only_inputs(lat, lp, fr))
     dicts = [make_random_dag_lattice(rng, num_frames=300,
                                      num_states=NUM_STATES)
              for _ in range(4)]
@@ -372,16 +386,28 @@ def dag_forward_cases(dev, rng, gen) -> dict:
     lat, _ = packing.pack_requests(dicts, spec, device=dev)
     lp = torch.stack([log_probs(gen, spec.num_frames, dev)
                       for _ in range(4)])
-    own, corr, start, ok, final, pidx = level_inputs(lat, lp)[0]
+    fwd, bwd, fr = level_inputs(lat, lp)
+    own, corr, start, ok, final, pidx = fwd
+    sidx = bwd[4]
+    lo = loss_only_inputs(lat, lp, fr)
     empty = ok.clone()
     empty[1] = 0.0
-    cases["no_valid_slot"] = (own, corr, start, empty, final, pidx)
-    cases["p1"] = (own, corr, start, ok, final,
-                   pidx[..., :1].contiguous())
+    mask = lat.arc_mask.clone()
+    mask[1] = False
+    cases["no_valid_slot"] = ((own, corr, start, empty, final, pidx),
+                              (own, corr, final, empty, sidx),
+                              lo[:6] + (mask,) + lo[7:])
+    p1, s1 = pidx[..., :1].contiguous(), sidx[..., :1].contiguous()
+    cases["p1"] = ((own, corr, start, ok, final, p1),
+                   (own, corr, final, ok, s1), lo[:-1] + (p1,))
     B, L, W, P = pidx.shape
     wild = torch.randint(0, L * W + 1, (B, L, W, P), generator=gen,
                          device=dev, dtype=torch.int32)
-    cases["cross_level_preds"] = (own, corr, start, ok, final, wild)
+    wild_s = torch.randint(0, L * W + 1, tuple(sidx.shape), generator=gen,
+                           device=dev, dtype=torch.int32)
+    cases["cross_level_rows"] = ((own, corr, start, ok, final, wild),
+                                 (own, corr, final, ok, wild_s),
+                                 lo[:-1] + (wild,))
     return cases
 
 
@@ -456,17 +482,33 @@ def backward_work(bwd) -> tuple:
 
 
 def loss_only_work(lat, lp, fr) -> tuple:
-    """The whole function from log-probs: every log-prob read once (the
-    cumsum needs all of them), the arc fields, level_arcs, the predecessor
-    rows of valid non-start slots; two (B,) outputs."""
+    """(bytes, flops) the function must move / do on these inputs, then
+    the same for the cumsum-grid design it replaced.  Now: the log-probs
+    under the valid arcs' spans, the mask of every arc a slot names,
+    start/end/label/lm/corr and the start/final flags of the valid ones,
+    level_arcs, the predecessor rows of valid non-start slots, two (B,)
+    outputs; an add per frame, the recursion's operations per row entry
+    and per slot.  The grid design read every log-prob (its cumsum needs
+    all of them) and every arc's fields."""
     B, A = lat.start_t.shape
-    okb = fr.ok
-    n_ok = int(okb.sum())
-    n_rec = int((okb & ~fr.start).sum())
+    T = lp.shape[1]
+    ids = lat.level_arcs.long().flatten(1)
+    named = (ids >= 0) & (ids < A)
+    safe = ids.clamp(0, max(A - 1, 0))
+    valid = named & (lat.arc_mask.float().gather(1, safe) > 0.5)
+    span = (lat.end_t.clamp(0, T) - lat.start_t.clamp(0, T)).abs().gather(
+        1, safe)
+    frames = int((span * valid).sum())
+    n_ok = int(valid.sum())
+    n_rec = int((fr.ok & ~fr.start).sum())
     P = fr.pidx.shape[-1]
-    byt = (4 * lp.numel() + B * A * (4 * 5 + 3)
-           + 4 * lat.level_arcs.numel() + 4 * P * n_rec + 8 * B)
-    return byt, 4 * lp.numel() + 8 * P * n_rec + 10 * n_ok
+    rows = 4 * lat.level_arcs.numel() + 4 * P * n_rec + 8 * B
+    byt = (4 * frames + lat.arc_mask.element_size() * int(named.sum())
+           + (20 + lat.is_start.element_size()
+              + lat.is_final.element_size()) * n_ok + rows)
+    flops = frames + 8 * P * n_rec + 10 * n_ok
+    grid_byt = 4 * lp.numel() + B * A * (4 * 5 + 3) + rows
+    return byt, flops, grid_byt, 4 * lp.numel() + 8 * P * n_rec + 10 * n_ok
 
 
 def phase_kernels(dev, errs: dict) -> None:
@@ -494,29 +536,31 @@ def phase_kernels(dev, errs: dict) -> None:
         lp = torch.stack([log_probs(gen, spec.num_frames, dev)
                           for _ in range(BATCH)])
         branches = check_kernels(lat, lp, errs, rel_errs, tag)
-        log(f"kernels == plain at {tag}: bucket {tuple(spec)}, "
-            f"dag_forward branches {branches}")
+        log(f"kernels == plain, and bitwise on a repeat, at {tag}: bucket "
+            f"{tuple(spec)}, branches {branches}")
     d = make_random_dag_lattice(rng, num_frames=1000, num_states=NUM_STATES)
     spec = session_bucket(d)
     lat, _ = packing.pack_requests([d], spec, device=dev)
     branches = check_kernels(lat, log_probs(gen, spec.num_frames, dev)[None],
                              errs, rel_errs, "stream_bucket")
     log(f"kernels == plain at the streaming bucket {tuple(spec)} "
-        f"(W = A), dag_forward branches {branches}")
-    seen = set()
-    for tag, fwd in dag_forward_cases(dev, rng, gen).items():
-        branches = check_dag_forward(fwd, errs, rel_errs, tag)
-        seen.update(branches)
-        log(f"dag_forward == plain, and bitwise on a repeat, at {tag}: "
-            f"(B, L, W, P) {tuple(fwd[5].shape)}, widest level "
-            f"{int((fwd[3] > 0.5).sum(-1).max())} valid slots, branches "
-            f"{branches}")
+        f"(W = A), branches {branches}")
+    seen: dict = {}
+    for tag, (fwd, bwd, lo) in dag_branch_cases(dev, rng, gen).items():
+        branches = check_dags(fwd, bwd, lo, errs, rel_errs, tag)
+        log(f"DAG kernels == plain, and bitwise on a repeat, at {tag}: "
+            f"(B, L, W, P) {tuple(fwd[5].shape)}, S {bwd[4].shape[-1]}, "
+            f"widest level {int((fwd[3] > 0.5).sum(-1).max())} valid "
+            f"slots, branches {branches}")
         want = DAG_BRANCH_CASES.get(tag)
-        check(want is None or branches == [want],
-              f"{tag}: dag_forward took {branches}, not {want}")
-    check(seen >= set(DAG_BRANCH_CASES.values()),
-          f"dag_forward's branches {sorted(seen)} miss one of "
-          f"{sorted(DAG_BRANCH_CASES.values())}")
+        for name, got in branches.items():
+            seen.setdefault(name, set()).update(got)
+            check(want is None or got == [want],
+                  f"{tag}: {name} took {got}, not {want}")
+    for name, got in seen.items():
+        check(got >= set(DAG_BRANCH_CASES.values()),
+              f"{name}'s branches {sorted(got)} miss one of "
+              f"{sorted(DAG_BRANCH_CASES.values())}")
     torch.cuda.synchronize()
     log(f"every case within |kernel - plain| <= {ATOL} + {RTOL}|plain|; "
         f"max abs / max rel diff by case: "
@@ -543,10 +587,11 @@ def phase_service(dev) -> dict:
           f"service: statuses {[r.status for r in reqs]}")
     check(all(c == 1 for c in svc.traces.values()),
           f"service: a bucket dispatched several shapes {svc.traces}")
-    check(launches > 0, "service: dag_loss_only was never launched")
+    n_dispatch = metrics["dispatches"] + len(buckets)     # + warm-up
+    check(launches == n_dispatch, f"service: dag_loss_only launched "
+          f"{launches} times in {n_dispatch} dispatches, not once each")
     check(K.dag_forward.launches == 0 and K.dag_backward.launches == 0,
           "service: the loss-only path launched the full-statistics kernels")
-    n_dispatch = metrics["dispatches"] + len(buckets)     # + warm-up
     log(f"service on the card: {metrics['completed']}/{len(reqs)} ok, "
         f"{metrics['requests_per_s']:.2f} req/s, "
         f"p50 {metrics['latency_p50_s'] * 1e3:.3f} ms, "
@@ -674,7 +719,8 @@ def phase_streaming(dev, errs: dict) -> dict:
               f"lattice {a.tolist()} != from scratch {b.tolist()}")
     log(f"kernels == plain on the resume lattice (max |d| forward "
         f"{errs['dag_forward[stream_resume]']:.3g}, backward "
-        f"{errs['dag_backward[stream_resume]']:.3g}; dag_forward branches "
+        f"{errs['dag_backward[stream_resume]']:.3g}, loss-only "
+        f"{errs['dag_loss_only[stream_resume]']:.3g}; branches "
         f"{resume_branches}); dag_forward's own "
         f"final fold bit-exact resume vs scratch (logZ "
         f"{float(folds[0].logZ[0])!r}, c_avg {float(folds[0].c_avg[0])!r})")
@@ -742,22 +788,24 @@ def session_dispatch_split(sess, d, lp, dev) -> dict:
 
 def dag_times(service: dict, stream: dict, training: dict,
               errs: dict) -> list:
-    """The DAG kernels timed at the shape of the path each entry's
-    launches come from: ``dag_loss_only`` at the service bucket,
-    ``dag_forward`` at the streaming session's, ``dag_backward`` (no longer
-    on the session's path) at the general-DAG training batch's."""
+    """The DAG kernels timed at every DAG path's shape: the service
+    bucket, the streaming session's, the general-DAG training batch's and
+    its CG batch's; each entry's main shape is that of the path its
+    launches come from: ``dag_loss_only`` the service, ``dag_forward`` the
+    session, ``dag_backward`` (no longer on the session's path) the
+    training batch.  Each kernel also alone (``kernel_alone_ms``)."""
     from repro_torch.kernels import lattice_fb as K
     from repro_torch.kernels import ref as R
     rows = []
     rel_errs: dict = {}
     shapes = {"service": service, "session": stream,
-              "dag_train": training["dag"]}
+              "dag_train": training["dag"], "dag_cg": training["dag_cg"]}
     for where in shapes:
         sh = shapes[where]
         lat, lp = sh["lat"], sh["lp"]
         fwd, bwd, fr = level_inputs(lat, lp)
         lo = loss_only_inputs(lat, lp, fr)
-        pro = K.loss_only_prologue(*lo[:9], KAPPA)
+        lo_work = loss_only_work(lat, lp, fr)
         timed = {
             "dag_forward": (lambda: K.dag_forward(*fwd),
                             lambda: R.dag_forward_ref(*fwd),
@@ -767,7 +815,7 @@ def dag_times(service: dict, stream: dict, training: dict,
                              backward_work(bwd)),
             "dag_loss_only": (lambda: K.dag_loss_only(*lo, kappa=KAPPA),
                               lambda: R.dag_loss_only_ref(*lo, kappa=KAPPA),
-                              loss_only_work(lat, lp, fr)),
+                              lo_work[:2]),
         }
         for name, (kern, plain, (byt, flops)) in timed.items():
             compare(f"{name}[{where}]", kern(), plain(), errs, rel_errs)
@@ -777,23 +825,18 @@ def dag_times(service: dict, stream: dict, training: dict,
             row = {"name": name, "shape": where,
                    "B_L_W": list(lat.level_arcs.shape),
                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                   "bound_by": b_by, "bytes": byt}
-            if name == "dag_forward":
-                row["kernel_alone_ms"] = kernel_alone_ms(kern)
-            if name == "dag_loss_only":
-                row["prologue_ms"] = cuda_time_ms(
-                    lambda: K.loss_only_prologue(*lo[:9], KAPPA), 20)
-                row["kernel_only_ms"] = cuda_time_ms(
-                    lambda: K.dag_loss_only_from_grid(*pro, lat.level_arcs,
-                                                      fr.pidx), 20)
+                   "bound_by": b_by, "bytes": byt,
+                   "kernel_alone_ms": kernel_alone_ms(kern)}
             rows.append(row)
-            if name == "dag_forward":    # derived: for the log only
-                row["ms_per_level"] = ms / lat.level_arcs.shape[1]
+            row["ms_per_level"] = ms / lat.level_arcs.shape[1]  # log only
             log(f"{name} == plain at the {where} shape {row['B_L_W']} "
                 f"(max |d| {errs[f'{name}[{where}]']:.3g}, max rel "
                 f"{rel_errs[f'{name}[{where}]']:.3g}); time: "
                 + ", ".join(f"{k} {v:.6g}" for k, v in row.items()
                             if isinstance(v, float)))
+        log(f"dag_loss_only bound of the old cumsum-grid design at the "
+            f"{where} shape (every log-prob read; for comparison only): "
+            f"{bound(*lo_work[2:])[0]:.6g} ms")
     main = {"dag_loss_only": "service", "dag_forward": "session",
             "dag_backward": "dag_train"}
     launches = {"dag_loss_only": (service["launches"],
@@ -817,19 +860,16 @@ def dag_times(service: dict, stream: dict, training: dict,
                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                  "bound_by": row["bound_by"], "library_ms": None,
                  "launches_per": per, "per": per_what,
-                 "shape": f"{main[name]} B,L,W={row['B_L_W']}"}
-        for extra in ("prologue_ms", "kernel_only_ms", "kernel_alone_ms"):
-            if extra in row:
-                entry[extra] = row[extra]
-        if name == "dag_forward":    # its other paths' shapes too
-            for r in rows:
-                if r["name"] == name and r["shape"] != main[name]:
-                    entry[f"ms_{r['shape']}"] = r["ms"]
-            log("dag_forward by shape: " + ", ".join(
-                f"{r['shape']} {r['B_L_W']} {r['ms']:.6g} ms "
-                f"({r['ms_per_level']:.6g} ms a level, alone "
-                f"{r['kernel_alone_ms']:.6g})"
-                for r in rows if r["name"] == name))
+                 "shape": f"{main[name]} B,L,W={row['B_L_W']}",
+                 "kernel_alone_ms": row["kernel_alone_ms"]}
+        for r in rows:             # its other paths' shapes too
+            if r["name"] == name and r["shape"] != main[name]:
+                entry[f"ms_{r['shape']}"] = r["ms"]
+        log(f"{name} by shape: " + ", ".join(
+            f"{r['shape']} {r['B_L_W']} {r['ms']:.6g} ms "
+            f"({r['ms_per_level']:.6g} ms a level, alone "
+            f"{r['kernel_alone_ms']:.6g})"
+            for r in rows if r["name"] == name))
         out.append(entry)
     return out
 
@@ -1237,13 +1277,15 @@ def phase_training(dev) -> dict:
         f"launches {dag_launches}")
     compare_paths("DAG update", acfg, params0, dgb, dcb, counts)
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
-    lat = dgb["lattice"]
+
+    def shape(lat):
+        return {"lat": lat, "lp": torch.randn(
+            lat.start_t.shape[0], 100, NUM_STATES, generator=gen,
+            device=dev).log_softmax(-1)}
     return {"logs": logs, "launches": launches, "gb": gb, "cb": cb,
             "device": dev,
-            "dag": {"launches": dag_launches, "lat": lat,
-                    "lp": torch.randn(lat.start_t.shape[0], 100, NUM_STATES,
-                                      generator=gen,
-                                      device=dev).log_softmax(-1)}}
+            "dag": {"launches": dag_launches, **shape(dgb["lattice"])},
+            "dag_cg": shape(dcb["lattice"])}
 
 
 def sausage_work(tiles, backward: bool) -> tuple:
@@ -1791,7 +1833,7 @@ def main() -> int:
     build.build_all()
     log(f"kernels built in {time.perf_counter() - t0:.2f} s")
     for line in build.build_log("lattice_dag").splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("registers", "spill", "entry function")):
             log(f"ptxas: {line.strip()}")
     for stem in ("lattice_sausage", "cg_fused", "swa_attention",
                  "swa_attention_sm90"):

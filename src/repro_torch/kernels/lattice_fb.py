@@ -4,13 +4,16 @@
 Port of ``repro.kernels.lattice_fb``: the general-DAG ``dag_forward``,
 ``dag_backward`` and fused ``dag_loss_only``, and the sausage
 ``sausage_forward``, ``sausage_backward`` and fused
-``sausage_loss_only`` (which, on the card, reads the raw log-probs: no
-cumsum grid).  Each wrapper checks shapes; for tensors on the
-CPU it returns its plain version from ``kernels.ref``; for tensors on a
-CUDA device it checks dtype and contiguity, allocates outputs and
-scratch, launches its kernel on the current stream and raises if the
-launch was refused.  There is no fallback from the kernel to the plain
-version.
+``sausage_loss_only``.  The two loss-only kernels read the raw (B, T, K)
+log-probs on the card (span sums: no cumsum grid).  The three DAG
+kernels share one compacted recursion over the valid slots (its state in
+shared memory, or global scratch when it does not fit:
+``dag_*_plan``, ``dag_branches``).  Each wrapper checks shapes; for
+tensors on the CPU it returns its plain version from ``kernels.ref``;
+for tensors on a CUDA device it checks dtype and contiguity, allocates
+outputs and scratch, launches its kernel on the current stream and
+raises if the launch was refused.  There is no fallback from the kernel
+to the plain version.
 
 Each wrapper keeps a plain integer ``launches`` (``dag_forward.launches``
 ...), raised by one at each kernel launch and nowhere else, so a run can
@@ -39,12 +42,15 @@ _SIGNATURES = {
         # abuf cbuf logz cavg | B L W P threads smem_bytes
         "dag_forward_launch": [_PTR] * 9 + [_LL] + [_PTR] * 4 + [_INT] * 6
         + [_PTR],
-        # own corr final ok sidx bbuf cbbuf | B L W S threads
-        "dag_backward_launch": [_PTR] * 7 + [_INT] * 5 + [_PTR],
-        # cum G | idx fcs level_arcs pidx lv abuf cbuf logz cavg |
-        # B A L W P threads
-        "dag_loss_only_launch": [_PTR, _LL] + [_PTR] * 9 + [_INT] * 6
+        # own corr final ok sidx map pos gstate | gstride | bbuf cbbuf |
+        # B L W S threads smem_bytes
+        "dag_backward_launch": [_PTR] * 8 + [_LL] + [_PTR] * 2 + [_INT] * 6
         + [_PTR],
+        # lp start end label lm corr mask is_start is_final | bool_flags |
+        # level_arcs pidx map pos gstate | gstride | logz cavg | kappa |
+        # B T K A L W P threads smem_bytes
+        "dag_loss_only_launch": [_PTR] * 9 + [_INT] + [_PTR] * 5 + [_LL]
+        + [_PTR] * 2 + [ctypes.c_float] + [_INT] * 9 + [_PTR],
     },
     "lattice_sausage": {
         # score corr mask alpha c_alpha logz cavg | B S A
@@ -67,8 +73,12 @@ def _launch(fn: str, device: torch.device, *args) -> None:
     launch("lattice_dag", fn, device, *args)
 
 
-def _threads(width: int) -> int:
-    return min(MAX_THREADS, max(32, -(-width // 32) * 32))
+def _f32(t):
+    return t.to(torch.float32).contiguous()
+
+
+def _i32(t):
+    return t.to(torch.int32).contiguous()
 
 
 def _on_cuda(name: str, *tensors) -> bool:
@@ -98,45 +108,87 @@ def _check_kernel_input(name: str, arg: str, t, dtype) -> None:
 
 
 def dag_forward_state_bytes(n_valid: int, L: int, P: int) -> int:
-    """Bytes of ``dag_forward``'s compact state for an utterance with
-    ``n_valid`` valid slots over L levels with P predecessors a slot:
-    alpha, c_alpha and flags for ids 0..n_valid (9 bytes each), the L+1
-    level offsets and the translated predecessor rows (``csrc/
-    lattice_dag.cu::compact_bytes``)."""
+    """Bytes of the compact state of ``dag_forward`` and ``dag_loss_only``
+    for an utterance with ``n_valid`` valid slots over L levels with P
+    predecessors a slot: alpha, c_alpha and flags for ids 0..n_valid (9
+    bytes each), the L+1 level offsets and the translated predecessor rows
+    (``csrc/lattice_dag.cu::compact_bytes``)."""
     return 9 * (n_valid + 1) + 4 * (L + 1) + 4 * n_valid * P
 
 
-def dag_forward_plan(L: int, W: int, P: int) -> tuple:
-    """(threads, dynamic shared bytes, global state bytes an utterance)
-    of a ``dag_forward`` launch.  Shared memory covers the state of an
-    all-valid bucket where that fits, else ``SMEM_MAX``; the kernel then
-    counts the valid slots and moves a state that does not fit to the
-    global scratch (0 when no utterance can need it)."""
-    LW = L * W
-    threads = min(512, max(128, -(-LW // (32 * SCAN_ITEMS)) * 32))
-    worst = dag_forward_state_bytes(LW, L, P)
+def dag_backward_state_bytes(n_valid: int, L: int, S: int) -> int:
+    """Bytes of ``dag_backward``'s compact state: beta, c_beta, own, corr
+    and flags for ids 0..n_valid (17 bytes each), the L+1 level offsets
+    and the translated successor rows (``compact_bytes``)."""
+    return 17 * (n_valid + 1) + 4 * (L + 1) + 4 * n_valid * S
+
+
+def _plan(LW: int, worst: int) -> tuple:
+    threads = min(MAX_THREADS, max(128, -(-LW // (32 * SCAN_ITEMS)) * 32))
     if worst <= SMEM_MAX:
         return threads, worst, 0
     return threads, SMEM_MAX, -(-worst // 16) * 16
 
 
-def dag_forward_branches(start, ok, P: int) -> list:
-    """Per utterance of (B, L, W) ``start``/``ok`` flags, the branches
-    ``dag_forward``'s kernel takes after its prepass, as
-    ("warp" | "block", "shared" | "global"): the chain runs on warp 0
-    unless a level has more than 32 valid slots that are not start slots,
-    and the compact state lives in shared memory when
-    ``dag_forward_state_bytes`` of the valid slots is at most SMEM_MAX.
-    The kernel decides both on the card; this repeats its rule on the
-    host (for logs and tests)."""
+def dag_forward_plan(L: int, W: int, P: int) -> tuple:
+    """(threads, dynamic shared bytes, global state bytes an utterance)
+    of a ``dag_forward`` or ``dag_loss_only`` launch (the same compact
+    state).  Shared memory covers the state of an all-valid bucket where
+    that fits, else ``SMEM_MAX``; the kernel then counts the valid slots
+    and moves a state that does not fit to the global scratch (0 when no
+    utterance can need it)."""
+    return _plan(L * W, dag_forward_state_bytes(L * W, L, P))
+
+
+def dag_backward_plan(L: int, W: int, S: int) -> tuple:
+    """As :func:`dag_forward_plan`, for ``dag_backward``'s state."""
+    return _plan(L * W, dag_backward_state_bytes(L * W, L, S))
+
+
+_STATE_BYTES = {"dag_forward": dag_forward_state_bytes,
+                "dag_loss_only": dag_forward_state_bytes,
+                "dag_backward": dag_backward_state_bytes}
+
+
+def dag_branches(kernel: str, skip, ok, R: int) -> list:
+    """Per utterance of (B, L, W) ``skip``/``ok`` flags, the branches the
+    DAG kernel ``kernel`` ("dag_forward", "dag_loss_only" or
+    "dag_backward") takes after its prepass, as ("warp" | "block",
+    "shared" | "global").  ``skip`` marks the valid slots that take no
+    step: start slots for the two forward kernels, final slots for the
+    backward; R is the row width (P or S).  The chain runs on warp 0
+    unless a level has more than 32 valid slots that take a step, and the
+    compact state lives in shared memory when its bytes for the valid
+    slots are at most SMEM_MAX.  The kernel decides both on the card;
+    this repeats its rule on the host (for logs and tests)."""
+    state_bytes = _STATE_BYTES[kernel]
     B, L = ok.shape[0], ok.shape[1]
     valid = ok > 0.5
-    steps = (valid & ~(start > 0.5)).sum(-1)
+    steps = (valid & ~(skip > 0.5)).sum(-1)
     widest = steps.amax(-1).tolist() if L else [0] * B
     n_valid = valid.flatten(1).sum(1).tolist()
     return [("block" if w > 32 else "warp",
-             "shared" if dag_forward_state_bytes(n, L, P) <= SMEM_MAX
-             else "global") for w, n in zip(widest, n_valid)]
+             "shared" if state_bytes(n, L, R) <= SMEM_MAX else "global")
+            for w, n in zip(widest, n_valid)]
+
+
+def _scratch(B: int, LW: int, gstride: int, dev) -> tuple:
+    """The compacted kernels' int32 scratch: the position -> id map
+    (B, LW+1), the valid positions (B, LW) and, when one may be needed,
+    the global compact state (B x gstride bytes).  Returns (tensor, map
+    pointer, pos pointer, state pointer or None); the caller keeps the
+    tensor until its launch is queued."""
+    scratch = torch.empty(B * (2 * LW + 1) + B * gstride // 4,
+                          dtype=torch.int32, device=dev)
+    idx = scratch.data_ptr()
+    pos = idx + 4 * B * (LW + 1)
+    return scratch, idx, pos, (pos + 4 * B * LW if gstride else None)
+
+
+def _check_ids(name: str, LW: int) -> None:
+    if LW + 1 >= 2 ** 31:
+        raise ValueError(f"{name}: L*W = {LW} slots overflow the kernel's "
+                         f"int32 compact ids")
 
 
 def dag_forward(own, corr, start, ok, final, pidx):
@@ -166,24 +218,18 @@ def dag_forward(own, corr, start, ok, final, pidx):
         _check_kernel_input(name, arg, t, torch.float32)
     _check_kernel_input(name, "pidx", pidx, torch.int32)
     P, LW, dev = pidx.shape[-1], L * W, own.device
-    if LW + 1 >= 2 ** 31:
-        raise ValueError(f"{name}: L*W = {LW} slots overflow the kernel's "
-                         f"int32 compact ids")
+    _check_ids(name, LW)
     threads, smem, gstride = dag_forward_plan(L, W, P)
-    # outputs: alpha and c_alpha (2, B, LW+1), then logZ and c_avg (2, B);
-    # int32 scratch: the position -> id map (B, LW+1), the valid positions
-    # (B, LW), and the global compact state when one may be needed
+    # outputs: alpha and c_alpha (2, B, LW+1), then logZ and c_avg (2, B)
     n_out = 2 * B * (LW + 1)
     buf = torch.empty(n_out + 2 * B, dtype=torch.float32, device=dev)
     if B:
-        scratch = torch.empty(B * (2 * LW + 1) + B * gstride // 4,
-                              dtype=torch.int32, device=dev)
-        base, idx = buf.data_ptr(), scratch.data_ptr()
-        red, pos = base + 4 * n_out, idx + 4 * B * (LW + 1)
+        scratch, idx, pos, gstate = _scratch(B, LW, gstride, dev)
+        base = buf.data_ptr()
+        red = base + 4 * n_out
         _launch("dag_forward_launch", dev, own.data_ptr(), corr.data_ptr(),
                 start.data_ptr(), ok.data_ptr(), final.data_ptr(),
-                pidx.data_ptr(), idx, pos,
-                pos + 4 * B * LW if gstride else None, gstride, base,
+                pidx.data_ptr(), idx, pos, gstate, gstride, base,
                 base + 4 * B * (LW + 1), red, red + 4 * B, B, L, W, P,
                 threads, smem)
         dag_forward.launches += 1
@@ -198,7 +244,9 @@ def dag_backward(own, corr, final, ok, sidx):
     """Backward (beta / c_beta) companion of :func:`dag_forward` over the
     successor positions ``sidx`` (B, L, W, S) int32.  beta excludes the
     arc's own score (FBStats convention).  Returns (beta, c_beta), both
-    (B, L, W); on the card views of the kernel's scratch buffers."""
+    (B, L, W); on the card views of the kernel's (B, L*W+1) output buffers
+    without their dump slot, from the same compacted recursion as
+    ``dag_forward``'s, run from the last level to the first."""
     name = "dag_backward"
     B, L, W = own.shape
     for arg, t in (("corr", corr), ("final", final), ("ok", ok)):
@@ -211,43 +259,19 @@ def dag_backward(own, corr, final, ok, sidx):
         _check_kernel_input(name, arg, t, torch.float32)
     _check_kernel_input(name, "sidx", sidx, torch.int32)
     S, LW, dev = sidx.shape[-1], L * W, own.device
-    bbuf = torch.empty((B, LW + 1), dtype=torch.float32, device=dev)
-    cbbuf = torch.empty((B, LW + 1), dtype=torch.float32, device=dev)
+    _check_ids(name, LW)
+    threads, smem, gstride = dag_backward_plan(L, W, S)
+    buf = torch.empty(2 * B * (LW + 1), dtype=torch.float32, device=dev)
     if B:
+        scratch, idx, pos, gstate = _scratch(B, LW, gstride, dev)
+        base = buf.data_ptr()
         _launch("dag_backward_launch", dev, own.data_ptr(), corr.data_ptr(),
-                final.data_ptr(), ok.data_ptr(), sidx.data_ptr(),
-                bbuf.data_ptr(), cbbuf.data_ptr(), B, L, W, S, _threads(W))
+                final.data_ptr(), ok.data_ptr(), sidx.data_ptr(), idx, pos,
+                gstate, gstride, base, base + 4 * B * (LW + 1), B, L, W, S,
+                threads, smem)
         dag_backward.launches += 1
-    return (bbuf[:, :LW].unflatten(1, (L, W)),
-            cbbuf[:, :LW].unflatten(1, (L, W)))
-
-
-def loss_only_prologue(log_probs, start, end, label, lm, corr, arc_mask,
-                       is_start, is_final, kappa: float):
-    """``dag_loss_only``'s input preparation, in PyTorch (outside the
-    kernel in the JAX package too): the kappa-scaled, mean-centred cumsum
-    grid with the per-state means appended as a trailing row, packed
-    [end | start | mean] gather positions into it, and the packed arc
-    fields [span, lm, corr, arc_mask, is_start, is_final].
-
-    Returns cumext (B, (T+2)*K) f32, idx (B, 3A) int32, fcs (B, 6, A) f32.
-    """
-    B, T, K = log_probs.shape
-    lp = log_probs.to(torch.float32)
-    mu = lp.mean(dim=1)                                        # (B, K)
-    cum = torch.cumsum(lp - mu[:, None, :], dim=1)
-    cum = torch.cat([torch.zeros_like(cum[:, :1]), cum], dim=1)
-    cumext = torch.cat([cum.reshape(B, -1), mu], dim=1).mul_(kappa)
-    lab = label.to(torch.int32)
-    idx = torch.cat([end.to(torch.int32) * K + lab,
-                     start.to(torch.int32) * K + lab,
-                     (T + 1) * K + lab], dim=1)                # (B, 3A)
-    fcs = torch.stack([(end - start).to(torch.float32),
-                       lm.to(torch.float32), corr.to(torch.float32),
-                       arc_mask.to(torch.float32),
-                       is_start.to(torch.float32),
-                       is_final.to(torch.float32)], dim=1)     # (B, 6, A)
-    return cumext, idx.contiguous(), fcs
+    return (buf.as_strided((B, L, W), (LW + 1, W, 1), 0),
+            buf.as_strided((B, L, W), (LW + 1, W, 1), B * (LW + 1)))
 
 
 def dag_loss_only(log_probs, start, end, label, lm, corr, arc_mask,
@@ -258,11 +282,13 @@ def dag_loss_only(log_probs, start, end, label, lm, corr, arc_mask,
     lattice fields (B, A), with level_arcs (B, L, W) int32 and pidx
     (B, L, W, P) int32 from ``losses.lattice.lattice_frontiers``.
 
-    On the card the prologue (``loss_only_prologue``) runs as PyTorch ops
-    and ONE kernel does the endpoint gather, the arc -> level-major
-    gather, the forward recursion and the final-arc reduction; only the
-    two (B,) outputs leave it.
-    """
+    On the card ONE kernel reads the raw log-probs: each valid slot's arc
+    score is kappa times the sum of lp[t, label] over its span plus lm (no
+    cumsum grid), then ``dag_forward``'s compacted recursion and its fold
+    over the final slots; only the two (B,) outputs leave it.  Frames are
+    clamped to [0, T] and labels to [0, K); an arc id outside [0, A) in
+    level_arcs is an empty slot.  The mask and start/final flags may be
+    bool or f32 (set above 0.5)."""
     name = "dag_loss_only"
     B, T, K = log_probs.shape
     A = start.shape[1]
@@ -278,47 +304,29 @@ def dag_loss_only(log_probs, start, end, label, lm, corr, arc_mask,
         return ref.dag_loss_only_ref(log_probs, start, end, label, lm, corr,
                                      arc_mask, is_start, is_final,
                                      level_arcs, pidx, kappa=kappa)
-    if (T + 2) * K >= 2 ** 31:
-        raise ValueError(f"{name}: the (T+2)*K = {(T + 2) * K} cumsum grid "
-                         f"row overflows the kernel's int32 gather indices")
-    cumext, idx, fcs = loss_only_prologue(log_probs, start, end, label, lm,
-                                          corr, arc_mask, is_start,
-                                          is_final, kappa)
-    return dag_loss_only_from_grid(cumext, idx, fcs, level_arcs, pidx)
-
-
-def dag_loss_only_from_grid(cumext, idx, fcs, level_arcs, pidx):
-    """The fused kernel alone, on the outputs of ``loss_only_prologue``
-    (all on one CUDA device): one launch, (logZ (B,), c_avg (B,)) out.
-    ``dag_loss_only`` is the entry point; this is its launch step."""
-    name = "dag_loss_only"
-    B, L, W = level_arcs.shape
-    A = fcs.shape[-1]
-    _check_shape(name, "idx", idx, (B, 3 * A))
-    _check_shape(name, "fcs", fcs, (B, 6, A))
-    _check_shape(name, "pidx", pidx, (B, L, W, pidx.shape[-1]))
-    if not _on_cuda(name, cumext, idx, fcs, level_arcs, pidx):
-        raise ValueError(f"{name}: the fused kernel takes CUDA tensors")
-    for arg, t, dtype in (("cumext", cumext, torch.float32),
-                          ("idx", idx, torch.int32),
-                          ("fcs", fcs, torch.float32),
-                          ("level_arcs", level_arcs, torch.int32),
-                          ("pidx", pidx, torch.int32)):
-        _check_kernel_input(name, arg, t, dtype)
-    P, LW, dev = pidx.shape[-1], L * W, cumext.device
-    lv = torch.empty((B, 5, LW), dtype=torch.float32, device=dev)
-    abuf = torch.empty((B, LW + 1), dtype=torch.float32, device=dev)
-    cbuf = torch.empty((B, LW + 1), dtype=torch.float32, device=dev)
-    logz = torch.empty((B,), dtype=torch.float32, device=dev)
-    cavg = torch.empty((B,), dtype=torch.float32, device=dev)
+    if K == 0 and A:
+        raise ValueError(f"{name}: K = 0 log-prob columns for {A} arcs")
+    P, LW, dev = pidx.shape[-1], L * W, log_probs.device
+    _check_ids(name, LW)
+    flags = [f.contiguous() if f.dtype == torch.bool else _f32(f)
+             for f in (arc_mask, is_start, is_final)]
+    bool_flags = sum(1 << i for i, f in enumerate(flags)
+                     if f.dtype == torch.bool)
+    lp, lm, corr = _f32(log_probs), _f32(lm), _f32(corr)
+    start, end, label = _i32(start), _i32(end), _i32(label)
+    la, pidx = _i32(level_arcs), _i32(pidx)
+    threads, smem, gstride = dag_forward_plan(L, W, P)
+    out = torch.empty(2 * B, dtype=torch.float32, device=dev)
     if B:
-        _launch("dag_loss_only_launch", dev, cumext.data_ptr(),
-                cumext.shape[1], idx.data_ptr(), fcs.data_ptr(),
-                level_arcs.data_ptr(), pidx.data_ptr(), lv.data_ptr(),
-                abuf.data_ptr(), cbuf.data_ptr(), logz.data_ptr(),
-                cavg.data_ptr(), B, A, L, W, P, _threads(W))
+        scratch, idx, pos, gstate = _scratch(B, LW, gstride, dev)
+        _launch("dag_loss_only_launch", dev, lp.data_ptr(), start.data_ptr(),
+                end.data_ptr(), label.data_ptr(), lm.data_ptr(),
+                corr.data_ptr(), *(f.data_ptr() for f in flags), bool_flags,
+                la.data_ptr(), pidx.data_ptr(), idx, pos, gstate, gstride,
+                out.data_ptr(), out.data_ptr() + 4 * B, float(kappa), B, T,
+                K, A, L, W, P, threads, smem)
         dag_loss_only.launches += 1
-    return logz, cavg
+    return out.as_strided((B,), (1,), 0), out.as_strided((B,), (1,), B)
 
 
 def _sausage_inputs(name: str, scores, corr, mask):
@@ -407,14 +415,12 @@ def sausage_loss_only(log_probs, start, end, label, lm, corr, arc_mask,
         raise ValueError(f"{name}: K = 0 log-prob columns for {A} arcs")
     S, W = level_arcs.shape[1], level_arcs.shape[2]
     dev = log_probs.device
-    f32 = lambda t: t.to(torch.float32).contiguous()  # noqa: E731
-    i32 = lambda t: t.to(torch.int32).contiguous()    # noqa: E731
     is_bool = arc_mask.dtype == torch.bool
-    mask = arc_mask.contiguous() if is_bool else f32(arc_mask)
-    lp = f32(log_probs)
-    start, end, label, la = i32(start), i32(end), i32(label), \
-        i32(level_arcs)
-    lm, corr = f32(lm), f32(corr)
+    mask = arc_mask.contiguous() if is_bool else _f32(arc_mask)
+    lp = _f32(log_probs)
+    start, end, label, la = _i32(start), _i32(end), _i32(label), \
+        _i32(level_arcs)
+    lm, corr = _f32(lm), _f32(corr)
     out = torch.empty(2 * B, dtype=torch.float32, device=dev)
     if B:
         # scores, correctness, mask and the long-span list: 16 B a slot

@@ -20,7 +20,10 @@ Routing, by device and dtype only (never by failure):
   tensors whose hd is not a multiple of 8, which TMA's 16-byte strides
   cannot describe (no arch in the repo has such an hd).
 
-A CUDA launch that fails to build or launch raises.  ``q_offset != 0``
+A CUDA launch that fails to build or launch raises.  The kernels have no
+backward: on CUDA tensors both raise when autograd would record the call
+(``needs_backward``) instead of returning a result with no gradient; the
+plain version on the CPU stays differentiable.  ``q_offset != 0``
 (queries past the keys' start; no caller in the repo) is taken by the
 plain version only.
 
@@ -131,11 +134,26 @@ def sm90_smem_bytes(hd_pad: int) -> int:
     return lib.swa_attention_sm90_smem_bytes(hd_pad)
 
 
+def needs_backward(*tensors) -> bool:
+    """True when autograd is on and an input requires grad: the kernels'
+    result would carry no gradient to it, so their wrappers refuse."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _refuse_autograd(name: str, q, k, v) -> None:
+    if needs_backward(q, k, v):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernels have no backward, and q/k/v require "
+            f"grad with autograd on; run under torch.no_grad() (the "
+            f"attention backward is ROADMAP item 1.3)")
+
+
 def cuda_core_swa_attention(q, k, v, window: int):
     """The CUDA-core kernel (``csrc/swa_attention.cu``) on CUDA q (B, T,
     H, hd), k/v (B, T, K, hd), f32 or bf16; the wrapper sends it f32
     inputs and bf16 inputs with hd % 8 != 0.  Counts
-    ``swa_attention.cuda_core_launches``."""
+    ``swa_attention.cuda_core_launches``; raises where ``needs_backward``."""
+    _refuse_autograd("cuda_core_swa_attention", q, k, v)
     B, T, H, hd = q.shape
     out = torch.empty_like(q)
     build.launch("swa_attention", _CORE_SIGNATURES, "swa_attention_launch",
@@ -167,6 +185,7 @@ def swa_attention(q, k, v, window: int, *, q_chunk: int = 512,
     if not _on_cuda(name, q, k, v):
         return ref.swa_attention_ref(q, k, v, window, q_chunk=q_chunk,
                                      q_offset=q_offset)
+    _refuse_autograd(name, q, k, v)
     if q_offset != 0 or S != T:
         raise NotImplementedError(
             f"{name}: the kernel takes q_offset 0 and as many keys as "

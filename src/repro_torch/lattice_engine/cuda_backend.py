@@ -181,7 +181,12 @@ class LossOnly(torch.autograd.Function):
     """Fused (logZ, c_avg) from (B, T, K) f32 log-probs and the arc-layout
     ``lm``/``corr`` (the differentiable inputs) of lattice ``lat``: the
     sausage loss-only kernel when ``fr`` is None, the DAG one over the
-    frontiers ``fr`` otherwise."""
+    frontiers' predecessor rows ``fr.pidx`` otherwise.  On the card either
+    is one launch that sums each arc's span straight from the log-probs
+    (no cumsum grid) and returns only (logZ, c_avg); the derivative rules
+    rebuild the scores by the reference's centred cumsum
+    (``sausage_arc_scores_ref``) and run the full-statistics pair, so a
+    value and its derivative agree within f32 rounding, not bitwise."""
 
     @staticmethod
     def forward(log_probs, lm, corr, lat, fr, kappa):

@@ -155,9 +155,10 @@ def windowed_attention(q, k, v, window: int, *, q_chunk=512, q_offset=0):
     """Sliding-window causal attention: token t attends (t-window-1, t].
 
     q: (B,T,H,hd), k/v: (B,S,K,hd) -> (B,T,H,hd) in q's dtype.  On a CUDA
-    tensor the hand-written kernel (``kernels.swa_attention``), on a CPU
-    tensor its plain version, chunked over ``q_chunk`` queries as the
-    reference's jnp path is."""
+    tensor the hand-written kernel (``kernels.swa_attention``; forward
+    only: it raises when autograd would record it), on a CPU tensor its
+    plain version, chunked over ``q_chunk`` queries as the reference's jnp
+    path is."""
     return swa_attention(q, k, v, window, q_chunk=q_chunk,
                          q_offset=q_offset)
 

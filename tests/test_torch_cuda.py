@@ -204,13 +204,17 @@ def test_one_nghf_update_on_the_card(cuda):
     assert K.sausage_loss_only.launches >= 1
 
 
-def _dag_inputs(dev, dicts):
+def _dag_parts(dev, dicts):
     spec = packing.derive_buckets(dicts, batch=len(dicts), tiers=1)[0]
     lat, _ = packing.pack_requests(dicts, spec, device=dev)
     gen = torch.Generator(device=dev).manual_seed(len(dicts))
     lp = torch.randn(len(dicts), spec.num_frames, 11, generator=gen,
                      device=dev).log_softmax(-1)
-    fr = lattice_frontiers(lat)
+    return lat, lp, lattice_frontiers(lat)
+
+
+def _dag_inputs(dev, dicts):
+    lat, lp, fr = _dag_parts(dev, dicts)
     am = arc_scores(lat, lp, KAPPA) + lat.lm
     return (*dag_level_tensors(lat, am, fr), fr.pidx)
 
@@ -264,13 +268,79 @@ def test_dag_forward_branches_match_plain_version(cuda, case):
     fwd = _dag_branch_case(cuda, case)
     _, _, start, ok, _, pidx = fwd
     if case in BRANCHES:
-        assert set(K.dag_forward_branches(start, ok, pidx.shape[-1])) == \
-            {BRANCHES[case]}
+        assert set(K.dag_branches("dag_forward", start, ok,
+                                  pidx.shape[-1])) == {BRANCHES[case]}
     got = K.dag_forward(*fwd)
     _close(got, R.dag_forward_ref(*fwd))
     again = K.dag_forward(*fwd)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _dag_branch_parts(dev, case):
+    """(dag_backward inputs, dag_loss_only inputs) for each branch of the
+    compacted design, the cases of ``_dag_branch_case``."""
+    from repro_torch.losses.lattice import (make_random_dag_lattice,
+                                            make_sausage_lattice)
+    rng = np.random.default_rng(3)
+    if case in SAUSAGE_BRANCH_CASES:
+        frames, n_alt = SAUSAGE_BRANCH_CASES[case]
+        dicts = [make_sausage_lattice(rng, num_frames=frames - 8 * b,
+                                      num_states=11, n_alt=n_alt)
+                 for b in range(2)]
+    else:
+        dicts = [make_random_dag_lattice(rng, num_frames=200, num_states=11)
+                 for _ in range(3)]
+    lat, lp, fr = _dag_parts(dev, dicts)
+    pidx, sidx, mask = fr.pidx, fr.sidx, lat.arc_mask
+    if case == "no_valid_slot":
+        mask = mask.clone()
+        mask[1] = False
+    elif case == "p1":
+        pidx, sidx = pidx[..., :1].contiguous(), sidx[..., :1].contiguous()
+    elif case == "cross_level_preds":
+        B, L, W, P = pidx.shape
+        gen = torch.Generator(device=dev).manual_seed(4)
+        pidx, sidx = (torch.randint(0, L * W + 1, t.shape, generator=gen,
+                                    device=dev, dtype=torch.int32)
+                      for t in (pidx, sidx))
+    lat = lat._replace(arc_mask=mask)
+    fr = lattice_frontiers(lat)
+    own, corr, _, ok, final = dag_level_tensors(
+        lat, arc_scores(lat, lp, KAPPA) + lat.lm, fr)
+    lo = (lp, lat.start_t, lat.end_t, lat.label, lat.lm, lat.corr,
+          lat.arc_mask, lat.is_start, lat.is_final, lat.level_arcs, pidx)
+    return (own, corr, final, ok, sidx), lo, fr
+
+
+@pytest.mark.parametrize("case", ["wide_levels", "global_state",
+                                  "global_warp_chain", "no_valid_slot",
+                                  "p1", "cross_level_preds"])
+def test_dag_backward_and_loss_only_branches_match_plain_version(cuda,
+                                                                 case):
+    """``dag_backward`` and ``dag_loss_only`` on the branch cases of
+    ``dag_forward``: each takes the same (chain, state) branch there,
+    matches its plain version (the loss-only within 1e-3 + 1e-5 |ref|:
+    span sums against the centred cumsum, scores up to |s| ~ 4e3 at
+    T = 1000), and is bitwise on a repeat; the cross-level case points
+    rows into the slot's own, earlier and later levels."""
+    bwd, lo, fr = _dag_branch_parts(cuda, case)
+    if case in BRANCHES:
+        assert set(K.dag_branches("dag_backward", fr.final, fr.ok,
+                                  bwd[4].shape[-1])) == {BRANCHES[case]}
+        assert set(K.dag_branches("dag_loss_only", fr.start, fr.ok,
+                                  lo[-1].shape[-1])) == {BRANCHES[case]}
+    got = K.dag_backward(*bwd)
+    _close(got, R.dag_backward_ref(*bwd))
+    again = K.dag_backward(*bwd)
+    got_lo = K.dag_loss_only(*lo, kappa=KAPPA)
+    want_lo = R.dag_loss_only_ref(*lo, kappa=KAPPA)
+    again_lo = K.dag_loss_only(*lo, kappa=KAPPA)
+    torch.cuda.synchronize()
+    for g, w in zip(got_lo, want_lo):
+        assert torch.all((g - w).abs() <= 1e-3 + 1e-5 * w.abs())
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(got_lo, again_lo))
 
 
 def _span_inputs(dev, B, T, S, W, max_span, Kc=6000, seed=0):

@@ -142,6 +142,30 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
         SWA.swa_attention(*big, 8)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_refuse_autograd(cuda, dtype):
+    """The kernels have no backward: with autograd on and an input that
+    requires grad, ``swa_attention`` (both routes) and
+    ``cuda_core_swa_attention`` raise, naming ROADMAP item 1.3, and launch
+    nothing; under ``torch.no_grad`` the same inputs run."""
+    q, k, v = _qkv(cuda, 1, 40, 4, 2, 64, dtype)
+    for t in (q, k, v):
+        t.requires_grad_()
+    counts = _counts()
+    for fn in (SWA.swa_attention, SWA.cuda_core_swa_attention):
+        with pytest.raises(NotImplementedError, match="1.3"):
+            fn(q, k, v, 16)
+    assert _counts() == counts
+    with pytest.raises(NotImplementedError, match="1.3"):
+        SWA.swa_attention(q.detach(), k.detach(), v, 16)
+    with torch.no_grad():
+        got = SWA.swa_attention(q, k, v, 16)
+    torch.cuda.synchronize()
+    tc = int(dtype == torch.bfloat16)
+    assert _counts() == (counts[0] + tc, counts[1] + 1 - tc)
+    assert got.grad_fn is None
+
+
 def test_smoke_prefill_and_serve_on_the_card_match_the_cpu(cuda):
     """The smoke model at f32 compute: prefill through the kernel (one
     launch for its one local layer) against the CPU's plain path, and

@@ -282,10 +282,11 @@ def test_resume_fold_equals_scratch_fold_bitwise():
 
 
 def test_branch_rule_counts_only_stepping_slots():
-    """``lattice_fb.dag_forward_branches``: the block-barrier chain only
-    when a level has more than 32 valid slots that take a step (a start
-    slot takes none), the global state only when the valid slots' state
-    exceeds SMEM_MAX; one rule per utterance."""
+    """``lattice_fb.dag_branches("dag_forward", ...)`` (the rule of
+    ``dag_loss_only`` too, which holds the same state): the block-barrier
+    chain only when a level has more than 32 valid slots that take a step
+    (a start slot takes none), the global state only when the valid
+    slots' state exceeds SMEM_MAX; one rule per utterance."""
     from repro_torch.losses.lattice import make_sausage_lattice
     rng = np.random.default_rng(5)
     dicts = [make_sausage_lattice(rng, num_frames=f, num_states=7, n_alt=a)
@@ -297,14 +298,16 @@ def test_branch_rule_counts_only_stepping_slots():
                                                            spec.num_frames,
                                                            7)))
     P = pidx.shape[-1]
-    assert K.dag_forward_branches(start, ok, P) == [("block", "shared"),
-                                                   ("warp", "shared")]
+    for kernel in ("dag_forward", "dag_loss_only"):
+        assert K.dag_branches(kernel, start, ok, P) == [("block", "shared"),
+                                                       ("warp", "shared")]
     # every valid slot a start slot: no step, so no wide level
-    assert K.dag_forward_branches(ok, ok, P) == [("warp", "shared")] * 2
+    assert K.dag_branches("dag_forward", ok, ok, P) == \
+        [("warp", "shared")] * 2
     # 5,000 valid slots at P = 40 exceed shared memory
     many = torch.ones(1, 125, 40)
     assert K.dag_forward_state_bytes(5000, 125, 40) > K.SMEM_MAX
-    assert K.dag_forward_branches(torch.zeros_like(many), many, 40) == \
-        [("block", "global")]
-    assert K.dag_forward_branches(torch.zeros(3, 0, 4), torch.zeros(3, 0, 4),
-                                  2) == [("warp", "shared")] * 3
+    assert K.dag_branches("dag_forward", torch.zeros_like(many), many,
+                          40) == [("block", "global")]
+    assert K.dag_branches("dag_forward", torch.zeros(3, 0, 4),
+                          torch.zeros(3, 0, 4), 2) == [("warp", "shared")] * 3

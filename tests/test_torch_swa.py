@@ -143,3 +143,35 @@ def test_wrapper_rejects_what_no_path_can_take():
         SWA.swa_attention(tq, tk, tv, -1)
     with pytest.raises(ValueError, match="several devices"):
         SWA.swa_attention(tq, tk, tv.to("meta"), 4)
+
+
+@pytest.mark.parametrize("grad_on", [False, True])
+@pytest.mark.parametrize("requires", [None, 0, 1, 2])
+def test_autograd_guard_fires_only_with_grad_on_and_an_input_requiring_grad(
+        grad_on, requires):
+    """``needs_backward``, the condition on which the CUDA kernels (no
+    backward) refuse a call: autograd on and one of q/k/v requiring grad;
+    the card test shows both kernels raising on it."""
+    _, qkv = _qkv(1, 8, 2, 1, 16, "float32", seed=5)
+    if requires is not None:
+        qkv[requires].requires_grad_()
+    with torch.set_grad_enabled(grad_on):
+        assert SWA.needs_backward(*qkv) == (grad_on and requires is not None)
+
+
+def test_cpu_wrapper_stays_differentiable_as_the_reference_layer():
+    """On the CPU the wrapper is the plain version, and its gradients
+    match the reference layer's (jax.vjp) within 2e-5."""
+    import jax
+    (jq, jk, jv), qkv = _qkv(1, 48, 4, 2, 16, "float32", seed=6)
+    cot = np.random.default_rng(7).normal(size=(1, 48, 4, 16)).astype(
+        np.float32)
+    for t in qkv:
+        t.requires_grad_()
+    out = SWA.swa_attention(*qkv, 8, q_chunk=16)
+    out.backward(torch.from_numpy(cot))
+    _, vjp = jax.vjp(lambda q, k, v: JL.windowed_attention(
+        q, k, v, 8, q_chunk=16), jq, jk, jv)
+    for got, want in zip(qkv, vjp(jnp.asarray(cot))):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(want),
+                                   atol=2e-5, rtol=2e-5)
