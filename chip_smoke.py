@@ -28,7 +28,9 @@ Phases:
      four), an utterance with no valid slot, rows of one entry, and
      neighbour rows into the slot's own, earlier and later levels; the
      sausage kernels at the training shapes (B=32 and B=8, S=50, A=3)
-     with padded, fully masked and A=40 cases; ``sausage_loss_only`` also on
+     with padded, fully masked, fractional-mask, S = 1, 33 and 250 (chunk
+     edges of the forward and backward scan) and A=40 cases, each bitwise
+     on a repeat; ``sausage_loss_only`` also on
      adversarial spans (zero-length, ending at T, label K-1, masked arcs
      with out-of-range labels, T = 1, T = 1000 with spans up to T, 16,000
      slots), and bitwise on a repeat; the fused CG
@@ -66,8 +68,9 @@ Phases:
      (outputs compared, then timed with CUDA events), the bound from the
      bytes or operations it must do (the DAG kernels at all four DAG
      shapes, the service's, the session's and the DAG training's gradient
-     and CG batches, with their time a level; the DAG kernels and
-     ``sausage_loss_only`` also alone, one launch behind a busy stream),
+     and CG batches, with their time a level; every lattice kernel and
+     the fused CG update also alone, one launch behind a busy stream; the
+     sausage forward and backward also at S = 250, T = 1000),
      one ``{"kernels": [...]}`` line
      (``swa_attention``'s row is timed after phase 7, on a freed card,
      in turns with the CUDA-core kernel at the same bf16 shape, the plain
@@ -891,19 +894,26 @@ def sausage_tiles(lat, lp):
     return scores.contiguous(), corr.contiguous(), mask.contiguous()
 
 
-def adversarial_tiles(dev, B, S, A, seed):
+def adversarial_tiles(dev, B, S, A, seed, fractional=False):
     """Padded tail segments, a fully masked segment, a fully masked
-    utterance and ragged last alternatives."""
+    utterance and ragged last alternatives; with ``fractional`` (A >= 3)
+    masks of 0.3 and 0.7 in the last utterance."""
     from repro_torch.lattice_engine.common import NEG
     gen = torch.Generator(device=dev).manual_seed(seed)
     scores = torch.randn(B, S, A, generator=gen, device=dev) * 3.0
     corr = (torch.rand(B, S, A, generator=gen, device=dev) > 0.6).float()
     mask = torch.ones(B, S, A, device=dev)
     mask[0, S // 2:] = 0.0
-    mask[1, 1] = 0.0
-    mask[2] = 0.0
+    mask[1 % B, 1 % S] = 0.0
+    mask[2 % B] = 0.0
     mask[:, :, A - 1] *= (torch.rand(B, S, generator=gen, device=dev)
                           > 0.3).float()
+    if fractional:
+        # 0.3 and 0.7 on one row: the 0.7 arc is valid and weighs 0.7, the
+        # 0.3 arc is masked; a row of 0.3 only is a masked segment
+        mask[-1, 1 % S] = torch.tensor([1.0, 0.3, 0.7] + [1.0] * (A - 3),
+                                       device=dev)
+        mask[-1, 2 % S] = 0.3
     return torch.where(mask > 0, scores, torch.full_like(scores, NEG)), \
         corr, mask
 
@@ -993,10 +1003,24 @@ def check_loss_only(args, ref_args, errs, rel_errs, tag: str) -> None:
           f"sausage_loss_only[{tag}]: two launches gave other bits")
 
 
+def check_sausage(tiles, errs, rel_errs, tag: str) -> None:
+    """sausage_forward and sausage_backward against their plain versions,
+    and each bitwise on a repeat launch."""
+    from repro_torch.kernels import lattice_fb as K
+    from repro_torch.kernels import ref as R
+    for kern, plain in ((K.sausage_forward, R.sausage_forward_ref),
+                        (K.sausage_backward, R.sausage_backward_ref)):
+        got = kern(*tiles)
+        compare(f"{kern.__name__}[{tag}]", got, plain(*tiles), errs,
+                rel_errs)
+        again = kern(*tiles)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{kern.__name__}[{tag}]: two launches gave other bits")
+
+
 def phase_sausage_kernels(dev, errs: dict) -> None:
     from repro_torch.data.synthetic import asr_batch
     from repro_torch.kernels import cg_fused as CG
-    from repro_torch.kernels import lattice_fb as K
     from repro_torch.kernels import ref as R
     rel_errs: dict = {}
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
@@ -1011,23 +1035,19 @@ def phase_sausage_kernels(dev, errs: dict) -> None:
             ("ragged_a40", sausage_lattice(dev, 4, frames, 40, SEED + 2))):
         lp = torch.randn(lat.start_t.shape[0], frames, NUM_STATES,
                          generator=gen, device=dev).log_softmax(-1)
-        tiles = sausage_tiles(lat, lp)
-        compare(f"sausage_forward[{tag}]", K.sausage_forward(*tiles),
-                R.sausage_forward_ref(*tiles), errs, rel_errs)
-        compare(f"sausage_backward[{tag}]", K.sausage_backward(*tiles),
-                R.sausage_backward_ref(*tiles), errs, rel_errs)
+        check_sausage(sausage_tiles(lat, lp), errs, rel_errs, tag)
         args = loss_only_args(lat, lp)
         check_loss_only(args, args, errs, rel_errs, tag)
         torch.cuda.synchronize()
         log(f"sausage kernels == plain at {tag}: (B, S, W) "
             f"{tuple(lat.level_arcs.shape)}, T={frames}, K={NUM_STATES}")
-    for shape in ((32, 50, 3), (8, 50, 3), (4, 7, 40)):
+    for shape in ((32, 50, 3), (8, 50, 3), (4, 7, 40), (4, 33, 3),
+                  (4, 250, 3), (2, 1, 3)):
         tiles = adversarial_tiles(dev, *shape, seed=sum(shape))
-        tag = "masked_" + "x".join(map(str, shape))
-        compare(f"sausage_forward[{tag}]", K.sausage_forward(*tiles),
-                R.sausage_forward_ref(*tiles), errs, rel_errs)
-        compare(f"sausage_backward[{tag}]", K.sausage_backward(*tiles),
-                R.sausage_backward_ref(*tiles), errs, rel_errs)
+        check_sausage(tiles, errs, rel_errs,
+                      "masked_" + "x".join(map(str, shape)))
+    check_sausage(adversarial_tiles(dev, 4, 9, 3, seed=16, fractional=True),
+                  errs, rel_errs, "fractional_4x9x3")
     for tag, (args, ref_args) in span_cases(dev, gen).items():
         check_loss_only(args, ref_args, errs, rel_errs, tag)
         log(f"sausage_loss_only == plain, and bitwise on a repeat, at {tag}: "
@@ -1036,8 +1056,10 @@ def phase_sausage_kernels(dev, errs: dict) -> None:
             f"{int((args[2] - args[1]).max())} frames, mask "
             f"{args[6].dtype}")
     torch.cuda.synchronize()
-    log("sausage kernels == plain on padded, fully masked segment / "
-        "utterance and A=40 tiles; max abs / max rel diff by case: "
+    log("sausage kernels == plain (forward and backward also bitwise on a "
+        "repeat) on padded, fully masked segment / utterance, fractional "
+        "mask, S = 1, 33, 250 and A=40 tiles; max abs / max rel diff by "
+        "case: "
         + ", ".join(f"{k} {v:.3g} / {rel_errs[k]:.3g}"
                     for k, v in sorted(errs.items())
                     if k.startswith("sausage")))
@@ -1289,9 +1311,9 @@ def phase_training(dev) -> dict:
 
 
 def sausage_work(tiles, backward: bool) -> tuple:
-    """(bytes, flops) of the sausage recursion: scores, corr, mask read
+    """(bytes, flops) of the sausage statistics: scores, corr, mask read
     once, alpha/c_alpha (or beta/c_beta) written once, logZ/c_avg for
-    the forward; per arc a max, two exps, a log share and a few adds."""
+    the forward; per arc a max, an exp, a log share and a few adds."""
     scores = tiles[0]
     n = scores.numel()
     B = scores.shape[0]
@@ -1344,6 +1366,7 @@ def kernel_alone_ms(fn, reps: int = 5) -> float:
 
 
 def train_times(training: dict, errs: dict) -> list:
+    from repro_torch.data.synthetic import asr_batch
     from repro_torch.kernels import cg_fused as CG
     from repro_torch.kernels import lattice_fb as K
     from repro_torch.kernels import ref as R
@@ -1407,10 +1430,9 @@ def train_times(training: dict, errs: dict) -> list:
                  "launches_per": per_update.get(
                      name, total / TRAIN["steps"]),
                  "per": "NGHF update", "shape": shape}
-        if name == "sausage_loss_only":
-            # the kernel alone, one launch between events behind a busy
-            # stream (no host time in it)
-            entry["kernel_alone_ms"] = kernel_alone_ms(kern)
+        # the kernel alone, one launch between events behind a busy stream
+        # (no host time in it)
+        entry["kernel_alone_ms"] = kernel_alone_ms(kern)
         out.append(entry)
         log(f"{name} timed at {shape}: "
             + ", ".join(f"{k} {v:.6g}" for k, v in entry.items()
@@ -1419,6 +1441,26 @@ def train_times(training: dict, errs: dict) -> list:
             log(f"sausage_loss_only bound of the old cumsum-grid design "
                 f"at {shape} (every log-prob read; for comparison only): "
                 f"{bound(*loss_only_span_work(args)[2:])[0]:.6g} ms")
+    # the sausage pair at S = 250 (T = 1000 sausages, the gradient batch)
+    lat_l = asr_batch(SEED + 12, batch=32, num_frames=1000,
+                      num_states=NUM_STATES, input_dim=80,
+                      device=dev)["lattice"]
+    lp_l = torch.randn(32, 1000, NUM_STATES, generator=gen,
+                       device=dev).log_softmax(-1)
+    tiles_l = sausage_tiles(lat_l, lp_l)
+    del lp_l
+    for kern, plain, backward in (
+            (K.sausage_forward, R.sausage_forward_ref, False),
+            (K.sausage_backward, R.sausage_backward_ref, True)):
+        name = kern.__name__
+        compare(f"{name}[timed_s250]", kern(*tiles_l), plain(*tiles_l),
+                errs, rel_errs)
+        b_ms, b_by = bound(*sausage_work(tiles_l, backward))
+        log(f"{name} timed at (B,S,W)={tuple(tiles_l[0].shape)} (T=1000): "
+            f"ms {cuda_time_ms(lambda: kern(*tiles_l), 20):.6g}, "
+            f"kernel_alone_ms {kernel_alone_ms(lambda: kern(*tiles_l)):.6g}, "
+            f"plain_ms {cuda_time_ms(lambda: plain(*tiles_l), 3):.6g}, "
+            f"bound_ms {b_ms:.6g} ({b_by})")
     return out
 
 

@@ -9,36 +9,78 @@
 //                               _loss_only_kernel :189, and the host
 //                               prologue that builds its cumsum grid)
 //
-// What bounds them on this card: the chain of S dependent segments, not
-// bytes and not arithmetic.  Segment s needs the carry (in_log, c_in) of
-// segment s-1, and each step is a max, an exp-sum and a weighted sum over
-// only A (typically 3) alternatives.  At the training shape (B=32, S=50,
-// A=3) the forward kernel moves about 96 KB, a few hundredths of a
-// microsecond at 3.35 TB/s, so the kernels are latency-bound on the S
-// dependent steps.  The design keeps each step inside one warp:
-//   * one warp per utterance, four utterances per block (the forward and
-//     backward kernels; the loss-only kernel has a block each, below);
-//     utterances never exchange data, so an utterance's result does not
-//     depend on its batch mates;
-//   * the A alternatives of a segment sit on the lanes (chunks of 32 when
-//     A > 32); the carry lives in registers, replicated on every lane;
-//   * max and sums over the row by warp shuffle (xor butterfly: a fixed
-//     combination order, so results are deterministic); no shared memory
-//     and no __syncthreads per segment;
-//   * the mask is honoured exactly as the TPU kernel does: valid = m > 0.5,
-//     the exp weight is multiplied by m, a segment with no valid arc
-//     passes the carry through, and z is clamped to EPS;
-//   * an out-of-range arc id in level_arcs is a masked slot: no input can
-//     fault.
+// Forward and backward: a segment-parallel scan, not the TPU kernels'
+// chain.  The TPU kernels run S dependent segment steps, each needing the
+// carry (in_log, c_in) of the segment before.  In a sausage every arc of
+// segment s follows every arc of segment s-1, so the carry enters every
+// valid row value of segment s alike, row_a = sc_a + carry; it shifts the
+// row's max by the same amount and cancels in exp(row - max).  Over the
+// valid arcs (m > 0.5) of segment s:
+//   new_in_log = in_log + lse_s,  lse_s = log(max(z_s, EPS)) + max sc,
+//                                 z_s = sum_a exp(sc_a - max sc) * m_a,
+//   new_c_in   = c_in + E_s,      E_s = sum_a w_a * corr_a,
+// since the weights w = e / max(z, EPS) sum to 1 in a valid segment (its
+// top arc alone gives z >= m > 0.5).  A segment with no valid arc passes
+// the carry: lse_s = E_s = 0.  The backward's (out_log, c_out) sums the
+// same pairs from the other end.  With P, C the inclusive prefix sums of
+// (lse, E) and P', C' the inclusive suffix sums:
+//   alpha[s, a] = sc + P_{s-1},  c_alpha[s, a] = corr + C_{s-1},
+//   logZ = P_{S-1},              c_avg = C_{S-1},
+//   beta[s, a]  = P'_{s+1},      c_beta[s, a]  = C'_{s+1}
+// (0 past either end; NEG / 0 on masked arcs).  S dependent steps become S
+// independent segment reductions and a log-depth scan: the same function
+// as the TPU kernels, rounded no worse (the weights come from sc - max sc
+// exactly, not from (sc + carry) - max rounded at ulp(|carry|)).  The DAG
+// kernels (lattice_dag.cu) cannot share this: a DAG slot's predecessors
+// are its own subset of earlier slots, so its carry is a logsumexp over
+// that subset, different from slot to slot, and no level has one additive
+// carry to scan.
 //
-// sausage_loss_only starts from the raw (B, T, K) log-probs.  The TPU
-// version builds a kappa-scaled, mean-centred cumsum grid over all T*K
-// log-probs (six passes over 38 MB at the CG batch) and then reads three
-// entries of it per arc.  Here an arc's acoustic score is its span sum,
-// kappa * sum_{t=start}^{end-1} lp[t, label]: the same number before
-// rounding, with no endpoint cancellation (the only reason for the
-// centring), read from the W*T/S log-probs the arcs cover instead of all
-// T*K.  One block per utterance:
+// What bounds them on this card: latency.  At the training shape (B=32,
+// S=50, A=3) the forward moves about 96 KB, a few hundredths of a
+// microsecond at 3.35 TB/s, and does about 60,000 operations.
+// The design keeps the latency to one load round trip per chunk of 32
+// segments, a few shuffles and one store:
+//   * one warp per utterance, four utterances per block; utterances never
+//     exchange data, so an utterance's result does not depend on its
+//     batch mates;
+//   * segments on lanes: lane j takes segments j, j+32, ... (the backward
+//     S-1-j, S-1-j-32, ...).  A lane reads its segment's A scores,
+//     correctness values and mask once, through __restrict__ pointers (no
+//     load waits behind an earlier store), straight from global memory in
+//     groups of kGroup = 4 arcs whose loads are issued together, so a row
+//     of A = 3 costs one round trip, not three.  No shared-memory staging:
+//     at A = 3 a warp's loads of one array span 384 contiguous bytes, and
+//     an L2 prefetch of the whole tile ahead of the chunks gained nothing
+//     on the H100;
+//   * segment_stats reduces the row in one pass in registers: a running
+//     max, with the exp-sum and the weighted correctness sum rescaled
+//     when the max moves (one expf an arc, any A, A = 40 included); the
+//     mask as the TPU kernel: valid = m > 0.5, weights times m, z clamped
+//     to EPS;
+//   * warp_scan: an inclusive Hillis-Steele scan over the 32 lanes
+//     (__shfl_up_sync by 1, 2, 4, 8, 16: a fixed order, so a repeat launch
+//     gives the same bits), plus the carry of the chunks before; one more
+//     shuffle gives the exclusive values, and lane 31's inclusive value is
+//     the next chunk's carry; a fully masked utterance keeps the zero
+//     carry;
+//   * each lane writes its segment's row of outputs (the forward loads the
+//     row again for it, a cache hit).  scan_segments (the
+//     reduction, the scan and the carry over chunks) is shared by both
+//     kernels; they differ only in direction and in what they write.
+//
+// sausage_loss_only keeps the TPU kernel's chain (segment_step) and its
+// bits.  Its results are compared only with each other: candidate
+// evaluation scores every CG iterate and the dtheta = 0 baseline through
+// it, so the forward kernel's different rounding (the gradient stage)
+// never enters that comparison.  It starts from the raw (B, T, K)
+// log-probs.  The TPU version builds a kappa-scaled, mean-centred cumsum
+// grid over all T*K log-probs (six passes over 38 MB at the CG batch) and
+// then reads three entries of it per arc.  Here an arc's acoustic score is
+// its span sum, kappa * sum_{t=start}^{end-1} lp[t, label]: the same
+// number before rounding, with no endpoint cancellation (the only reason
+// for the centring), read from the W*T/S log-probs the arcs cover instead
+// of all T*K.  One block per utterance:
 //   * gather: every (segment, alternative) slot loads its arc fields and
 //     sums its span in parallel, one thread a slot; a span longer than
 //     kShortSpan frames is summed by a whole warp afterwards (lane j takes
@@ -46,10 +88,12 @@
 //     T-frame arc does not serialise one lane.  Scores, correctness and
 //     mask go to shared memory (global scratch when S*W slots do not fit);
 //     none of this waits on the carry;
-//   * chain: warp 0 runs the S-segment recursion (segment_step, as the
-//     forward kernel) over the gathered rows.  Frames are clamped to
-//     [0, T], labels to [0, K), and an arc with end < start sums
-//     -sum_{end}^{start-1} (the cumsum difference), so no input can fault.
+//   * chain: warp 0 runs the S-segment recursion (segment_step: the
+//     alternatives of a segment on the lanes, the carry in registers, max
+//     and sums by xor butterflies) over the gathered rows.  Frames are
+//     clamped to [0, T], labels to [0, K), and an arc with end < start
+//     sums -sum_{end}^{start-1} (the cumsum difference), so no input can
+//     fault.
 //
 // The kernels allocate nothing and launch on the stream they are given.
 // Plain C interface (ctypes); each launcher returns cudaGetLastError().
@@ -78,18 +122,203 @@ __device__ __forceinline__ bool warp_any(bool v) {
   return __any_sync(kFull, v) != 0;
 }
 
+// ---------------------------------------------------------------------------
+// forward and backward: the segment-parallel scan
+// ---------------------------------------------------------------------------
+
+// Alternatives whose loads a lane issues together: one memory round trip
+// for up to kGroup arcs of a row (A = 3 takes one).
+constexpr int kGroup = 4;
+
+// v[i] = p[a0 + i] for a0 + i < A, else 0 (those loads are not issued)
+__device__ __forceinline__ void load_group(const float* __restrict__ p,
+                                           int a0, int A, float (&v)[kGroup]) {
+#pragma unroll
+  for (int i = 0; i < kGroup; ++i) v[i] = a0 + i < A ? p[a0 + i] : 0.f;
+}
+
+// (lse_s, E_s) of one segment's row of A alternatives, one pass in order
+// of a: (0, 0) when no arc is valid.
+struct SegStat {
+  float lse;
+  float e;
+};
+
+__device__ __forceinline__ SegStat segment_stats(
+    const float* __restrict__ sc, const float* __restrict__ co,
+    const float* __restrict__ mk, int A) {
+  float mx = -INFINITY, z = 0.f, e = 0.f;
+  bool any_valid = false;
+  for (int a0 = 0; a0 < A; a0 += kGroup) {
+    float m[kGroup], s[kGroup], c[kGroup];
+    load_group(mk, a0, A, m);
+    load_group(sc, a0, A, s);
+    load_group(co, a0, A, c);
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) {
+      if (m[i] > 0.5f) {  // past A, m[i] = 0
+        if (s[i] > mx) {  // a new max: rescale what was summed under the old
+          const float r = expf(mx - s[i]);
+          z = z * r + m[i];
+          e = e * r + m[i] * c[i];
+          mx = s[i];
+        } else {
+          const float p = expf(s[i] - mx) * m[i];
+          z = z + p;
+          e = e + p * c[i];
+        }
+        any_valid = true;
+      }
+    }
+  }
+  if (!any_valid) return {0.f, 0.f};
+  const float zc = fmaxf(z, kEps);
+  return {logf(zc) + mx, e / zc};
+}
+
+// Inclusive scan of v over the warp's lanes, Hillis-Steele in a fixed
+// order.
+__device__ __forceinline__ float warp_scan(float v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float y = __shfl_up_sync(kFull, v, o);
+    if (lane >= o) v = v + y;
+  }
+  return v;
+}
+
+// The (S, A) tile of one utterance, segment by segment on the lanes
+// (kReverse: from the last segment).  For each segment s, calls
+// write(r, p, c) on its lane with r = s * A and (p, c) the sums of
+// (lse, E) over the segments before it in scan order; returns the sums
+// over all S segments in (total_log, total_c).
+template <bool kReverse, class Write>
+__device__ __forceinline__ void scan_segments(
+    const float* __restrict__ score, const float* __restrict__ corr,
+    const float* __restrict__ mask, int S, int A, const Write& write,
+    float& total_log, float& total_c) {
+  const int lane = threadIdx.x & 31;
+  float carry_log = 0.f, carry_c = 0.f;
+  for (int base = 0; base < S; base += 32) {
+    const int j = base + lane;
+    const long long r = (long long)(kReverse ? S - 1 - j : j) * A;
+    SegStat st{0.f, 0.f};
+    if (j < S) st = segment_stats(score + r, corr + r, mask + r, A);
+    const float inc_log = warp_scan(st.lse) + carry_log;
+    const float inc_c = warp_scan(st.e) + carry_c;
+    float ex_log = __shfl_up_sync(kFull, inc_log, 1);
+    float ex_c = __shfl_up_sync(kFull, inc_c, 1);
+    if (lane == 0) {
+      ex_log = carry_log;
+      ex_c = carry_c;
+    }
+    if (j < S) write(r, ex_log, ex_c);
+    carry_log = __shfl_sync(kFull, inc_log, 31);
+    carry_c = __shfl_sync(kFull, inc_c, 31);
+  }
+  total_log = carry_log;
+  total_c = carry_c;
+}
+
+// alpha = sc + P_{s-1}, c_alpha = corr + C_{s-1} on valid arcs
+struct ForwardWrite {
+  const float* __restrict__ score;
+  const float* __restrict__ corr;
+  const float* __restrict__ mask;
+  float* __restrict__ alpha;
+  float* __restrict__ c_alpha;
+  int A;
+  __device__ void operator()(long long r, float p, float c) const {
+    for (int a0 = 0; a0 < A; a0 += kGroup) {
+      float m[kGroup], s[kGroup], co[kGroup];
+      load_group(mask + r, a0, A, m);
+      load_group(score + r, a0, A, s);
+      load_group(corr + r, a0, A, co);
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+        if (a0 + i < A) {
+          const bool valid = m[i] > 0.5f;
+          alpha[r + a0 + i] = valid ? s[i] + p : kNeg;
+          c_alpha[r + a0 + i] = valid ? co[i] + c : 0.f;
+        }
+      }
+    }
+  }
+};
+
+// beta = P'_{s+1}, c_beta = C'_{s+1} on valid arcs
+struct BackwardWrite {
+  const float* __restrict__ mask;
+  float* __restrict__ beta;
+  float* __restrict__ c_beta;
+  int A;
+  __device__ void operator()(long long r, float p, float c) const {
+    for (int a0 = 0; a0 < A; a0 += kGroup) {
+      float m[kGroup];
+      load_group(mask + r, a0, A, m);
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+        if (a0 + i < A) {
+          const bool valid = m[i] > 0.5f;
+          beta[r + a0 + i] = valid ? p : kNeg;
+          c_beta[r + a0 + i] = valid ? c : 0.f;
+        }
+      }
+    }
+  }
+};
+
+__global__ void sausage_forward_kernel(const float* __restrict__ score,
+                                       const float* __restrict__ corr,
+                                       const float* __restrict__ mask,
+                                       float* __restrict__ alpha,
+                                       float* __restrict__ c_alpha,
+                                       float* __restrict__ logz,
+                                       float* __restrict__ cavg, int B,
+                                       int S, int A) {
+  const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (b >= B) return;  // whole warp leaves together
+  const long long o = (long long)b * S * A;
+  float in_log, c_in;
+  scan_segments<false>(
+      score + o, corr + o, mask + o, S, A,
+      ForwardWrite{score + o, corr + o, mask + o, alpha + o, c_alpha + o, A},
+      in_log, c_in);
+  if ((threadIdx.x & 31) == 0) {
+    logz[b] = in_log;
+    cavg[b] = c_in;
+  }
+}
+
+__global__ void sausage_backward_kernel(const float* __restrict__ score,
+                                        const float* __restrict__ corr,
+                                        const float* __restrict__ mask,
+                                        float* __restrict__ beta,
+                                        float* __restrict__ c_beta, int B,
+                                        int S, int A) {
+  const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (b >= B) return;
+  const long long o = (long long)b * S * A;
+  float out_log, c_out;
+  scan_segments<true>(score + o, corr + o, mask + o, S, A,
+                      BackwardWrite{mask + o, beta + o, c_beta + o, A},
+                      out_log, c_out);
+}
+
+// ---------------------------------------------------------------------------
+// loss-only: the TPU kernel's chain over gathered slots
+// ---------------------------------------------------------------------------
+
 // One segment of the recursion over a row of A alternatives held by the
 // warp.  Row::load(a, score, corr, m) fetches alternative a; the row value
-// is score + carry_log on valid arcs and NEG elsewhere, its correctness
-// value corr + carry_corr (0 elsewhere).  Sink::put(a, row, c_row) sees
-// every alternative's row values (the forward kernel writes them).
-// Updates (carry_log, carry_c) as the TPU kernel does.  The weighted sum
-// is over wsum(a) = c_row (forward) or corr + c_carry_out (backward),
-// which callers express through Row::weight_value.
-template <class Row, class Sink>
+// is score + carry_log on valid arcs and NEG elsewhere.  Updates
+// (carry_log, carry_c) as the TPU kernel does; the weighted sum is over
+// Row::weight_value (c_row = corr + c_in on valid arcs).
+template <class Row>
 __device__ __forceinline__ void segment_step(const Row& row, int A,
                                              float& carry_log,
-                                             float& carry_c, Sink& sink) {
+                                             float& carry_c) {
   const int lane = threadIdx.x & 31;
   // pass 1: row values, their max, and whether any arc is valid
   float mx = -INFINITY;
@@ -101,7 +330,6 @@ __device__ __forceinline__ void segment_step(const Row& row, int A,
       row.load(a, sc, co, m);
       const bool valid = m > 0.5f;
       const float r = valid ? sc + carry_log : kNeg;
-      sink.put(a, r, valid ? co + carry_c : 0.f);
       mx = fmaxf(mx, r);
       any_valid |= valid;
     }
@@ -141,38 +369,6 @@ __device__ __forceinline__ void segment_step(const Row& row, int A,
   }
 }
 
-// A (S, A) tile row in memory (forward and backward kernels).
-struct TileRow {
-  const float* score;
-  const float* corr;
-  const float* mask;
-  bool backward;
-  __device__ void load(int a, float& sc, float& co, float& m) const {
-    sc = score[a];
-    co = corr[a];
-    m = mask[a];
-  }
-  // forward: w * c_row, c_row = corr + c_in on valid arcs;
-  // backward: w * (corr + cb_row), cb_row = c_out on valid arcs
-  __device__ float weight_value(bool valid, float co, float carry_c) const {
-    return backward ? co + (valid ? carry_c : 0.f)
-                    : (valid ? co + carry_c : 0.f);
-  }
-};
-
-struct WriteRow {
-  float* a;
-  float* c;
-  __device__ void put(int i, float r, float cr) {
-    a[i] = r;
-    c[i] = cr;
-  }
-};
-
-struct NoWrite {
-  __device__ void put(int, float, float) {}
-};
-
 // An (S, W) row of the gathered slots (shared memory or global scratch).
 struct SlotRow {
   const float* sc;
@@ -187,51 +383,6 @@ struct SlotRow {
     return valid ? c + carry_c : 0.f;
   }
 };
-
-__global__ void sausage_forward_kernel(const float* score, const float* corr,
-                                       const float* mask, float* alpha,
-                                       float* c_alpha, float* logz,
-                                       float* cavg, int B, int S, int A) {
-  const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (b >= B) return;  // whole warp leaves together
-  const long long o = (long long)b * S * A;
-  float in_log = 0.f, c_in = 0.f;
-  for (int s = 0; s < S; ++s) {
-    const long long r = o + (long long)s * A;
-    TileRow row{score + r, corr + r, mask + r, false};
-    WriteRow sink{alpha + r, c_alpha + r};
-    segment_step(row, A, in_log, c_in, sink);
-  }
-  if ((threadIdx.x & 31) == 0) {
-    logz[b] = in_log;
-    cavg[b] = c_in;
-  }
-}
-
-__global__ void sausage_backward_kernel(const float* score, const float* corr,
-                                        const float* mask, float* beta,
-                                        float* c_beta, int B, int S, int A) {
-  const int b = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (b >= B) return;
-  const int lane = threadIdx.x & 31;
-  const long long o = (long long)b * S * A;
-  float out_log = 0.f, c_out = 0.f;
-  for (int s = S - 1; s >= 0; --s) {
-    const long long r = o + (long long)s * A;
-    // beta / c_beta of this segment are the carry from the segment after
-    for (int base = 0; base < A; base += 32) {
-      const int a = base + lane;
-      if (a < A) {
-        const bool valid = mask[r + a] > 0.5f;
-        beta[r + a] = valid ? out_log : kNeg;
-        c_beta[r + a] = valid ? c_out : 0.f;
-      }
-    }
-    TileRow row{score + r, corr + r, mask + r, true};
-    NoWrite sink;
-    segment_step(row, A, out_log, c_out, sink);
-  }
-}
 
 constexpr int kShortSpan = 32;  // longer spans are summed by a warp
 
@@ -321,10 +472,9 @@ __global__ void sausage_loss_only_kernel(
   if (threadIdx.x >= 32) return;
   // the chain: S dependent segments over the gathered rows
   float in_log = 0.f, c_in = 0.f;
-  NoWrite sink;
   for (int s = 0; s < S; ++s) {
     const long long r = (long long)s * W;
-    segment_step(SlotRow{sc + r, co + r, mk + r}, W, in_log, c_in, sink);
+    segment_step(SlotRow{sc + r, co + r, mk + r}, W, in_log, c_in);
   }
   if (lane == 0) {
     logz[b] = in_log;

@@ -115,25 +115,43 @@ def _sausage_case(dev, B, S, A, seed, ragged=True):
     mask = torch.ones(B, S, A, device=dev)
     if ragged:
         mask[0, S // 2:] = 0.0           # padded tail segments
-        mask[1, 1] = 0.0                 # a fully masked segment inside
+        mask[1, 1 % S] = 0.0             # a fully masked segment inside
         mask[2 % B] = 0.0                # a fully masked utterance
         mask[:, :, A - 1] *= (torch.rand(B, S, device=dev,
                                          generator=gen) > 0.3).float()
     return scores, corr, mask
 
 
-@pytest.mark.parametrize("shape", [(32, 50, 3), (8, 50, 3), (4, 7, 40)])
-def test_sausage_kernels_match_plain_versions(cuda, shape):
-    B, S, A = shape
-    scores, corr, mask = _sausage_case(cuda, B, S, A, seed=B + A)
+def _check_sausage_kernels(scores, corr, mask):
+    """Both kernels against their plain versions, and bitwise on a repeat
+    launch (the scan adds in a fixed shuffle order)."""
     counts = (K.sausage_forward.launches, K.sausage_backward.launches)
-    _close(K.sausage_forward(scores, corr, mask),
-           R.sausage_forward_ref(scores, corr, mask))
-    _close(K.sausage_backward(scores, corr, mask),
-           R.sausage_backward_ref(scores, corr, mask))
+    for kern, plain in ((K.sausage_forward, R.sausage_forward_ref),
+                        (K.sausage_backward, R.sausage_backward_ref)):
+        got = kern(scores, corr, mask)
+        _close(got, plain(scores, corr, mask))
+        again = kern(scores, corr, mask)
+        assert all(torch.equal(g, a) for g, a in zip(got, again))
     torch.cuda.synchronize()
     assert (K.sausage_forward.launches, K.sausage_backward.launches) == \
-        (counts[0] + 1, counts[1] + 1)
+        (counts[0] + 2, counts[1] + 2)
+
+
+@pytest.mark.parametrize("shape", [(32, 50, 3), (8, 50, 3), (4, 7, 40),
+                                   (4, 33, 3), (4, 250, 3), (2, 1, 3)])
+def test_sausage_kernels_match_plain_versions(cuda, shape):
+    B, S, A = shape
+    _check_sausage_kernels(*_sausage_case(cuda, B, S, A, seed=B + A))
+
+
+def test_sausage_kernels_fractional_mask(cuda):
+    """Masks of 0.3 and 0.7 on one row: the 0.7 arc is valid and weighs
+    0.7, the 0.3 arc is masked; a row of 0.3 only is a masked segment."""
+    scores, corr, mask = _sausage_case(cuda, 4, 9, 3, seed=9)
+    mask[3, 2] = torch.tensor([1.0, 0.3, 0.7], device=cuda)
+    mask[3, 4] = torch.tensor([0.3, 0.0, 0.3], device=cuda)
+    mask[3, 6] = torch.tensor([0.0, 0.7, 0.0], device=cuda)
+    _check_sausage_kernels(scores, corr, mask)
 
 
 @pytest.mark.parametrize("batch", [8, 32])
