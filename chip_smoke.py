@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
-Drives the port's three paths on one CUDA card through the entry points a
+Drives the port's paths on one CUDA card through the entry points a
 user calls, at full widths, and holds every hand-written kernel of those
 paths against its plain PyTorch version on the card:
 
@@ -10,7 +10,9 @@ paths against its plain PyTorch version on the card:
     frames) and a streaming session;
   * training: NGHF lattice-MPE training of the paper's LSTM (input 80,
     hidden 1000, 2 LSTM layers + 1 FF, K = 6000; 19,335,000 parameters)
-    through ``launch.train.train_sequence``;
+    through ``launch.train.train_sequence``, and through the training
+    CLI ``launch.train.main`` for all five acoustic archs, with
+    checkpoints, and the paper's example (CE -> NGHF vs SGD/Adam);
   * LM serving: recurrentgemma-9b at full width and depth (38 layers,
     10,444,771,328 parameters, random weights from a seed) through
     ``launch.steps.build_prefill_step`` and ``launch.serve.serve``.
@@ -27,14 +29,15 @@ Phases:
      logs the branch each kernel took, and every kernel must take all
      four), an utterance with no valid slot, rows of one entry, and
      neighbour rows into the slot's own, earlier and later levels; the
-     sausage kernels at the training shapes (B=32 and B=8, S=50, A=3)
-     with padded, fully masked, fractional-mask, S = 1, 33 and 250 (chunk
+     sausage kernels at the training shapes (B=32 and B=8, S=50, A=3),
+     at the example's (T = 32: B = 64, 16, 8 and 32, S = 8) with padded, fully masked, fractional-mask, S = 1, 33 and 250 (chunk
      edges of the forward and backward scan) and A=40 cases, each bitwise
      on a repeat; ``sausage_loss_only`` also on
      adversarial spans (zero-length, ending at T, label K-1, masked arcs
      with out-of-range labels, T = 1, T = 1000 with spans up to T, 16,000
      slots), and bitwise on a repeat; the fused CG
-     update at N = 19,335,000 in f32 and bf16, and bitwise on a repeat;
+     update at the parameter count of each of the five *-asr archs (N =
+     19,335,000 for the LSTM) in f32 and bf16, and bitwise on a repeat;
      ``swa_attention`` on adversarial shapes (T = 1, T <= window, ragged
      T, window 0, a window past T, MHA/GQA/MQA, hd 32-256, f32 through
      the CUDA-core kernel and bf16 through the tensor-core kernel, whose
@@ -92,7 +95,29 @@ Phases:
      steps within relative max 1e-3 (T = 64 <= window, where the
      reference's prefill and ring decode agree); ``serve`` over 8
      requests of 4-11 prompt tokens and 16 new tokens; prefill, layer and
-     decode times, peak device memory.
+     decode times, peak device memory;
+  8. the training CLI, checkpoints and the example (run after phase 6,
+     before phase 7): first the paper's example
+     (``repro_torch.examples.train_asr_mpe.run_pipeline``) on the
+     full-width LSTM with its frames (T = 32) and batches: CE pretraining,
+     8 NGHF updates, SGD and Adam with 160 each, its table, each NGHF
+     update's acceptance, best iterate and outer-CG vᵀBv; then the
+     training CLI ``launch.train.main`` at the training phase's widths (T
+     = 200, batch 32, CG batch 8, 6 CG and 2 NG iterations,
+     ``--cg-fused``): ``lstm-asr`` with ``--warm-start --adapt-lam``
+     resumed from the example's CE model saved as a params-only checkpoint
+     (the reference's legacy format), 2 updates, then ``--resume`` to 3 —
+     the resumed log starts at update 2, and the train state loaded from
+     each checkpoint equals the state ``train_sequence`` held when it
+     saved, bitwise on the card; an Adam train state of the same model
+     saved and loaded the same way; one update from a random start for
+     each of ``rnn-asr``, ``rnn-relu-asr``, ``tdnn-asr`` and
+     ``tdnn-relu-asr`` with ``--preconditioner share_counts``, run twice
+     and the second run timed; every update finite, the sausage
+     statistics and fused CG kernels launched exactly as
+     ``launches_per_update`` counts (in the example, plus one pass per
+     SGD and Adam step and per held-out batch) and the loss-only kernel
+     within its bounds; update, save and load times logged.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; without a card, or outside a checkout of the repo,
@@ -103,6 +128,7 @@ the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -161,7 +187,21 @@ LSTM_PARAMS = 19_335_000
 # budget): 1 gradient + ng_iters Fisher + cg_iters GN statistics passes,
 # ng_iters + cg_iters fused CG updates; the loss-only kernel runs once per
 # evaluated candidate plus the Δθ=0 baseline
-PER_UPDATE = {"forward": 1 + 2 + 6, "backward": 1 + 2 + 6, "cg": 2 + 6}
+
+
+def launches_per_update(cg_iters: int, ng_iters: int,
+                        warm_start: bool = False,
+                        adapt_lam: bool = False) -> dict:
+    """Sausage statistics passes and fused CG updates per NGHF update; a
+    warm start adds the residual's curvature product, adaptive λ the
+    reduction ratio's.  ``loss_only_max``: every CG iterate evaluated,
+    plus the Δθ=0 baseline."""
+    passes = 1 + ng_iters + cg_iters + int(warm_start) + int(adapt_lam)
+    return {"forward": passes, "backward": passes,
+            "cg": ng_iters + cg_iters, "loss_only_max": cg_iters + 1}
+
+
+PER_UPDATE = launches_per_update(6, 2)
 # kernel path vs plain path, one update from the same parameters without
 # candidate selection: the last CG iterate's Δθ, relative L2.  f32 on
 # both paths with lattice sums in other orders, the rounding amplified
@@ -1020,8 +1060,6 @@ def check_sausage(tiles, errs, rel_errs, tag: str) -> None:
 
 def phase_sausage_kernels(dev, errs: dict) -> None:
     from repro_torch.data.synthetic import asr_batch
-    from repro_torch.kernels import cg_fused as CG
-    from repro_torch.kernels import ref as R
     rel_errs: dict = {}
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     frames = TRAIN["frames"]
@@ -1032,15 +1070,24 @@ def phase_sausage_kernels(dev, errs: dict) -> None:
             ("train_b8", asr_batch(SEED + 1, batch=8, num_frames=frames,
                                    num_states=NUM_STATES, input_dim=80,
                                    device=dev)["lattice"]),
-            ("ragged_a40", sausage_lattice(dev, 4, frames, 40, SEED + 2))):
-        lp = torch.randn(lat.start_t.shape[0], frames, NUM_STATES,
+            ("ragged_a40", sausage_lattice(dev, 4, frames, 40, SEED + 2)),
+            # the example's batches (T = 32): NGHF's gradient (64) and
+            # CG (8) batches, the baselines' (16) and evaluate's (32)
+            *((f"example_b{b}", asr_batch(SEED + b, batch=b,
+                                          num_frames=EXAMPLE_FRAMES,
+                                          num_states=NUM_STATES,
+                                          input_dim=80,
+                                          device=dev)["lattice"])
+              for b in (64, 16, 8, 32))):
+        lp = torch.randn(lat.start_t.shape[0], lat.num_frames, NUM_STATES,
                          generator=gen, device=dev).log_softmax(-1)
         check_sausage(sausage_tiles(lat, lp), errs, rel_errs, tag)
         args = loss_only_args(lat, lp)
         check_loss_only(args, args, errs, rel_errs, tag)
         torch.cuda.synchronize()
         log(f"sausage kernels == plain at {tag}: (B, S, W) "
-            f"{tuple(lat.level_arcs.shape)}, T={frames}, K={NUM_STATES}")
+            f"{tuple(lat.level_arcs.shape)}, T={lat.num_frames}, "
+            f"K={NUM_STATES}")
     for shape in ((32, 50, 3), (8, 50, 3), (4, 7, 40), (4, 33, 3),
                   (4, 250, 3), (2, 1, 3)):
         tiles = adversarial_tiles(dev, *shape, seed=sum(shape))
@@ -1063,31 +1110,57 @@ def phase_sausage_kernels(dev, errs: dict) -> None:
         + ", ".join(f"{k} {v:.3g} / {rel_errs[k]:.3g}"
                     for k, v in sorted(errs.items())
                     if k.startswith("sausage")))
+    for n in cg_sizes(dev):
+        check_cg_fused(n, gen, dev, errs)
+    torch.cuda.empty_cache()
+
+
+def cg_sizes(dev) -> list:
+    """The flat sizes the fused CG update meets on the driver path: the
+    parameter counts of the five *-asr archs at full width."""
+    from repro_torch.configs.acoustic import get_acoustic_config
+    from repro_torch.models import acoustic
+    sizes = set()
+    for arch in ("lstm-asr",) + CLI_ARCHS:
+        params = acoustic.init_params(get_acoustic_config(arch), 0,
+                                      device=dev)
+        sizes.add(acoustic.param_count(params))
+        del params
+    check(LSTM_PARAMS in sizes, f"parameter counts {sorted(sizes)}")
+    return sorted(sizes)
+
+
+def check_cg_fused(n: int, gen, dev, errs: dict) -> None:
+    """cg_fused_update against its plain version at length ``n``, f32 and
+    bf16: x and r bitwise, rr within RR_RTOL; bitwise on a repeat."""
+    from repro_torch.kernels import cg_fused as CG
+    from repro_torch.kernels import ref as R
     for dtype in (torch.float32, torch.bfloat16):
-        x, v, r, bv = (torch.randn(LSTM_PARAMS, generator=gen,
-                                   device=dev).to(dtype) for _ in range(4))
+        x, v, r, bv = (torch.randn(n, generator=gen, device=dev).to(dtype)
+                       for _ in range(4))
         alpha = torch.tensor(0.37, device=dev)
         got = CG.cg_fused_update(alpha, x, v, r, bv)
         want = R.cg_fused_update_ref(alpha, x, v, r, bv)
         again = CG.cg_fused_update(alpha, x, v, r, bv)
         for name, g, w in (("x", got[0], want[0]), ("r", got[1], want[1])):
             check(g.dtype == dtype and torch.equal(g, w),
-                  f"cg_fused_update {dtype} {name}: not the plain "
+                  f"cg_fused_update N={n} {dtype} {name}: not the plain "
                   f"version's bits (max |d| "
                   f"{float((g.float() - w.float()).abs().max()):.3g})")
         d_rr = abs(float(got[2]) - float(want[2]))
         check(d_rr <= RR_RTOL * float(want[2]),
-              f"cg_fused_update {dtype} rr {float(got[2])} vs plain "
+              f"cg_fused_update N={n} {dtype} rr {float(got[2])} vs plain "
               f"{float(want[2])}")
         check(torch.equal(got[2], again[2]) and torch.equal(got[0],
                                                             again[0]),
-              f"cg_fused_update {dtype}: two launches gave other bits")
-        errs[f"cg_fused_update[{str(dtype)[6:]}]"] = d_rr
-        log(f"cg_fused_update == plain at N={LSTM_PARAMS} {dtype}: x, r "
-            f"bitwise, rr |d| {d_rr:.3g} of {float(want[2]):.6g}; a "
-            f"repeat launch bitwise")
-    del x, v, r, bv, got, want, again
-    torch.cuda.empty_cache()
+              f"cg_fused_update N={n} {dtype}: two launches gave other "
+              f"bits")
+        key = f"cg_fused_update[{str(dtype)[6:]}]"
+        errs[key] = max(errs.get(key, 0.0), d_rr)
+        log(f"cg_fused_update == plain at N={n} {dtype}: x, r bitwise, "
+            f"rr |d| {d_rr:.3g} of {float(want[2]):.6g}; a repeat launch "
+            f"bitwise")
+        del x, v, r, bv, got, want, again
 
 
 def reset_counts() -> None:
@@ -1461,6 +1534,237 @@ def train_times(training: dict, errs: dict) -> list:
             f"kernel_alone_ms {kernel_alone_ms(lambda: kern(*tiles_l)):.6g}, "
             f"plain_ms {cuda_time_ms(lambda: plain(*tiles_l), 3):.6g}, "
             f"bound_ms {b_ms:.6g} ({b_by})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the training CLI, checkpoints and the paper's example
+# ---------------------------------------------------------------------------
+
+# the CLI at the training phase's widths and length, every *-asr arch;
+# the RNNs and TDNNs with the Sec. 4.3 preconditioner for shared
+# parameters (share counts), the LSTM with warm start and adaptive λ so
+# that its checkpoint carries Δθ and λ
+CLI_ARGS = ["--optimizer", "nghf", "--loss", "mpe", "--frames", "200",
+               "--batch", "32", "--cg-batch", "8", "--cg-iters", "6",
+               "--ng-iters", "2", "--cg-fused", "--device", "cuda"]
+CLI_ARCHS = ("rnn-asr", "rnn-relu-asr", "tdnn-asr", "tdnn-relu-asr")
+# NGHF updates of the example's pipeline on the full-width LSTM (SGD and
+# Adam take 20x as many); its frames and batches are the example's
+EXAMPLE_UPDATES = 8
+EXAMPLE_FRAMES = 32
+# held-out batches the example evaluates: 4 after each of its 4 stages,
+# each one pass of the sausage statistics (forward and backward)
+EXAMPLE_EVAL_BATCHES = 4 * 4
+
+
+def update_text(m: dict) -> str:
+    return (f"{m['time_s'] * 1e3:.3f} ms; mpe_acc {m['mpe_acc']:.6f} "
+            f"accepted {bool(m['cg_accepted'])} best iterate "
+            f"{m['cg_best_iter']:.0f} (best {m['cg_best_loss']:.6f}, "
+            f"Δθ=0 {m['cg_base_loss']:.6f}), outer CG vᵀBv "
+            f"{m['cg_curv_first']:.4g} -> {m['cg_curv_last']:.4g}, |Δθ| "
+            f"{m['update_norm']:.4g}, grad norm {m['grad_norm']:.4g}, "
+            f"logZ {m['logZ']:.4g}, candidates with a finite loss "
+            f"{m['cg_evaluated']:.0f}")
+
+
+def check_cli_updates(tag: str, log_: list, launches: dict,
+                      want_per_update: dict, extra_stats: int = 0) -> None:
+    """Log each update of ``log_``, then check: finite metrics, accepted
+    updates below their baseline, the exact launches of the sausage
+    statistics and fused CG kernels (``extra_stats`` statistics passes
+    made outside the updates), and the loss-only kernel's between the
+    candidates with a finite loss plus the baselines and one a CG
+    iterate plus the baselines (an iterate frozen by vᵀBv <= 0 is not
+    evaluated; one whose loss overflows is evaluated and not counted in
+    ``cg_evaluated``)."""
+    for m in log_:
+        log(f"{tag} update {m['step']}: {update_text(m)}")
+    log(f"{tag}: launches {launches} (per update: {want_per_update}, "
+        f"{extra_stats} statistics passes besides)")
+    for m in log_:
+        check_update(f"{tag} update {m['step']}", m)
+    n = len(log_)
+    lo = sum(int(m["cg_evaluated"]) + 1 for m in log_)
+    got = dict(launches)
+    loss_only = got.pop("sausage_loss_only")
+    want = {"sausage_forward": want_per_update["forward"] * n + extra_stats,
+            "sausage_backward": want_per_update["backward"] * n
+            + extra_stats,
+            "cg_fused_update": want_per_update["cg"] * n,
+            "dag_forward": 0, "dag_backward": 0, "dag_loss_only": 0}
+    check(got == want and lo <= loss_only
+          <= want_per_update["loss_only_max"] * n,
+          f"{tag}: launches {launches}, want {want} and sausage_loss_only "
+          f"in [{lo}, {want_per_update['loss_only_max'] * n}]")
+
+
+def same_state(a, b) -> bool:
+    """Two train-state trees equal bitwise, on the same device."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_state(a[k], b[k])
+                                            for k in a)
+    return a.dtype == b.dtype and a.device == b.device \
+        and torch.equal(a, b)
+
+
+def load_and_compare(tag: str, ck: str, params, opt_state,
+                     step_want: int) -> float:
+    """Load the train state at ``ck`` into the structure of ``(params,
+    opt_state)``; it must equal them bitwise, on the card.  Returns the
+    load's seconds."""
+    from repro_torch.checkpoint.io import load_train_state
+    t0 = time.perf_counter()
+    p, st, step = load_train_state(ck, params, opt_state)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(step == step_want and same_state(p, params)
+          and same_state(st, opt_state),
+          f"{tag}: the loaded train state differs from the saved one")
+    return dt
+
+
+def clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def ckpt_mb(ck: str) -> float:
+    return sum(os.path.getsize(os.path.join(ck, f))
+               for f in os.listdir(ck)) / 1e6
+
+
+def phase_example(dev) -> dict:
+    """Phase 8, part 1: the paper's example (CE -> NGHF vs SGD/Adam) on
+    the full-width LSTM, with its frames and batches."""
+    from repro_torch.configs.acoustic import get_acoustic_config
+    from repro_torch.examples.train_asr_mpe import FRAMES, run_pipeline
+    check(FRAMES == EXAMPLE_FRAMES, f"example: T = {FRAMES}")
+    reset_counts()
+    t0 = time.perf_counter()
+    ex = run_pipeline(get_acoustic_config("lstm-asr"),
+                      updates=EXAMPLE_UPDATES, device=dev, verbose=False)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    rows = ex["rows"]
+    log(f"example (full-width LSTM, T = {EXAMPLE_FRAMES}, "
+        f"{EXAMPLE_UPDATES} NGHF updates) in {wall:.3f} s; table: "
+        + "; ".join(f"{k} {r['updates']} updates, MPE acc {r['acc']:.6f}, "
+                    f"{r['wall_s']:.3f} s" for k, r in rows.items()))
+    # NGHF without warm start, adaptive λ or the fused CG; besides its
+    # updates, one statistics pass per SGD and Adam step and per held-out
+    # batch (CE training runs no lattice)
+    check_cli_updates("example NGHF", ex["nghf_log"], launches,
+                      dict(launches_per_update(6, 2), cg=0),
+                      extra_stats=2 * 20 * EXAMPLE_UPDATES
+                      + EXAMPLE_EVAL_BATCHES)
+    check(list(rows) == ["CE", "NGHF", "SGD", "Adam"]
+          and all(np.isfinite(r["acc"]) for r in rows.values()),
+          f"example: table {rows}")
+    return ex
+
+
+def phase_cli(dev) -> dict:
+    """Phase 8: the paper's example on the full-width LSTM; the training
+    CLI ``launch.train.main`` for every *-asr arch, the LSTM resumed from
+    the example's CE model (a params-only checkpoint, the reference's
+    legacy format), checkpointed and resumed again.  (A random start
+    with warm start and adaptive λ diverges, in the reference as in the
+    port: ``tests/test_torch_ce_start.py``; ROADMAP §3.2.)"""
+    import logging
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint.io import save_checkpoint
+    from repro_torch.launch import train as T
+
+    ex = phase_example(dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    ck = os.path.join(tmp, "ck")
+    saved = []
+    real_save = T.save_train_state
+
+    def save_and_keep(ckpt_dir, params, opt_state, *, step=0, extra=None):
+        # keep what train_sequence held when it saved, cloned on the card
+        kept = (step, clone_tree(params), clone_tree(opt_state))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_save(ckpt_dir, params, opt_state, step=step, extra=extra)
+        saved.append(kept + (time.perf_counter() - t0,))
+
+    handler = logging.StreamHandler(sys.stdout)
+    handler.setFormatter(logging.Formatter("[chip_smoke] checkpoint: "
+                                           "%(message)s"))
+    ck_log = logging.getLogger("repro_torch.checkpoint.io")
+    ck_log.addHandler(handler)
+    ck_log.setLevel(logging.INFO)
+    T.save_train_state = save_and_keep
+    out = {"example": ex, "archs": {}}
+    try:
+        # the LSTM from the CE model: 2 updates, checkpoint, resume to 3
+        save_checkpoint(ck, ex["ce_params"], step=0)
+        lstm_args = ["--arch", "lstm-asr", *CLI_ARGS, "--warm-start",
+                     "--adapt-lam", "--ckpt-dir", ck, "--resume"]
+        want = launches_per_update(6, 2, warm_start=True, adapt_lam=True)
+        reset_counts()
+        log2 = T.main(lstm_args + ["--steps", "2"])
+        check_cli_updates("CLI lstm-asr from the CE model", log2,
+                       read_counts(), want)
+        check([m["step"] for m in log2] == [0, 1] and saved[-1][0] == 2,
+              f"CLI lstm-asr: steps {[m['step'] for m in log2]}, "
+              f"saved at {[s[0] for s in saved]}")
+        _, params, opt_state, t_save = saved[-1]
+        t_load = load_and_compare("CLI lstm-asr", ck, params, opt_state,
+                                  2)
+        log(f"CLI lstm-asr checkpoint at step 2 (params, Δθ, λ, "
+            f"step; {ckpt_mb(ck):.3f} MB on disk): save "
+            f"{t_save * 1e3:.3f} ms, load {t_load * 1e3:.3f} ms (host "
+            f"clock, from and to the card); loaded == saved bitwise")
+        reset_counts()
+        log3 = T.main(lstm_args + ["--steps", "3"])
+        check_cli_updates("CLI lstm-asr resumed", log3, read_counts(),
+                       want)
+        check([m["step"] for m in log3] == [2],
+              f"CLI lstm-asr resume: steps {[m['step'] for m in log3]}")
+        _, params, opt_state, _ = saved[-1]
+        load_and_compare("CLI lstm-asr at step 3", ck, params, opt_state,
+                         3)
+        out["archs"]["lstm-asr"] = log2 + log3
+        # the Adam train state of the same model (params, m, v, step)
+        adam = {"m": {k: v * 0.5 for k, v in params.items()},
+                "v": {k: v * v for k, v in params.items()},
+                "step": torch.tensor(7, dtype=torch.int32, device=dev)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_save(ck, params, adam, step=1)
+        t_save = time.perf_counter() - t0
+        t_load = load_and_compare("Adam", ck, params, adam, 1)
+        log(f"Adam train state (params, m, v, step; {ckpt_mb(ck):.3f} MB "
+            f"on disk): save {t_save * 1e3:.3f} ms, load "
+            f"{t_load * 1e3:.3f} ms; loaded == saved bitwise")
+    finally:
+        T.save_train_state = real_save
+        ck_log.removeHandler(handler)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # one update of each other arch through the CLI, from a random start;
+    # run twice (the same seeds, so the same update), and the second run
+    # timed: the first carries the arch's first-call costs
+    want = launches_per_update(6, 2)
+    for arch in CLI_ARCHS:
+        runs = []
+        for _ in range(2):
+            reset_counts()
+            runs.append(T.main(["--arch", arch, *CLI_ARGS, "--steps", "1",
+                                "--preconditioner", "share_counts"]))
+            check_cli_updates(f"CLI {arch} (share_counts), run "
+                              f"{len(runs)}", runs[-1], read_counts(), want)
+        # (not compared: training on the card is not bitwise reproducible)
+        log(f"CLI {arch}: update time {runs[0][0]['time_s'] * 1e3:.3f} ms "
+            f"first run, {runs[1][0]['time_s'] * 1e3:.3f} ms second run; "
+            f"accepted {[bool(r[0]['cg_accepted']) for r in runs]}")
+        out["archs"][arch] = runs[1]
     return out
 
 
@@ -1897,6 +2201,8 @@ def main() -> int:
     kernels = dag_times(service, stream, training, errs) \
         + train_times(training, errs)
     del service, stream, training
+    torch.cuda.empty_cache()
+    phase_cli(dev)
     torch.cuda.empty_cache()
     lm = phase_lm(dev)
     kernels.append(swa_times(lm, errs, dev))

@@ -158,7 +158,7 @@ _ALIASES = {
 }
 
 # the rest of the reference's pool: not ported yet
-_NOT_PORTED = (
+NOT_PORTED = (
     "qwen2-72b", "whisper-base", "stablelm-1.6b", "xlstm-125m",
     "granite-moe-3b-a800m", "qwen2.5-3b", "mixtral-8x22b", "minitron-8b",
     "chameleon-34b",
@@ -170,7 +170,7 @@ def get_config(arch: str) -> ArchConfig:
     if mod_name is None and arch in _ALIASES.values():
         mod_name = arch
     if mod_name is None:
-        known = arch in _NOT_PORTED or arch.replace("_", "-") in _NOT_PORTED
+        known = arch in NOT_PORTED or arch.replace("_", "-") in NOT_PORTED
         raise NotImplementedError(
             f"arch {arch!r} is {'not ported yet' if known else 'unknown'}; "
             f"the port runs {list_archs()} (ROADMAP.md lists the archs "

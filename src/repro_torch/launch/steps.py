@@ -74,7 +74,15 @@ def build_sequence_step(acfg, opt_spec, *, loss: str = "mpe",
     def sequence_step(params, opt_state, grad_batch, cg_batch=None):
         new_params, new_state, metrics = opt.step(params, opt_state,
                                                   grad_batch, cg_batch)
-        return new_params, new_state, scalar_metrics(metrics)
+        out = scalar_metrics(metrics)
+        used = int(metrics.get("cg_iters_used", 0))
+        if used:
+            # the (outer) CG's first and last vᵀBv: how far the solve's
+            # curvature grew, which the per-iteration history shows and
+            # the scalar log would drop
+            out["cg_curv_first"] = metrics["cg_curv"][0]
+            out["cg_curv_last"] = metrics["cg_curv"][used - 1]
+        return new_params, new_state, out
 
     return sequence_step, opt
 

@@ -1,27 +1,38 @@
 """Training driver: lattice MPE/MMI (or frame-CE) sequence training of an
 acoustic model, the paper's experiment, on one device.
 
-Port of ``repro.launch.train.train_sequence`` / ``evaluate_sequence``.
-Every registered optimiser runs the same loop and step signature.
+Port of ``repro.launch.train``: ``train_sequence``, ``evaluate_sequence``
+and the CLI ``main``.  Every registered optimiser runs the same loop,
+step signature and checkpoint format (the full ``(params, opt_state,
+step)``, so a resumed run continues exactly).
 
     from repro_torch.launch.train import train_sequence
     params, log = train_sequence(arch="lstm-asr", optimizer="nghf",
                                  loss="mpe", steps=3, device="cuda")
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch lstm-asr \
+        --smoke --device cpu --optimizer nghf --steps 4 --batch 8 \
+        --frames 24 --ckpt-dir /path/to/ckpt [--resume]
+
 ``device`` defaults to ``"cuda"`` and raises without a card; pass
 ``device="cpu"`` (with ``smoke=True`` for the reduced geometry) to run
-the plain PyTorch versions of the kernels on the CPU.  ``mesh``,
-``ckpt_dir`` and ``resume`` raise ``NotImplementedError`` until the
-distribution and checkpoint slices.
+the plain PyTorch versions of the kernels on the CPU.  ``mesh`` raises
+``NotImplementedError`` until the distribution slice (ROADMAP 1.4), and
+the CLI refuses the LM archs until LM training is ported (ROADMAP 1.3).
 """
 from __future__ import annotations
 
+import argparse
+import json
+import os
 import time
 
 import numpy as np
 
-from repro_torch.configs.acoustic import get_acoustic_config
-from repro_torch.core.optim import config_for
+from repro_torch.checkpoint.io import load_train_state, save_train_state
+from repro_torch.configs import base as arch_configs
+from repro_torch.configs.acoustic import ASR_ARCHS, get_acoustic_config
+from repro_torch.core.optim import config_for, list_optimizers
 from repro_torch.data.synthetic import EpochPlan, asr_batch
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.launch import steps as S
@@ -43,11 +54,11 @@ def parse_sample_schedule(sched):
     return sorted((int(s), float(f)) for s, f in pairs)
 
 
-def _not_yet(name: str, value) -> None:
-    if value:
+def no_mesh(mesh) -> None:
+    if mesh not in (None, "none"):
         raise NotImplementedError(
-            f"{name}: not in the port yet (the checkpoint and "
-            f"distribution slices bring it)")
+            f"mesh={mesh!r}: the port trains on one device; meshes come "
+            f"with the distribution slice (ROADMAP 1.4)")
 
 
 def train_sequence(*, arch=None, acfg=None, optimizer="nghf", loss="mpe",
@@ -55,22 +66,24 @@ def train_sequence(*, arch=None, acfg=None, optimizer="nghf", loss="mpe",
                    cg_iters=6, ng_iters=2, lam=1.0, lr=None, noise=1.2,
                    smoke=False, mesh=None, backend="auto", init_params=None,
                    seed=0, verbose=True, ckpt_dir=None, resume=False,
-                   dataset_batches=None, warm_start=False, adapt_lam=False,
-                   preconditioner=None, curvature_sample=None,
-                   curvature_sample_schedule=None, cg_tol=None,
-                   cg_fused=False, device=DEFAULT_DEVICE, timer=None):
+                   dataset_batches=None, ckpt_every=10, warm_start=False,
+                   adapt_lam=False, preconditioner=None,
+                   curvature_sample=None, curvature_sample_schedule=None,
+                   cg_tol=None, cg_fused=False, device=DEFAULT_DEVICE,
+                   timer=None):
     """Lattice sequence training; returns ``(params, log)``.
 
     ``init_params``: a flat parameter dict to start from (copied); else
     ``models.acoustic.init_params(acfg, seed)``.  ``dataset_batches``:
     gradient batches cycle over that many seeds (a finite training set);
-    None draws a fresh batch per update.  ``timer``: an optional
+    None draws a fresh batch per update.  ``ckpt_dir``: the train state
+    is saved there every ``ckpt_every`` updates and after the last;
+    with ``resume`` and an existing ``ckpt_dir`` the run continues from
+    the saved step.  ``timer``: an optional
     ``core.timing.StageTimer`` handed to a second-order optimiser; each
     log entry then carries its update's ``stage_<name>_s`` seconds.
     """
-    _not_yet("mesh", mesh not in (None, "none"))
-    _not_yet("ckpt_dir", ckpt_dir)
-    _not_yet("resume", resume)
+    no_mesh(mesh)
     dev = resolve_device(device)
     if acfg is None:
         acfg = get_acoustic_config(arch)
@@ -114,6 +127,12 @@ def train_sequence(*, arch=None, acfg=None, optimizer="nghf", loss="mpe",
 
     step, opt = build()
     opt_state = opt.init(params)
+    start = 0
+    if resume and ckpt_dir and os.path.exists(ckpt_dir):
+        params, opt_state, start = load_train_state(ckpt_dir, params,
+                                                    opt_state)
+        if verbose:
+            print(f"[train] resumed from step {start}")
     plan = EpochPlan(num_updates_per_epoch=max(steps, 1), base_seed=seed)
 
     def grad_seed(u):
@@ -122,7 +141,7 @@ def train_sequence(*, arch=None, acfg=None, optimizer="nghf", loss="mpe",
 
     log = []
     cur_frac = None
-    for u in range(steps):
+    for u in range(start, steps):
         t0 = time.perf_counter()
         want = sched_frac(u) if opt.uses_cg_batch else None
         if want is not None and want != cur_frac:
@@ -146,6 +165,10 @@ def train_sequence(*, arch=None, acfg=None, optimizer="nghf", loss="mpe",
             key_metric = metrics.get("mpe_acc", metrics.get(
                 "mmi", metrics.get("ce", metrics.get("loss", float("nan")))))
             print(f"  seq step {u:4d} {loss}={key_metric:.4f} ({dt:.3f}s)")
+        if ckpt_dir and (u + 1) % ckpt_every == 0:
+            save_train_state(ckpt_dir, params, opt_state, step=u + 1)
+    if ckpt_dir:
+        save_train_state(ckpt_dir, params, opt_state, step=steps)
     return params, log
 
 
@@ -164,3 +187,87 @@ def evaluate_sequence(acfg, params, *, loss="mpe", kappa=0.5, frames=32,
         val, metrics = loss_spec.value(logits, b)
         vals.append(float(metrics.get("mpe_acc", -val)))
     return float(np.mean(vals))
+
+
+def main(argv=None):
+    """The training CLI; returns the log.  ``*-asr`` archs run
+    ``train_sequence``; LM training is not ported yet (ROADMAP 1.3)."""
+    lm_archs = arch_configs.list_archs() + list(arch_configs.NOT_PORTED)
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2.5-3b",
+                    choices=(lm_archs + ["lm-" + a for a in lm_archs]
+                             + sorted(ASR_ARCHS)),
+                    help="architecture id; '*-asr' ids run lattice "
+                    "sequence training, LM ids (or 'lm-<arch>') raise "
+                    "until LM training is ported")
+    ap.add_argument("--optimizer", default="nghf",
+                    choices=list_optimizers())
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128,
+                    help="LM sequence length (LM archs only)")
+    ap.add_argument("--cg-iters", type=int, default=8)
+    ap.add_argument("--ng-iters", type=int, default=4)
+    ap.add_argument("--lr", type=float, default=None)
+    ap.add_argument("--warm-start", action="store_true",
+                    help="warm-start the outer CG from the previous Δθ")
+    ap.add_argument("--adapt-lam", action="store_true",
+                    help="Levenberg-Marquardt-style λ adaptation")
+    ap.add_argument("--preconditioner", default=None,
+                    choices=["identity", "share_counts", "fisher_diag"])
+    ap.add_argument("--curvature-sample", type=float, default=None,
+                    help="fraction of the CG batch used for GN/Fisher "
+                    "curvature products (candidate eval keeps the full "
+                    "batch); e.g. 0.5")
+    ap.add_argument("--curvature-sample-schedule", default=None,
+                    help="shrink the curvature sample across updates, "
+                    "e.g. '0:1.0,100:0.5,300:0.25'")
+    ap.add_argument("--cg-tol", type=float, default=None,
+                    help="adaptive CG budget: stop when the quadratic "
+                    "model's relative per-iteration gain drops below "
+                    "this; --cg-iters becomes the ceiling")
+    ap.add_argument("--cg-fused", action="store_true",
+                    help="fused flat-buffer CG vector work (one kernel "
+                    "launch for x+=av, r-=aBv, <r,r>)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced geometry for the CPU")
+    ap.add_argument("--mesh", default="none",
+                    help="'none' only: meshes come with the distribution "
+                    "slice (ROADMAP 1.4)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--log-json", default=None)
+    # lattice sequence training (``*-asr`` archs) only:
+    ap.add_argument("--loss", default="mpe", choices=["mpe", "mmi", "ce"])
+    ap.add_argument("--kappa", type=float, default=0.5)
+    ap.add_argument("--frames", type=int, default=32)
+    ap.add_argument("--cg-batch", type=int, default=8)
+    ap.add_argument("--lattice-backend", default="auto")
+    ap.add_argument("--device", default=DEFAULT_DEVICE,
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    no_mesh(args.mesh)
+    if args.arch not in ASR_ARCHS:
+        raise NotImplementedError(
+            f"--arch {args.arch}: LM training is not ported yet (ROADMAP "
+            f"1.3); the port trains the acoustic archs {sorted(ASR_ARCHS)}")
+    _, log = train_sequence(
+        arch=args.arch, optimizer=args.optimizer, loss=args.loss,
+        steps=args.steps, batch=args.batch, cg_batch=args.cg_batch,
+        frames=args.frames, kappa=args.kappa, cg_iters=args.cg_iters,
+        ng_iters=args.ng_iters, lr=args.lr, smoke=args.smoke,
+        backend=args.lattice_backend, ckpt_dir=args.ckpt_dir,
+        resume=args.resume, warm_start=args.warm_start,
+        adapt_lam=args.adapt_lam, preconditioner=args.preconditioner,
+        curvature_sample=args.curvature_sample,
+        curvature_sample_schedule=args.curvature_sample_schedule,
+        cg_tol=args.cg_tol, cg_fused=args.cg_fused, device=args.device)
+    if args.log_json:
+        with open(args.log_json, "w") as f:
+            json.dump(log, f, indent=1)
+    return log
+
+
+if __name__ == "__main__":
+    main()

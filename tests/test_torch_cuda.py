@@ -222,6 +222,43 @@ def test_one_nghf_update_on_the_card(cuda):
     assert K.sausage_loss_only.launches >= 1
 
 
+def test_checkpoint_round_trip_keeps_the_card(cuda, tmp_path):
+    from repro_torch.checkpoint.io import load_checkpoint, save_checkpoint
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    tree = {"params": {"rec0.w": torch.randn(30, 40, generator=gen,
+                                             device=cuda)},
+            "opt_state": {"step": torch.tensor(3, dtype=torch.int32,
+                                               device=cuda),
+                          "h": torch.randn(17, generator=gen, device=cuda
+                                           ).to(torch.bfloat16)}}
+    ck = str(tmp_path / "ck")
+    save_checkpoint(ck, tree, step=3)
+    got, step = load_checkpoint(ck, tree)
+    assert step == 3
+    for part in ("params", "opt_state"):
+        for k, want in tree[part].items():
+            g = got[part][k]
+            assert g.device == want.device and g.dtype == want.dtype
+            if g.dtype == torch.bfloat16:
+                g, want = g.view(torch.int16), want.view(torch.int16)
+            assert torch.equal(g, want)
+
+
+def test_train_sequence_resumes_on_the_card(cuda, tmp_path):
+    """Checkpoint after 2 updates, resume to 3 (the card's training is
+    not bitwise reproducible, so the resumed update is not compared with
+    an uninterrupted one)."""
+    from repro_torch.launch.train import train_sequence
+    ck = str(tmp_path / "ck")
+    kw = dict(arch="lstm-asr", smoke=True, batch=8, cg_batch=4, frames=24,
+              cg_iters=3, ng_iters=2, cg_fused=True, warm_start=True,
+              adapt_lam=True, device=cuda, verbose=False, ckpt_dir=ck)
+    train_sequence(steps=2, **kw)
+    _, log = train_sequence(steps=3, resume=True, **kw)
+    assert [m["step"] for m in log] == [2]
+    assert np.isfinite([v for v in log[0].values()]).all()
+
+
 def _dag_parts(dev, dicts):
     spec = packing.derive_buckets(dicts, batch=len(dicts), tiers=1)[0]
     lat, _ = packing.pack_requests(dicts, spec, device=dev)
