@@ -15,7 +15,10 @@ paths against its plain PyTorch version on the card:
     checkpoints, and the paper's example (CE -> NGHF vs SGD/Adam);
   * LM serving: recurrentgemma-9b at full width and depth (38 layers,
     10,444,771,328 parameters, random weights from a seed) through
-    ``launch.steps.build_prefill_step`` and ``launch.serve.serve``.
+    ``launch.steps.build_prefill_step`` and ``launch.serve.serve``;
+  * LM training: whisper-base at full width and depth (6 + 6 layers,
+    130,737,152 parameters) trained by NGHF with the fused CG kernel
+    through the training CLI (``launch.steps.build_step``).
 
 Phases:
 
@@ -37,7 +40,8 @@ Phases:
      with out-of-range labels, T = 1, T = 1000 with spans up to T, 16,000
      slots), and bitwise on a repeat; the fused CG
      update at the parameter count of each of the five *-asr archs (N =
-     19,335,000 for the LSTM) in f32 and bf16, and bitwise on a repeat;
+     19,335,000 for the LSTM) and of whisper-base (N = 130,737,152) in
+     f32 and bf16, and bitwise on a repeat;
      ``swa_attention`` on adversarial shapes (T = 1, T <= window, ragged
      T, window 0, a window past T, MHA/GQA/MQA, hd 32-256, f32 through
      the CUDA-core kernel and bf16 through the tensor-core kernel, whose
@@ -117,7 +121,27 @@ Phases:
      statistics and fused CG kernels launched exactly as
      ``launches_per_update`` counts (in the example, plus one pass per
      SGD and Adam step and per held-out batch) and the loss-only kernel
-     within its bounds; update, save and load times logged.
+     within its bounds; update, save and load times logged;
+  9. LM training (run after phase 8, before phase 7, on a card freed with
+     ``empty_cache``): the training CLI ``launch.train.main`` on
+     whisper-base at full width and depth (130,737,152 parameters; B =
+     16, T = 448, whisper's own text context, with train_4k's T 4096 and
+     B 256 cut to what one card holds; 1500 encoder frames; CG batch 4;
+     8 CG and 4 NG iterations, ``--cg-fused``): 2 updates with a
+     checkpoint, then ``--resume`` to 3 — the resumed log starts at step
+     2, the loaded train state equals the saved one bitwise, every metric
+     finite, every accepted update below its Δθ=0 baseline,
+     ``cg_fused_update`` launched exactly 12 times an update and no other
+     kernel; one update from the CLI's start through the kernel path and
+     through the plain path (``cg_fused=False``): the same decision (or a
+     tie within the paths' spread) and, without candidate selection, the
+     last iterate's Δθ within relative L2 2e-2 (the plain path's own
+     repeat printed beside it), the update split by the stage timer;
+     Adam through the same ``build_step`` for 3 steps, finite; at f32
+     compute ``prefill_cache`` and 16 greedy ``decode_step``s against
+     ``forward``'s logits within relative max 1e-3; peak device memory;
+     ``cg_fused_update`` timed at N = 130,737,152 against its bound
+     (the ``lm_*`` keys of its row in the kernels line).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; without a card, or outside a checkout of the repo,
@@ -1116,17 +1140,22 @@ def phase_sausage_kernels(dev, errs: dict) -> None:
 
 
 def cg_sizes(dev) -> list:
-    """The flat sizes the fused CG update meets on the driver path: the
-    parameter counts of the five *-asr archs at full width."""
+    """The flat sizes the fused CG update meets on the driver paths: the
+    parameter counts of the five *-asr archs and of whisper-base at full
+    width."""
     from repro_torch.configs.acoustic import get_acoustic_config
     from repro_torch.models import acoustic
     sizes = set()
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.registry import get_model
     for arch in ("lstm-asr",) + CLI_ARCHS:
         params = acoustic.init_params(get_acoustic_config(arch), 0,
                                       device=dev)
         sizes.add(acoustic.param_count(params))
         del params
-    check(LSTM_PARAMS in sizes, f"parameter counts {sorted(sizes)}")
+    sizes.add(get_model(get_config(LM_TRAIN_ARCH)).param_count())
+    check(LSTM_PARAMS in sizes and LM_TRAIN_PARAMS in sizes,
+          f"parameter counts {sorted(sizes)}")
     return sorted(sizes)
 
 
@@ -1769,6 +1798,349 @@ def phase_cli(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# LM training: whisper-base at full width and depth
+# ---------------------------------------------------------------------------
+
+# whisper-base (6 + 6 layers, d 512, vocab 51865) trained by NGHF through
+# the CLI with the fused CG kernel.  train_4k's shape (T 4096, B 256) is
+# cut to what one card holds: T = 448, whisper's own text context, and
+# B = 16 (the CG batch is B / 4 = 4, the CLI's cg_frac); every encoder
+# input is 1500 frames.
+LM_TRAIN_ARCH = "whisper-base"
+LM_TRAIN_PARAMS = 130_737_152
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 16, 448
+LM_CG_ITERS, LM_NG_ITERS = 8, 4
+LM_TRAIN_ARGS = ["--arch", LM_TRAIN_ARCH, "--optimizer", "nghf",
+                 "--batch", str(LM_TRAIN_BATCH), "--seq", str(LM_TRAIN_SEQ),
+                 "--cg-iters", str(LM_CG_ITERS), "--ng-iters",
+                 str(LM_NG_ITERS), "--cg-fused", "--device", "cuda"]
+# kernel path vs plain path, one update from the same parameters without
+# candidate selection: the last CG iterate's Δθ, relative L2.  The two
+# paths run the same products and differ in the CG vector work: x and r
+# are the same bits (phase 2), ⟨r, r⟩ sums in another order (about 1e-7
+# relative).  The products run on bf16 activations, so a last-bit change
+# of a direction flips bf16 roundings and moves Bv by about the bf16
+# step (2^-8); 12 products carry that into Δθ (measured 0.0047 on the
+# H100, while the plain path repeats its own bits).  The bound is phase
+# 5's, set the same way; the CPU parity tests reach 1.3e-6 at smoke
+# size and f32.
+LM_DELTA_REL_L2 = 2e-2
+# greedy decode at f32 compute against forward's logits (relative max)
+LM_DECODE_STEPS, LM_DECODE_BATCH = 16, 2
+
+
+def lm_update_text(m: dict) -> str:
+    return (f"{m['time_s'] * 1e3:.3f} ms; ce {m['ce']:.6f} acc "
+            f"{m['acc']:.6f}, accepted {bool(m['cg_accepted'])} best "
+            f"iterate {m['cg_best_iter']:.0f} (best {m['cg_best_loss']:.6f},"
+            f" Δθ=0 {m['cg_base_loss']:.6f}), outer CG vᵀBv "
+            f"{m['cg_curv_first']:.4g} -> {m['cg_curv_last']:.4g}, |Δθ| "
+            f"{m['update_norm']:.4g}, grad norm {m['grad_norm']:.4g}, "
+            f"candidates with a finite loss {m['cg_evaluated']:.0f}, host "
+            f"syncs {m['cg_host_syncs']:.0f}")
+
+
+def swa_counts() -> tuple:
+    from repro_torch.kernels import swa_attention as SWA
+    return SWA.swa_attention.launches, SWA.swa_attention.cuda_core_launches
+
+
+def check_lm_updates(tag: str, log_: list, launches: dict, swa: tuple,
+                     steps: list, per_update: int) -> None:
+    """Log each update; finite metrics, accepted updates below their
+    Δθ=0 baseline, the logged steps, and exactly ``per_update``
+    ``cg_fused_update`` launches an update and no other kernel's."""
+    for m in log_:
+        log(f"{tag} update {m['step']}: "
+            + (lm_update_text(m) if "cg_curv_first" in m else
+               f"{m['time_s'] * 1e3:.3f} ms; ce {m['ce']:.6f} acc "
+               f"{m['acc']:.6f}, grad norm {m['grad_norm']:.4g}"))
+    check([m["step"] for m in log_] == steps,
+          f"{tag}: steps {[m['step'] for m in log_]}, want {steps}")
+    for m in log_:
+        if "cg_accepted" in m:
+            check_update(f"{tag} update {m['step']}", m)
+        check(all(np.isfinite(v) for v in m.values()),
+              f"{tag} update {m['step']}: non-finite metrics {m}")
+    want = {k: 0 for k in launches}
+    want["cg_fused_update"] = per_update * len(log_)
+    check(launches == want and swa == (0, 0),
+          f"{tag}: launches {launches}, swa_attention {swa}; want {want}")
+    log(f"{tag}: launches {launches} ({per_update} cg_fused_update an "
+        f"update)")
+
+
+def lm_one_update(cfg, params, batch, fused: bool, timer=None,
+                  **overrides) -> tuple:
+    """One NGHF update through ``build_step``'s optimiser (all metrics, the
+    CG histories included); (new params, metrics, seconds)."""
+    from repro_torch.launch.steps import build_step, cg_sub_batch
+    _, opt = build_step(cfg, "nghf", cg_frac=4, cg_iters=LM_CG_ITERS,
+                        ng_iters=LM_NG_ITERS, cg_fused=fused, **overrides)
+    opt.timer = timer
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, _, m = opt.step(params, opt.init(params), batch,
+                         cg_sub_batch(batch, 4, 1))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return new, {k: (v.tolist() if torch.is_tensor(v) else float(v))
+                 for k, v in m.items()}, dt
+
+
+def device_trace(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (device activity
+    only): the device's busy time (the union of the intervals of its
+    kernels and copies) against the traced call's wall time, and the
+    kernels with the most device time.  The profiler's own cost lengthens
+    the traced call, so the idle share it gives is an upper bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, by_name = [], {}
+    for e in prof.events():
+        a, b = e.time_range.start, e.time_range.end
+        if e.device_type != DeviceType.CUDA or b <= a:
+            continue
+        spans.append((a, b))
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + (b - a) * 1e-3, n + 1)
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        busy += max(b, end) - max(a, end)
+        end = max(end, b)
+    top = sorted(((k, ms, n) for k, (ms, n) in by_name.items()),
+                 key=lambda t: -t[1])
+    return {"wall_s": wall, "busy_s": busy * 1e-6, "device_events":
+            len(spans), "top": top[:6]}
+
+
+def lm_train_batch(cfg, step: int, dev) -> dict:
+    """The CLI's batch ``step`` (``train_lm``'s draws)."""
+    from repro_torch.data.synthetic import lm_batch
+    b = lm_batch(step, batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ,
+                 vocab=cfg.vocab_size, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(step)
+    b["encoder_input"] = torch.randn(
+        LM_TRAIN_BATCH, cfg.encoder_frames, cfg.d_model, generator=gen,
+        device=dev).to(cfg.cdtype)
+    return b
+
+
+def phase_lm_train(dev) -> dict:
+    """Phase 9: whisper-base at full width and depth trained by NGHF with
+    ``--cg-fused`` through the CLI, checkpointed and resumed; one update
+    through the kernel path against the plain path; Adam through the same
+    ``build_step``; greedy decode against forward."""
+    import shutil
+    import tempfile
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.timing import StageTimer
+    from repro_torch.kernels import swa_attention as SWA
+    from repro_torch.launch import train as T
+    from repro_torch.models import encdec
+    from repro_torch.models.registry import get_model
+    cfg = get_config(LM_TRAIN_ARCH)
+    model = get_model(cfg)
+    n_params = model.param_count()
+    check(n_params == LM_TRAIN_PARAMS,
+          f"{LM_TRAIN_ARCH} has {n_params} parameters")
+    log(f"{LM_TRAIN_ARCH}: {n_params} parameters ({len(model.param_shapes())}"
+        f" leaves, f32, {4 * n_params / 1e9:.3f} GB); CLI "
+        f"{' '.join(LM_TRAIN_ARGS)}")
+    per_update = LM_CG_ITERS + LM_NG_ITERS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_")
+    ck = os.path.join(tmp, "ck")
+    saved = []
+    real_save = T.save_train_state
+
+    def save_and_keep(ckpt_dir, params, opt_state, *, step=0, extra=None):
+        kept = (step, clone_tree(params), clone_tree(opt_state))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_save(ckpt_dir, params, opt_state, step=step, extra=extra)
+        saved.append(kept + (time.perf_counter() - t0,))
+
+    out = {}
+    T.save_train_state = save_and_keep
+    try:
+        # the main path: counts at 0 just before, read just after
+        reset_counts()
+        SWA.reset_launch_counts()
+        log2 = T.main(LM_TRAIN_ARGS + ["--steps", "2", "--ckpt-dir", ck])
+        launches = read_counts()
+        check_lm_updates("CLI whisper-base", log2, launches, swa_counts(),
+                         [0, 1], per_update)
+        _, params, opt_state, t_save = saved[-1]
+        t_load = load_and_compare("CLI whisper-base", ck, params, opt_state,
+                                  2)
+        log(f"CLI whisper-base checkpoint at step 2 ({ckpt_mb(ck):.3f} MB "
+            f"on disk): save {t_save * 1e3:.3f} ms, load "
+            f"{t_load * 1e3:.3f} ms; loaded == saved bitwise")
+        del params, opt_state, saved[:]
+        reset_counts()
+        log3 = T.main(LM_TRAIN_ARGS + ["--steps", "3", "--ckpt-dir", ck,
+                                       "--resume"])
+        launches3 = read_counts()
+        check_lm_updates("CLI whisper-base resumed", log3, launches3,
+                         swa_counts(), [2], per_update)
+        _, params, opt_state, _ = saved[-1]
+        load_and_compare("CLI whisper-base at step 3", ck, params,
+                         opt_state, 3)
+        del params, opt_state, saved[:]
+        out["launches"] = launches["cg_fused_update"] \
+            + launches3["cg_fused_update"]
+        out["updates"] = len(log2) + len(log3)
+        out["log"] = log2 + log3
+        out["peak_cli_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"CLI whisper-base: update times "
+            f"{[round(m['time_s'], 3) for m in log2 + log3]} s, accepted "
+            f"{[bool(m['cg_accepted']) for m in log2 + log3]}; peak device "
+            f"memory {out['peak_cli_gb']:.3f} GB")
+    finally:
+        T.save_train_state = real_save
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the kernel path against the plain path, from the CLI's start
+    torch.cuda.empty_cache()
+    params = model.init(0, device=dev)
+    batch = lm_train_batch(cfg, 0, dev)
+    timer = StageTimer(dev)
+    _, m_k, t_k = lm_one_update(cfg, params, batch, True, timer=timer)
+    _, m_p, t_p = lm_one_update(cfg, params, batch, False)
+    text = same_choice("whisper-base NGHF", m_k, m_p)
+    stages = dict(timer.totals)
+    new_k, m_n, _ = lm_one_update(cfg, params, batch, True,
+                                  eval_candidates=False)
+    new_p, _, _ = lm_one_update(cfg, params, batch, False,
+                                eval_candidates=False)
+    rel = delta_rel_l2(new_k, new_p, params)
+    del new_k
+    new_p2, _, _ = lm_one_update(cfg, params, batch, False,
+                                 eval_candidates=False)
+    rel_pp = delta_rel_l2(new_p2, new_p, params)
+    del new_p, new_p2
+    check(rel <= LM_DELTA_REL_L2, f"whisper-base: last-iterate Δθ kernel "
+          f"vs plain path rel-L2 {rel:.3g}")
+    out["stages"] = stages
+    out["timed_update_s"] = t_k
+    log(f"whisper-base NGHF: kernel path == plain path (unfused CG): "
+        f"{text}; last-iterate Δθ rel-L2 {rel:.3g} (limit "
+        f"{LM_DELTA_REL_L2}; the plain path against its own repeat "
+        f"{rel_pp:.3g}; last-iterate |Δθ| {m_n['update_norm']:.4g}); "
+        f"update {t_k * 1e3:.3f} ms with the stage timer's syncs, plain "
+        f"path {t_p * 1e3:.3f} ms")
+    rest = t_k - sum(stages.values())
+    log("whisper-base NGHF update split (stage timer, synced): "
+        + ", ".join(f"{k} {v * 1e3:.3f} ms ({100 * v / t_k:.1f} %)"
+                    for k, v in stages.items())
+        + f", the rest (CG vector work, preconditioner, selection) "
+        f"{rest * 1e3:.3f} ms ({100 * rest / t_k:.1f} %); curvature "
+        f"products {timer.calls['curvature']}, candidate evaluations "
+        f"{timer.calls['candidates']}")
+
+    # one kernel-path update traced: the device's busy and idle share
+    trace = device_trace(lambda: lm_one_update(cfg, params, batch, True))
+    out["trace"] = trace
+    idle = 1.0 - trace["busy_s"] / trace["wall_s"]
+    log(f"whisper-base NGHF update under torch.profiler: "
+        f"{trace['wall_s'] * 1e3:.3f} ms traced, device busy "
+        f"{trace['busy_s'] * 1e3:.3f} ms "
+        f"({trace['device_events']} device events), idle share "
+        f"{idle:.3f}; most device time: "
+        + "; ".join(f"{k[:90]} {ms:.3f} ms x {n}"
+                    for k, ms, n in trace["top"]))
+
+    # Adam through the same build_step (the CLI), 3 steps
+    reset_counts()
+    adam = T.main(["--arch", LM_TRAIN_ARCH, "--optimizer", "adam",
+                   "--batch", str(LM_TRAIN_BATCH), "--seq",
+                   str(LM_TRAIN_SEQ), "--steps", "3", "--device", "cuda"])
+    check_lm_updates("CLI whisper-base Adam", adam, read_counts(),
+                     swa_counts(), [0, 1, 2], 0)
+
+    # greedy decode at f32 compute against forward's logits
+    cfg32 = cfg.replace(compute_dtype="float32")
+    m32 = get_model(cfg32)
+    with torch.no_grad():
+        gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+        enc = torch.randn(LM_DECODE_BATCH, cfg.encoder_frames, cfg.d_model,
+                          generator=gen, device=dev)
+        cache = encdec.prefill_cache(cfg32, params, m32.init_cache(
+            LM_DECODE_BATCH, LM_DECODE_STEPS, device=dev), enc)
+        tok = torch.randint(0, cfg.vocab_size, (LM_DECODE_BATCH, 1),
+                            generator=gen, device=dev)
+        toks, outs = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(LM_DECODE_STEPS):
+            toks.append(tok)
+            lg, cache = m32.decode_step(params, cache, tok, t)
+            outs.append(lg[:, 0])
+            tok = lg[:, 0].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        dec_s = (time.perf_counter() - t0) / LM_DECODE_STEPS
+        full, _ = m32.forward(params, {"tokens": torch.cat(toks, 1),
+                                       "encoder_input": enc})
+        dec = torch.stack(outs, 1)
+        drel = float((dec - full).abs().max() / full.abs().max())
+    check(bool(torch.isfinite(dec).all()) and drel <= DECODE_REL,
+          f"whisper-base decode vs forward: relative max {drel:.3g}")
+    log(f"whisper-base f32 greedy decode, B={LM_DECODE_BATCH}, "
+        f"{LM_DECODE_STEPS} steps after prefill_cache: logits vs forward "
+        f"relative max {drel:.3g} (limit {DECODE_REL}); "
+        f"{dec_s * 1e3:.3f} ms a step (host clock)")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, batch, cache, enc, full, dec, outs
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_cg_times(lm_train: dict, dev) -> dict:
+    """``cg_fused_update`` at whisper-base's N against its plain version:
+    the times of the kernel (through the wrapper and alone), the plain
+    version and the bound, beside phase 9's launches."""
+    from repro_torch.kernels import cg_fused as CG
+    from repro_torch.kernels import ref as R
+    n = LM_TRAIN_PARAMS
+    gen = torch.Generator(device=dev).manual_seed(SEED + 91)
+    x, v, r, bv = (torch.randn(n, generator=gen, device=dev)
+                   for _ in range(4))
+    alpha = torch.tensor(0.37, device=dev)
+    got = CG.cg_fused_update(alpha, x, v, r, bv)
+    want = R.cg_fused_update_ref(alpha, x, v, r, bv)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"cg_fused_update N={n}: not the plain version's bits")
+    del got, want
+    b_ms, b_by = bound(6 * 4 * n, 6 * n)
+    t = {"lm_launches": lm_train["launches"],
+         "lm_launches_per": lm_train["launches"] / lm_train["updates"],
+         "lm_ms": cuda_time_ms(lambda: CG.cg_fused_update(alpha, x, v, r,
+                                                          bv), 20),
+         "lm_kernel_alone_ms": kernel_alone_ms(
+             lambda: CG.cg_fused_update(alpha, x, v, r, bv)),
+         "lm_plain_ms": cuda_time_ms(
+             lambda: R.cg_fused_update_ref(alpha, x, v, r, bv), 3),
+         "lm_bound_ms": b_ms, "lm_bound_by": b_by,
+         "lm_shape": f"N={n} f32 ({LM_TRAIN_ARCH})"}
+    log(f"cg_fused_update timed at {t['lm_shape']}: "
+        + ", ".join(f"{k} {v:.6g}" for k, v in t.items()
+                    if isinstance(v, float))
+        + f"; {100 * b_ms / t['lm_kernel_alone_ms']:.1f} % of the bound "
+        f"alone")
+    del x, v, r, bv
+    torch.cuda.empty_cache()
+    return t
+
+
+# ---------------------------------------------------------------------------
 # LM serving: sliding-window attention and recurrentgemma-9b
 # ---------------------------------------------------------------------------
 
@@ -2204,6 +2576,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_cli(dev)
     torch.cuda.empty_cache()
+    lm_train = phase_lm_train(dev)
+    next(k for k in kernels if k["name"] == "cg_fused_update").update(
+        lm_cg_times(lm_train, dev))
     lm = phase_lm(dev)
     kernels.append(swa_times(lm, errs, dev))
     check(len(kernels) == len(TPU_KERNELS), "a kernel has no entry")

@@ -155,11 +155,12 @@ class ArchConfig:
 # CLI ids (with dashes/dots) -> module names, for the archs the port runs
 _ALIASES = {
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "whisper-base": "whisper_base",
 }
 
 # the rest of the reference's pool: not ported yet
 NOT_PORTED = (
-    "qwen2-72b", "whisper-base", "stablelm-1.6b", "xlstm-125m",
+    "qwen2-72b", "stablelm-1.6b", "xlstm-125m",
     "granite-moe-3b-a800m", "qwen2.5-3b", "mixtral-8x22b", "minitron-8b",
     "chameleon-34b",
 )

@@ -1,11 +1,17 @@
-"""Deterministic synthetic ASR data.
+"""Deterministic synthetic data.
 
-Port of the acoustic half of ``repro.data.synthetic``: a sausage lattice
-per utterance (``losses.lattice.make_lattice_batch``) plus acoustic
-features correlated with the reference state sequence (fixed class
-embeddings + noise), so discriminative sequence training has signal to
-extract.  Pure numpy drawn in the reference's RNG order, so one seed
-gives the reference's arrays; tensors are made on ``device`` at the end.
+Port of ``repro.data.synthetic``:
+
+  * ``lm_batch`` — Zipfian Markov-chain token streams for LM training
+    (next-token labels pre-shifted); the chain has learnable structure,
+    so CE decreases;
+  * ``asr_batch`` — a sausage lattice per utterance
+    (``losses.lattice.make_lattice_batch``) plus acoustic features
+    correlated with the reference state sequence (fixed class embeddings
+    + noise), so discriminative sequence training has signal to extract.
+
+Pure numpy drawn in the reference's RNG order, so one seed gives the
+reference's arrays bitwise; tensors are made on ``device`` at the end.
 """
 from __future__ import annotations
 
@@ -14,6 +20,32 @@ import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.losses.lattice import make_lattice_batch
+
+
+def _zipf_transition(rng: np.random.Generator, vocab: int, branch: int = 16):
+    """Sparse Markov chain: each state can emit ``branch`` successors with
+    Zipfian weights."""
+    succ = rng.integers(0, vocab, size=(vocab, branch))
+    w = 1.0 / np.arange(1, branch + 1)
+    w = w / w.sum()
+    return succ, w
+
+
+def lm_batch(seed: int, *, batch: int, seq_len: int, vocab: int,
+             branch: int = 16, device=DEFAULT_DEVICE) -> dict:
+    """{"tokens": (B, T) int32, "labels": (B, T) int32 (the tokens shifted
+    by one)} on ``device``."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    chain_rng = np.random.default_rng(12345)       # chain fixed across batches
+    succ, w = _zipf_transition(chain_rng, vocab, branch)
+    toks = np.zeros((batch, seq_len + 1), np.int32)
+    toks[:, 0] = rng.integers(0, vocab, size=batch)
+    choices = rng.choice(branch, size=(batch, seq_len), p=w)
+    for t in range(seq_len):
+        toks[:, t + 1] = succ[toks[:, t], choices[:, t]]
+    return {"tokens": torch.from_numpy(toks[:, :-1].copy()).to(dev),
+            "labels": torch.from_numpy(toks[:, 1:].copy()).to(dev)}
 
 
 def asr_batch(seed: int, *, batch: int, num_frames: int, num_states: int,

@@ -10,8 +10,8 @@ the buffers' dtype, float32 or bfloat16; rr in f32 from the unrounded
 residual).  For tensors on the CPU the wrapper returns the plain version
 ``kernels.ref.cg_fused_update_ref``; for CUDA tensors it checks dtype
 and contiguity, allocates the outputs and the per-tile partials, and
-launches the kernel (a tile pass and an index-order fold of the tile
-partials) on the current stream, or raises.  ``alpha`` may be a Python
+launches the kernel (a tile pass and a fixed-order fold of the tile
+partials in double) on the current stream, or raises.  ``alpha`` may be a Python
 float or a 0-d f32 tensor on the buffers' device; the kernel reads it
 from device memory, so the host never waits for it.
 

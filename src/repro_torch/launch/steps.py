@@ -1,21 +1,31 @@
-"""Step builders: lattice sequence training and LM serving.
+"""Step builders: LM training, lattice sequence training and LM serving.
 
-Port of ``repro.launch.steps.acoustic_forward_fn``,
-``build_sequence_step``, ``build_prefill_step`` and ``build_serve_step``.
+Port of ``repro.launch.steps.build_step``, ``cg_sub_batch``,
+``acoustic_forward_fn``, ``build_sequence_step``, ``build_prefill_step``
+and ``build_serve_step``.
 
-Sequence training is one uniform update for any registered optimiser
-— the paper's SGD/Adam-vs-NGHF comparison included —
+Both training builders return ``(step, opt)`` for any registered
+optimiser — the paper's SGD/Adam-vs-NGHF comparison included:
+
+    step, opt = build_step(cfg, "nghf", cg_fused=True)
+    params, opt_state, metrics = step(params, opt.init(params), batch)
+
+trains a language model on ``data.synthetic.lm_batch`` batches (an
+enc-dec arch also takes ``batch["encoder_input"]``) with the
+vocab-chunked CE (``losses.chunked_lm``); second-order optimisers slice
+their CG batch from the front of the gradient batch (``cg_frac``), and
+the model's share counts feed the Sec. 4.3 preconditioner.
 
     step, opt = build_sequence_step(acfg, "nghf", loss="mpe", kappa=0.5)
     params, opt_state, metrics = step(params, opt.init(params),
                                       grad_batch, cg_batch)
 
-with both batches from ``data.synthetic.asr_batch`` (feats + labels + a
-``Lattice``).  The CG batch is explicit because the paper samples it from
-the whole training set (Sec. 4.1); first-order optimisers ignore it
-(``opt.uses_cg_batch``).  The port runs on one device: ``mesh`` and
-``state_sharding`` raise ``NotImplementedError`` until the distribution
-slice.
+is lattice sequence training, with both batches from
+``data.synthetic.asr_batch`` (feats + labels + a ``Lattice``).  Its CG
+batch is explicit because the paper samples it from the whole training
+set (Sec. 4.1); first-order optimisers ignore it (``opt.uses_cg_batch``).
+The port runs on one device: ``mesh`` and ``state_sharding`` raise
+``NotImplementedError`` until the distribution slice (ROADMAP 1.4).
 
 LM serving: ``build_prefill_step(cfg)`` runs a prompt batch through the
 backbone and returns the last position's logits (the prefill_32k step;
@@ -30,6 +40,7 @@ from typing import Callable, Tuple
 import torch
 
 from repro_torch.core.optim import Optimizer, get_optimizer
+from repro_torch.losses.chunked_lm import ChunkedCELoss
 from repro_torch.losses.sequence import get_loss
 from repro_torch.models import acoustic
 from repro_torch.models.registry import get_model
@@ -40,6 +51,84 @@ def scalar_metrics(metrics: dict) -> dict:
     return {k: v for k, v in metrics.items()
             if getattr(v, "ndim", 0) == 0}
 
+
+def step_metrics(metrics: dict) -> dict:
+    """The scalar metrics, plus the (outer) CG's first and last vᵀBv:
+    how far the solve's curvature grew, which the per-iteration history
+    shows and the scalar log would drop."""
+    out = scalar_metrics(metrics)
+    used = int(metrics.get("cg_iters_used", 0))
+    if used:
+        out["cg_curv_first"] = metrics["cg_curv"][0]
+        out["cg_curv_last"] = metrics["cg_curv"][used - 1]
+    return out
+
+
+def one_device(mesh, state_sharding) -> None:
+    if mesh is not None or state_sharding is not None:
+        raise NotImplementedError(
+            "mesh / state_sharding: the port's steps run on one device; "
+            "the distribution slice brings them (ROADMAP 1.4)")
+
+
+# ---------------------------------------------------------------------------
+# LM training
+# ---------------------------------------------------------------------------
+
+def lm_forward(cfg, model) -> Callable:
+    """forward for ``ChunkedCELoss``: (params, batch) -> ((hidden, head
+    matrix), router_aux_coef * aux).  The head matrix is the parameter
+    leaf itself, so the curvature products' tangents and cotangents reach
+    it."""
+    def fwd(params, batch):
+        hidden, aux = model.forward_hidden(params, batch)
+        return (hidden, model.head_matrix(params)), cfg.router_aux_coef * aux
+    return fwd
+
+
+def cg_sub_batch(batch: dict, frac: int, min_size: int) -> dict:
+    """The first max(B // frac, min_size) rows of every tensor of
+    ``batch`` with the batch's leading dim B: the paper's (much smaller)
+    CG batch."""
+    ref = batch["tokens"] if "tokens" in batch else batch["feats"]
+    B = ref.shape[0]
+    nb = max(B // frac, min_size)
+    return {k: v[:nb] if isinstance(v, torch.Tensor) and v.dim() >= 1
+            and v.shape[0] == B else v for k, v in batch.items()}
+
+
+def build_step(cfg, opt_spec, *, cg_frac: int = 8, min_cg: int = 1,
+               state_sharding=None, mesh=None,
+               **opt_overrides) -> Tuple[Callable, Optimizer]:
+    """One uniform LM train step for any registered optimiser.
+
+    ``opt_spec``: a registry name ("sgd" | "adam" | "ng" | "hf" |
+    "nghf") or a config dataclass; ``opt_overrides`` go to
+    ``optim.get_optimizer``.  Returns ``(step, opt)`` with ``step(params,
+    opt_state, batch) -> (params, opt_state, scalar metrics)``; labels
+    default to the tokens.
+    """
+    one_device(mesh, state_sharding)
+    model = get_model(cfg)
+    counts = model.share_counts(model.param_shapes())
+    opt = get_optimizer(opt_spec, lm_forward(cfg, model), ChunkedCELoss(),
+                        share_counts=counts, **opt_overrides)
+
+    def step(params, opt_state, batch):
+        lm = dict(batch)
+        lm.setdefault("labels", lm["tokens"])
+        cg_batch = (cg_sub_batch(lm, cg_frac, min_cg)
+                    if opt.uses_cg_batch else None)
+        new_params, new_state, metrics = opt.step(params, opt_state, lm,
+                                                  cg_batch)
+        return new_params, new_state, step_metrics(metrics)
+
+    return step, opt
+
+
+# ---------------------------------------------------------------------------
+# lattice sequence training
+# ---------------------------------------------------------------------------
 
 def acoustic_forward_fn(acfg) -> Callable:
     """forward for the acoustic models: (params, batch) -> (logits, 0.0)."""
@@ -60,29 +149,17 @@ def build_sequence_step(acfg, opt_spec, *, loss: str = "mpe",
     "levelized"`` (``lattice_engine.api``).  ``timer``: an optional
     ``core.timing.StageTimer`` for second-order optimisers.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: the port's sequence step runs on one device; the "
-            "distribution slice brings meshes")
+    one_device(mesh, state_sharding)
     loss_spec = get_loss(loss, kappa=kappa, backend=backend)
     opt = get_optimizer(opt_spec, acoustic_forward_fn(acfg), loss_spec,
-                        share_counts=share_counts,
-                        state_sharding=state_sharding, **opt_overrides)
+                        share_counts=share_counts, **opt_overrides)
     if timer is not None:
         opt.timer = timer
 
     def sequence_step(params, opt_state, grad_batch, cg_batch=None):
         new_params, new_state, metrics = opt.step(params, opt_state,
                                                   grad_batch, cg_batch)
-        out = scalar_metrics(metrics)
-        used = int(metrics.get("cg_iters_used", 0))
-        if used:
-            # the (outer) CG's first and last vᵀBv: how far the solve's
-            # curvature grew, which the per-iteration history shows and
-            # the scalar log would drop
-            out["cg_curv_first"] = metrics["cg_curv"][0]
-            out["cg_curv_last"] = metrics["cg_curv"][used - 1]
-        return new_params, new_state, out
+        return new_params, new_state, step_metrics(metrics)
 
     return sequence_step, opt
 

@@ -1,10 +1,12 @@
 """Training driver: lattice MPE/MMI (or frame-CE) sequence training of an
-acoustic model, the paper's experiment, on one device.
+acoustic model, the paper's experiment, and LM training on the synthetic
+token pipeline, on one device.
 
-Port of ``repro.launch.train``: ``train_sequence``, ``evaluate_sequence``
-and the CLI ``main``.  Every registered optimiser runs the same loop,
-step signature and checkpoint format (the full ``(params, opt_state,
-step)``, so a resumed run continues exactly).
+Port of ``repro.launch.train``: ``train_sequence``, ``evaluate_sequence``,
+the LM loop of its ``main`` (``train_lm`` here) and the CLI ``main``.
+Every registered optimiser runs the same loop, step signature and
+checkpoint format (the full ``(params, opt_state, step)``, so a resumed
+run continues exactly).
 
     from repro_torch.launch.train import train_sequence
     params, log = train_sequence(arch="lstm-asr", optimizer="nghf",
@@ -13,12 +15,15 @@ step)``, so a resumed run continues exactly).
     PYTHONPATH=src python -m repro_torch.launch.train --arch lstm-asr \
         --smoke --device cpu --optimizer nghf --steps 4 --batch 8 \
         --frames 24 --ckpt-dir /path/to/ckpt [--resume]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-base \
+        --smoke --device cpu --steps 2
 
 ``device`` defaults to ``"cuda"`` and raises without a card; pass
 ``device="cpu"`` (with ``smoke=True`` for the reduced geometry) to run
 the plain PyTorch versions of the kernels on the CPU.  ``mesh`` raises
-``NotImplementedError`` until the distribution slice (ROADMAP 1.4), and
-the CLI refuses the LM archs until LM training is ported (ROADMAP 1.3).
+``NotImplementedError`` until the distribution slice (ROADMAP 1.4).  The
+LM archs that train are ``LM_TRAIN_ARCHS``; the others raise, naming
+ROADMAP 1.3.
 """
 from __future__ import annotations
 
@@ -28,20 +33,27 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.checkpoint.io import load_train_state, save_train_state
 from repro_torch.configs import base as arch_configs
 from repro_torch.configs.acoustic import ASR_ARCHS, get_acoustic_config
 from repro_torch.core.optim import config_for, list_optimizers
-from repro_torch.data.synthetic import EpochPlan, asr_batch
+from repro_torch.data.synthetic import EpochPlan, asr_batch, lm_batch
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.launch import steps as S
 from repro_torch.losses.sequence import get_loss
 from repro_torch.models import acoustic
+from repro_torch.models.registry import get_model
 
 # default learning rates when ``lr`` is not given (second-order configs
 # have no ``lr`` field)
 SEQ_DEFAULT_LR = {"sgd": 0.2, "adam": 2e-3}
+LM_DEFAULT_LR = {"sgd": 0.3, "adam": 3e-4}
+# the LM archs the port trains; recurrentgemma-9b serves only (its
+# windowed attention has no backward on the card, and its 41.8 GB of f32
+# parameters leave no room for the CG state on one card)
+LM_TRAIN_ARCHS = ("whisper-base",)
 
 
 def parse_sample_schedule(sched):
@@ -172,6 +184,77 @@ def train_sequence(*, arch=None, acfg=None, optimizer="nghf", loss="mpe",
     return params, log
 
 
+def train_lm(*, arch="whisper-base", optimizer="nghf", steps=10, batch=8,
+             seq=128, cg_iters=8, ng_iters=4, lr=None, smoke=False,
+             ckpt_dir=None, resume=False, warm_start=False,
+             adapt_lam=False, preconditioner=None, curvature_sample=None,
+             cg_tol=None, cg_fused=False, device=DEFAULT_DEVICE):
+    """LM training on ``lm_batch`` streams (the reference's ``main`` LM
+    loop); returns ``(params, log)``.
+
+    Parameters from ``Model.init(0)``; batch ``i`` is ``lm_batch(i)``,
+    and an enc-dec arch's ``encoder_input`` (B, encoder_frames, d) in the
+    compute dtype is drawn from a ``torch.Generator`` on the device
+    seeded with ``i`` (the reference folds ``i`` into a JAX key).  Second-
+    order optimisers take the batch's first B // 4 rows as the CG batch
+    (``cg_frac=4``).  ``ckpt_dir``: the train state is saved
+    there every 10 steps and after the last; with ``resume`` and an
+    existing ``ckpt_dir`` the run continues from the saved step.
+    """
+    if arch.startswith("lm-"):
+        arch = arch[3:]                # 'lm-whisper-base' alias
+    if arch not in LM_TRAIN_ARCHS:
+        raise NotImplementedError(
+            f"--arch {arch}: LM training of this arch is not ported yet "
+            f"(ROADMAP 1.3); the port trains the LM archs "
+            f"{list(LM_TRAIN_ARCHS)} and the acoustic archs "
+            f"{sorted(ASR_ARCHS)}")
+    dev = resolve_device(device)
+    cfg = arch_configs.get_config(arch)
+    if smoke:
+        cfg = cfg.smoke()
+    model = get_model(cfg)
+    params = model.init(0, device=dev)
+    print(f"[train] arch={cfg.name} params={model.param_count() / 1e6:.1f}M "
+          f"optimizer={optimizer}")
+    ocfg = config_for(optimizer, cg_iters=cg_iters, ng_iters=ng_iters,
+                      warm_start=warm_start, adapt_lam=adapt_lam,
+                      preconditioner=preconditioner,
+                      curvature_sample=curvature_sample, cg_tol=cg_tol,
+                      cg_fused=cg_fused or None,
+                      lr=lr if lr is not None
+                      else LM_DEFAULT_LR.get(optimizer))
+    step, opt = S.build_step(cfg, ocfg, cg_frac=4)
+    opt_state = opt.init(params)
+    start = 0
+    if resume and ckpt_dir and os.path.exists(ckpt_dir):
+        params, opt_state, start = load_train_state(ckpt_dir, params,
+                                                    opt_state)
+        print(f"[train] resumed from step {start}")
+
+    log = []
+    for i in range(start, steps):
+        b = lm_batch(i, batch=batch, seq_len=seq, vocab=cfg.vocab_size,
+                     device=dev)
+        if cfg.is_encoder_decoder:
+            gen = torch.Generator(device=dev).manual_seed(i)
+            b["encoder_input"] = torch.randn(
+                batch, cfg.encoder_frames, cfg.d_model, generator=gen,
+                device=dev).to(cfg.cdtype)
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step(params, opt_state, b)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        dt = time.perf_counter() - t0
+        log.append(dict(step=i, time_s=dt, **metrics))
+        print(f"  step {i:4d} loss={metrics['ce']:.4f} "
+              f"acc={metrics['acc']:.3f} ({dt:.3f}s)")
+        if ckpt_dir and (i + 1) % 10 == 0:
+            save_train_state(ckpt_dir, params, opt_state, step=i + 1)
+    if ckpt_dir:
+        save_train_state(ckpt_dir, params, opt_state, step=steps)
+    return params, log
+
+
 def evaluate_sequence(acfg, params, *, loss="mpe", kappa=0.5, frames=32,
                       batch=32, n=4, noise=1.2, seed0=90_000,
                       backend="auto", device=DEFAULT_DEVICE):
@@ -191,15 +274,18 @@ def evaluate_sequence(acfg, params, *, loss="mpe", kappa=0.5, frames=32,
 
 def main(argv=None):
     """The training CLI; returns the log.  ``*-asr`` archs run
-    ``train_sequence``; LM training is not ported yet (ROADMAP 1.3)."""
+    ``train_sequence``, the LM archs of ``LM_TRAIN_ARCHS`` (or
+    ``lm-<arch>``) ``train_lm``; the other LM archs raise, naming
+    ROADMAP 1.3."""
     lm_archs = arch_configs.list_archs() + list(arch_configs.NOT_PORTED)
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-3b",
                     choices=(lm_archs + ["lm-" + a for a in lm_archs]
                              + sorted(ASR_ARCHS)),
                     help="architecture id; '*-asr' ids run lattice "
-                    "sequence training, LM ids (or 'lm-<arch>') raise "
-                    "until LM training is ported")
+                    "sequence training, LM ids (or 'lm-<arch>') LM "
+                    f"training ({', '.join(LM_TRAIN_ARCHS)}; the others "
+                    "raise until ported)")
     ap.add_argument("--optimizer", default="nghf",
                     choices=list_optimizers())
     ap.add_argument("--steps", type=int, default=10)
@@ -248,21 +334,23 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     no_mesh(args.mesh)
-    if args.arch not in ASR_ARCHS:
-        raise NotImplementedError(
-            f"--arch {args.arch}: LM training is not ported yet (ROADMAP "
-            f"1.3); the port trains the acoustic archs {sorted(ASR_ARCHS)}")
-    _, log = train_sequence(
-        arch=args.arch, optimizer=args.optimizer, loss=args.loss,
-        steps=args.steps, batch=args.batch, cg_batch=args.cg_batch,
-        frames=args.frames, kappa=args.kappa, cg_iters=args.cg_iters,
-        ng_iters=args.ng_iters, lr=args.lr, smoke=args.smoke,
-        backend=args.lattice_backend, ckpt_dir=args.ckpt_dir,
-        resume=args.resume, warm_start=args.warm_start,
-        adapt_lam=args.adapt_lam, preconditioner=args.preconditioner,
-        curvature_sample=args.curvature_sample,
-        curvature_sample_schedule=args.curvature_sample_schedule,
-        cg_tol=args.cg_tol, cg_fused=args.cg_fused, device=args.device)
+    common = dict(
+        optimizer=args.optimizer, steps=args.steps, batch=args.batch,
+        cg_iters=args.cg_iters, ng_iters=args.ng_iters, lr=args.lr,
+        smoke=args.smoke, ckpt_dir=args.ckpt_dir, resume=args.resume,
+        warm_start=args.warm_start, adapt_lam=args.adapt_lam,
+        preconditioner=args.preconditioner,
+        curvature_sample=args.curvature_sample, cg_tol=args.cg_tol,
+        cg_fused=args.cg_fused, device=args.device)
+    if args.arch in ASR_ARCHS:
+        _, log = train_sequence(
+            arch=args.arch, loss=args.loss, cg_batch=args.cg_batch,
+            frames=args.frames, kappa=args.kappa,
+            backend=args.lattice_backend,
+            curvature_sample_schedule=args.curvature_sample_schedule,
+            **common)
+    else:
+        _, log = train_lm(arch=args.arch, seq=args.seq, **common)
     if args.log_json:
         with open(args.log_json, "w") as f:
             json.dump(log, f, indent=1)

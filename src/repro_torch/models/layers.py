@@ -1,19 +1,21 @@
 """Core neural-net layers of the language models.
 
-Port of the subset of ``repro.models.layers`` that the ported archs use
-(recurrentgemma-9b): initialisers, RMSNorm, RoPE, attention projections,
-sliding-window and decode attention, the GeGLU MLP, embedding and untied
-LM head.  The reference's other options (q/k/v biases, q/k norms,
-LayerNorm, other activations, tied or learned embeddings) come with the
-archs that use them: ``models.transformer.check_ported`` rejects them.
-Parameters are dicts of tensors with the reference's leaf names and
-layouts (``x @ w``, ``w`` of shape (d_in, d_out)); a matrix is cast to
-the activations' dtype at each use, as the reference does.
+Port of ``repro.models.layers`` for the ported archs (recurrentgemma-9b,
+whisper-base): initialisers, RMSNorm and LayerNorm, RoPE, attention
+projections (RoPE optional), causal, sliding-window, cross and decode
+attention, the gated (GeGLU, SwiGLU) and plain (GELU, ReLU) MLPs,
+embedding and untied LM head.  The reference's q/k/v biases, q/k norms
+and tied embeddings come with the archs that use them:
+``models.transformer.check_ported`` and ``models.encdec.check_ported``
+reject them.  Parameters are dicts of tensors with the reference's leaf
+names and layouts (``x @ w``, ``w`` of shape (d_in, d_out)); a matrix is
+cast to the activations' dtype at each use, as the reference does.
 
 ``windowed_attention`` goes through ``kernels.swa_attention``: on a CUDA
 tensor that is the hand-written kernel, on a CPU tensor its plain
-version.  ``decode_attention`` is plain PyTorch, as the reference's is
-jnp.
+version.  ``causal_attention``, ``cross_attention`` and
+``decode_attention`` are plain PyTorch, as the reference's are jnp (the
+reference has no Pallas kernel for them).
 """
 from __future__ import annotations
 
@@ -68,16 +70,24 @@ def embed_init(init: Init, vocab: int, d: int, dtype):
 # ---------------------------------------------------------------------------
 
 def init_norm(cfg, init: Init, d: int, *, lead=()):
-    return {"scale": init.full((*lead, d), 1.0, cfg.pdtype)}
+    p = {"scale": init.full((*lead, d), 1.0, cfg.pdtype)}
+    if cfg.norm == "layernorm":
+        p["bias"] = init.full((*lead, d), 0.0, cfg.pdtype)
+    return p
 
 
 def norm_apply(cfg, p, x):
-    """RMSNorm in f32, output in x's dtype."""
+    """RMSNorm, or LayerNorm (mean taken off first, then a bias), in f32;
+    output in x's dtype."""
     dt = x.dtype
     x = x.float()
+    if cfg.norm == "layernorm":
+        x = x - x.mean(dim=-1, keepdim=True)
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
-    x = x * torch.rsqrt(var + 1e-6)
-    return (x * p["scale"].float()).to(dt)
+    x = x * torch.rsqrt(var + 1e-6) * p["scale"].float()
+    if "bias" in p:
+        x = x + p["bias"].float()
+    return x.to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -119,16 +129,18 @@ def init_attention(cfg, init: Init, *, lead=()):
     }
 
 
-def qkv_project(cfg, p, x, positions):
-    """x: (B, T, d) -> q (B,T,H,hd), k/v (B,T,K,hd), RoPE on q and k."""
+def qkv_project(cfg, p, x, positions, *, apply_rope=True):
+    """x: (B, T, d) -> q (B,T,H,hd), k/v (B,T,K,hd), RoPE on q and k
+    unless ``apply_rope`` is False."""
     B, T, _ = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     dt = x.dtype
     q = (x @ p["wq"].to(dt)).reshape(B, T, H, hd)
     k = (x @ p["wk"].to(dt)).reshape(B, T, K, hd)
     v = (x @ p["wv"].to(dt)).reshape(B, T, K, hd)
-    q = rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
-    k = rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
+    if apply_rope:
+        q = rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
+        k = rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
     return q, k, v
 
 
@@ -149,6 +161,63 @@ def repeat_kv(k, H: int):
     if K == H:
         return k
     return torch.repeat_interleave(k, H // K, dim=2)
+
+
+def causal_attention(q, k, v, *, q_chunk=512, kv_chunk=1024, q_offset=0):
+    """Chunked online-softmax causal attention, the reference's loop.
+
+    q: (B,T,H,hd), k/v: (B,S,K,hd) with H = K*G; ``q_offset`` is the
+    absolute position of q[0] relative to k[0].  T must split into
+    chunks of min(q_chunk, T) and S into chunks of min(kv_chunk, S), as
+    in the reference.  Scores and the running (acc, max, sum) in f32, the
+    kv tiles taken in order (the first tile holds key 0, so every row's
+    max is finite from then on).  Returns (B,T,H,hd) in q's dtype.
+    """
+    B, T, H, hd = q.shape
+    S = k.shape[1]
+    k = repeat_kv(k, H).float()
+    v = repeat_kv(v, H).float()
+    qc, kc = min(q_chunk, T), min(kv_chunk, S)
+    if T % qc or S % kc:
+        raise ValueError(f"causal_attention: T={T} and S={S} must split "
+                         f"into chunks of {qc} and {kc}")
+    scale = 1.0 / math.sqrt(hd)
+    outs = []
+    for qi in range(T // qc):
+        qb = q[:, qi * qc:(qi + 1) * qc].float()
+        qpos = q_offset + qi * qc + torch.arange(qc, device=q.device)
+        acc = torch.zeros(B, H, qc, hd, dtype=torch.float32, device=q.device)
+        m = torch.full((B, H, qc), NEG, dtype=torch.float32, device=q.device)
+        l = torch.zeros(B, H, qc, dtype=torch.float32, device=q.device)
+        for kj in range(S // kc):
+            kb = k[:, kj * kc:(kj + 1) * kc]
+            vb = v[:, kj * kc:(kj + 1) * kc]
+            kpos = kj * kc + torch.arange(kc, device=q.device)
+            s = torch.einsum("bqhd,bshd->bhqs", qb, kb) * scale
+            s = torch.where(qpos[:, None] >= kpos[None, :], s, NEG)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum("bhqs,bshd->bhqd",
+                                                       p, vb)
+            m = m_new
+        outs.append((acc / l[..., None].clamp(min=1e-30)).transpose(1, 2))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def cross_attention(q, k, v):
+    """Full (non-causal) attention of q: (B,T,H,hd) over a memory k/v:
+    (B,S,K,hd); scores, softmax and P.V in f32, as the reference's
+    ``preferred_element_type=f32`` einsums.  Returns q's dtype."""
+    B, T, H, hd = q.shape
+    K = k.shape[2]
+    qb = q.reshape(B, T, K, H // K, hd).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qb, k.float()) \
+        * (1.0 / math.sqrt(hd))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return out.reshape(B, T, H, hd).to(q.dtype)
 
 
 def windowed_attention(q, k, v, window: int, *, q_chunk=512, q_offset=0):
@@ -192,19 +261,41 @@ def decode_attention(q, k_cache, v_cache, valid_len):
 # FFN
 # ---------------------------------------------------------------------------
 
+def _act(name: str, x):
+    """The reference's activations; ``jax.nn.gelu`` defaults to the tanh
+    approximation (the exact GELU differs from it by up to 5e-4)."""
+    if name == "swiglu":
+        return F.silu(x)
+    if name in ("geglu", "gelu"):
+        return F.gelu(x, approximate="tanh")
+    if name == "relu":
+        return F.relu(x)
+    if name == "sigmoid":
+        return torch.sigmoid(x)
+    raise ValueError(name)
+
+
+def is_gated(activation: str) -> bool:
+    return activation in ("swiglu", "geglu")
+
+
 def init_mlp(cfg, init: Init, d_ff: Optional[int] = None, *, lead=()):
     d, ff = cfg.d_model, d_ff or cfg.d_ff
-    return {"w_in": dense_init(init, d, ff, cfg.pdtype, lead=lead),
-            "w_out": dense_init(init, ff, d, cfg.pdtype, lead=lead),
-            "w_gate": dense_init(init, d, ff, cfg.pdtype, lead=lead)}
+    p = {"w_in": dense_init(init, d, ff, cfg.pdtype, lead=lead),
+         "w_out": dense_init(init, ff, d, cfg.pdtype, lead=lead)}
+    if is_gated(cfg.activation):
+        p["w_gate"] = dense_init(init, d, ff, cfg.pdtype, lead=lead)
+    return p
 
 
 def mlp_apply(cfg, p, x):
-    """GeGLU: gelu(x w_gate) * (x w_in), then w_out.  ``jax.nn.gelu``
-    defaults to the tanh approximation."""
+    """Gated: act(x w_gate) * (x w_in); plain: act(x w_in); then w_out."""
     dt = x.dtype
-    h = F.gelu(x @ p["w_gate"].to(dt), approximate="tanh") \
-        * (x @ p["w_in"].to(dt))
+    h = x @ p["w_in"].to(dt)
+    if "w_gate" in p:
+        h = _act(cfg.activation, x @ p["w_gate"].to(dt)) * h
+    else:
+        h = _act(cfg.activation, h)
     return h @ p["w_out"].to(dt)
 
 
@@ -222,8 +313,11 @@ def init_embedding(cfg, init: Init):
 def embed_apply(cfg, p, tokens):
     """Rows of the table in the compute dtype.  The reference casts the
     whole table and then gathers; gathering first and casting the rows
-    gives the same numbers without a copy of the table."""
-    return p["table"][tokens].to(cfg.cdtype)
+    gives the same numbers without a copy of the table.  ``F.embedding``
+    rather than indexing: its backward sums a row's contributions in a
+    fixed order on the CPU (the indexing backward's accumulation is not
+    bitwise repeatable there)."""
+    return F.embedding(tokens, p["table"]).to(cfg.cdtype)
 
 
 def lm_head_apply(cfg, p, x):

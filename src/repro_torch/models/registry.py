@@ -8,22 +8,27 @@ Port of ``repro.models.registry``.  Model(cfg) exposes:
     init_cache(batch, cache_len, device)            -> cache
     decode_step(params, cache, tokens, pos)         -> (logits, cache)
     param_shapes() / param_count()                  -> by shape only
+    input_specs(shape_name)                         -> {name: (shape, dtype)}
+    share_counts(params)                            -> {path: count}
 
-The reference's ``input_specs`` (dry-run stand-ins) and ``share_counts``
-(the CG preconditioner of LM training) come with the LM training slice.
+An encoder-decoder config (``cfg.is_encoder_decoder``) runs
+``models.encdec``, every other one ``models.transformer``; each refuses
+the options it does not run yet.
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import ArchConfig
+import torch
+
+from repro_torch.configs.base import INPUT_SHAPES, ArchConfig
 from repro_torch.device import DEFAULT_DEVICE
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 
 class Model:
     def __init__(self, cfg: ArchConfig):
-        transformer.check_ported(cfg)
+        self._mod = encdec if cfg.is_encoder_decoder else transformer
+        self._mod.check_ported(cfg)
         self.cfg = cfg
-        self._mod = transformer
 
     # --- parameters --------------------------------------------------------
     def init(self, seed: int = 0, device=DEFAULT_DEVICE):
@@ -53,6 +58,64 @@ class Model:
 
     def decode_step(self, params, cache, tokens, pos):
         return self._mod.decode_step(self.cfg, params, cache, tokens, pos)
+
+    # --- input stand-ins ---------------------------------------------------
+    def input_specs(self, shape_name: str) -> dict:
+        """{name: (shape, dtype)} of a step's inputs at ``shape_name``
+        (``configs.base.INPUT_SHAPES``), built without allocating (a
+        decode shape's cache on the meta device)."""
+        cfg = self.cfg
+        shp = INPUT_SHAPES[shape_name]
+        B, T = shp.global_batch, shp.seq_len
+        if shp.mode in ("train", "prefill"):
+            specs = {"tokens": ((B, T), torch.int32)}
+            if shp.mode == "train":
+                specs["labels"] = ((B, T), torch.int32)
+            if cfg.is_encoder_decoder:
+                # the stubbed frontend: precomputed frame embeddings
+                specs["encoder_input"] = (
+                    (B, cfg.encoder_frames, cfg.d_model), cfg.cdtype)
+            return specs
+        if shape_name == "long_500k":
+            raise NotImplementedError(
+                "long_500k: the bounded-cache long mode is not ported yet "
+                "(ROADMAP 1.3)")
+        return {"tokens": ((B, 1), torch.int32), "pos": ((), torch.int32),
+                "cache": self._mod.cache_shapes(cfg, B, T)}
+
+    # --- shared-parameter counts (Sec. 4.3) --------------------------------
+    def share_counts(self, params) -> dict:
+        """Per-path counts of ``params`` (a parameter dict or
+        ``param_shapes()``) for the CG preconditioner: ``share_counts``."""
+        return share_counts(self.cfg, params)
+
+
+def share_counts(cfg: ArchConfig, paths) -> dict:
+    """Relative per-sample application counts for the CG preconditioner,
+    one Python float per parameter path.
+
+    Every weight of an LM is applied once per token (count 1), with three
+    exceptions, as in the reference:
+      * MoE expert weights (``w_in``/``w_out``/``w_gate`` under a ``moe``
+        node): expected usage top_k / E per token;
+      * enc-dec: encoder weights are applied ``encoder_frames`` times per
+        sample against T_dec for the decoder's, folded in as the static
+        ratio encoder_frames / 1024;
+      * tied embeddings: the table is applied twice per token (input
+        embedding and output head), count 2.
+    """
+    def count(path: str) -> float:
+        keys = path.split(".")
+        if cfg.num_experts and "moe" in keys and any(
+                k in ("w_in", "w_out", "w_gate") for k in keys):
+            return cfg.num_experts_per_tok / cfg.num_experts
+        if cfg.is_encoder_decoder and "encoder" in keys:
+            return cfg.encoder_frames / 1024.0
+        if cfg.tie_embeddings and "table" in keys:
+            return 2.0
+        return 1.0
+
+    return {k: count(k) for k in paths}
 
 
 def get_model(cfg: ArchConfig) -> Model:

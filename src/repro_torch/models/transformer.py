@@ -179,7 +179,17 @@ def forward(cfg, params, batch):
 
 def init_cache(cfg, batch_size: int, cache_len: int, *,
                device=DEFAULT_DEVICE) -> dict:
-    dev = resolve_device(device)
+    return _cache_tree(cfg, batch_size, cache_len, resolve_device(device))
+
+
+def cache_shapes(cfg, batch_size: int, cache_len: int) -> dict:
+    """{path: (shape, dtype)} of ``init_cache``'s dict, on the meta
+    device."""
+    return {k: (tuple(v.shape), v.dtype) for k, v in _cache_tree(
+        cfg, batch_size, cache_len, torch.device("meta")).items()}
+
+
+def _cache_tree(cfg, batch_size: int, cache_len: int, dev) -> dict:
     pattern, n_periods, rest = layer_plan(cfg)
     tree = {"periods": {}, "rest": {}}
     if n_periods:

@@ -116,7 +116,7 @@ def test_config_is_the_reference_config(smoke):
 
 
 def test_unported_archs_and_blocks_raise():
-    assert TCB.list_archs() == [ARCH]
+    assert TCB.list_archs() == [ARCH, "whisper-base"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TCB.get_config("xlstm-125m")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
