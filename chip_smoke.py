@@ -18,7 +18,12 @@ paths against its plain PyTorch version on the card:
     ``launch.steps.build_prefill_step`` and ``launch.serve.serve``;
   * LM training: whisper-base at full width and depth (6 + 6 layers,
     130,737,152 parameters) trained by NGHF with the fused CG kernel
-    through the training CLI (``launch.steps.build_step``).
+    through the training CLI (``launch.steps.build_step``);
+  * the dense ``attn`` archs: qwen2.5-3b (3,085,938,688 parameters, tied
+    embeddings, q/k/v biases) served at full width and depth, with
+    ``serve``'s long mode, and trained by NGHF with the fused CG kernel
+    at full width and 8 of its 36 layers; stablelm-1.6b trained by Adam
+    through the CLI; minitron-8b and stablelm-1.6b served.
 
 Phases:
 
@@ -141,7 +146,34 @@ Phases:
      compute ``prefill_cache`` and 16 greedy ``decode_step``s against
      ``forward``'s logits within relative max 1e-3; peak device memory;
      ``cg_fused_update`` timed at N = 130,737,152 against its bound
-     (the ``lm_*`` keys of its row in the kernels line).
+     (the ``lm_*`` keys of its row in the kernels line);
+ 10. the dense archs (run after phase 9, before phase 7, on a card freed
+     with ``empty_cache``): qwen2.5-3b at full width and depth, drawn on
+     the card — ``build_prefill_step`` over B = 1 x T = 32768
+     (prefill_32k, its batch cut from 32 to 1) after a T = 4096 warm-up,
+     logits (1, 1, 151936) finite, no kernel launched, the attention
+     layers timed apart by CUDA events; ``serve`` over 8 requests against
+     a 32768-slot cache (decode_32k, batch cut from 128 to 8), the B = 8
+     step and its attention timed; at f32 compute the prefill's last
+     logits against 64 decode steps within relative max 1e-3;
+     ``input_specs("long_500k")``'s bounded cache (8192 slots, its bytes)
+     and 16 long-mode decode steps at B = 1 from position 524,272, each
+     writing slot ``pos % 8192``; then NGHF at full width and 8 of 36
+     layers (927,782,912 parameters; full depth needs about 173 GB of
+     θ-sized state) through ``build_step(..., cg_frac=4)``: B = 8, T =
+     512, CG batch 2, 8 CG and 4 NG iterations, ``cg_fused=True``, 2
+     updates — finite metrics, accepted updates below their Δθ=0
+     baseline, ``cg_fused_update`` launched exactly 12 times an update
+     and no other kernel — one update against the plain path (the same
+     decision or a tie within the paths' spread, last-iterate Δθ within
+     relative L2 2e-2, the plain path's repeat printed), the stage split,
+     a device trace, peak memory; the CLI training stablelm-1.6b by Adam
+     at full width and depth (3 steps, B 8, T 128); minitron-8b and
+     stablelm-1.6b at full width and depth: a B = 1, T = 4096 prefill
+     and ``serve`` of 4 requests x 8 new tokens; chameleon-34b's and
+     qwen2-72b's parameter counts on the meta device; and
+     ``cg_fused_update`` timed at N = 927,782,912 against its bound (the
+     ``dense_*`` keys of its row).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; without a card, or outside a checkout of the repo,
@@ -152,6 +184,7 @@ the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1195,8 +1228,10 @@ def check_cg_fused(n: int, gen, dev, errs: dict) -> None:
 def reset_counts() -> None:
     from repro_torch.kernels import cg_fused as CG
     from repro_torch.kernels import lattice_fb as K
+    from repro_torch.kernels import swa_attention as SWA
     K.reset_launch_counts()
     CG.reset_launch_counts()
+    SWA.reset_launch_counts()
 
 
 def read_counts() -> dict:
@@ -1888,6 +1923,59 @@ def lm_one_update(cfg, params, batch, fused: bool, timer=None,
                  for k, v in m.items()}, dt
 
 
+def lm_paths_compared(tag: str, cfg, params, batch, dev) -> dict:
+    """One NGHF update from ``params`` through the kernel path (fused CG,
+    split by the stage timer) and the plain path: the same decision (or
+    a tie within the paths' spread) and, without candidate selection,
+    the last iterate's Δθ within LM_DELTA_REL_L2, the plain path's own
+    repeat printed beside it; then one kernel-path update traced.
+    Returns {"stages", "timed_update_s", "trace"}."""
+    from repro_torch.core.timing import StageTimer
+    timer = StageTimer(dev)
+    _, m_k, t_k = lm_one_update(cfg, params, batch, True, timer=timer)
+    _, m_p, t_p = lm_one_update(cfg, params, batch, False)
+    text = same_choice(f"{tag} NGHF", m_k, m_p)
+    stages = dict(timer.totals)
+    new_k, m_n, _ = lm_one_update(cfg, params, batch, True,
+                                  eval_candidates=False)
+    new_p, _, _ = lm_one_update(cfg, params, batch, False,
+                                eval_candidates=False)
+    rel = delta_rel_l2(new_k, new_p, params)
+    del new_k
+    new_p2, _, _ = lm_one_update(cfg, params, batch, False,
+                                 eval_candidates=False)
+    rel_pp = delta_rel_l2(new_p2, new_p, params)
+    del new_p, new_p2
+    check(rel <= LM_DELTA_REL_L2, f"{tag}: last-iterate Δθ kernel "
+          f"vs plain path rel-L2 {rel:.3g}")
+    log(f"{tag} NGHF: kernel path == plain path (unfused CG): "
+        f"{text}; last-iterate Δθ rel-L2 {rel:.3g} (limit "
+        f"{LM_DELTA_REL_L2}; the plain path against its own repeat "
+        f"{rel_pp:.3g}; last-iterate |Δθ| {m_n['update_norm']:.4g}); "
+        f"update {t_k * 1e3:.3f} ms with the stage timer's syncs, plain "
+        f"path {t_p * 1e3:.3f} ms")
+    rest = t_k - sum(stages.values())
+    log(f"{tag} NGHF update split (stage timer, synced): "
+        + ", ".join(f"{k} {v * 1e3:.3f} ms ({100 * v / t_k:.1f} %)"
+                    for k, v in stages.items())
+        + f", the rest (CG vector work, preconditioner, selection) "
+        f"{rest * 1e3:.3f} ms ({100 * rest / t_k:.1f} %); curvature "
+        f"products {timer.calls['curvature']}, candidate evaluations "
+        f"{timer.calls['candidates']}")
+
+    # one kernel-path update traced: the device's busy and idle share
+    trace = device_trace(lambda: lm_one_update(cfg, params, batch, True))
+    idle = 1.0 - trace["busy_s"] / trace["wall_s"]
+    log(f"{tag} NGHF update under torch.profiler: "
+        f"{trace['wall_s'] * 1e3:.3f} ms traced, device busy "
+        f"{trace['busy_s'] * 1e3:.3f} ms "
+        f"({trace['device_events']} device events), idle share "
+        f"{idle:.3f}; most device time: "
+        + "; ".join(f"{k[:90]} {ms:.3f} ms x {n}"
+                    for k, ms, n in trace["top"]))
+    return {"stages": stages, "timed_update_s": t_k, "trace": trace}
+
+
 def device_trace(fn) -> dict:
     """One call of ``fn`` under ``torch.profiler`` (device activity
     only): the device's busy time (the union of the intervals of its
@@ -1940,8 +2028,6 @@ def phase_lm_train(dev) -> dict:
     import shutil
     import tempfile
     from repro_torch.configs.base import get_config
-    from repro_torch.core.timing import StageTimer
-    from repro_torch.kernels import swa_attention as SWA
     from repro_torch.launch import train as T
     from repro_torch.models import encdec
     from repro_torch.models.registry import get_model
@@ -1973,7 +2059,6 @@ def phase_lm_train(dev) -> dict:
     try:
         # the main path: counts at 0 just before, read just after
         reset_counts()
-        SWA.reset_launch_counts()
         log2 = T.main(LM_TRAIN_ARGS + ["--steps", "2", "--ckpt-dir", ck])
         launches = read_counts()
         check_lm_updates("CLI whisper-base", log2, launches, swa_counts(),
@@ -2012,51 +2097,7 @@ def phase_lm_train(dev) -> dict:
     torch.cuda.empty_cache()
     params = model.init(0, device=dev)
     batch = lm_train_batch(cfg, 0, dev)
-    timer = StageTimer(dev)
-    _, m_k, t_k = lm_one_update(cfg, params, batch, True, timer=timer)
-    _, m_p, t_p = lm_one_update(cfg, params, batch, False)
-    text = same_choice("whisper-base NGHF", m_k, m_p)
-    stages = dict(timer.totals)
-    new_k, m_n, _ = lm_one_update(cfg, params, batch, True,
-                                  eval_candidates=False)
-    new_p, _, _ = lm_one_update(cfg, params, batch, False,
-                                eval_candidates=False)
-    rel = delta_rel_l2(new_k, new_p, params)
-    del new_k
-    new_p2, _, _ = lm_one_update(cfg, params, batch, False,
-                                 eval_candidates=False)
-    rel_pp = delta_rel_l2(new_p2, new_p, params)
-    del new_p, new_p2
-    check(rel <= LM_DELTA_REL_L2, f"whisper-base: last-iterate Δθ kernel "
-          f"vs plain path rel-L2 {rel:.3g}")
-    out["stages"] = stages
-    out["timed_update_s"] = t_k
-    log(f"whisper-base NGHF: kernel path == plain path (unfused CG): "
-        f"{text}; last-iterate Δθ rel-L2 {rel:.3g} (limit "
-        f"{LM_DELTA_REL_L2}; the plain path against its own repeat "
-        f"{rel_pp:.3g}; last-iterate |Δθ| {m_n['update_norm']:.4g}); "
-        f"update {t_k * 1e3:.3f} ms with the stage timer's syncs, plain "
-        f"path {t_p * 1e3:.3f} ms")
-    rest = t_k - sum(stages.values())
-    log("whisper-base NGHF update split (stage timer, synced): "
-        + ", ".join(f"{k} {v * 1e3:.3f} ms ({100 * v / t_k:.1f} %)"
-                    for k, v in stages.items())
-        + f", the rest (CG vector work, preconditioner, selection) "
-        f"{rest * 1e3:.3f} ms ({100 * rest / t_k:.1f} %); curvature "
-        f"products {timer.calls['curvature']}, candidate evaluations "
-        f"{timer.calls['candidates']}")
-
-    # one kernel-path update traced: the device's busy and idle share
-    trace = device_trace(lambda: lm_one_update(cfg, params, batch, True))
-    out["trace"] = trace
-    idle = 1.0 - trace["busy_s"] / trace["wall_s"]
-    log(f"whisper-base NGHF update under torch.profiler: "
-        f"{trace['wall_s'] * 1e3:.3f} ms traced, device busy "
-        f"{trace['busy_s'] * 1e3:.3f} ms "
-        f"({trace['device_events']} device events), idle share "
-        f"{idle:.3f}; most device time: "
-        + "; ".join(f"{k[:90]} {ms:.3f} ms x {n}"
-                    for k, ms, n in trace["top"]))
+    out.update(lm_paths_compared("whisper-base", cfg, params, batch, dev))
 
     # Adam through the same build_step (the CLI), 3 steps
     reset_counts()
@@ -2103,41 +2144,407 @@ def phase_lm_train(dev) -> dict:
     return out
 
 
-def lm_cg_times(lm_train: dict, dev) -> dict:
-    """``cg_fused_update`` at whisper-base's N against its plain version:
-    the times of the kernel (through the wrapper and alone), the plain
-    version and the bound, beside phase 9's launches."""
+def cg_times_at(n: int, launches: int, updates: int, prefix: str,
+                label: str, dev) -> dict:
+    """``cg_fused_update`` at length ``n`` (f32) against its plain
+    version (x and r bitwise, ⟨r, r⟩ within RR_RTOL): the times of the
+    kernel (through the wrapper and alone), the plain version and the
+    bound, under keys ``<prefix>_*``, beside the main path's
+    ``launches`` over ``updates`` updates."""
     from repro_torch.kernels import cg_fused as CG
     from repro_torch.kernels import ref as R
-    n = LM_TRAIN_PARAMS
     gen = torch.Generator(device=dev).manual_seed(SEED + 91)
     x, v, r, bv = (torch.randn(n, generator=gen, device=dev)
                    for _ in range(4))
     alpha = torch.tensor(0.37, device=dev)
     got = CG.cg_fused_update(alpha, x, v, r, bv)
     want = R.cg_fused_update_ref(alpha, x, v, r, bv)
-    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-          f"cg_fused_update N={n}: not the plain version's bits")
+    d_rr = abs(float(got[2]) - float(want[2]))
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+          and d_rr <= RR_RTOL * float(want[2]),
+          f"cg_fused_update N={n}: not the plain version's x, r bits or rr "
+          f"|d| {d_rr:.3g} of {float(want[2]):.6g}")
     del got, want
     b_ms, b_by = bound(6 * 4 * n, 6 * n)
-    t = {"lm_launches": lm_train["launches"],
-         "lm_launches_per": lm_train["launches"] / lm_train["updates"],
-         "lm_ms": cuda_time_ms(lambda: CG.cg_fused_update(alpha, x, v, r,
-                                                          bv), 20),
-         "lm_kernel_alone_ms": kernel_alone_ms(
+    t = {f"{prefix}_launches": launches,
+         f"{prefix}_launches_per": launches / updates,
+         f"{prefix}_ms": cuda_time_ms(
+             lambda: CG.cg_fused_update(alpha, x, v, r, bv), 20),
+         f"{prefix}_kernel_alone_ms": kernel_alone_ms(
              lambda: CG.cg_fused_update(alpha, x, v, r, bv)),
-         "lm_plain_ms": cuda_time_ms(
+         f"{prefix}_plain_ms": cuda_time_ms(
              lambda: R.cg_fused_update_ref(alpha, x, v, r, bv), 3),
-         "lm_bound_ms": b_ms, "lm_bound_by": b_by,
-         "lm_shape": f"N={n} f32 ({LM_TRAIN_ARCH})"}
-    log(f"cg_fused_update timed at {t['lm_shape']}: "
+         f"{prefix}_bound_ms": b_ms, f"{prefix}_bound_by": b_by,
+         f"{prefix}_rr_abs_err": d_rr,
+         f"{prefix}_shape": f"N={n} f32 ({label})"}
+    log(f"cg_fused_update timed at {t[f'{prefix}_shape']}: "
         + ", ".join(f"{k} {v:.6g}" for k, v in t.items()
                     if isinstance(v, float))
-        + f"; {100 * b_ms / t['lm_kernel_alone_ms']:.1f} % of the bound "
-        f"alone")
+        + f"; {100 * b_ms / t[f'{prefix}_kernel_alone_ms']:.1f} % of the "
+        f"bound alone")
     del x, v, r, bv
     torch.cuda.empty_cache()
     return t
+
+
+def lm_cg_times(lm_train: dict, dev) -> dict:
+    """``cg_fused_update`` at whisper-base's N, beside phase 9's
+    launches."""
+    return cg_times_at(LM_TRAIN_PARAMS, lm_train["launches"],
+                       lm_train["updates"], "lm", LM_TRAIN_ARCH, dev)
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the dense attn archs (qwen2.5-3b served and trained, the CLIs)
+# ---------------------------------------------------------------------------
+
+# qwen2.5-3b at full width and depth for serving: prefill_32k's T with its
+# batch cut from 32 to 1 (after a T = 4096 warm-up), decode_32k's cache
+# with its batch cut from 128 to 8, long_500k's bounded cache from the
+# position 16 short of its end
+DENSE_ARCH = "qwen2.5-3b"
+DENSE_PARAMS = 3_085_938_688
+DENSE_PREFILL_T, DENSE_WARM_T = 32768, 4096
+DENSE_CACHE = 32768
+DENSE_LONG_SLOTS, DENSE_LONG_STEPS = 8192, 16
+DENSE_LONG_START = 524_288 - DENSE_LONG_STEPS
+# NGHF training at full width with the depth cut to what one card holds:
+# 36 layers need about 173 GB of θ-sized f32 state (ROADMAP 1.4)
+DENSE_TRAIN_LAYERS = 8
+DENSE_TRAIN_PARAMS = 927_782_912
+DENSE_TRAIN_BATCH, DENSE_TRAIN_SEQ = 8, 512
+DENSE_UPDATES = 2
+# the CLI at full width and depth (its defaults: B 8, T 128), and the
+# serving archs that fit one card at full width and depth
+DENSE_CLI_ARCH = "stablelm-1.6b"
+DENSE_SERVE_ARCHS = {"minitron-8b": 7_734_562_816,
+                     "stablelm-1.6b": 1_644_367_872}
+DENSE_SERVE_T, DENSE_SERVE_REQUESTS, DENSE_SERVE_NEW = 4096, 4, 8
+# the archs one card cannot hold: their parameter counts on the meta device
+DENSE_META = {"chameleon-34b": 34_293_436_416, "qwen2-72b": 72_706_203_648}
+
+
+class timed_calls:
+    """Within the block, every call of ``models.layers.<name>`` the model
+    makes is bracketed by CUDA events (no synchronize on the path);
+    ``ms()`` sums them after the caller synchronized."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self._saved = fn = getattr(layers, self.name)
+        self.pairs = []
+
+        def wrapped(*args, **kwargs):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            out = fn(*args, **kwargs)
+            t1.record()
+            self.pairs.append((t0, t1))
+            return out
+        setattr(layers, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+        setattr(layers, self.name, self._saved)
+
+    def ms(self) -> float:
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
+def dense_serving(dev) -> dict:
+    """qwen2.5-3b at full width and depth: prefill, serve, prefill vs
+    decode at f32, long_500k's ring."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import make_requests, serve
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.models.registry import get_model
+    cfg = get_config(DENSE_ARCH)
+    model = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in params.values())
+    check(n_params == DENSE_PARAMS == model.param_count()
+          and "embed.lm_head" not in params,
+          f"{DENSE_ARCH} has {n_params} parameters")
+    log(f"{DENSE_ARCH}: {n_params} parameters (f32, tied embeddings, "
+        f"{4 * n_params / 1e9:.3f} GB) drawn on the card in "
+        f"{time.perf_counter() - t0:.3f} s")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 100)
+    tokens = torch.randint(0, cfg.vocab_size, (1, DENSE_PREFILL_T),
+                           generator=gen, device=dev)
+    prefill = build_prefill_step(cfg)
+    out = {}
+
+    # prefill: a T = 4096 warm-up, then prefill_32k's T once
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill(params, {"tokens": tokens[:, :DENSE_WARM_T]})
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    reset_counts()
+    with timed_calls("causal_attention") as att:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    out["attention_ms"] = att.ms()
+    check(read_counts() == {k: 0 for k in read_counts()}
+          and swa_counts() == (0, 0), "the dense prefill launched a kernel")
+    check(tuple(logits.shape) == (1, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"prefill logits {tuple(logits.shape)}, finite "
+          f"{bool(torch.isfinite(logits).all())}")
+    share = out["attention_ms"] / out["prefill_ms"]
+    log(f"{DENSE_ARCH} prefill B=1 T={DENSE_PREFILL_T}: logits "
+        f"{tuple(logits.shape)} finite; {out['prefill_ms']:.3f} ms (warm; "
+        f"the T={DENSE_WARM_T} warm-up took {warm_s * 1e3:.3f} ms), of "
+        f"which the plain chunked causal attention {out['attention_ms']:.3f}"
+        f" ms over {len(att.pairs)} layers by CUDA events ({100 * share:.1f}"
+        f" %); no kernel launched (the reference's attention is jnp)")
+    del logits
+    torch.cuda.empty_cache()
+
+    # the server: 8 requests against decode_32k's cache length
+    reqs = make_requests(cfg, SERVE_REQUESTS, SERVE_NEW, seed=SEED)
+    reqs, stats = serve(cfg, model, params, reqs, cache_len=DENSE_CACHE)
+    check(all(r.done and len(r.generated) == SERVE_NEW for r in reqs)
+          and all(0 <= t < cfg.vocab_size for r in reqs
+                  for t in r.generated), "dense serve: a request failed")
+    step = build_serve_step(cfg)
+    cache = model.init_cache(SERVE_REQUESTS, DENSE_CACHE, device=dev)
+    tok = tokens[:, :1].expand(SERVE_REQUESTS, 1).contiguous()
+    out["decode_ms"] = cuda_time_ms(lambda: step(params, cache, tok, 100), 5)
+    with timed_calls("decode_attention") as att:
+        step(params, cache, tok, 100)
+        torch.cuda.synchronize()
+    out["decode_attention_ms"] = att.ms()
+    out["stats"] = stats
+    log(f"{DENSE_ARCH} serve: {len(reqs)} requests (prompts "
+        f"{[len(r.prompt) for r in reqs]} tokens, {SERVE_NEW} new each), "
+        f"cache of {DENSE_CACHE} slots, in {stats['steps']} steps, "
+        f"{stats['wall_s'] * 1e3:.3f} ms: {stats['tokens_per_s']:.3f} "
+        f"tokens/s, p50 {stats['latency_p50_s'] * 1e3:.3f} ms, p99 "
+        f"{stats['latency_p99_s'] * 1e3:.3f} ms; decode step "
+        f"B={SERVE_REQUESTS} {out['decode_ms']:.3f} ms (CUDA events), of "
+        f"which decode_attention over the {DENSE_CACHE} slots "
+        f"{out['decode_attention_ms']:.3f} ms over {len(att.pairs)} layers")
+    del cache
+    torch.cuda.empty_cache()
+
+    # prefill against decode at f32 compute, T = 64
+    cfg32 = cfg.replace(compute_dtype="float32")
+    prompt = tokens[:, :DECODE_PROMPT]
+    want = build_prefill_step(cfg32)(params, {"tokens": prompt})
+    step32 = build_serve_step(cfg32)
+    cache = get_model(cfg32).init_cache(1, DECODE_PROMPT, device=dev)
+    for t in range(DECODE_PROMPT):
+        got, cache = step32(params, cache, prompt[:, t:t + 1], t)
+    rel_max = float((got - want).abs().max() / want.abs().max())
+    check(rel_max <= DECODE_REL, f"{DENSE_ARCH} f32 prefill vs decode: "
+          f"relative max {rel_max:.3g}")
+    log(f"{DENSE_ARCH} f32 compute: prefill's last logits == "
+        f"{DECODE_PROMPT} decode steps' (relative max {rel_max:.3g}, limit "
+        f"{DECODE_REL})")
+    del cache, got, want
+
+    # long_500k: the bounded ring cache, 16 steps from the end of the 500k
+    specs = model.input_specs("long_500k")
+    slots = {s[2] for s, _ in specs["cache"].values()}
+    want_bytes = sum(math.prod(s) * torch.finfo(dt).bits // 8
+                     for s, dt in specs["cache"].values())
+    step_long = build_serve_step(cfg, long_mode=True)
+    cache = model.init_cache(1, 524_288, long_mode=True, device=dev)
+    got_bytes = sum(v.numel() * v.element_size() for v in cache.values())
+    check(slots == {DENSE_LONG_SLOTS} and got_bytes == want_bytes
+          == 2 * cfg.num_layers * DENSE_LONG_SLOTS * cfg.num_kv_heads
+          * cfg.resolved_head_dim * 2,
+          f"long_500k cache: slots {slots}, {got_bytes} bytes, specs "
+          f"{want_bytes}")
+    times, written = [], []
+    for i in range(DENSE_LONG_STEPS):
+        pos = DENSE_LONG_START + i
+        before = cache["periods.slot0.k"][0].clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = step_long(params, cache, tokens[:, i:i + 1], pos)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        changed = (cache["periods.slot0.k"][0] != before).any(
+            dim=(0, 2, 3)).nonzero().flatten().tolist()
+        check(changed == [pos % DENSE_LONG_SLOTS]
+              and bool(torch.isfinite(lg).all()),
+              f"long_500k step at {pos}: wrote slots {changed}, finite "
+              f"{bool(torch.isfinite(lg).all())}")
+        written.append(changed[0])
+    out["long_ms"] = 1e3 * sum(times[1:]) / (len(times) - 1)
+    log(f"{DENSE_ARCH} long_500k (long_mode): cache of {DENSE_LONG_SLOTS} "
+        f"slots, {got_bytes} bytes (the specs' {want_bytes}); "
+        f"{DENSE_LONG_STEPS} steps at B=1 from position {DENSE_LONG_START} "
+        f"wrote slots {written[0]}..{written[-1]} (pos % "
+        f"{DENSE_LONG_SLOTS}), logits finite; {out['long_ms']:.3f} ms a "
+        f"step after the first (host clock, synced)")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{DENSE_ARCH} serving: peak device memory {out['peak_gb']:.3f} GB")
+    del params, cache, tokens
+    torch.cuda.empty_cache()
+    return out
+
+
+def dense_batch(cfg, step: int, dev) -> dict:
+    from repro_torch.data.synthetic import lm_batch
+    return lm_batch(step, batch=DENSE_TRAIN_BATCH, seq_len=DENSE_TRAIN_SEQ,
+                    vocab=cfg.vocab_size, device=dev)
+
+
+def dense_training(dev) -> dict:
+    """qwen2.5-3b at full width, 8 layers, trained by NGHF with the fused
+    CG kernel through ``build_step``; one update against the plain
+    path."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.optim import config_for
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models.registry import get_model
+    cfg = get_config(DENSE_ARCH).replace(num_layers=DENSE_TRAIN_LAYERS)
+    model = get_model(cfg)
+    check(model.param_count() == DENSE_TRAIN_PARAMS,
+          f"{DENSE_ARCH} at {DENSE_TRAIN_LAYERS} layers has "
+          f"{model.param_count()} parameters")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = model.init(SEED, device=dev)
+    per_update = LM_CG_ITERS + LM_NG_ITERS
+    ocfg = config_for("nghf", cg_iters=LM_CG_ITERS, ng_iters=LM_NG_ITERS,
+                      cg_fused=True)
+    step, opt = build_step(cfg, ocfg, cg_frac=4)
+    log(f"{DENSE_ARCH} NGHF at full width, {DENSE_TRAIN_LAYERS} of 36 "
+        f"layers: {DENSE_TRAIN_PARAMS} parameters "
+        f"({4 * DENSE_TRAIN_PARAMS / 1e9:.3f} GB f32); "
+        f"B={DENSE_TRAIN_BATCH}, T={DENSE_TRAIN_SEQ}, CG batch "
+        f"{DENSE_TRAIN_BATCH // 4}, {LM_CG_ITERS} CG and {LM_NG_ITERS} NG "
+        f"iterations, fused CG, f32 state, {ocfg.preconditioner} "
+        f"preconditioner")
+
+    # the main path: counts at 0 just before, read just after
+    params, opt_state, log_ = start, opt.init(start), []
+    reset_counts()
+    for i in range(DENSE_UPDATES):
+        batch = dense_batch(cfg, i, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        m = {k: float(v) for k, v in m.items()}
+        log_.append(dict(step=i, time_s=time.perf_counter() - t0, **m))
+    launches = read_counts()
+    check_lm_updates(f"{DENSE_ARCH} NGHF", log_, launches, swa_counts(),
+                     list(range(DENSE_UPDATES)), per_update)
+    out = {"launches": launches["cg_fused_update"], "updates": len(log_),
+           "log": log_,
+           "peak_main_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"{DENSE_ARCH} NGHF: update times "
+        f"{[round(m['time_s'], 3) for m in log_]} s, accepted "
+        f"{[bool(m['cg_accepted']) for m in log_]}; peak device memory "
+        f"{out['peak_main_gb']:.3f} GB")
+    del params, opt_state
+    torch.cuda.empty_cache()
+
+    # the kernel path against the plain path, from the same start
+    batch = dense_batch(cfg, 0, dev)
+    out.update(lm_paths_compared(DENSE_ARCH, cfg, start, batch, dev))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{DENSE_ARCH} NGHF: peak device memory {out['peak_gb']:.3f} GB")
+    del start, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def dense_clis(dev) -> dict:
+    """stablelm-1.6b trained by Adam through the CLI at full width and
+    depth; minitron-8b and stablelm-1.6b served at full width and depth;
+    the two archs one card cannot hold, by parameter count."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train as T
+    from repro_torch.launch.serve import make_requests, serve
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models.registry import get_model
+    out = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    adam = T.main(["--arch", DENSE_CLI_ARCH, "--optimizer", "adam",
+                   "--steps", "3", "--device", "cuda"])
+    check_lm_updates(f"CLI {DENSE_CLI_ARCH} Adam", adam, read_counts(),
+                     swa_counts(), [0, 1, 2], 0)
+    out["adam_s"] = [m["time_s"] for m in adam]
+    log(f"CLI {DENSE_CLI_ARCH} Adam (full width and depth, B 8, T 128): "
+        f"step times {[round(t, 3) for t in out['adam_s']]} s, ce "
+        f"{[round(m['ce'], 4) for m in adam]}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    torch.cuda.empty_cache()
+    for arch, count in DENSE_SERVE_ARCHS.items():
+        cfg = get_config(arch)
+        model = get_model(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init(SEED, device=dev)
+        check(sum(v.numel() for v in params.values()) == count
+              == model.param_count(), f"{arch}: parameter count")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 101)
+        toks = torch.randint(0, cfg.vocab_size, (1, DENSE_SERVE_T),
+                             generator=gen, device=dev)
+        prefill = build_prefill_step(cfg)
+        prefill(params, {"tokens": toks[:, :512]})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg = prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        reqs = make_requests(cfg, DENSE_SERVE_REQUESTS, DENSE_SERVE_NEW,
+                             seed=SEED)
+        reqs, stats = serve(cfg, model, params, reqs)
+        check(bool(torch.isfinite(lg).all())
+              and all(r.done and len(r.generated) == DENSE_SERVE_NEW
+                      for r in reqs), f"{arch}: prefill or serve failed")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        out[arch] = {"prefill_ms": pre_ms, "stats": stats, "peak_gb": peak}
+        log(f"{arch} (full width and depth, {count} parameters): prefill "
+            f"B=1 T={DENSE_SERVE_T} {pre_ms:.3f} ms, logits finite; serve "
+            f"{DENSE_SERVE_REQUESTS} requests x {DENSE_SERVE_NEW} new in "
+            f"{stats['steps']} steps, {stats['wall_s'] * 1e3:.3f} ms, "
+            f"{stats['tokens_per_s']:.3f} tokens/s, p50 "
+            f"{stats['latency_p50_s'] * 1e3:.3f} ms, p99 "
+            f"{stats['latency_p99_s'] * 1e3:.3f} ms; peak device memory "
+            f"{peak:.3f} GB")
+        del params, lg, toks
+        torch.cuda.empty_cache()
+    for arch, count in DENSE_META.items():
+        got = get_model(get_config(arch)).param_count()
+        check(got == count, f"{arch}: {got} parameters, want {count}")
+        log(f"{arch}: {got} parameters on the meta device "
+            f"({4 * got / 1e9:.1f} GB f32: more than one card holds)")
+    return out
+
+
+def phase_dense(dev) -> dict:
+    """Phase 10: the dense attn archs."""
+    return {"serving": dense_serving(dev), "training": dense_training(dev),
+            "clis": dense_clis(dev)}
+
+
+def dense_cg_times(dense: dict, dev) -> dict:
+    """``cg_fused_update`` at the dense training's N, beside phase 10's
+    launches."""
+    tr = dense["training"]
+    return cg_times_at(DENSE_TRAIN_PARAMS, tr["launches"], tr["updates"],
+                       "dense", f"{DENSE_ARCH}, {DENSE_TRAIN_LAYERS} layers",
+                       dev)
 
 
 # ---------------------------------------------------------------------------
@@ -2277,7 +2684,6 @@ def phase_lm(dev) -> dict:
 
     # the main path: counts at 0 just before, read just after
     reset_counts()
-    SWA.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits = prefill(params, batch)
@@ -2577,8 +2983,13 @@ def main() -> int:
     phase_cli(dev)
     torch.cuda.empty_cache()
     lm_train = phase_lm_train(dev)
-    next(k for k in kernels if k["name"] == "cg_fused_update").update(
-        lm_cg_times(lm_train, dev))
+    cg_row = next(k for k in kernels if k["name"] == "cg_fused_update")
+    cg_row.update(lm_cg_times(lm_train, dev))
+    torch.cuda.empty_cache()
+    dense = phase_dense(dev)
+    cg_row.update(dense_cg_times(dense, dev))
+    del dense
+    torch.cuda.empty_cache()
     lm = phase_lm(dev)
     kernels.append(swa_times(lm, errs, dev))
     check(len(kernels) == len(TPU_KERNELS), "a kernel has no entry")

@@ -156,14 +156,15 @@ class ArchConfig:
 _ALIASES = {
     "recurrentgemma-9b": "recurrentgemma_9b",
     "whisper-base": "whisper_base",
+    "stablelm-1.6b": "stablelm_1_6b",
+    "qwen2.5-3b": "qwen2_5_3b",
+    "minitron-8b": "minitron_8b",
+    "chameleon-34b": "chameleon_34b",
+    "qwen2-72b": "qwen2_72b",
 }
 
-# the rest of the reference's pool: not ported yet
-NOT_PORTED = (
-    "qwen2-72b", "stablelm-1.6b", "xlstm-125m",
-    "granite-moe-3b-a800m", "qwen2.5-3b", "mixtral-8x22b", "minitron-8b",
-    "chameleon-34b",
-)
+# the rest of the reference's pool: not ported yet (MoE and xLSTM)
+NOT_PORTED = ("xlstm-125m", "granite-moe-3b-a800m", "mixtral-8x22b")
 
 
 def get_config(arch: str) -> ArchConfig:

@@ -9,6 +9,8 @@ build_prefill_step`` is the dedicated prefill path).
 CPU demo (plain PyTorch versions of the kernels):
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch recurrentgemma-9b --smoke --device cpu --requests 6
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch qwen2.5-3b --smoke --device cpu --long-mode
 """
 from __future__ import annotations
 
@@ -46,7 +48,7 @@ def make_requests(cfg, n: int, max_new: int, seed: int = 0) -> list:
 
 
 def serve(cfg, model, params, requests, *, cache_len=256, greedy=True,
-          seed=0):
+          long_mode=False, seed=0):
     """Run all requests to completion with a shared batched decode step.
 
     Returns the list of Requests with ``generated`` filled in, plus a
@@ -61,8 +63,9 @@ def serve(cfg, model, params, requests, *, cache_len=256, greedy=True,
     device seeded with ``seed``: it cannot give ``jax.random``'s draws,
     so sampled tokens differ from the reference's for the same seed.
     The reference's ``temperature`` is left out until a caller needs
-    another one, and its ``long_mode`` (the caches of global attention)
-    comes with the slice that ports global attention.
+    another one.  ``long_mode`` bounds the caches of global attention to
+    rings of ``cfg.long_context_window`` slots (the reference's long_500k
+    cache).
     """
     if not requests:
         return requests, {"tokens_per_s": 0.0, "wall_s": 0.0, "steps": 0,
@@ -70,8 +73,8 @@ def serve(cfg, model, params, requests, *, cache_len=256, greedy=True,
                           "latency_p99_s": float("nan")}
     dev = params["embed.table"].device
     B = len(requests)
-    cache = model.init_cache(B, cache_len, device=dev)
-    step = build_serve_step(cfg)
+    cache = model.init_cache(B, cache_len, long_mode=long_mode, device=dev)
+    step = build_serve_step(cfg, long_mode=long_mode)
     gen = torch.Generator(device=dev).manual_seed(seed)
     max_prompt = max(len(r.prompt) for r in requests)
     max_steps = max_prompt + max(r.max_new for r in requests)
@@ -127,14 +130,10 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--cache-len", type=int, default=128)
     ap.add_argument("--long-mode", action="store_true",
-                    help="not ported yet: raises NotImplementedError")
+                    help="bounded ring caches for global attention")
     ap.add_argument("--device", default=DEFAULT_DEVICE,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.long_mode:
-        raise NotImplementedError(
-            "--long-mode changes the caches of global attention, which is "
-            "not ported yet (ROADMAP.md)")
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -143,7 +142,8 @@ def main(argv=None):
     model = get_model(cfg)
     params = model.init(0, device=dev)
     reqs = make_requests(cfg, args.requests, args.max_new, seed=0)
-    reqs, stats = serve(cfg, model, params, reqs, cache_len=args.cache_len)
+    reqs, stats = serve(cfg, model, params, reqs, cache_len=args.cache_len,
+                        long_mode=args.long_mode)
     for r in reqs:
         print(f"req {r.rid}: prompt[{len(r.prompt)}] -> {r.generated}")
     print(f"[serve] {stats['tokens_per_s']:.1f} tok/s over {stats['steps']} "

@@ -30,8 +30,8 @@ The port runs on one device: ``mesh`` and ``state_sharding`` raise
 LM serving: ``build_prefill_step(cfg)`` runs a prompt batch through the
 backbone and returns the last position's logits (the prefill_32k step;
 its windowed-attention layers go through the hand-written kernel on the
-card); ``build_serve_step(cfg)`` is one token of batched decode.  Both
-run without autograd (``torch.no_grad``).
+card); ``build_serve_step(cfg, long_mode=...)`` is one token of batched
+decode.  Both run without autograd (``torch.no_grad``).
 """
 from __future__ import annotations
 
@@ -179,13 +179,15 @@ def build_prefill_step(cfg) -> Callable:
     return prefill_step
 
 
-def build_serve_step(cfg) -> Callable:
+def build_serve_step(cfg, *, long_mode: bool = False) -> Callable:
     """``serve_step(params, cache, tokens, pos) -> (logits (B,1,V) f32,
-    cache)``; the cache is updated in place."""
+    cache)``; the cache is updated in place.  ``long_mode``: the cache
+    is the bounded one of ``init_cache(..., long_mode=True)``."""
     model = get_model(cfg)
 
     @torch.no_grad()
     def serve_step(params, cache, tokens, pos):
-        return model.decode_step(params, cache, tokens, pos)
+        return model.decode_step(params, cache, tokens, pos,
+                                 long_mode=long_mode)
 
     return serve_step

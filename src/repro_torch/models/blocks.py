@@ -1,22 +1,26 @@
 """Residual blocks of the language models.
 
 Port of the ``block_pattern`` kinds of ``repro.models.blocks`` that the
-ported archs use: the windowed attention-family blocks (``local``,
-``swa``) and the RG-LRU (Griffin) block.  The other kinds (``attn``,
-``moe``, ``swamoe``, ``mlstm``, ``slstm``) raise ``NotImplementedError``
-until their slice.  Each kind has the reference's four entry points,
-dispatched by kind at the end of this module:
+ported archs use: the attention-family blocks with a dense MLP (``attn``,
+global causal attention; ``local`` and ``swa``, windowed attention) and
+the RG-LRU (Griffin) block.  The other kinds (``moe``, ``swamoe``,
+``mlstm``, ``slstm``) raise ``NotImplementedError`` until their slice.
+Each kind has the reference's four entry points, dispatched by kind at
+the end of this module:
 
   init_block(cfg, init, kind, lead=())              -> params
   block_apply(cfg, kind, p, x, positions)           -> (x, aux)   # sequence
-  init_block_cache(cfg, kind, batch, cache_len, device) -> cache
-  block_decode(cfg, kind, p, x, cache, pos)         -> (x, cache) # 1 token
+  init_block_cache(cfg, kind, batch, cache_len, long_mode, device) -> cache
+  block_decode(cfg, kind, p, x, cache, pos, long_mode) -> (x, cache) # 1 token
 
 ``aux`` is the MoE load-balance loss, 0.0 for these kinds.  Windowed
-caches are ring buffers of ``min(cache_len, window)`` slots.  Unlike the
-reference, whose arrays are immutable, ``block_decode`` writes the new
-token's cache entries into the given cache tensors in place and returns
-them: a step then never copies a cache.
+caches are ring buffers of ``min(cache_len, window)`` slots; an ``attn``
+cache holds ``cache_len`` slots, or with ``long_mode`` (the reference's
+bounded cache for long_500k) a ring of ``min(cache_len,
+cfg.long_context_window)``.  Unlike the reference, whose arrays are
+immutable, ``block_decode`` writes the new token's cache entries into
+the given cache tensors in place and returns them: a step then never
+copies a cache.
 """
 from __future__ import annotations
 
@@ -58,17 +62,21 @@ def conv1d_step(x_t, buf, w, b=None):
 
 def _not_ported(kind):
     return NotImplementedError(
-        f"block kind {kind!r} is not ported yet (the port runs 'local', "
-        f"'swa' and 'rglru'; ROADMAP.md lists the rest)")
+        f"block kind {kind!r} is not ported yet (the port runs 'attn', "
+        f"'local', 'swa' and 'rglru'; ROADMAP 1.3 lists the rest)")
 
 
 # ---------------------------------------------------------------------------
-# Attention-family blocks (local / swa)
+# Attention-family blocks (attn / local / swa)
 # ---------------------------------------------------------------------------
 
-def _windowed(kind):
-    """The attention-family kinds ported so far: windowed attention + a
-    dense MLP (``swamoe``'s experts come with the MoE slice)."""
+def _attn_kind(kind):
+    """The attention-family kinds ported so far, each with a dense MLP
+    (``moe``'s and ``swamoe``'s experts come with the MoE slice)."""
+    return kind in ("attn", "swa", "local")
+
+
+def _uses_window(kind):
     return kind in ("swa", "local")
 
 
@@ -82,29 +90,42 @@ def init_attention_block(cfg, init, kind, *, lead=()):
 def attention_block_apply(cfg, kind, p, x, positions):
     h = L.norm_apply(cfg, p["ln1"], x)
     q, k, v = L.qkv_project(cfg, p["attn"], h, positions)
-    ctx = L.windowed_attention(q, k, v, cfg.sliding_window)
+    if _uses_window(kind):
+        ctx = L.windowed_attention(q, k, v, cfg.sliding_window)
+    else:
+        ctx = L.causal_attention(q, k, v)
     x = x + L.out_project(cfg, p["attn"], ctx)
     h = L.norm_apply(cfg, p["ln2"], x)
     return x + L.mlp_apply(cfg, p["mlp"], h), 0.0
 
 
 def init_attention_cache(cfg, kind, batch, cache_len, *, lead=(),
-                         device=None):
+                         long_mode=False, device=None):
     K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    slots = min(cache_len, cfg.sliding_window)
+    if _uses_window(kind):
+        slots = min(cache_len, cfg.sliding_window)
+    elif long_mode:
+        slots = min(cache_len, cfg.long_context_window)
+    else:
+        slots = cache_len
     shape = (*lead, batch, slots, K, hd)
     return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
 
 
-def attention_block_decode(cfg, kind, p, x, cache, pos: int):
+def attention_block_decode(cfg, kind, p, x, cache, pos: int, *,
+                           long_mode=False):
     """x: (B,1,d); pos: absolute position of the new token.  Writes the
-    token's k/v into ring slot ``pos % slots`` of ``cache`` in place."""
+    token's k/v into ``cache`` in place: at ring slot ``pos % slots`` for
+    a windowed kind or in ``long_mode``, else at ``min(pos, slots - 1)``
+    (the reference's rule: past ``cache_len`` the last slot is
+    overwritten).  The token attends ``min(pos + 1, slots)`` slots."""
     h = L.norm_apply(cfg, p["ln1"], x)
     q, k, v = L.qkv_project(cfg, p["attn"], h,
                             torch.full((1,), pos, device=x.device))
     slots = cache["k"].shape[1]
-    ix = pos % slots
+    ring = _uses_window(kind) or long_mode
+    ix = pos % slots if ring else min(pos, slots - 1)
     cache["k"][:, ix] = k[:, 0].to(cache["k"].dtype)
     cache["v"][:, ix] = v[:, 0].to(cache["v"].dtype)
     ctx = L.decode_attention(q, cache["k"], cache["v"], min(pos + 1, slots))
@@ -224,7 +245,7 @@ def rglru_block_decode(cfg, p, x, cache, pos: int):
 # ---------------------------------------------------------------------------
 
 def init_block(cfg, init, kind, *, lead=()):
-    if _windowed(kind):
+    if _attn_kind(kind):
         return init_attention_block(cfg, init, kind, lead=lead)
     if kind == "rglru":
         return init_rglru_block(cfg, init, lead=lead)
@@ -232,25 +253,27 @@ def init_block(cfg, init, kind, *, lead=()):
 
 
 def block_apply(cfg, kind, p, x, positions):
-    if _windowed(kind):
+    if _attn_kind(kind):
         return attention_block_apply(cfg, kind, p, x, positions)
     if kind == "rglru":
         return rglru_block_apply(cfg, p, x, positions)
     raise _not_ported(kind)
 
 
-def init_block_cache(cfg, kind, batch, cache_len, *, lead=(), device=None):
-    if _windowed(kind):
+def init_block_cache(cfg, kind, batch, cache_len, *, lead=(),
+                     long_mode=False, device=None):
+    if _attn_kind(kind):
         return init_attention_cache(cfg, kind, batch, cache_len, lead=lead,
-                                    device=device)
+                                    long_mode=long_mode, device=device)
     if kind == "rglru":
         return init_rglru_cache(cfg, batch, lead=lead, device=device)
     raise _not_ported(kind)
 
 
-def block_decode(cfg, kind, p, x, cache, pos: int):
-    if _windowed(kind):
-        return attention_block_decode(cfg, kind, p, x, cache, pos)
+def block_decode(cfg, kind, p, x, cache, pos: int, *, long_mode=False):
+    if _attn_kind(kind):
+        return attention_block_decode(cfg, kind, p, x, cache, pos,
+                                      long_mode=long_mode)
     if kind == "rglru":
         return rglru_block_decode(cfg, p, x, cache, pos)
     raise _not_ported(kind)

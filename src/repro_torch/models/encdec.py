@@ -177,12 +177,15 @@ def forward(cfg, params, batch):
 # decode
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg, batch_size: int, cache_len: int, *,
+def init_cache(cfg, batch_size: int, cache_len: int, *, long_mode=False,
                device=DEFAULT_DEVICE) -> dict:
+    """Zeroed caches of ``cache_len`` slots; ``long_mode`` is taken and
+    ignored, as the reference's enc-dec does."""
     return _cache_tree(cfg, batch_size, cache_len, resolve_device(device))
 
 
-def cache_shapes(cfg, batch_size: int, cache_len: int) -> dict:
+def cache_shapes(cfg, batch_size: int, cache_len: int, *,
+                 long_mode=False) -> dict:
     """{path: (shape, dtype)} of ``init_cache``'s dict, on the meta
     device."""
     return {k: (tuple(v.shape), v.dtype) for k, v in _cache_tree(
@@ -208,10 +211,11 @@ def prefill_cache(cfg, params, cache, enc_input):
     return cache
 
 
-def decode_step(cfg, params, cache, tokens, pos: int):
+def decode_step(cfg, params, cache, tokens, pos: int, *, long_mode=False):
     """One decode step.  tokens: (B,1) integer; pos: the absolute position
     being written (an int).  Returns (logits (B,1,V) f32, cache), the
-    cache's k/v rows at ``pos`` written in place."""
+    cache's k/v rows at ``pos`` written in place (``long_mode`` ignored,
+    as in the reference)."""
     pos = int(pos)
     emb = nest(params, "embed.")
     x = L.embed_apply(cfg, emb, tokens)

@@ -1,15 +1,14 @@
 """Core neural-net layers of the language models.
 
-Port of ``repro.models.layers`` for the ported archs (recurrentgemma-9b,
-whisper-base): initialisers, RMSNorm and LayerNorm, RoPE, attention
-projections (RoPE optional), causal, sliding-window, cross and decode
-attention, the gated (GeGLU, SwiGLU) and plain (GELU, ReLU) MLPs,
-embedding and untied LM head.  The reference's q/k/v biases, q/k norms
-and tied embeddings come with the archs that use them:
-``models.transformer.check_ported`` and ``models.encdec.check_ported``
-reject them.  Parameters are dicts of tensors with the reference's leaf
-names and layouts (``x @ w``, ``w`` of shape (d_in, d_out)); a matrix is
-cast to the activations' dtype at each use, as the reference does.
+Port of ``repro.models.layers`` for the ported archs (the dense ``attn``
+archs, recurrentgemma-9b, whisper-base): initialisers, RMSNorm and
+LayerNorm, RoPE (full or partial), attention projections (RoPE
+optional, q/k/v biases and q/k norms when the config asks for them),
+causal, sliding-window, cross and decode attention, the gated (GeGLU,
+SwiGLU) and plain (GELU, ReLU) MLPs, embedding and the untied or tied LM
+head.  Parameters are dicts of tensors with the reference's leaf names
+and layouts (``x @ w``, ``w`` of shape (d_in, d_out)); a matrix is cast
+to the activations' dtype at each use, as the reference does.
 
 ``windowed_attention`` goes through ``kernels.swa_attention``: on a CUDA
 tensor that is the hand-written kernel, on a CPU tensor its plain
@@ -90,6 +89,14 @@ def norm_apply(cfg, p, x):
     return x.to(dt)
 
 
+def _rms(x, eps: float = 1e-6):
+    """The reference's q/k norm without its scale: the mean of squares in
+    f32, its rsqrt cast to x's dtype and multiplied in x's dtype (this
+    order keeps bf16 results the reference's)."""
+    ms = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
+    return x * torch.rsqrt(ms + eps).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
@@ -121,23 +128,42 @@ def rope(x, positions, theta: float, rotary_pct: float = 1.0):
 
 def init_attention(cfg, init: Init, *, lead=()):
     d, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    return {
+    p = {
         "wq": dense_init(init, d, H * hd, cfg.pdtype, lead=lead),
         "wk": dense_init(init, d, K * hd, cfg.pdtype, lead=lead),
         "wv": dense_init(init, d, K * hd, cfg.pdtype, lead=lead),
         "wo": dense_init(init, H * hd, d, cfg.pdtype, lead=lead),
     }
+    if cfg.qkv_bias:
+        p["bq"] = init.full((*lead, H * hd), 0.0, cfg.pdtype)
+        p["bk"] = init.full((*lead, K * hd), 0.0, cfg.pdtype)
+        p["bv"] = init.full((*lead, K * hd), 0.0, cfg.pdtype)
+    if cfg.qk_norm:
+        p["q_norm"] = init.full((*lead, hd), 1.0, cfg.pdtype)
+        p["k_norm"] = init.full((*lead, hd), 1.0, cfg.pdtype)
+    return p
 
 
 def qkv_project(cfg, p, x, positions, *, apply_rope=True):
-    """x: (B, T, d) -> q (B,T,H,hd), k/v (B,T,K,hd), RoPE on q and k
-    unless ``apply_rope`` is False."""
+    """x: (B, T, d) -> q (B,T,H,hd), k/v (B,T,K,hd): the biases added
+    after each matmul and the q/k norms applied per head when ``p`` has
+    them, then RoPE on q and k unless ``apply_rope`` is False."""
     B, T, _ = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     dt = x.dtype
-    q = (x @ p["wq"].to(dt)).reshape(B, T, H, hd)
-    k = (x @ p["wk"].to(dt)).reshape(B, T, K, hd)
-    v = (x @ p["wv"].to(dt)).reshape(B, T, K, hd)
+    q = x @ p["wq"].to(dt)
+    k = x @ p["wk"].to(dt)
+    v = x @ p["wv"].to(dt)
+    if "bq" in p:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    q = q.reshape(B, T, H, hd)
+    k = k.reshape(B, T, K, hd)
+    v = v.reshape(B, T, K, hd)
+    if "q_norm" in p:
+        q = _rms(q) * p["q_norm"].to(dt)
+        k = _rms(k) * p["k_norm"].to(dt)
     if apply_rope:
         q = rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
         k = rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
@@ -304,10 +330,12 @@ def mlp_apply(cfg, p, x):
 # ---------------------------------------------------------------------------
 
 def init_embedding(cfg, init: Init):
-    return {"table": embed_init(init, cfg.vocab_size, cfg.d_model,
-                                cfg.pdtype),
-            "lm_head": dense_init(init, cfg.d_model, cfg.vocab_size,
-                                  cfg.pdtype)}
+    """The table, and an ``lm_head`` unless the embeddings are tied."""
+    p = {"table": embed_init(init, cfg.vocab_size, cfg.d_model, cfg.pdtype)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(init, cfg.d_model, cfg.vocab_size,
+                                  cfg.pdtype)
+    return p
 
 
 def embed_apply(cfg, p, tokens):
@@ -321,4 +349,7 @@ def embed_apply(cfg, p, tokens):
 
 
 def lm_head_apply(cfg, p, x):
+    """x @ lm_head, or x @ tableᵀ when the embeddings are tied."""
+    if cfg.tie_embeddings:
+        return x @ p["table"].to(x.dtype).T
     return x @ p["lm_head"].to(x.dtype)

@@ -5,8 +5,8 @@ Port of ``repro.models.registry``.  Model(cfg) exposes:
     forward(params, batch)                          -> (logits, aux)
     forward_hidden(params, batch)                   -> (hidden, aux)
     head_matrix(params)                             -> (d, V)
-    init_cache(batch, cache_len, device)            -> cache
-    decode_step(params, cache, tokens, pos)         -> (logits, cache)
+    init_cache(batch, cache_len, long_mode, device) -> cache
+    decode_step(params, cache, tokens, pos, long_mode) -> (logits, cache)
     param_shapes() / param_count()                  -> by shape only
     input_specs(shape_name)                         -> {name: (shape, dtype)}
     share_counts(params)                            -> {path: count}
@@ -51,19 +51,21 @@ class Model:
     def head_matrix(self, params):
         return self._mod.head_matrix(self.cfg, params)
 
-    def init_cache(self, batch: int, cache_len: int, *,
+    def init_cache(self, batch: int, cache_len: int, *, long_mode=False,
                    device=DEFAULT_DEVICE):
         return self._mod.init_cache(self.cfg, batch, cache_len,
-                                    device=device)
+                                    long_mode=long_mode, device=device)
 
-    def decode_step(self, params, cache, tokens, pos):
-        return self._mod.decode_step(self.cfg, params, cache, tokens, pos)
+    def decode_step(self, params, cache, tokens, pos, *, long_mode=False):
+        return self._mod.decode_step(self.cfg, params, cache, tokens, pos,
+                                     long_mode=long_mode)
 
     # --- input stand-ins ---------------------------------------------------
     def input_specs(self, shape_name: str) -> dict:
         """{name: (shape, dtype)} of a step's inputs at ``shape_name``
         (``configs.base.INPUT_SHAPES``), built without allocating (a
-        decode shape's cache on the meta device)."""
+        decode shape's cache on the meta device; long_500k's is the
+        bounded ``long_mode`` cache)."""
         cfg = self.cfg
         shp = INPUT_SHAPES[shape_name]
         B, T = shp.global_batch, shp.seq_len
@@ -76,12 +78,10 @@ class Model:
                 specs["encoder_input"] = (
                     (B, cfg.encoder_frames, cfg.d_model), cfg.cdtype)
             return specs
-        if shape_name == "long_500k":
-            raise NotImplementedError(
-                "long_500k: the bounded-cache long mode is not ported yet "
-                "(ROADMAP 1.3)")
+        # decode: ONE new token against a cache of seq_len
         return {"tokens": ((B, 1), torch.int32), "pos": ((), torch.int32),
-                "cache": self._mod.cache_shapes(cfg, B, T)}
+                "cache": self._mod.cache_shapes(
+                    cfg, B, T, long_mode=shp.name == "long_500k")}
 
     # --- shared-parameter counts (Sec. 4.3) --------------------------------
     def share_counts(self, params) -> dict:

@@ -12,7 +12,8 @@ use, as the reference does.
 Parameters are a flat dict keyed by the reference's pytree path, leaves
 stacked over periods as in the reference:
 
-    "embed.table", "embed.lm_head", "final_norm.scale",
+    "embed.table", "embed.lm_head" (none when the embeddings are tied),
+    "final_norm.scale",
     "periods.slot0.w_x" (n_periods, d, rg), ...,
     "periods.slot2.attn.wq" (n_periods, d, H*hd), ...,
     "rest.rest0.w_x" (d, rg), ...
@@ -33,11 +34,10 @@ from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 
 
-# options of the reference's ArchConfig that no ported arch uses, with
-# the value the port runs
-_PORTED = {"qkv_bias": False, "qk_norm": False, "norm": "rmsnorm",
-           "activation": "geglu", "tie_embeddings": False,
-           "learned_positions": False, "is_encoder_decoder": False}
+# options of the reference's ArchConfig that the decoder-only backbone
+# does not run, with the value it runs (learned positions and the
+# encoder come with ``models.encdec``)
+_PORTED = {"learned_positions": False, "is_encoder_decoder": False}
 
 
 def check_ported(cfg):
@@ -148,7 +148,11 @@ def _layers(cfg, tree: dict) -> list:
 # ---------------------------------------------------------------------------
 
 def head_matrix(cfg, params):
-    """(d, V) LM head."""
+    """(d, V) LM head: the ``embed.lm_head`` leaf, or the table transposed
+    (a view) when the embeddings are tied, so that a transform's tangent
+    and cotangent of the head reach ``embed.table``."""
+    if cfg.tie_embeddings:
+        return params["embed.table"].T
     return params["embed.lm_head"]
 
 
@@ -177,41 +181,48 @@ def forward(cfg, params, batch):
 # decode (serving)
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg, batch_size: int, cache_len: int, *,
+def init_cache(cfg, batch_size: int, cache_len: int, *, long_mode=False,
                device=DEFAULT_DEVICE) -> dict:
-    return _cache_tree(cfg, batch_size, cache_len, resolve_device(device))
+    """Zeroed decode caches; ``long_mode`` bounds the global-attention
+    caches to rings of ``cfg.long_context_window`` slots."""
+    return _cache_tree(cfg, batch_size, cache_len, long_mode,
+                       resolve_device(device))
 
 
-def cache_shapes(cfg, batch_size: int, cache_len: int) -> dict:
+def cache_shapes(cfg, batch_size: int, cache_len: int, *,
+                 long_mode=False) -> dict:
     """{path: (shape, dtype)} of ``init_cache``'s dict, on the meta
     device."""
     return {k: (tuple(v.shape), v.dtype) for k, v in _cache_tree(
-        cfg, batch_size, cache_len, torch.device("meta")).items()}
+        cfg, batch_size, cache_len, long_mode,
+        torch.device("meta")).items()}
 
 
-def _cache_tree(cfg, batch_size: int, cache_len: int, dev) -> dict:
+def _cache_tree(cfg, batch_size: int, cache_len: int, long_mode: bool,
+                dev) -> dict:
     pattern, n_periods, rest = layer_plan(cfg)
     tree = {"periods": {}, "rest": {}}
     if n_periods:
         for s, kind in enumerate(pattern):
             tree["periods"][f"slot{s}"] = B.init_block_cache(
                 cfg, kind, batch_size, cache_len, lead=(n_periods,),
-                device=dev)
+                long_mode=long_mode, device=dev)
     for i, kind in enumerate(rest):
         tree["rest"][f"rest{i}"] = B.init_block_cache(
-            cfg, kind, batch_size, cache_len, device=dev)
+            cfg, kind, batch_size, cache_len, long_mode=long_mode,
+            device=dev)
     return flatten(tree)
 
 
-def decode_step(cfg, params, cache, tokens, pos: int):
+def decode_step(cfg, params, cache, tokens, pos: int, *, long_mode=False):
     """One decode step.  tokens: (B,1) integer; pos: the absolute position
     being written (an int).  Returns (logits (B,1,V) f32, cache), the
-    cache updated in place."""
+    cache updated in place.  ``long_mode`` as the cache was made."""
     pos = int(pos)
     emb = nest(params, "embed.")
     x = L.embed_apply(cfg, emb, tokens)
     for (kind, p), (_, c) in zip(_layers(cfg, params), _layers(cfg, cache)):
-        x, _ = B.block_decode(cfg, kind, p, x, c, pos)
+        x, _ = B.block_decode(cfg, kind, p, x, c, pos, long_mode=long_mode)
     x = L.norm_apply(cfg, nest(params, "final_norm."), x)
     logits = L.lm_head_apply(cfg, emb, x)
     return logits.float(), cache

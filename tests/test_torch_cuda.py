@@ -21,6 +21,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+pytestmark = pytest.mark.cuda
+
 import numpy as np  # noqa: E402
 
 from repro_torch.analysis.corpus import ADVERSARIAL_CASES  # noqa: E402

@@ -23,6 +23,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+pytestmark = pytest.mark.cuda
+
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.kernels import ref as R  # noqa: E402
 from repro_torch.kernels import swa_attention as SWA  # noqa: E402

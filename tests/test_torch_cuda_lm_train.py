@@ -20,6 +20,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+pytestmark = pytest.mark.cuda
+
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.data.synthetic import lm_batch  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402

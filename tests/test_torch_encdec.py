@@ -187,12 +187,12 @@ def test_encdec_refuses_options_it_does_not_run():
                      lambda: TE.init_cache(cfg, 1, 8, device="cpu")):
             with pytest.raises(NotImplementedError, match=field):
                 call()
-    # the decoder-only backbone still refuses the enc-dec options
+    # the decoder-only backbone still refuses the enc-dec options; it
+    # runs whisper's LayerNorm and GELU (the dense archs' options)
     plain = dict(is_encoder_decoder=False, sliding_window=16,
-                 block_pattern=("local",), norm="rmsnorm",
-                 activation="geglu", learned_positions=False)
+                 block_pattern=("local",), learned_positions=False)
     TT.check_ported(tcfg.replace(**plain))
-    for field in ("norm", "activation", "learned_positions"):
+    for field in ("learned_positions", "is_encoder_decoder"):
         cfg = tcfg.replace(**dict(plain, **{field: getattr(tcfg, field)}))
         with pytest.raises(NotImplementedError, match=field):
             TT.check_ported(cfg)

@@ -144,7 +144,7 @@ def test_cli_checkpoint_resume_and_log_json(tmp_path):
 @pytest.mark.parametrize("argv,item", [
     (["--arch", "lstm-asr", "--mesh", "4x2"], "ROADMAP 1.4"),
     (["--arch", "recurrentgemma-9b"], "ROADMAP 1.3"),
-    (["--arch", "lm-qwen2.5-3b"], "ROADMAP 1.3"),
+    (["--arch", "lm-mixtral-8x22b"], "ROADMAP 1.3"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, item):
     with pytest.raises(NotImplementedError, match=item):
