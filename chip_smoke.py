@@ -23,7 +23,14 @@ paths against its plain PyTorch version on the card:
     embeddings, q/k/v biases) served at full width and depth, with
     ``serve``'s long mode, and trained by NGHF with the fused CG kernel
     at full width and 8 of its 36 layers; stablelm-1.6b trained by Adam
-    through the CLI; minitron-8b and stablelm-1.6b served.
+    through the CLI; minitron-8b and stablelm-1.6b served;
+  * the MoE archs: granite-moe-3b-a800m (3,298,793,472 parameters, 40
+    experts top-8, tied) served at full width and depth, with long mode,
+    trained by NGHF with the fused CG kernel and by Adam at full width
+    and 8 of its 32 layers;
+    mixtral-8x22b's windowed prefill at full width and 2 of its 56 layers
+    (5,410,781,184 parameters) through the tensor-core attention kernel at
+    its head geometry (G = 6, hd 128, window 4096).
 
 Phases:
 
@@ -173,7 +180,33 @@ Phases:
      and ``serve`` of 4 requests x 8 new tokens; chameleon-34b's and
      qwen2-72b's parameter counts on the meta device; and
      ``cg_fused_update`` timed at N = 927,782,912 against its bound (the
-     ``dense_*`` keys of its row).
+     ``dense_*`` keys of its row);
+ 11. the MoE archs (run after phase 10, before phase 7, on a card freed
+     with ``empty_cache``): granite-moe-3b-a800m served at full width and
+     depth as phase 10's qwen2.5-3b (B = 1 x T = 32768 prefill, logits
+     (1, 1, 49155) finite, no kernel launched, attention and expert FFN
+     timed apart; ``serve`` over a 32768-slot cache, the B = 8 step split
+     into attention, expert FFN and the FFN's per-step expert casts; f32
+     prefill vs 64 decode steps; 16 long-mode steps over the 8192-slot
+     ring); NGHF at full width and 8 of 32 layers (881,326,080
+     parameters) through ``build_step(..., cg_frac=4)`` with phase 10's
+     settings and checks, the aux term printed; Adam through the same
+     ``build_step`` at those 8 layers (3 steps, B 8, T 128: at full depth
+     the out-of-place Adam needs about 92 GB); mixtral-8x22b at full
+     width and 2 of 56 layers (its 140,630,071,296 parameters counted on
+     the meta device): a bf16 prefill of B = 1 x T = 32768 launching the
+     tensor-core ``swa_attention`` exactly twice and the CUDA-core kernel
+     never, the kernel held against its plain version on layer 0's q, k,
+     v (one bf16 ulp, at most 1 % of the entries differing) and timed
+     there (the ``moe_*`` keys of its row: 20 calls, alone, the plain
+     version, SDPA with the band mask, the bound); an f32 prefill of T =
+     8192 through the CUDA-core kernel against the plain path (relative L2
+     1e-4) with the share of tokens whose top-2 experts differ; f32
+     prefill vs 64 decode steps; ``moe_apply_dispatch`` at granite's full
+     width on the card against the CPU (B 2, T 256, f32, relative L2
+     1e-5) and timed against ``moe_apply`` (B 8, T 512, bf16); and
+     ``cg_fused_update`` timed at N = 881,326,080 against its bound (the
+     ``moe_*`` keys of its row).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; without a card, or outside a checkout of the repo,
@@ -2225,55 +2258,72 @@ DENSE_META = {"chameleon-34b": 34_293_436_416, "qwen2-72b": 72_706_203_648}
 
 
 class timed_calls:
-    """Within the block, every call of ``models.layers.<name>`` the model
-    makes is bracketed by CUDA events (no synchronize on the path);
-    ``ms()`` sums them after the caller synchronized."""
+    """Within the block, every call of ``models.layers.<name>`` for each of
+    ``names`` is bracketed by CUDA events (no synchronize on the path);
+    after the caller synchronized, ``ms(name)`` sums a name's calls and
+    ``text(total_ms)`` lists each name's sum, calls and share of
+    ``total_ms``.  A name called inside another's calls is timed inside
+    them too."""
 
-    def __init__(self, name: str):
-        self.name = name
+    def __init__(self, names: tuple):
+        self.names = names
 
     def __enter__(self):
         from repro_torch.models import layers
-        self._saved = fn = getattr(layers, self.name)
-        self.pairs = []
+        self._saved = {n: getattr(layers, n) for n in self.names}
+        self.pairs = {n: [] for n in self.names}
+        for name, fn in self._saved.items():
+            setattr(layers, name, self._wrap(fn, self.pairs[name]))
+        return self
 
+    @staticmethod
+    def _wrap(fn, pairs: list):
         def wrapped(*args, **kwargs):
             t0 = torch.cuda.Event(enable_timing=True)
             t1 = torch.cuda.Event(enable_timing=True)
             t0.record()
             out = fn(*args, **kwargs)
             t1.record()
-            self.pairs.append((t0, t1))
+            pairs.append((t0, t1))
             return out
-        setattr(layers, self.name, wrapped)
-        return self
+        return wrapped
 
     def __exit__(self, *exc):
         from repro_torch.models import layers
-        setattr(layers, self.name, self._saved)
+        for name, fn in self._saved.items():
+            setattr(layers, name, fn)
 
-    def ms(self) -> float:
-        return sum(a.elapsed_time(b) for a, b in self.pairs)
+    def ms(self, name: str) -> float:
+        return sum(a.elapsed_time(b) for a, b in self.pairs[name])
+
+    def text(self, total_ms: float) -> str:
+        return ", ".join(
+            f"{n} {self.ms(n):.3f} ms over {len(self.pairs[n])} calls "
+            f"({100 * self.ms(n) / total_ms:.1f} %)" for n in self.names)
 
 
-def dense_serving(dev) -> dict:
-    """qwen2.5-3b at full width and depth: prefill, serve, prefill vs
-    decode at f32, long_500k's ring."""
+def dense_serving(dev, arch: str, count: int) -> dict:
+    """A global-attention arch with tied embeddings (qwen2.5-3b, or
+    granite-moe-3b-a800m) at full width and depth: prefill, serve, prefill
+    vs decode at f32, long_500k's ring.  The prefill's attention, and an
+    MoE arch's expert FFN (and in decode its expert casts), are timed
+    apart by CUDA events."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch.serve import make_requests, serve
     from repro_torch.launch.steps import build_prefill_step, build_serve_step
     from repro_torch.models.registry import get_model
-    cfg = get_config(DENSE_ARCH)
+    cfg = get_config(arch)
     model = get_model(cfg)
+    moe = ("moe_apply",) if cfg.num_experts else ()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init(SEED, device=dev)
     torch.cuda.synchronize()
     n_params = sum(v.numel() for v in params.values())
-    check(n_params == DENSE_PARAMS == model.param_count()
+    check(n_params == count == model.param_count()
           and "embed.lm_head" not in params,
-          f"{DENSE_ARCH} has {n_params} parameters")
-    log(f"{DENSE_ARCH}: {n_params} parameters (f32, tied embeddings, "
+          f"{arch} has {n_params} parameters")
+    log(f"{arch}: {n_params} parameters (f32, tied embeddings, "
         f"{4 * n_params / 1e9:.3f} GB) drawn on the card in "
         f"{time.perf_counter() - t0:.3f} s")
     gen = torch.Generator(device=dev).manual_seed(SEED + 100)
@@ -2289,26 +2339,26 @@ def dense_serving(dev) -> dict:
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     reset_counts()
-    with timed_calls("causal_attention") as att:
+    with timed_calls(("causal_attention",) + moe) as parts:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits = prefill(params, {"tokens": tokens})
         torch.cuda.synchronize()
         out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
-    out["attention_ms"] = att.ms()
+    out["attention_ms"] = parts.ms("causal_attention")
     check(read_counts() == {k: 0 for k in read_counts()}
-          and swa_counts() == (0, 0), "the dense prefill launched a kernel")
+          and swa_counts() == (0, 0), f"the {arch} prefill launched a kernel")
     check(tuple(logits.shape) == (1, 1, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
           f"prefill logits {tuple(logits.shape)}, finite "
           f"{bool(torch.isfinite(logits).all())}")
-    share = out["attention_ms"] / out["prefill_ms"]
-    log(f"{DENSE_ARCH} prefill B=1 T={DENSE_PREFILL_T}: logits "
+    log(f"{arch} prefill B=1 T={DENSE_PREFILL_T}: logits "
         f"{tuple(logits.shape)} finite; {out['prefill_ms']:.3f} ms (warm; "
         f"the T={DENSE_WARM_T} warm-up took {warm_s * 1e3:.3f} ms), of "
-        f"which the plain chunked causal attention {out['attention_ms']:.3f}"
-        f" ms over {len(att.pairs)} layers by CUDA events ({100 * share:.1f}"
-        f" %); no kernel launched (the reference's attention is jnp)")
+        f"which by CUDA events {parts.text(out['prefill_ms'])}; no kernel "
+        f"launched (the reference's attention and MoE are jnp)")
+    if moe:
+        out["moe_ms"] = parts.ms("moe_apply")
     del logits
     torch.cuda.empty_cache()
 
@@ -2322,20 +2372,25 @@ def dense_serving(dev) -> dict:
     cache = model.init_cache(SERVE_REQUESTS, DENSE_CACHE, device=dev)
     tok = tokens[:, :1].expand(SERVE_REQUESTS, 1).contiguous()
     out["decode_ms"] = cuda_time_ms(lambda: step(params, cache, tok, 100), 5)
-    with timed_calls("decode_attention") as att:
+    casts = ("_expert_matrices",) if moe else ()
+    with timed_calls(("decode_attention",) + moe + casts) as parts:
         step(params, cache, tok, 100)
         torch.cuda.synchronize()
-    out["decode_attention_ms"] = att.ms()
+    out["decode_attention_ms"] = parts.ms("decode_attention")
+    if moe:
+        out["decode_moe_ms"] = parts.ms("moe_apply")
+        out["decode_cast_ms"] = parts.ms("_expert_matrices")
     out["stats"] = stats
-    log(f"{DENSE_ARCH} serve: {len(reqs)} requests (prompts "
+    log(f"{arch} serve: {len(reqs)} requests (prompts "
         f"{[len(r.prompt) for r in reqs]} tokens, {SERVE_NEW} new each), "
         f"cache of {DENSE_CACHE} slots, in {stats['steps']} steps, "
         f"{stats['wall_s'] * 1e3:.3f} ms: {stats['tokens_per_s']:.3f} "
         f"tokens/s, p50 {stats['latency_p50_s'] * 1e3:.3f} ms, p99 "
         f"{stats['latency_p99_s'] * 1e3:.3f} ms; decode step "
-        f"B={SERVE_REQUESTS} {out['decode_ms']:.3f} ms (CUDA events), of "
-        f"which decode_attention over the {DENSE_CACHE} slots "
-        f"{out['decode_attention_ms']:.3f} ms over {len(att.pairs)} layers")
+        f"B={SERVE_REQUESTS} over {DENSE_CACHE} slots {out['decode_ms']:.3f}"
+        f" ms (CUDA events), of which (one step bracketed by events) "
+        f"{parts.text(out['decode_ms'])}"
+        + ("; the expert casts run inside moe_apply" if moe else ""))
     del cache
     torch.cuda.empty_cache()
 
@@ -2348,9 +2403,9 @@ def dense_serving(dev) -> dict:
     for t in range(DECODE_PROMPT):
         got, cache = step32(params, cache, prompt[:, t:t + 1], t)
     rel_max = float((got - want).abs().max() / want.abs().max())
-    check(rel_max <= DECODE_REL, f"{DENSE_ARCH} f32 prefill vs decode: "
+    check(rel_max <= DECODE_REL, f"{arch} f32 prefill vs decode: "
           f"relative max {rel_max:.3g}")
-    log(f"{DENSE_ARCH} f32 compute: prefill's last logits == "
+    log(f"{arch} f32 compute: prefill's last logits == "
         f"{DECODE_PROMPT} decode steps' (relative max {rel_max:.3g}, limit "
         f"{DECODE_REL})")
     del cache, got, want
@@ -2385,14 +2440,14 @@ def dense_serving(dev) -> dict:
               f"{bool(torch.isfinite(lg).all())}")
         written.append(changed[0])
     out["long_ms"] = 1e3 * sum(times[1:]) / (len(times) - 1)
-    log(f"{DENSE_ARCH} long_500k (long_mode): cache of {DENSE_LONG_SLOTS} "
+    log(f"{arch} long_500k (long_mode): cache of {DENSE_LONG_SLOTS} "
         f"slots, {got_bytes} bytes (the specs' {want_bytes}); "
         f"{DENSE_LONG_STEPS} steps at B=1 from position {DENSE_LONG_START} "
         f"wrote slots {written[0]}..{written[-1]} (pos % "
         f"{DENSE_LONG_SLOTS}), logits finite; {out['long_ms']:.3f} ms a "
         f"step after the first (host clock, synced)")
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    log(f"{DENSE_ARCH} serving: peak device memory {out['peak_gb']:.3f} GB")
+    log(f"{arch} serving: peak device memory {out['peak_gb']:.3f} GB")
     del params, cache, tokens
     torch.cuda.empty_cache()
     return out
@@ -2404,19 +2459,19 @@ def dense_batch(cfg, step: int, dev) -> dict:
                     vocab=cfg.vocab_size, device=dev)
 
 
-def dense_training(dev) -> dict:
-    """qwen2.5-3b at full width, 8 layers, trained by NGHF with the fused
-    CG kernel through ``build_step``; one update against the plain
-    path."""
+def dense_training(dev, arch: str, layers: int, count: int) -> dict:
+    """An arch (qwen2.5-3b, or granite-moe-3b-a800m) at full width and
+    ``layers`` layers, trained by NGHF with the fused CG kernel through
+    ``build_step``; one update against the plain path."""
     from repro_torch.configs.base import get_config
     from repro_torch.core.optim import config_for
     from repro_torch.launch.steps import build_step
     from repro_torch.models.registry import get_model
-    cfg = get_config(DENSE_ARCH).replace(num_layers=DENSE_TRAIN_LAYERS)
+    full = get_config(arch)
+    cfg = full.replace(num_layers=layers)
     model = get_model(cfg)
-    check(model.param_count() == DENSE_TRAIN_PARAMS,
-          f"{DENSE_ARCH} at {DENSE_TRAIN_LAYERS} layers has "
-          f"{model.param_count()} parameters")
+    check(model.param_count() == count,
+          f"{arch} at {layers} layers has {model.param_count()} parameters")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     start = model.init(SEED, device=dev)
@@ -2424,9 +2479,8 @@ def dense_training(dev) -> dict:
     ocfg = config_for("nghf", cg_iters=LM_CG_ITERS, ng_iters=LM_NG_ITERS,
                       cg_fused=True)
     step, opt = build_step(cfg, ocfg, cg_frac=4)
-    log(f"{DENSE_ARCH} NGHF at full width, {DENSE_TRAIN_LAYERS} of 36 "
-        f"layers: {DENSE_TRAIN_PARAMS} parameters "
-        f"({4 * DENSE_TRAIN_PARAMS / 1e9:.3f} GB f32); "
+    log(f"{arch} NGHF at full width, {layers} of {full.num_layers} "
+        f"layers: {count} parameters ({4 * count / 1e9:.3f} GB f32); "
         f"B={DENSE_TRAIN_BATCH}, T={DENSE_TRAIN_SEQ}, CG batch "
         f"{DENSE_TRAIN_BATCH // 4}, {LM_CG_ITERS} CG and {LM_NG_ITERS} NG "
         f"iterations, fused CG, f32 state, {ocfg.preconditioner} "
@@ -2444,23 +2498,26 @@ def dense_training(dev) -> dict:
         m = {k: float(v) for k, v in m.items()}
         log_.append(dict(step=i, time_s=time.perf_counter() - t0, **m))
     launches = read_counts()
-    check_lm_updates(f"{DENSE_ARCH} NGHF", log_, launches, swa_counts(),
+    check_lm_updates(f"{arch} NGHF", log_, launches, swa_counts(),
                      list(range(DENSE_UPDATES)), per_update)
     out = {"launches": launches["cg_fused_update"], "updates": len(log_),
            "log": log_,
            "peak_main_gb": torch.cuda.max_memory_allocated() / 1e9}
-    log(f"{DENSE_ARCH} NGHF: update times "
+    aux = (f"; the aux term (loss - ce) "
+           f"{[round(m['loss'] - m['ce'], 6) for m in log_]}"
+           if cfg.num_experts else "")
+    log(f"{arch} NGHF: update times "
         f"{[round(m['time_s'], 3) for m in log_]} s, accepted "
-        f"{[bool(m['cg_accepted']) for m in log_]}; peak device memory "
-        f"{out['peak_main_gb']:.3f} GB")
+        f"{[bool(m['cg_accepted']) for m in log_]}{aux}; peak device "
+        f"memory {out['peak_main_gb']:.3f} GB")
     del params, opt_state
     torch.cuda.empty_cache()
 
     # the kernel path against the plain path, from the same start
     batch = dense_batch(cfg, 0, dev)
-    out.update(lm_paths_compared(DENSE_ARCH, cfg, start, batch, dev))
+    out.update(lm_paths_compared(arch, cfg, start, batch, dev))
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    log(f"{DENSE_ARCH} NGHF: peak device memory {out['peak_gb']:.3f} GB")
+    log(f"{arch} NGHF: peak device memory {out['peak_gb']:.3f} GB")
     del start, batch
     torch.cuda.empty_cache()
     return out
@@ -2534,7 +2591,9 @@ def dense_clis(dev) -> dict:
 
 def phase_dense(dev) -> dict:
     """Phase 10: the dense attn archs."""
-    return {"serving": dense_serving(dev), "training": dense_training(dev),
+    return {"serving": dense_serving(dev, DENSE_ARCH, DENSE_PARAMS),
+            "training": dense_training(dev, DENSE_ARCH, DENSE_TRAIN_LAYERS,
+                                       DENSE_TRAIN_PARAMS),
             "clis": dense_clis(dev)}
 
 
@@ -2545,6 +2604,343 @@ def dense_cg_times(dense: dict, dev) -> dict:
     return cg_times_at(DENSE_TRAIN_PARAMS, tr["launches"], tr["updates"],
                        "dense", f"{DENSE_ARCH}, {DENSE_TRAIN_LAYERS} layers",
                        dev)
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the MoE archs (granite-moe-3b-a800m served and trained,
+# mixtral-8x22b's windowed prefill, the dispatch FFN)
+# ---------------------------------------------------------------------------
+
+# granite-moe-3b-a800m at full width and depth for serving (phase 10's
+# cuts: prefill_32k's B 32 -> 1, decode_32k's B 128 -> 8, long_500k's
+# ring from the position 16 short of its end); NGHF at full width with the
+# depth cut to what one card holds (32 layers need about 185 GB of
+# θ-sized f32 state, ROADMAP 1.4), B 8, T 512
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_PARAMS = 3_298_793_472
+MOE_TRAIN_LAYERS = 8
+MOE_TRAIN_PARAMS = 881_326_080
+# mixtral-8x22b at full width and 2 of its 56 layers: a bf16 prefill of
+# B = 1 x T = 32768 (two tensor-core swa_attention launches at G = 6, hd
+# 128, window 4096), an f32 one of T = 8192 (window < T: the band
+# matters) through the CUDA-core kernel and through the plain path
+MIXTRAL_ARCH = "mixtral-8x22b"
+MIXTRAL_LAYERS = 2
+MIXTRAL_PARAMS = 5_410_781_184
+MIXTRAL_FULL_PARAMS = 140_630_071_296
+MIXTRAL_T, MIXTRAL_F32_T = 32768, 8192
+# moe_apply_dispatch at granite's full width: one layer on the card
+# against the CPU at f32 (B, T), relative L2; then timed against
+# moe_apply at bf16 (B, T)
+DISPATCH_CHECK, DISPATCH_TIME = (2, 256), (8, 512)
+DISPATCH_REL_L2 = 1e-5
+
+
+class captured_calls:
+    """Within the block, each call of ``models.layers.<name>`` appends
+    ``keep(args, result)`` to ``self.seen`` and returns the result."""
+
+    def __init__(self, name: str, keep):
+        self.name, self.keep, self.seen = name, keep, []
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self._saved = fn = getattr(layers, self.name)
+
+        def wrapped(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            self.seen.append(self.keep(args, out))
+            return out
+        setattr(layers, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+        setattr(layers, self.name, self._saved)
+
+
+def top_sets(args, out):
+    """The sorted top-k expert indices of a ``layers._route`` call."""
+    return torch.sort(out[2], dim=-1).values
+
+
+def mixtral_prefill(dev, errs: dict) -> dict:
+    """mixtral-8x22b at full width and 2 layers: the bf16 prefill of B = 1
+    x T = 32768 through the tensor-core kernel, which is held against its
+    plain version on layer 0's q, k, v and timed there (the ``moe_*`` keys
+    of the kernels line's ``swa_attention`` row); the f32 prefill of T =
+    8192 through the CUDA-core kernel and the plain path; f32 prefill
+    against 64 decode steps."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import swa_attention as SWA
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.models.registry import get_model
+    full = get_config(MIXTRAL_ARCH)
+    got = get_model(full).param_count()
+    check(got == MIXTRAL_FULL_PARAMS, f"{MIXTRAL_ARCH}: {got} parameters")
+    cfg = full.replace(num_layers=MIXTRAL_LAYERS)
+    model = get_model(cfg)
+    window = cfg.sliding_window
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in params.values())
+    check(n_params == MIXTRAL_PARAMS == model.param_count(),
+          f"{MIXTRAL_ARCH} at {MIXTRAL_LAYERS} layers has {n_params} "
+          f"parameters")
+    log(f"{MIXTRAL_ARCH}: {got} parameters at full depth (meta device, "
+        f"{4 * got / 1e9:.1f} GB f32); {MIXTRAL_LAYERS} of "
+        f"{full.num_layers} layers at full width: {n_params} parameters "
+        f"({4 * n_params / 1e9:.3f} GB f32) drawn on the card in "
+        f"{time.perf_counter() - t0:.3f} s")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 110)
+    tokens = torch.randint(0, cfg.vocab_size, (1, MIXTRAL_T), generator=gen,
+                           device=dev)
+    prefill = build_prefill_step(cfg)
+    prefill(params, {"tokens": tokens[:, :DENSE_WARM_T]})
+    out = {}
+
+    # the main path: counts at 0 just before, read just after; layer 0's
+    # q, k, v kept
+    with captured_calls("swa_attention",
+                        lambda a, o: tuple(t.clone() for t in a[:3])) as cap:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        launches = swa_counts()
+    check(launches == (MIXTRAL_LAYERS, 0)
+          and read_counts() == {k: 0 for k in read_counts()},
+          f"{MIXTRAL_ARCH} bf16 prefill: swa_attention launches (tensor "
+          f"core, CUDA core) {launches}, want ({MIXTRAL_LAYERS}, 0); "
+          f"others {read_counts()}")
+    check(tuple(logits.shape) == (1, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"{MIXTRAL_ARCH} prefill logits {tuple(logits.shape)}, finite "
+          f"{bool(torch.isfinite(logits).all())}")
+    out["launches"] = launches[0]
+    log(f"{MIXTRAL_ARCH} bf16 prefill B=1 T={MIXTRAL_T}: logits "
+        f"{tuple(logits.shape)} finite, {out['prefill_ms']:.3f} ms (after "
+        f"a T={DENSE_WARM_T} warm-up); tensor-core swa_attention launched "
+        f"{launches[0]} times (one per swamoe layer), the CUDA-core "
+        f"kernel {launches[1]}")
+    q, k, v = cap.seen[0]
+    del cap, logits
+    # where the prefill's time goes: a second run, its attention and
+    # expert FFN bracketed by CUDA events
+    with timed_calls(("windowed_attention", "moe_apply")) as parts:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        out["prefill_again_ms"] = (time.perf_counter() - t0) * 1e3
+    log(f"{MIXTRAL_ARCH} bf16 prefill again: {out['prefill_again_ms']:.3f}"
+        f" ms, of which by CUDA events "
+        f"{parts.text(out['prefill_again_ms'])}")
+    shape = (*q.shape[:3], k.shape[2], q.shape[3], window)
+    got = SWA.swa_attention(q, k, v, window)
+    want = R.swa_attention_ref(q, k, v, window)
+    err = compare_swa("mixtral_layer0_" + "x".join(map(str, shape)), got,
+                      want, torch.bfloat16, errs)
+    log(f"swa_attention == plain on {MIXTRAL_ARCH} layer 0's q, k, v "
+        f"(B,T,H,K,hd,window)={shape} bf16: max |d| {err:.3g}, "
+        f"{float((got != want).float().mean()):.3g} of the entries differ "
+        f"(limits: one bf16 ulp, {SWA_BF16_DIFF_SHARE})")
+    del got, want
+
+    # the f32 prefill, T = 8192: the CUDA-core kernel against the plain
+    # path, with the routing of each
+    cfg32 = cfg.replace(compute_dtype="float32")
+    prefill32 = build_prefill_step(cfg32)
+    row = {"tokens": tokens[:, :MIXTRAL_F32_T]}
+    n = swa_counts()
+    with captured_calls("_route", top_sets) as kr:
+        kern32 = prefill32(params, row)
+    check(swa_counts() == (n[0], n[1] + MIXTRAL_LAYERS),
+          f"the f32 prefill launched swa_attention {swa_counts()} from "
+          f"{n}, want {MIXTRAL_LAYERS} CUDA-core launches")
+    with plain_attention(), captured_calls("_route", top_sets) as pr:
+        plain32 = prefill32(params, row)
+    check(swa_counts() == (n[0], n[1] + MIXTRAL_LAYERS),
+          "the plain f32 path launched a kernel")
+    rel32 = rel_l2(kern32, plain32)
+    flips = [float((a != b).any(-1).float().mean())
+             for a, b in zip(kr.seen, pr.seen)]
+    check(rel32 <= PREFILL_F32_REL_L2, f"{MIXTRAL_ARCH} f32 prefill kernel "
+          f"vs plain path rel-L2 {rel32:.3g} > {PREFILL_F32_REL_L2}")
+    out["f32_rel_l2"], out["top2_flips"] = rel32, flips
+    log(f"{MIXTRAL_ARCH} f32 prefill B=1 T={MIXTRAL_F32_T} (window "
+        f"{window} < T): kernel path (CUDA-core kernel) == plain path, "
+        f"last-position logits rel-L2 {rel32:.3g} (limit "
+        f"{PREFILL_F32_REL_L2}); share of tokens whose top-"
+        f"{cfg.num_experts_per_tok} set differs between the paths, by "
+        f"layer: {flips}")
+    del kern32, plain32, kr, pr
+
+    # prefill against decode at f32 compute, T = 64 <= window (past the
+    # window the reference's prefill and ring decode differ, ROADMAP §3.3)
+    n_dec = min(DECODE_PROMPT, window)
+    prompt = tokens[:, :n_dec]
+    want = prefill32(params, {"tokens": prompt})
+    step32 = build_serve_step(cfg32)
+    cache = get_model(cfg32).init_cache(1, n_dec, device=dev)
+    for t in range(n_dec):
+        got, cache = step32(params, cache, prompt[:, t:t + 1], t)
+    rel_max = float((got - want).abs().max() / want.abs().max())
+    check(rel_max <= DECODE_REL, f"{MIXTRAL_ARCH} f32 prefill vs decode: "
+          f"relative max {rel_max:.3g}")
+    log(f"{MIXTRAL_ARCH} f32 compute: prefill's last logits == {n_dec} "
+        f"decode steps' (relative max {rel_max:.3g}, limit {DECODE_REL})")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{MIXTRAL_ARCH}: peak device memory {out['peak_gb']:.3f} GB")
+    del params, cache, got, want, tokens
+    torch.cuda.empty_cache()
+    out["swa"] = mixtral_swa_times(q, k, v, window, out["launches"])
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def mixtral_swa_times(q, k, v, window: int, launches: int) -> dict:
+    """The tensor-core kernel on mixtral's layer-0 q, k, v: through the
+    wrapper over 20 calls and alone, the plain version and SDPA with the
+    band mask, and the bound from this run's shape; the ``moe_*`` keys of
+    the ``swa_attention`` row."""
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import swa_attention as SWA
+    n = swa_counts()
+    lib_fn, lib_t, lib_d = sdpa_call(q, k, v, window)
+
+    def kernel():
+        return SWA.swa_attention(q, k, v, window)
+
+    t = {"moe_launches": launches, "moe_launches_per": launches,
+         "moe_ms": cuda_time_ms(kernel, 20),
+         "moe_kernel_alone_ms": kernel_alone_ms(kernel),
+         "moe_plain_ms": cuda_time_ms(
+             lambda: R.swa_attention_ref(q, k, v, window), 2),
+         "moe_library_ms": (cuda_time_ms(lib_fn, 2) if lib_fn else None)}
+    # comparison and timing launches are not the main path's
+    SWA.swa_attention.launches, SWA.swa_attention.cuda_core_launches = n
+    shape = (*q.shape[:3], k.shape[2], q.shape[3], window)
+    byt, flops = swa_work(shape, q.dtype)
+    t["moe_bound_ms"], t["moe_bound_by"] = swa_bound(byt, flops)
+    t["moe_per"] = f"{MIXTRAL_ARCH} prefill, {MIXTRAL_LAYERS} layers"
+    t["moe_shape"] = f"B,T,H,K,hd,window={list(shape)} bf16"
+    log(f"swa_attention timed at {MIXTRAL_ARCH}'s {t['moe_shape']}: "
+        + ", ".join(f"{k} {v:.6g}" for k, v in t.items()
+                    if isinstance(v, float))
+        + f"; useful work {flops} flops, {byt} bytes, "
+        f"{flops / t['moe_ms'] * 1e-9:.3f} TFLOP/s; "
+        f"{100 * t['moe_bound_ms'] / t['moe_kernel_alone_ms']:.1f} % of the "
+        f"bound alone; scaled_dot_product_attention (band mask) at "
+        f"T={lib_t}, max |d| vs the kernel {lib_d}")
+    return t
+
+
+def dispatch_ffn(dev) -> dict:
+    """``moe_apply_dispatch`` at granite's full width: one layer on the
+    card against the same call on the CPU at f32, then timed against
+    ``moe_apply`` at bf16 (a yardstick for a later speed PR)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import layers as L
+    cfg = get_config(MOE_ARCH).replace(compute_dtype="float32")
+    gen = torch.Generator().manual_seed(SEED + 120)
+    p = L.init_moe(cfg, L.Init("cpu", gen))
+    B, T = DISPATCH_CHECK
+    x = torch.randn(B, T, cfg.d_model, generator=gen)
+    want, waux = L.moe_apply_dispatch(cfg, p, x)
+    pg = {k: v.to(dev) for k, v in p.items()}
+    got, aux = L.moe_apply_dispatch(cfg, pg, x.to(dev))
+    rel = rel_l2(got.cpu(), want)
+    d_aux = abs(float(aux) - float(waux))
+    check(got.device.type == dev.type and rel <= DISPATCH_REL_L2
+          and d_aux <= DISPATCH_REL_L2 * float(waux),
+          f"moe_apply_dispatch card vs CPU: rel-L2 {rel:.3g}, aux |d| "
+          f"{d_aux:.3g}")
+    out = {"rel_l2": rel}
+    B, T = DISPATCH_TIME
+    c16 = cfg.replace(compute_dtype="bfloat16")
+    x16 = torch.randn(B, T, cfg.d_model, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(
+                          SEED + 121)).to(torch.bfloat16)
+    for fn in ("moe_apply", "moe_apply_dispatch"):
+        out[fn + "_ms"] = cuda_time_ms(
+            lambda fn=fn: getattr(L, fn)(c16, pg, x16), 5)
+    log(f"moe_apply_dispatch at {MOE_ARCH}'s full width (d "
+        f"{cfg.d_model}, {cfg.num_experts} experts of ff {cfg.d_ff}, top-"
+        f"{cfg.num_experts_per_tok}): card == CPU at f32, B={DISPATCH_CHECK[0]}"
+        f" T={DISPATCH_CHECK[1]}, rel-L2 {rel:.3g}, aux |d| {d_aux:.3g} "
+        f"(limit {DISPATCH_REL_L2}); bf16 B={B} T={T}: dispatch "
+        f"{out['moe_apply_dispatch_ms']:.3f} ms, dense "
+        f"{out['moe_apply_ms']:.3f} ms (CUDA events, 5 calls)")
+    del p, pg, x, x16, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_adam(dev) -> list:
+    """granite-moe-3b-a800m at full width and MOE_TRAIN_LAYERS layers
+    trained by Adam through ``build_step`` (the CLI's step and its
+    batches: B 8, T 128), 3 steps; the step times.  At full depth the
+    port's out-of-place Adam holds θ, its gradient and the old and new m,
+    v and θ, about 92 GB of f32 state (ROADMAP 1.4)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models.registry import get_model
+    cfg = get_config(MOE_ARCH).replace(num_layers=MOE_TRAIN_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = get_model(cfg).init(SEED, device=dev)
+    step, opt = build_step(cfg, "adam", lr=3e-4)
+    state, log_ = opt.init(params), []
+    reset_counts()
+    for i in range(3):
+        batch = lm_batch(i, batch=8, seq_len=128, vocab=cfg.vocab_size,
+                         device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        log_.append(dict(step=i, time_s=time.perf_counter() - t0,
+                         **{k: float(v) for k, v in m.items()}))
+    check_lm_updates(f"{MOE_ARCH} Adam", log_, read_counts(), swa_counts(),
+                     [0, 1, 2], 0)
+    times = [m["time_s"] for m in log_]
+    log(f"{MOE_ARCH} Adam through build_step (full width, "
+        f"{MOE_TRAIN_LAYERS} layers, B 8, T 128): step times "
+        f"{[round(t, 3) for t in times]} s, ce "
+        f"{[round(m['ce'], 4) for m in log_]}, loss "
+        f"{[round(m['loss'], 4) for m in log_]}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    del params, state
+    torch.cuda.empty_cache()
+    return times
+
+
+def phase_moe(dev, errs: dict) -> dict:
+    """Phase 11: the MoE archs."""
+    torch.cuda.empty_cache()
+    return {"serving": dense_serving(dev, MOE_ARCH, MOE_PARAMS),
+            "training": dense_training(dev, MOE_ARCH, MOE_TRAIN_LAYERS,
+                                       MOE_TRAIN_PARAMS),
+            "adam_s": moe_adam(dev),
+            "mixtral": mixtral_prefill(dev, errs),
+            "dispatch": dispatch_ffn(dev)}
+
+
+def moe_cg_times(moe: dict, dev) -> dict:
+    """``cg_fused_update`` at granite's training N, beside phase 11's
+    launches."""
+    tr = moe["training"]
+    return cg_times_at(MOE_TRAIN_PARAMS, tr["launches"], tr["updates"],
+                       "moe", f"{MOE_ARCH}, {MOE_TRAIN_LAYERS} layers", dev)
 
 
 # ---------------------------------------------------------------------------
@@ -2827,6 +3223,15 @@ def phase_lm(dev) -> dict:
             "stats": stats}
 
 
+def swa_bound(byt: float, flops: float) -> tuple:
+    """(ms, "bytes" or "operations"): the bf16 attention's least time on
+    the card, bytes over the HBM rate or operations over the bf16
+    tensor-core peak, the larger."""
+    t_bytes = byt / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def swa_work(shape, dtype) -> tuple:
     """(bytes, flops): q, k, v read once and o written once; QK^T and PV
     over the window + 1 keys each query sees (clipped at 0)."""
@@ -2846,10 +3251,14 @@ def sdpa_call(q, k, v, window: int) -> tuple:
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels import swa_attention as SWA
     B, T, H, hd = q.shape
+    K = k.shape[2]
+    # the kv heads to the H query heads: a view for K = 1, else a copy
+    kh, vh = (x.transpose(1, 2).expand(B, H, T, hd) if K == 1
+              else x.transpose(1, 2).repeat_interleave(H // K, dim=1)
+              for x in (k, v))
     while T >= 1024:
         qt = q[:, :T].transpose(1, 2)
-        kt = k[:, :T].transpose(1, 2).expand(B, H, T, hd)
-        vt = v[:, :T].transpose(1, 2).expand(B, H, T, hd)
+        kt, vt = kh[:, :, :T], vh[:, :, :T]
         pos = torch.arange(T, device=q.device)
         mask = ((pos[None, :] <= pos[:, None])
                 & (pos[None, :] >= pos[:, None] - window))
@@ -2906,10 +3315,7 @@ def swa_times(lm: dict, errs: dict, dev) -> dict:
     # comparison and timing launches are not the main path's
     SWA.swa_attention.launches, SWA.swa_attention.cuda_core_launches = n
     byt, flops = swa_work(SWA_FULL, dtype)
-    t_bytes = byt / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
-    b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
-                                                               "operations")
+    b_ms, b_by = swa_bound(byt, flops)
     entry = {"name": "swa_attention", "route": "cuda",
              "source": SOURCES["swa_attention"],
              "replaces": TPU_KERNELS["swa_attention"],
@@ -2990,8 +3396,14 @@ def main() -> int:
     cg_row.update(dense_cg_times(dense, dev))
     del dense
     torch.cuda.empty_cache()
+    moe = phase_moe(dev, errs)
+    cg_row.update(moe_cg_times(moe, dev))
+    swa_moe = moe["mixtral"]["swa"]
+    del moe
+    torch.cuda.empty_cache()
     lm = phase_lm(dev)
     kernels.append(swa_times(lm, errs, dev))
+    kernels[-1].update(swa_moe)
     check(len(kernels) == len(TPU_KERNELS), "a kernel has no entry")
     log(f"total {time.perf_counter() - t_start:.3f} s")
     print(card, flush=True)

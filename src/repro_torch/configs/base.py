@@ -161,10 +161,12 @@ _ALIASES = {
     "minitron-8b": "minitron_8b",
     "chameleon-34b": "chameleon_34b",
     "qwen2-72b": "qwen2_72b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "mixtral-8x22b": "mixtral_8x22b",
 }
 
-# the rest of the reference's pool: not ported yet (MoE and xLSTM)
-NOT_PORTED = ("xlstm-125m", "granite-moe-3b-a800m", "mixtral-8x22b")
+# the rest of the reference's pool: not ported yet (xLSTM)
+NOT_PORTED = ("xlstm-125m",)
 
 
 def get_config(arch: str) -> ArchConfig:

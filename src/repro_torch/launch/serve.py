@@ -11,6 +11,8 @@ CPU demo (plain PyTorch versions of the kernels):
       --arch recurrentgemma-9b --smoke --device cpu --requests 6
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch qwen2.5-3b --smoke --device cpu --long-mode
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch granite-moe-3b-a800m --smoke --device cpu
 """
 from __future__ import annotations
 

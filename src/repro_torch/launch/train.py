@@ -19,6 +19,8 @@ run continues exactly).
         --smoke --device cpu --steps 2
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \
         --smoke --device cpu --steps 2
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch granite-moe-3b-a800m --smoke --device cpu --steps 2
 
 ``device`` defaults to ``"cuda"`` and raises without a card; pass
 ``device="cpu"`` (with ``smoke=True`` for the reduced geometry) to run
@@ -52,12 +54,14 @@ from repro_torch.models.registry import get_model
 # have no ``lr`` field)
 SEQ_DEFAULT_LR = {"sgd": 0.2, "adam": 2e-3}
 LM_DEFAULT_LR = {"sgd": 0.3, "adam": 3e-4}
-# the LM archs the port trains; recurrentgemma-9b serves only (its
-# windowed attention has no backward on the card, and its 41.8 GB of f32
-# parameters leave no room for the CG state on one card).  A dense arch
-# whose state does not fit the card runs out of its memory.
+# the LM archs the port trains; recurrentgemma-9b and mixtral-8x22b serve
+# only (their windowed attention has no backward on the card, and their
+# f32 parameters, 41.8 and 562.5 GB, leave no room for the CG state on
+# one card).  An arch whose state does not fit the card runs out of its
+# memory.
 LM_TRAIN_ARCHS = ("whisper-base", "stablelm-1.6b", "qwen2.5-3b",
-                  "minitron-8b", "chameleon-34b", "qwen2-72b")
+                  "minitron-8b", "chameleon-34b", "qwen2-72b",
+                  "granite-moe-3b-a800m")
 
 
 def parse_sample_schedule(sched):

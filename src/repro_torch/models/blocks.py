@@ -1,10 +1,11 @@
 """Residual blocks of the language models.
 
 Port of the ``block_pattern`` kinds of ``repro.models.blocks`` that the
-ported archs use: the attention-family blocks with a dense MLP (``attn``,
-global causal attention; ``local`` and ``swa``, windowed attention) and
-the RG-LRU (Griffin) block.  The other kinds (``moe``, ``swamoe``,
-``mlstm``, ``slstm``) raise ``NotImplementedError`` until their slice.
+ported archs use: the attention-family blocks (``attn``, global causal
+attention; ``local`` and ``swa``, windowed attention; each with a dense
+MLP, and ``moe`` and ``swamoe``, global and windowed attention with a
+mixture-of-experts FFN) and the RG-LRU (Griffin) block.  The xLSTM kinds
+(``mlstm``, ``slstm``) raise ``NotImplementedError`` until their slice.
 Each kind has the reference's four entry points, dispatched by kind at
 the end of this module:
 
@@ -13,10 +14,13 @@ the end of this module:
   init_block_cache(cfg, kind, batch, cache_len, long_mode, device) -> cache
   block_decode(cfg, kind, p, x, cache, pos, long_mode) -> (x, cache) # 1 token
 
-``aux`` is the MoE load-balance loss, 0.0 for these kinds.  Windowed
-caches are ring buffers of ``min(cache_len, window)`` slots; an ``attn``
-cache holds ``cache_len`` slots, or with ``long_mode`` (the reference's
-bounded cache for long_500k) a ring of ``min(cache_len,
+``aux`` is the MoE load-balance loss (a 0-d tensor), 0.0 for the other
+kinds.  The MoE FFN of a sequence is ``cfg.moe_impl``'s (the dense
+one-hot combine, or the capacity dispatch); decode always runs the dense
+form, as the reference's.  Windowed caches are ring buffers of
+``min(cache_len, window)`` slots; an ``attn`` or ``moe`` cache holds
+``cache_len`` slots, or with ``long_mode`` (the reference's bounded
+cache for long_500k) a ring of ``min(cache_len,
 cfg.long_context_window)``.  Unlike the reference, whose arrays are
 immutable, ``block_decode`` writes the new token's cache entries into
 the given cache tensors in place and returns them: a step then never
@@ -63,28 +67,35 @@ def conv1d_step(x_t, buf, w, b=None):
 def _not_ported(kind):
     return NotImplementedError(
         f"block kind {kind!r} is not ported yet (the port runs 'attn', "
-        f"'local', 'swa' and 'rglru'; ROADMAP 1.3 lists the rest)")
+        f"'local', 'swa', 'moe', 'swamoe' and 'rglru'; ROADMAP 1.3 lists "
+        f"the xLSTM kinds 'mlstm' and 'slstm')")
 
 
 # ---------------------------------------------------------------------------
-# Attention-family blocks (attn / local / swa)
+# Attention-family blocks (attn / local / swa / moe / swamoe)
 # ---------------------------------------------------------------------------
 
 def _attn_kind(kind):
-    """The attention-family kinds ported so far, each with a dense MLP
-    (``moe``'s and ``swamoe``'s experts come with the MoE slice)."""
-    return kind in ("attn", "swa", "local")
+    return kind in ("attn", "swa", "local", "moe", "swamoe")
 
 
 def _uses_window(kind):
-    return kind in ("swa", "local")
+    return kind in ("swa", "local", "swamoe")
+
+
+def _uses_moe(kind):
+    return kind in ("moe", "swamoe")
 
 
 def init_attention_block(cfg, init, kind, *, lead=()):
-    return {"ln1": L.init_norm(cfg, init, cfg.d_model, lead=lead),
-            "attn": L.init_attention(cfg, init, lead=lead),
-            "ln2": L.init_norm(cfg, init, cfg.d_model, lead=lead),
-            "mlp": L.init_mlp(cfg, init, lead=lead)}
+    p = {"ln1": L.init_norm(cfg, init, cfg.d_model, lead=lead),
+         "attn": L.init_attention(cfg, init, lead=lead),
+         "ln2": L.init_norm(cfg, init, cfg.d_model, lead=lead)}
+    if _uses_moe(kind):
+        p["moe"] = L.init_moe(cfg, init, lead=lead)
+    else:
+        p["mlp"] = L.init_mlp(cfg, init, lead=lead)
+    return p
 
 
 def attention_block_apply(cfg, kind, p, x, positions):
@@ -96,7 +107,13 @@ def attention_block_apply(cfg, kind, p, x, positions):
         ctx = L.causal_attention(q, k, v)
     x = x + L.out_project(cfg, p["attn"], ctx)
     h = L.norm_apply(cfg, p["ln2"], x)
-    return x + L.mlp_apply(cfg, p["mlp"], h), 0.0
+    if _uses_moe(kind):
+        moe_fn = (L.moe_apply_dispatch if cfg.moe_impl == "dispatch"
+                  else L.moe_apply)
+        y, aux = moe_fn(cfg, p["moe"], h)
+    else:
+        y, aux = L.mlp_apply(cfg, p["mlp"], h), 0.0
+    return x + y, aux
 
 
 def init_attention_cache(cfg, kind, batch, cache_len, *, lead=(),
@@ -131,7 +148,11 @@ def attention_block_decode(cfg, kind, p, x, cache, pos: int, *,
     ctx = L.decode_attention(q, cache["k"], cache["v"], min(pos + 1, slots))
     x = x + L.out_project(cfg, p["attn"], ctx)
     h = L.norm_apply(cfg, p["ln2"], x)
-    return x + L.mlp_apply(cfg, p["mlp"], h), cache
+    if _uses_moe(kind):
+        y, _ = L.moe_apply(cfg, p["moe"], h)
+    else:
+        y = L.mlp_apply(cfg, p["mlp"], h)
+    return x + y, cache
 
 
 # ---------------------------------------------------------------------------

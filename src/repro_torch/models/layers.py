@@ -1,20 +1,23 @@
 """Core neural-net layers of the language models.
 
 Port of ``repro.models.layers`` for the ported archs (the dense ``attn``
-archs, recurrentgemma-9b, whisper-base): initialisers, RMSNorm and
-LayerNorm, RoPE (full or partial), attention projections (RoPE
-optional, q/k/v biases and q/k norms when the config asks for them),
-causal, sliding-window, cross and decode attention, the gated (GeGLU,
-SwiGLU) and plain (GELU, ReLU) MLPs, embedding and the untied or tied LM
-head.  Parameters are dicts of tensors with the reference's leaf names
-and layouts (``x @ w``, ``w`` of shape (d_in, d_out)); a matrix is cast
-to the activations' dtype at each use, as the reference does.
+archs, the MoE archs, recurrentgemma-9b, whisper-base): initialisers,
+RMSNorm and LayerNorm, RoPE (full or partial), attention projections
+(RoPE optional, q/k/v biases and q/k norms when the config asks for
+them), causal, sliding-window, cross and decode attention, the gated
+(GeGLU, SwiGLU) and plain (GELU, ReLU) MLPs, the mixture-of-experts FFN
+in its two forms (the dense one-hot combine and the capacity dispatch),
+embedding and the untied or tied LM head.  Parameters are dicts of
+tensors with the reference's leaf names and layouts (``x @ w``, ``w`` of
+shape (d_in, d_out)); a matrix is cast to the activations' dtype at each
+use, as the reference does (the MoE casts its expert matrices once a
+call).
 
 ``windowed_attention`` goes through ``kernels.swa_attention``: on a CUDA
 tensor that is the hand-written kernel, on a CPU tensor its plain
-version.  ``causal_attention``, ``cross_attention`` and
-``decode_attention`` are plain PyTorch, as the reference's are jnp (the
-reference has no Pallas kernel for them).
+version.  ``causal_attention``, ``cross_attention``,
+``decode_attention`` and the MoE FFN are plain PyTorch, as the
+reference's are jnp (the reference has no Pallas kernel for them).
 """
 from __future__ import annotations
 
@@ -323,6 +326,138 @@ def mlp_apply(cfg, p, x):
     else:
         h = _act(cfg.activation, h)
     return h @ p["w_out"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts: the dense one-hot combine and the capacity dispatch
+# ---------------------------------------------------------------------------
+
+def init_moe(cfg, init: Init, *, lead=()):
+    """``router`` (d, E) f32 at scale 0.02; ``w_in``/``w_gate`` (E, d, ff)
+    at 1/sqrt(d) and ``w_out`` (E, ff, d) at 1/sqrt(ff) in ``pdtype``
+    (``w_gate`` only for a gated activation); ``lead`` stacks them."""
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    p = {"router": dense_init(init, d, E, torch.float32, scale=0.02,
+                              lead=lead),
+         "w_in": init.normal((*lead, E, d, ff), 1.0 / math.sqrt(d),
+                             cfg.pdtype),
+         "w_out": init.normal((*lead, E, ff, d), 1.0 / math.sqrt(ff),
+                              cfg.pdtype)}
+    if is_gated(cfg.activation):
+        p["w_gate"] = init.normal((*lead, E, d, ff), 1.0 / math.sqrt(d),
+                                  cfg.pdtype)
+    return p
+
+
+def _route(cfg, p, x):
+    """Router probabilities (..., E) in f32 and the top-k weights,
+    renormalised to sum to 1, with their expert indices (..., k)."""
+    probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)
+    top_w, top_ix = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
+    top_w = top_w / top_w.sum(-1, keepdim=True).clamp(min=1e-9)
+    return probs, top_w, top_ix
+
+
+def _expert_matrices(p, dt):
+    """The expert matrices cast to the compute dtype, once per call."""
+    return {k: p[k].to(dt) for k in ("w_in", "w_gate", "w_out") if k in p}
+
+
+def moe_apply(cfg, p, x, *, t_chunk: int = 2048):
+    """Top-k MoE FFN with the dense one-hot combine: every token runs all
+    E experts and the combine weights (B, T, E), zero off its top k, sum
+    them.  Returns (out (B, T, d) in x's dtype, the switch load-balance
+    aux E·Σ f·P with f = the share of (token, expert) pairs routed).
+
+    T runs in chunks of the largest divisor of T up to ``t_chunk``, so the
+    (B, tc, E, ff) transients stay bounded at prefill_32k.  The reference
+    remats each chunk (``jax.checkpoint``); the port just loops, so under
+    autograd it holds every chunk's residuals (one chunk at T <= 2048)."""
+    dt = x.dtype
+    B, T, d = x.shape
+    E = cfg.num_experts
+    probs, top_w, top_ix = _route(cfg, p, x)
+    comb = torch.zeros_like(probs).scatter_add(-1, top_ix, top_w)
+    w = _expert_matrices(p, dt)
+
+    def expert_ffn(xc, cc):
+        h = torch.einsum("btd,edf->btef", xc, w["w_in"])
+        if "w_gate" in w:
+            g = torch.einsum("btd,edf->btef", xc, w["w_gate"])
+            h = _act(cfg.activation, g) * h
+        else:
+            h = _act(cfg.activation, h)
+        y = torch.einsum("btef,efd->bted", h, w["w_out"])
+        return torch.einsum("bted,bte->btd", y, cc.to(dt))
+
+    tc = min(t_chunk, T)
+    while T % tc:
+        tc -= 1
+    if tc < T:
+        out = torch.cat([expert_ffn(x[:, i:i + tc], comb[:, i:i + tc])
+                         for i in range(0, T, tc)], dim=1)
+    else:
+        out = expert_ffn(x, comb)
+    f = (comb > 0).float().mean((0, 1))
+    aux = E * torch.sum(f * probs.mean((0, 1)))
+    return out, aux
+
+
+def moe_apply_dispatch(cfg, p, x, *, capacity_factor: float = 1.25):
+    """Capacity-based token dispatch MoE (Switch-style).
+
+    Each expert takes at most C = ceil(S·k/E · capacity_factor) of the S =
+    B·T tokens' (token, expert) pairs: the pairs are sorted by expert
+    (stable), numbered within their expert, gathered into (E, C, d)
+    buckets, run through per-expert matmuls and added back with their
+    router weights.  A pair past its expert's C goes to a drop bin (slot
+    E·C, sliced off), so every kept slot is written once.  Returns (out,
+    aux) as ``moe_apply``, but this f is the share of the S·k pairs each
+    expert got (it sums to 1; the dense form's sums to k)."""
+    dt = x.dtype
+    B, T, d = x.shape
+    E, k = cfg.num_experts, cfg.num_experts_per_tok
+    S = B * T
+    xf = x.reshape(S, d)
+    probs, top_w, top_ix = _route(cfg, p, xf)
+
+    C = int(math.ceil(S * k / E * capacity_factor))
+    flat_e = top_ix.reshape(-1)
+    flat_tok = torch.arange(S, device=x.device).repeat_interleave(k)
+    flat_w = top_w.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)               # group by expert
+    e_sorted = flat_e[order]
+    tok_sorted = flat_tok[order]
+    w_sorted = flat_w[order]
+    pos = torch.arange(S * k, device=x.device) - torch.searchsorted(
+        e_sorted, e_sorted, side="left")                     # within bucket
+    keep = pos < C
+    slot = torch.where(keep, e_sorted * C + pos, E * C)      # E*C: drop bin
+
+    def bucket(values, dtype):
+        return torch.zeros(E * C + 1, dtype=dtype, device=x.device).index_put(
+            (slot,), values)[:E * C]
+
+    bucket_tok = bucket(tok_sorted, torch.int64)
+    bucket_w = bucket(torch.where(keep, w_sorted, 0.0), torch.float32)
+    bucket_valid = bucket(keep.float(), torch.float32)
+
+    w = _expert_matrices(p, dt)
+    xe = xf[bucket_tok].reshape(E, C, d) * bucket_valid.reshape(
+        E, C, 1).to(dt)
+    h = torch.bmm(xe, w["w_in"])
+    if "w_gate" in w:
+        h = _act(cfg.activation, torch.bmm(xe, w["w_gate"])) * h
+    else:
+        h = _act(cfg.activation, h)
+    ye = torch.bmm(h, w["w_out"]).reshape(E * C, d) \
+        * bucket_w.reshape(-1, 1).to(dt)
+    out = torch.zeros(S, d, dtype=dt, device=x.device).index_add(
+        0, bucket_tok, ye).reshape(B, T, d)
+
+    f = torch.bincount(flat_e, minlength=E).float() / (S * k)
+    aux = E * torch.sum(f * probs.mean(0))
+    return out, aux
 
 
 # ---------------------------------------------------------------------------

@@ -156,7 +156,8 @@ def test_share_counts_are_the_reference_counts(smoke):
 ])
 def test_share_count_rules_the_archs_to_come_use(field, value, count):
     """The tied-table and MoE-expert rules, on paths of the reference's
-    shape (the archs that meet them are not ported yet)."""
+    shape, on a config that is neither tied nor MoE until ``field`` makes
+    it so (the MoE archs' own trees: ``tests/test_torch_moe_train.py``)."""
     cfg = TCB.get_config("recurrentgemma-9b").replace(
         **{field: value, "num_experts_per_tok": 2})
     assert share_counts(cfg, list(count)) == count

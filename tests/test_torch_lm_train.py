@@ -241,7 +241,7 @@ def test_train_states_load_across_packages(tmp_path):
 def test_cli_lm_smoke_trains_and_refuses_the_rest():
     log = ttrain.main(CLI + ["--steps", "2", "--optimizer", "nghf"])
     assert len(log) == 2 and all(np.isfinite(m["loss"]) for m in log)
-    for argv in (["--arch", "granite-moe-3b-a800m"],
+    for argv in (["--arch", "mixtral-8x22b"],
                  ["--arch", "lm-xlstm-125m"],
                  ["--arch", "recurrentgemma-9b"]):
         with pytest.raises(NotImplementedError, match="ROADMAP 1.3"):

@@ -7,7 +7,8 @@ checked here:
   every (batch, query, head) is a valid row of exactly one tile, and each
   tile's key span covers [t - window, t] of each of its rows without a
   wholly empty key tile, over G = H // K of 1, 2, 3, 16 and 130, ragged T,
-  window 0 and past T, and the recurrentgemma-9b prefill shape;
+  window 0 and past T, and the prefill shapes of recurrentgemma-9b and
+  mixtral-8x22b (G = 6: 21 queries x 6 heads fill 126 of 128 rows);
 * the split-P numerics: O = (P_hi.V + P_lo.V) / l with P_hi = bf16(P) and
   P_lo = bf16(P - P_hi), emulated in f32 at bf16 storage, against the
   plain version ``kernels.ref.swa_attention_ref`` at (B, T, H, K, hd,
@@ -36,6 +37,7 @@ _SHAPES = [(B, T, G * K, K, (64, 80, 128, 256)[i % 4], w)
                for G in (1, 2, 3, 16) for T in (1, 7, 8, 9, 4100))
            for w in (0, T + 5)]
 _PREFILL = (2, 32768, 16, 1, 256, 2048)
+_MIXTRAL_PREFILL = (1, 32768, 48, 8, 128, 4096)
 
 
 def _coverage(B, T, H, K, hd, window):
@@ -83,6 +85,16 @@ def test_geometry_of_the_prefill_shape():
         (8, 16, 1, 256)
     assert geo.grid == (4096, 1, 2)
     assert geo.key_span(4095) == (32760 - 2048, 33)
+
+
+def test_geometry_of_the_mixtral_prefill_shape():
+    geo = _coverage(*_MIXTRAL_PREFILL)
+    # 21 queries x 6 heads (two rows masked), one tile per kv head
+    assert (geo.queries, geo.heads, geo.head_tiles, geo.hd_pad) == \
+        (21, 6, 1, 128)
+    assert geo.grid == (1561, 8, 1)
+    # the last tile: queries 32760..32767, keys from 32760 - 4096
+    assert geo.key_span(1560) == (32760 - 4096, 65)
 
 
 @pytest.mark.parametrize("H,K,queries,heads,head_tiles", [
