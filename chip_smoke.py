@@ -30,7 +30,10 @@ paths against its plain PyTorch version on the card:
     and 8 of its 32 layers;
     mixtral-8x22b's windowed prefill at full width and 2 of its 56 layers
     (5,410,781,184 parameters) through the tensor-core attention kernel at
-    its head geometry (G = 6, hd 128, window 4096).
+    its head geometry (G = 6, hd 128, window 4096);
+  * the xLSTM arch: xlstm-125m (150,319,176 parameters, 9 mLSTM and 3
+    sLSTM blocks, tied) served and trained by NGHF with the fused CG
+    kernel at full width and depth.
 
 Phases:
 
@@ -206,7 +209,32 @@ Phases:
      width on the card against the CPU (B 2, T 256, f32, relative L2
      1e-5) and timed against ``moe_apply`` (B 8, T 512, bf16); and
      ``cg_fused_update`` timed at N = 881,326,080 against its bound (the
-     ``moe_*`` keys of its row).
+     ``moe_*`` keys of its row);
+ 12. the xLSTM arch (run after phase 11, before phase 7, on a card freed
+     with ``empty_cache``): xlstm-125m at full width and depth, drawn on
+     the card — ``build_prefill_step`` over prefill_32k at its own B = 32
+     x T = 32768 (halved only if it does not fit, the cut printed) after
+     a T = 4096 warm-up, logits (B, 1, 50304) finite, no kernel launched,
+     the mLSTM and sLSTM blocks timed apart by CUDA events, peak memory;
+     a B = 128 decode step (decode_32k's batch: the state does not grow
+     with the context) split into the two kinds of block; ``serve`` over
+     8 requests; at f32 compute the prefill's last logits at T = 512
+     against 512 decode steps within relative max 1e-3; 16 long_500k
+     steps at B = 1 from position 524,272, the state's bytes against
+     ``input_specs``; layer 0's chunkwise mLSTM against the step
+     recurrence (f32, B 2, T 2048): the residual branch within relative L2
+     1e-5, one vjp's parameter gradient and one jvp's tangent within 1e-4;
+     layer 3's sLSTM with its loops as CUDA graphs against plain loops
+     (the same, within 1e-6, bitwise printed); NGHF through the
+     CLI (B 8, T 512, CG batch 2, 8 CG and 4 NG iterations, the
+     share-counts preconditioner, ``--cg-fused``): 2 updates with a
+     checkpoint, then ``--resume`` to 3, with phase 9's checks (12
+     ``cg_fused_update`` launches an update and no other kernel); one
+     update through the kernel and the plain path (the same decision,
+     last-iterate Δθ within relative L2 2e-2, the stage split, a device
+     trace of one of its curvature products at T 512); one update at B 8
+     x T 4096 (train_4k's length, its time and peak); Adam through the CLI, 3 steps; ``cg_fused_update`` timed at N
+     = 150,319,176 against its bound (the ``xlstm_*`` keys of its row).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; without a card, or outside a checkout of the repo,
@@ -1956,13 +1984,15 @@ def lm_one_update(cfg, params, batch, fused: bool, timer=None,
                  for k, v in m.items()}, dt
 
 
-def lm_paths_compared(tag: str, cfg, params, batch, dev) -> dict:
+def lm_paths_compared(tag: str, cfg, params, batch, dev,
+                      traced=None) -> dict:
     """One NGHF update from ``params`` through the kernel path (fused CG,
     split by the stage timer) and the plain path: the same decision (or
     a tie within the paths' spread) and, without candidate selection,
     the last iterate's Δθ within LM_DELTA_REL_L2, the plain path's own
-    repeat printed beside it; then one kernel-path update traced.
-    Returns {"stages", "timed_update_s", "trace"}."""
+    repeat printed beside it; then ``traced``, a (name, call) pair, under
+    the profiler: by default one kernel-path update.  Returns {"stages",
+    "timed_update_s", "trace"}."""
     from repro_torch.core.timing import StageTimer
     timer = StageTimer(dev)
     _, m_k, t_k = lm_one_update(cfg, params, batch, True, timer=timer)
@@ -1997,12 +2027,16 @@ def lm_paths_compared(tag: str, cfg, params, batch, dev) -> dict:
         f"{timer.calls['candidates']}")
 
     # one kernel-path update traced: the device's busy and idle share
-    trace = device_trace(lambda: lm_one_update(cfg, params, batch, True))
+    what, call = traced or (
+        f"NGHF update (B x T = {tuple(batch['tokens'].shape)})",
+        lambda: lm_one_update(cfg, params, batch, True))
+    trace = device_trace(call)
     idle = 1.0 - trace["busy_s"] / trace["wall_s"]
-    log(f"{tag} NGHF update under torch.profiler: "
+    log(f"{tag} {what} under torch.profiler: "
         f"{trace['wall_s'] * 1e3:.3f} ms traced, device busy "
         f"{trace['busy_s'] * 1e3:.3f} ms "
-        f"({trace['device_events']} device events), idle share "
+        f"({trace['device_events']} device events, read in "
+        f"{trace.get('post_s', 0.0):.3f} s), idle share "
         f"{idle:.3f}; most device time: "
         + "; ".join(f"{k[:90]} {ms:.3f} ms x {n}"
                     for k, ms, n in trace["top"]))
@@ -2023,6 +2057,7 @@ def device_trace(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        t_post = time.perf_counter()
     spans, by_name = [], {}
     for e in prof.events():
         a, b = e.time_range.start, e.time_range.end
@@ -2038,7 +2073,8 @@ def device_trace(fn) -> dict:
     top = sorted(((k, ms, n) for k, (ms, n) in by_name.items()),
                  key=lambda t: -t[1])
     return {"wall_s": wall, "busy_s": busy * 1e-6, "device_events":
-            len(spans), "top": top[:6]}
+            len(spans), "top": top[:6],
+            "post_s": time.perf_counter() - t_post}
 
 
 def lm_train_batch(cfg, step: int, dev) -> dict:
@@ -2053,28 +2089,16 @@ def lm_train_batch(cfg, step: int, dev) -> dict:
     return b
 
 
-def phase_lm_train(dev) -> dict:
-    """Phase 9: whisper-base at full width and depth trained by NGHF with
-    ``--cg-fused`` through the CLI, checkpointed and resumed; one update
-    through the kernel path against the plain path; Adam through the same
-    ``build_step``; greedy decode against forward."""
+def cli_checkpointed(tag: str, args: list, per_update: int) -> dict:
+    """The training CLI with ``args``: 2 updates with a checkpoint, then
+    ``--resume`` to 3 — the resumed log starts at step 2, the train state
+    loaded from each checkpoint equals the one the CLI saved bitwise,
+    every update checked by ``check_lm_updates``.  Returns the main
+    path's ``cg_fused_update`` launches, the updates, the log and the
+    peak memory."""
     import shutil
     import tempfile
-    from repro_torch.configs.base import get_config
     from repro_torch.launch import train as T
-    from repro_torch.models import encdec
-    from repro_torch.models.registry import get_model
-    cfg = get_config(LM_TRAIN_ARCH)
-    model = get_model(cfg)
-    n_params = model.param_count()
-    check(n_params == LM_TRAIN_PARAMS,
-          f"{LM_TRAIN_ARCH} has {n_params} parameters")
-    log(f"{LM_TRAIN_ARCH}: {n_params} parameters ({len(model.param_shapes())}"
-        f" leaves, f32, {4 * n_params / 1e9:.3f} GB); CLI "
-        f"{' '.join(LM_TRAIN_ARGS)}")
-    per_update = LM_CG_ITERS + LM_NG_ITERS
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_")
     ck = os.path.join(tmp, "ck")
     saved = []
@@ -2092,39 +2116,60 @@ def phase_lm_train(dev) -> dict:
     try:
         # the main path: counts at 0 just before, read just after
         reset_counts()
-        log2 = T.main(LM_TRAIN_ARGS + ["--steps", "2", "--ckpt-dir", ck])
+        log2 = T.main(args + ["--steps", "2", "--ckpt-dir", ck])
         launches = read_counts()
-        check_lm_updates("CLI whisper-base", log2, launches, swa_counts(),
-                         [0, 1], per_update)
+        check_lm_updates(tag, log2, launches, swa_counts(), [0, 1],
+                         per_update)
         _, params, opt_state, t_save = saved[-1]
-        t_load = load_and_compare("CLI whisper-base", ck, params, opt_state,
-                                  2)
-        log(f"CLI whisper-base checkpoint at step 2 ({ckpt_mb(ck):.3f} MB "
-            f"on disk): save {t_save * 1e3:.3f} ms, load "
-            f"{t_load * 1e3:.3f} ms; loaded == saved bitwise")
+        t_load = load_and_compare(tag, ck, params, opt_state, 2)
+        log(f"{tag} checkpoint at step 2 ({ckpt_mb(ck):.3f} MB on disk): "
+            f"save {t_save * 1e3:.3f} ms, load {t_load * 1e3:.3f} ms; "
+            f"loaded == saved bitwise")
         del params, opt_state, saved[:]
         reset_counts()
-        log3 = T.main(LM_TRAIN_ARGS + ["--steps", "3", "--ckpt-dir", ck,
-                                       "--resume"])
+        log3 = T.main(args + ["--steps", "3", "--ckpt-dir", ck, "--resume"])
         launches3 = read_counts()
-        check_lm_updates("CLI whisper-base resumed", log3, launches3,
-                         swa_counts(), [2], per_update)
+        check_lm_updates(f"{tag} resumed", log3, launches3, swa_counts(),
+                         [2], per_update)
         _, params, opt_state, _ = saved[-1]
-        load_and_compare("CLI whisper-base at step 3", ck, params,
-                         opt_state, 3)
+        load_and_compare(f"{tag} at step 3", ck, params, opt_state, 3)
         del params, opt_state, saved[:]
         out["launches"] = launches["cg_fused_update"] \
             + launches3["cg_fused_update"]
         out["updates"] = len(log2) + len(log3)
         out["log"] = log2 + log3
         out["peak_cli_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        log(f"CLI whisper-base: update times "
+        log(f"{tag}: update times "
             f"{[round(m['time_s'], 3) for m in log2 + log3]} s, accepted "
             f"{[bool(m['cg_accepted']) for m in log2 + log3]}; peak device "
             f"memory {out['peak_cli_gb']:.3f} GB")
     finally:
         T.save_train_state = real_save
         shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def phase_lm_train(dev) -> dict:
+    """Phase 9: whisper-base at full width and depth trained by NGHF with
+    ``--cg-fused`` through the CLI, checkpointed and resumed; one update
+    through the kernel path against the plain path; Adam through the same
+    ``build_step``; greedy decode against forward."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train as T
+    from repro_torch.models import encdec
+    from repro_torch.models.registry import get_model
+    cfg = get_config(LM_TRAIN_ARCH)
+    model = get_model(cfg)
+    n_params = model.param_count()
+    check(n_params == LM_TRAIN_PARAMS,
+          f"{LM_TRAIN_ARCH} has {n_params} parameters")
+    log(f"{LM_TRAIN_ARCH}: {n_params} parameters ({len(model.param_shapes())}"
+        f" leaves, f32, {4 * n_params / 1e9:.3f} GB); CLI "
+        f"{' '.join(LM_TRAIN_ARGS)}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = cli_checkpointed("CLI whisper-base", LM_TRAIN_ARGS,
+                           LM_CG_ITERS + LM_NG_ITERS)
 
     # the kernel path against the plain path, from the CLI's start
     torch.cuda.empty_cache()
@@ -2258,22 +2303,25 @@ DENSE_META = {"chameleon-34b": 34_293_436_416, "qwen2-72b": 72_706_203_648}
 
 
 class timed_calls:
-    """Within the block, every call of ``models.layers.<name>`` for each of
-    ``names`` is bracketed by CUDA events (no synchronize on the path);
-    after the caller synchronized, ``ms(name)`` sums a name's calls and
-    ``text(total_ms)`` lists each name's sum, calls and share of
-    ``total_ms``.  A name called inside another's calls is timed inside
-    them too."""
+    """Within the block, every call of ``<module>.<name>`` (by default
+    ``models.layers``) for each of ``names`` is bracketed by CUDA events
+    (no synchronize on the path); after the caller synchronized,
+    ``ms(name)`` sums a name's calls and ``text(total_ms)`` lists each
+    name's sum, calls and share of ``total_ms``.  A name called inside
+    another's calls is timed inside them too."""
 
-    def __init__(self, names: tuple):
+    def __init__(self, names: tuple, module=None):
         self.names = names
+        self.module = module
 
     def __enter__(self):
-        from repro_torch.models import layers
-        self._saved = {n: getattr(layers, n) for n in self.names}
+        if self.module is None:
+            from repro_torch.models import layers
+            self.module = layers
+        self._saved = {n: getattr(self.module, n) for n in self.names}
         self.pairs = {n: [] for n in self.names}
         for name, fn in self._saved.items():
-            setattr(layers, name, self._wrap(fn, self.pairs[name]))
+            setattr(self.module, name, self._wrap(fn, self.pairs[name]))
         return self
 
     @staticmethod
@@ -2289,9 +2337,8 @@ class timed_calls:
         return wrapped
 
     def __exit__(self, *exc):
-        from repro_torch.models import layers
         for name, fn in self._saved.items():
-            setattr(layers, name, fn)
+            setattr(self.module, name, fn)
 
     def ms(self, name: str) -> float:
         return sum(a.elapsed_time(b) for a, b in self.pairs[name])
@@ -2944,6 +2991,413 @@ def moe_cg_times(moe: dict, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: the xLSTM arch (xlstm-125m served and trained at full width
+# and depth)
+# ---------------------------------------------------------------------------
+
+XLSTM_ARCH = "xlstm-125m"
+XLSTM_PARAMS = 150_319_176
+# prefill_32k at its own batch (halved while it does not fit the card),
+# after a T = 4096 warm-up; decode_32k at its own batch (the recurrent
+# state does not grow with the context); long_500k natively
+XLSTM_PREFILL_B, XLSTM_PREFILL_T, XLSTM_WARM_T = 32, 32768, 4096
+XLSTM_DECODE_B = 128
+XLSTM_DECODE_T = 512               # f32 prefill vs this many decode steps
+XLSTM_LONG_START = 524_288 - 16
+# the chunkwise mLSTM (layer 0) against the step recurrence on the card,
+# f32: the block's output and one vjp's parameter gradient, relative L2
+XLSTM_ORACLE_B, XLSTM_ORACLE_T = 2, 2048
+XLSTM_ORACLE_L2, XLSTM_ORACLE_GRAD_L2 = 1e-5, 1e-4
+# the sLSTM's loops as CUDA graphs against plain loops: the same kernels
+# on the same inputs (relative L2; bitwise printed)
+XLSTM_GRAPH_L2 = 1e-6
+# NGHF through the CLI: train_4k's B 256 x T 4096 cut to B 8 x T 512 (CG
+# batch 2), the share-counts preconditioner; then one update at train_4k's
+# own T with B 8
+XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ = 8, 512
+XLSTM_LONG_TRAIN_T = 4096
+XLSTM_TRAIN_ARGS = ["--arch", XLSTM_ARCH, "--optimizer", "nghf",
+                    "--batch", str(XLSTM_TRAIN_BATCH), "--seq",
+                    str(XLSTM_TRAIN_SEQ), "--cg-iters", str(LM_CG_ITERS),
+                    "--ng-iters", str(LM_NG_ITERS), "--preconditioner",
+                    "share_counts", "--cg-fused", "--device", "cuda"]
+
+
+def xlstm_prefill(params, prefill, tokens) -> tuple:
+    """prefill_32k at XLSTM_PREFILL_B, halved while the card runs out of
+    memory (the cut printed): (logits, batch, ms, the blocks' timer)."""
+    from repro_torch.models import blocks
+    B = XLSTM_PREFILL_B
+    while True:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with timed_calls(("mlstm_block_apply", "slstm_block_apply"),
+                             blocks) as parts:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits = prefill(params, {"tokens": tokens[:B]})
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            return logits, B, ms, parts
+        except torch.cuda.OutOfMemoryError:
+            check(B > 1, "the xlstm-125m prefill does not fit at B = 1")
+            log(f"{XLSTM_ARCH} prefill B={B} x T={XLSTM_PREFILL_T} does not "
+                f"fit the card: B cut to {B // 2}")
+            B //= 2
+
+
+def xlstm_serving(dev) -> dict:
+    """xlstm-125m at full width and depth: prefill_32k, decode_32k's step,
+    ``serve``, f32 prefill against XLSTM_DECODE_T decode steps, long_500k;
+    the mLSTM and sLSTM blocks timed apart by CUDA events."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import make_requests, serve
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.models import blocks
+    from repro_torch.models.registry import get_model
+    cfg = get_config(XLSTM_ARCH)
+    model = get_model(cfg)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = model.init(SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in params.values())
+    check(n_params == XLSTM_PARAMS == model.param_count()
+          and "embed.lm_head" not in params,
+          f"{XLSTM_ARCH} has {n_params} parameters")
+    log(f"{XLSTM_ARCH}: {n_params} parameters (f32, tied embeddings, "
+        f"{4 * n_params / 1e9:.3f} GB; 9 mLSTM and 3 sLSTM blocks) drawn on "
+        f"the card in {time.perf_counter() - t0:.3f} s")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 120)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (XLSTM_PREFILL_B, XLSTM_PREFILL_T), generator=gen,
+                           device=dev)
+    prefill = build_prefill_step(cfg)
+    out = {}
+
+    # prefill: a T = 4096 warm-up, then prefill_32k once
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill(params, {"tokens": tokens[:, :XLSTM_WARM_T]})
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    reset_counts()
+    logits, B, out["prefill_ms"], parts = xlstm_prefill(params, prefill,
+                                                        tokens)
+    out["prefill_batch"] = B
+    out["prefill_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["mlstm_ms"] = parts.ms("mlstm_block_apply")
+    out["slstm_ms"] = parts.ms("slstm_block_apply")
+    check(read_counts() == {k: 0 for k in read_counts()}
+          and swa_counts() == (0, 0), "the xlstm-125m prefill launched a "
+          "kernel")
+    check(tuple(logits.shape) == (B, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"prefill logits {tuple(logits.shape)}, finite "
+          f"{bool(torch.isfinite(logits).all())}")
+    log(f"{XLSTM_ARCH} prefill B={B} T={XLSTM_PREFILL_T}: logits "
+        f"{tuple(logits.shape)} finite; {out['prefill_ms']:.3f} ms (warm; "
+        f"the B={XLSTM_PREFILL_B} T={XLSTM_WARM_T} warm-up took "
+        f"{warm_s * 1e3:.3f} ms), of which by CUDA events "
+        f"{parts.text(out['prefill_ms'])}; peak device memory "
+        f"{out['prefill_peak_gb']:.3f} GB; no kernel launched (the "
+        f"reference's recurrences are jnp scans)")
+    del logits, parts
+    torch.cuda.empty_cache()
+
+    # decode_32k's step at B = 128, split into the two kinds of block
+    step = build_serve_step(cfg)
+    cache = model.init_cache(XLSTM_DECODE_B, XLSTM_PREFILL_T, device=dev)
+    state_mb = sum(v.numel() * v.element_size()
+                   for v in cache.values()) / 1e6
+    tok = tokens[:1, :1].expand(XLSTM_DECODE_B, 1).contiguous()
+    out["decode_ms"] = cuda_time_ms(lambda: step(params, cache, tok, 100), 5)
+    with timed_calls(("mlstm_block_decode", "slstm_block_decode"),
+                     blocks) as parts:
+        step(params, cache, tok, 101)
+        torch.cuda.synchronize()
+    out["decode_mlstm_ms"] = parts.ms("mlstm_block_decode")
+    out["decode_slstm_ms"] = parts.ms("slstm_block_decode")
+    log(f"{XLSTM_ARCH} decode step B={XLSTM_DECODE_B} (decode_32k's batch; "
+        f"the state, {state_mb:.3f} MB, does not grow with the context): "
+        f"{out['decode_ms']:.3f} ms (CUDA events, 5 steps), of which (one "
+        f"step bracketed by events) {parts.text(out['decode_ms'])}")
+    del cache, parts
+    torch.cuda.empty_cache()
+
+    # the server: 8 requests of 4-11 prompt tokens, 16 new tokens each
+    reqs = make_requests(cfg, SERVE_REQUESTS, SERVE_NEW, seed=SEED)
+    reqs, stats = serve(cfg, model, params, reqs)
+    check(all(r.done and len(r.generated) == SERVE_NEW for r in reqs)
+          and all(0 <= t < cfg.vocab_size for r in reqs
+                  for t in r.generated), "xlstm serve: a request failed")
+    out["stats"] = stats
+    log(f"{XLSTM_ARCH} serve: {len(reqs)} requests (prompts "
+        f"{[len(r.prompt) for r in reqs]} tokens, {SERVE_NEW} new each) in "
+        f"{stats['steps']} steps, {stats['wall_s'] * 1e3:.3f} ms: "
+        f"{stats['tokens_per_s']:.3f} tokens/s, p50 "
+        f"{stats['latency_p50_s'] * 1e3:.3f} ms, p99 "
+        f"{stats['latency_p99_s'] * 1e3:.3f} ms")
+
+    # prefill against decode at f32 compute: no window limits T here
+    cfg32 = cfg.replace(compute_dtype="float32")
+    prompt = tokens[:1, :XLSTM_DECODE_T]
+    want = build_prefill_step(cfg32)(params, {"tokens": prompt})
+    step32 = build_serve_step(cfg32)
+    cache = get_model(cfg32).init_cache(1, XLSTM_DECODE_T, device=dev)
+    for t in range(XLSTM_DECODE_T):
+        got, cache = step32(params, cache, prompt[:, t:t + 1], t)
+    rel_max = float((got - want).abs().max() / want.abs().max())
+    check(rel_max <= DECODE_REL, f"{XLSTM_ARCH} f32 prefill vs decode: "
+          f"relative max {rel_max:.3g}")
+    log(f"{XLSTM_ARCH} f32 compute: prefill's last logits at T="
+        f"{XLSTM_DECODE_T} == {XLSTM_DECODE_T} decode steps' (relative max "
+        f"{rel_max:.3g}, limit {DECODE_REL})")
+    del cache, got, want
+
+    # long_500k natively: the O(1) state, 16 steps from 16 short of the end
+    specs = model.input_specs("long_500k")["cache"]
+    want_bytes = sum(math.prod(s) * torch.finfo(dt).bits // 8
+                     for s, dt in specs.values())
+    cache = model.init_cache(1, 524_288, device=dev)
+    got_bytes = sum(v.numel() * v.element_size() for v in cache.values())
+    check(got_bytes == want_bytes, f"long_500k state {got_bytes} bytes, "
+          f"specs {want_bytes}")
+    times = []
+    for i in range(16):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = step(params, cache, tokens[:1, i:i + 1],
+                         XLSTM_LONG_START + i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(lg).all()),
+              f"long_500k step at {XLSTM_LONG_START + i}: non-finite logits")
+    out["long_ms"] = 1e3 * sum(times[1:]) / (len(times) - 1)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{XLSTM_ARCH} long_500k: the state is {got_bytes} bytes a "
+        f"sequence (the specs' {want_bytes}) at any position; 16 steps at "
+        f"B=1 from position {XLSTM_LONG_START}, logits finite, "
+        f"{out['long_ms']:.3f} ms a step after the first (host clock, "
+        f"synced); peak device memory since the prefill "
+        f"{out['peak_gb']:.3f} GB")
+    del params, cache, tokens
+    torch.cuda.empty_cache()
+    return out
+
+
+def step_recurrence(q, k, v, log_i, log_f, time_chunk=64):
+    """``mlstm_chunkwise``'s oracle: the reference's ``_mlstm_step`` loop
+    from the zero state (f32)."""
+    from repro_torch.models import blocks
+    B, T, H, hd = q.shape
+    carry = (q.new_zeros((B, H, hd, hd), dtype=torch.float32),
+             q.new_zeros((B, H, hd), dtype=torch.float32),
+             q.new_full((B, H), -1e30, dtype=torch.float32))
+    hs = []
+    for t in range(T):
+        carry, h = blocks._mlstm_step(carry, (
+            q[:, t].float(), k[:, t].float(), v[:, t].float(), log_i[:, t],
+            log_f[:, t]))
+        hs.append(h.to(q.dtype))
+    return torch.stack(hs, 1)
+
+
+def xlstm_oracle(dev) -> dict:
+    """At full width, f32, B x T = XLSTM_ORACLE_B x XLSTM_ORACLE_T: layer
+    0's ``mlstm_block_apply``, the chunkwise form against the step
+    recurrence (``mlstm_chunkwise`` swapped for ``step_recurrence``), and
+    layer 3's ``slstm_block_apply``, its loops as CUDA-graph chunks
+    against plain loops (``blocks._scan`` with one chunk past T): the
+    output, one ``torch.func.vjp``'s parameter gradient and one
+    ``torch.func.jvp``'s tangent."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import blocks
+    from repro_torch.models import transformer as TT
+    cfg = get_config(XLSTM_ARCH).replace(compute_dtype="float32")
+    torch.cuda.empty_cache()
+    flat = TT.init_params(cfg.replace(num_layers=4), SEED, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 121)
+    x = torch.randn(XLSTM_ORACLE_B, XLSTM_ORACLE_T, cfg.d_model,
+                    generator=gen, device=dev)
+    c = torch.randn(x.shape, generator=gen, device=dev)
+
+    def run(block, p):
+        """The block's output, its vjp's parameter gradient and its jvp's
+        tangent (on every parameter), the seconds and the peak."""
+        f = lambda p_: block(cfg, p_, x, None)[0]           # noqa: E731
+        gen_t = torch.Generator(device=dev).manual_seed(SEED + 122)
+        tan = TT.nest({k: torch.randn(v.shape, generator=gen_t, device=dev)
+                       for k, v in TT.flatten(p).items()}, "")
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, pull = torch.func.vjp(f, p)
+        (g,) = pull(c)
+        _, y_dot = torch.func.jvp(f, (p,), (tan,))
+        torch.cuda.synchronize()
+        g = torch.cat([t.flatten() for t in TT.flatten(g).values()])
+        return (y, torch.cat([g, y_dot.flatten()]),
+                time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated() / 1e9)
+
+    def swapped(name, fn, block, p):
+        real = getattr(blocks, name)
+        setattr(blocks, name, fn)
+        try:
+            return run(block, p)
+        finally:
+            setattr(blocks, name, real)
+
+    p = TT.nest(flat, "periods.slot0.", 0)
+    y, g, t_c, peak_c = run(blocks.mlstm_block_apply, p)
+    y_o, g_o, t_o, peak_o = swapped("mlstm_chunkwise", step_recurrence,
+                                    blocks.mlstm_block_apply, p)
+    out = {"out_l2": rel_l2(y - x, y_o - x), "grad_l2": rel_l2(g, g_o)}
+    check(out["out_l2"] <= XLSTM_ORACLE_L2
+          and out["grad_l2"] <= XLSTM_ORACLE_GRAD_L2,
+          f"chunkwise mLSTM vs the step recurrence: output {out['out_l2']:.3g}"
+          f", derivatives {out['grad_l2']:.3g}")
+    log(f"{XLSTM_ARCH} layer 0 mLSTM block, f32, B={XLSTM_ORACLE_B} "
+        f"T={XLSTM_ORACLE_T}: chunkwise (chunks of 64) == the step "
+        f"recurrence: residual branch rel-L2 {out['out_l2']:.3g} (limit "
+        f"{XLSTM_ORACLE_L2}), vjp parameter gradient and jvp tangent "
+        f"rel-L2 {out['grad_l2']:.3g} (limit {XLSTM_ORACLE_GRAD_L2}); "
+        f"forward, vjp and jvp {t_c * 1e3:.3f} ms, peak {peak_c:.3f} GB "
+        f"(the step recurrence: {t_o * 1e3:.3f} ms, peak {peak_o:.3f} GB)")
+
+    real_scan = blocks._scan
+    p = TT.nest(flat, "periods.slot3.", 0)
+    y, g, t_g, _ = run(blocks.slstm_block_apply, p)
+    y_p, g_p, t_p, _ = swapped("_scan", lambda *a, **k: real_scan(
+        *a, **dict(k, chunk=XLSTM_ORACLE_T + 1)), blocks.slstm_block_apply, p)
+    out["slstm_out_l2"] = rel_l2(y - x, y_p - x)
+    out["slstm_grad_l2"] = rel_l2(g, g_p)
+    same = torch.equal(y, y_p) and torch.equal(g, g_p)
+    check(out["slstm_out_l2"] <= XLSTM_GRAPH_L2
+          and out["slstm_grad_l2"] <= XLSTM_GRAPH_L2,
+          f"sLSTM graphed vs plain loops: output {out['slstm_out_l2']:.3g}, "
+          f"derivatives {out['slstm_grad_l2']:.3g}")
+    log(f"{XLSTM_ARCH} layer 3 sLSTM block, f32, B={XLSTM_ORACLE_B} "
+        f"T={XLSTM_ORACLE_T}: CUDA-graph chunks == plain loops: residual "
+        f"branch rel-L2 {out['slstm_out_l2']:.3g}, vjp parameter gradient "
+        f"and jvp tangent rel-L2 {out['slstm_grad_l2']:.3g} (limit "
+        f"{XLSTM_GRAPH_L2}; bitwise {same}); forward, vjp and jvp "
+        f"{t_g * 1e3:.3f} ms, plain loops {t_p * 1e3:.3f} ms")
+    del flat, p, x, c, y, g, y_o, g_o, y_p, g_p
+    torch.cuda.empty_cache()
+    return out
+
+
+def xlstm_training(dev) -> dict:
+    """xlstm-125m at full width and depth trained by NGHF with
+    ``--cg-fused`` through the CLI, checkpointed and resumed; one update
+    through the kernel path against the plain path; one update at T =
+    XLSTM_LONG_TRAIN_T; Adam through the CLI."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.launch import train as T
+    from repro_torch.models.registry import get_model
+    cfg = get_config(XLSTM_ARCH)
+    model = get_model(cfg)
+    per_update = LM_CG_ITERS + LM_NG_ITERS
+    log(f"{XLSTM_ARCH} NGHF at full width and depth ({XLSTM_PARAMS} "
+        f"parameters); CLI {' '.join(XLSTM_TRAIN_ARGS)}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = cli_checkpointed(f"CLI {XLSTM_ARCH}", XLSTM_TRAIN_ARGS, per_update)
+
+    # the kernel path against the plain path, from the CLI's start
+    torch.cuda.empty_cache()
+    params = model.init(0, device=dev)
+    batch = lm_batch(0, batch=XLSTM_TRAIN_BATCH, seq_len=XLSTM_TRAIN_SEQ,
+                     vocab=cfg.vocab_size, device=dev)
+    out.update(lm_paths_compared(XLSTM_ARCH, cfg, params, batch, dev,
+                                 traced=curvature_product(cfg, params,
+                                                          batch, dev)))
+
+    # one update at train_4k's length through the kernel path
+    batch = lm_batch(0, batch=XLSTM_TRAIN_BATCH, seq_len=XLSTM_LONG_TRAIN_T,
+                     vocab=cfg.vocab_size, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    _, m, out["long_update_s"] = lm_one_update(cfg, params, batch, True)
+    launches = read_counts()
+    check_update(f"{XLSTM_ARCH} NGHF T={XLSTM_LONG_TRAIN_T}", m)
+    want = {k: 0 for k in launches}
+    want["cg_fused_update"] = per_update
+    check(launches == want, f"{XLSTM_ARCH} NGHF T={XLSTM_LONG_TRAIN_T}: "
+          f"launches {launches}")
+    out["long_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    used = int(m["cg_iters_used"])
+    text = lm_update_text(dict(m, time_s=out["long_update_s"],
+                               cg_curv_first=m["cg_curv"][0],
+                               cg_curv_last=m["cg_curv"][used - 1]))
+    log(f"{XLSTM_ARCH} NGHF update at B={XLSTM_TRAIN_BATCH} "
+        f"T={XLSTM_LONG_TRAIN_T} (train_4k's length; CG batch "
+        f"{XLSTM_TRAIN_BATCH // 4}): {text}; {per_update} cg_fused_update "
+        f"launches; peak device memory {out['long_peak_gb']:.3f} GB")
+    del params, batch
+    torch.cuda.empty_cache()
+
+    # Adam through the CLI, 3 steps
+    reset_counts()
+    adam = T.main(["--arch", XLSTM_ARCH, "--optimizer", "adam", "--batch",
+                   str(XLSTM_TRAIN_BATCH), "--seq", str(XLSTM_TRAIN_SEQ),
+                   "--steps", "3", "--device", "cuda"])
+    check_lm_updates(f"CLI {XLSTM_ARCH} Adam", adam, read_counts(),
+                     swa_counts(), [0, 1, 2], 0)
+    out["adam_s"] = [m["time_s"] for m in adam]
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    return out
+
+
+def curvature_product(cfg, params, batch, dev) -> tuple:
+    """One Gauss-Newton product of an NGHF update on ``batch`` (a jvp and
+    a vjp through the model on its CG batch, a quarter of ``batch``), as
+    (name, call) for ``lm_paths_compared``'s trace.  An update at
+    xlstm-125m's T 512 runs about 1.8 M kernels (the sLSTM's steps), each
+    a profiler event that the host reads back one by one; a product is
+    one of the update's 12 and most of its time."""
+    from repro_torch.core.curvature import make_curvature_ops
+    from repro_torch.launch.steps import build_step, cg_sub_batch
+    _, opt = build_step(cfg, "nghf", cg_frac=4)
+    cg = cg_sub_batch(batch, 4, 1)
+    ops = make_curvature_ops(opt.forward_fn, opt.loss_spec, params, cg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 123)
+    v = {k: torch.randn(p.shape, generator=gen, device=dev)
+         for k, p in params.items()}
+    return (f"curvature product (B x T = {tuple(cg['tokens'].shape)}, "
+            f"the CG batch of the update above)", lambda: ops.gnvp(v))
+
+
+def phase_xlstm(dev) -> dict:
+    """Phase 12: the xLSTM arch; the seconds of its three parts."""
+    out, t0 = {}, time.perf_counter()
+    for name, part in (("serving", xlstm_serving), ("oracle", xlstm_oracle),
+                       ("training", xlstm_training)):
+        t = time.perf_counter()
+        out[name] = part(dev)
+        out[f"{name}_s"] = time.perf_counter() - t
+    log(f"{XLSTM_ARCH} phase 12: "
+        + ", ".join(f"{k} {out[f'{k}_s']:.3f} s"
+                    for k in ("serving", "oracle", "training"))
+        + f", total {time.perf_counter() - t0:.3f} s")
+    return out
+
+
+def xlstm_cg_times(xl: dict, dev) -> dict:
+    """``cg_fused_update`` at xlstm-125m's N, beside phase 12's
+    launches."""
+    tr = xl["training"]
+    return cg_times_at(XLSTM_PARAMS, tr["launches"], tr["updates"],
+                       "xlstm", XLSTM_ARCH, dev)
+
+
+# ---------------------------------------------------------------------------
 # LM serving: sliding-window attention and recurrentgemma-9b
 # ---------------------------------------------------------------------------
 
@@ -3400,6 +3854,10 @@ def main() -> int:
     cg_row.update(moe_cg_times(moe, dev))
     swa_moe = moe["mixtral"]["swa"]
     del moe
+    torch.cuda.empty_cache()
+    xl = phase_xlstm(dev)
+    cg_row.update(xlstm_cg_times(xl, dev))
+    del xl
     torch.cuda.empty_cache()
     lm = phase_lm(dev)
     kernels.append(swa_times(lm, errs, dev))

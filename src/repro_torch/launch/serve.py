@@ -126,7 +126,7 @@ def serve(cfg, model, params, requests, *, cache_len=256, greedy=True,
 def main(argv=None):
     archs = list_archs()
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="recurrentgemma-9b", choices=archs)
+    ap.add_argument("--arch", default="xlstm-125m", choices=archs)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)

@@ -21,6 +21,8 @@ run continues exactly).
         --smoke --device cpu --steps 2
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch granite-moe-3b-a800m --smoke --device cpu --steps 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \
+        --smoke --device cpu --steps 2
 
 ``device`` defaults to ``"cuda"`` and raises without a card; pass
 ``device="cpu"`` (with ``smoke=True`` for the reduced geometry) to run
@@ -61,7 +63,7 @@ LM_DEFAULT_LR = {"sgd": 0.3, "adam": 3e-4}
 # memory.
 LM_TRAIN_ARCHS = ("whisper-base", "stablelm-1.6b", "qwen2.5-3b",
                   "minitron-8b", "chameleon-34b", "qwen2-72b",
-                  "granite-moe-3b-a800m")
+                  "granite-moe-3b-a800m", "xlstm-125m")
 
 
 def parse_sample_schedule(sched):

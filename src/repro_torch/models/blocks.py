@@ -1,13 +1,13 @@
 """Residual blocks of the language models.
 
-Port of the ``block_pattern`` kinds of ``repro.models.blocks`` that the
-ported archs use: the attention-family blocks (``attn``, global causal
-attention; ``local`` and ``swa``, windowed attention; each with a dense
-MLP, and ``moe`` and ``swamoe``, global and windowed attention with a
-mixture-of-experts FFN) and the RG-LRU (Griffin) block.  The xLSTM kinds
-(``mlstm``, ``slstm``) raise ``NotImplementedError`` until their slice.
-Each kind has the reference's four entry points, dispatched by kind at
-the end of this module:
+Port of every ``block_pattern`` kind of ``repro.models.blocks``: the
+attention-family blocks (``attn``, global causal attention; ``local`` and
+``swa``, windowed attention; each with a dense MLP, and ``moe`` and
+``swamoe``, global and windowed attention with a mixture-of-experts FFN),
+the RG-LRU (Griffin) block and the xLSTM blocks (``mlstm``, matrix
+memory, run over a sequence in its exact chunkwise-parallel form;
+``slstm``, scalar memory, a time loop).  Each kind has the reference's
+four entry points, dispatched by kind at the end of this module:
 
   init_block(cfg, init, kind, lead=())              -> params
   block_apply(cfg, kind, p, x, positions)           -> (x, aux)   # sequence
@@ -29,9 +29,11 @@ copies a cache.
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 
 import torch
 import torch.nn.functional as F
+from torch._C import _functorch
 
 from repro_torch.models import layers as L
 
@@ -64,11 +66,11 @@ def conv1d_step(x_t, buf, w, b=None):
     return out, new_buf
 
 
-def _not_ported(kind):
-    return NotImplementedError(
-        f"block kind {kind!r} is not ported yet (the port runs 'attn', "
-        f"'local', 'swa', 'moe', 'swamoe' and 'rglru'; ROADMAP 1.3 lists "
-        f"the xLSTM kinds 'mlstm' and 'slstm')")
+def _max1(x):
+    """``jnp.maximum(x, 1.0)`` with JAX's derivative: at x == 1 the
+    gradient and tangent split half and half between the two arguments
+    (the mLSTM's normaliser, which autograd differentiates)."""
+    return torch.maximum(x, x.new_ones(()))
 
 
 # ---------------------------------------------------------------------------
@@ -262,6 +264,558 @@ def rglru_block_decode(cfg, p, x, cache, pos: int):
 
 
 # ---------------------------------------------------------------------------
+# xLSTM: mLSTM block (matrix memory, linear-attention-like)
+# ---------------------------------------------------------------------------
+
+def _mlstm_dims(cfg):
+    inner = int(cfg.proj_factor * cfg.d_model)
+    H = cfg.num_heads
+    inner -= inner % H
+    return inner, H, inner // H
+
+
+def init_mlstm_block(cfg, init, *, lead=()):
+    d = cfg.d_model
+    inner, H, hd = _mlstm_dims(cfg)
+    b_if = init.full((*lead, 2 * H), 3.0, cfg.pdtype)
+    b_if[..., :H] = 0.0                       # input gates 0, forget gates 3
+    return {
+        "ln": L.init_norm(cfg, init, d, lead=lead),
+        "w_up": L.dense_init(init, d, inner, cfg.pdtype, lead=lead),
+        "w_gate": L.dense_init(init, d, inner, cfg.pdtype, lead=lead),
+        "conv_w": init.normal((*lead, cfg.conv_kernel, inner), 0.1,
+                              cfg.pdtype),
+        "conv_b": init.full((*lead, inner), 0.0, cfg.pdtype),
+        "w_q": L.dense_init(init, inner, inner, cfg.pdtype, lead=lead),
+        "w_k": L.dense_init(init, inner, inner, cfg.pdtype, lead=lead),
+        "w_v": L.dense_init(init, inner, inner, cfg.pdtype, lead=lead),
+        "w_if": L.dense_init(init, inner, 2 * H, cfg.pdtype, scale=0.02,
+                             lead=lead),
+        "b_if": b_if,
+        "w_down": L.dense_init(init, inner, d, cfg.pdtype, lead=lead),
+    }
+
+
+def _mlstm_qkvif(cfg, p, u):
+    """u: (B,T,inner) conv output -> q,k,v (B,T,H,hd) in u's dtype,
+    log_i/log_f (B,T,H) f32."""
+    inner, H, hd = _mlstm_dims(cfg)
+    B, T, _ = u.shape
+    dt = u.dtype
+    q = (u @ p["w_q"].to(dt)).reshape(B, T, H, hd)
+    k = (u @ p["w_k"].to(dt)).reshape(B, T, H, hd) / math.sqrt(hd)
+    v = (u @ p["w_v"].to(dt)).reshape(B, T, H, hd)
+    gif = (u @ p["w_if"].to(dt) + p["b_if"].to(dt)).float()
+    return q, k, v, gif[..., :H], F.logsigmoid(gif[..., H:])
+
+
+def _mlstm_step(carry, inp):
+    """Stabilised mLSTM recurrence, one step (the reference's, kept as the
+    plain oracle of ``mlstm_chunkwise`` and run by decode).  State per
+    head: C (hd,hd), n (hd), m ()."""
+    C, n, m = carry
+    q, k, v, log_i, log_f = inp
+    m_new = torch.maximum(log_f + m, log_i)
+    i = torch.exp(log_i - m_new)[..., None]                   # (B,H,1)
+    f = torch.exp(log_f + m - m_new)[..., None]
+    n_new = f * n + i * k
+    C_new = f[..., None] * C + i[..., None] * (v[..., :, None]
+                                               * k[..., None, :])
+    denom = _max1(torch.abs(torch.sum(n_new * q, -1)))[..., None]
+    h = torch.einsum("bhvk,bhk->bhv", C_new, q) / denom
+    return (C_new, n_new, m_new), h
+
+
+def mlstm_chunkwise(q, k, v, log_i, log_f, time_chunk: int = 64):
+    """The mLSTM recurrence (``_mlstm_step`` from a zero state, m = -1e30)
+    over a sequence in its exact chunkwise-parallel form.
+
+    q, k, v: (B,T,H,hd); log_i, log_f: (B,T,H) f32 (``_mlstm_qkvif``'s).
+    Returns the outputs h (B,T,H,hd) in q's dtype, computed in log_i's.
+
+    Within a chunk, with F_t the chunk-local cumsum of log_f and
+    g_s = log_i_s - F_s, the recurrence's own stabiliser is
+    m_t = F_t + a_t, a_t = max(m_prev, cummax_{s<=t} g_s) (m_prev carried
+    from the last chunk), and
+
+        h_t = (e^{m_prev - a_t} C_prev q_t + sum_s D_ts (q_t.k_s) v_s)
+              / max(|e^{m_prev - a_t} n_prev.q_t + sum_s D_ts q_t.k_s|, 1)
+
+    with D_ts = exp(g_s - a_t) for s <= t (every exponent <= 0).  The
+    (C, n, m) state is carried across chunk boundaries, scaled as the
+    recurrence scales it.  Under autograd only the T / time_chunk boundary
+    states and (B,H,c,c) blocks are saved, never a per-step (B,H,hd,hd)
+    state; without autograd each chunk's temporaries are freed before the
+    next.  ``time_chunk`` changes the memory, not the function (T need
+    not divide by it)."""
+    B, T, H, hd = q.shape
+    acc = log_i.dtype
+    C = q.new_zeros((B, H, hd, hd), dtype=acc)
+    n = q.new_zeros((B, H, hd), dtype=acc)
+    m = q.new_full((B, H), -1e30, dtype=acc)
+    causal = torch.ones(time_chunk, time_chunk, dtype=torch.bool,
+                        device=q.device).tril()
+    outs = []
+    for t0 in range(0, T, time_chunk):
+        t1 = min(t0 + time_chunk, T)
+        qc, kc, vc = (a[:, t0:t1].to(acc).transpose(1, 2)
+                      for a in (q, k, v))                     # (B,H,c,hd)
+        li = log_i[:, t0:t1].transpose(1, 2)                  # (B,H,c)
+        Fc = torch.cumsum(log_f[:, t0:t1].transpose(1, 2), -1)
+        g = li - Fc
+        a = torch.maximum(torch.cummax(g, -1).values, m[..., None])
+        c = t1 - t0
+        expo = (g[..., None, :] - a[..., :, None]).masked_fill(
+            ~causal[:c, :c], float("-inf"))
+        S = (qc @ kc.transpose(-1, -2)) * torch.exp(expo)     # (B,H,c,c)
+        decay = torch.exp(m[..., None] - a)                   # (B,H,c)
+        num = S @ vc + decay[..., None] * (qc @ C.transpose(-1, -2))
+        den = S.sum(-1) + decay * (qc @ n[..., None])[..., 0]
+        outs.append((num / _max1(torch.abs(den))[..., None]).to(q.dtype))
+        w = torch.exp(g - a[..., -1:])                        # (B,H,c)
+        last = decay[..., -1]
+        C = last[..., None, None] * C + (vc * w[..., None]).transpose(
+            -1, -2) @ kc
+        n = last[..., None] * n + (kc * w[..., None]).sum(-2)
+        m = Fc[..., -1] + a[..., -1]
+    return torch.cat(outs, 2).transpose(1, 2)
+
+
+def mlstm_block_apply(cfg, p, x, positions, *, time_chunk: int = 64):
+    """mLSTM over a sequence through ``mlstm_chunkwise`` (the reference
+    runs ``_mlstm_step`` as a scan in rematted time chunks; the function
+    is the same, ``time_chunk`` sets only the memory)."""
+    inner, H, hd = _mlstm_dims(cfg)
+    B, T, _ = x.shape
+    h0 = L.norm_apply(cfg, p["ln"], x)
+    u = h0 @ p["w_up"].to(h0.dtype)
+    g = h0 @ p["w_gate"].to(h0.dtype)
+    u = F.silu(causal_conv1d(u, p["conv_w"], p["conv_b"]))
+    q, k, v, log_i, log_f = _mlstm_qkvif(cfg, p, u)
+    hs = mlstm_chunkwise(q, k, v, log_i, log_f, time_chunk)
+    hs = hs.reshape(B, T, inner).to(x.dtype)
+    out = (hs * F.silu(g)) @ p["w_down"].to(x.dtype)
+    return x + out, 0.0
+
+
+def init_mlstm_cache(cfg, batch, *, lead=(), device=None):
+    inner, H, hd = _mlstm_dims(cfg)
+    f32 = torch.float32
+    return {"C": torch.zeros((*lead, batch, H, hd, hd), dtype=f32,
+                             device=device),
+            "n": torch.zeros((*lead, batch, H, hd), dtype=f32,
+                             device=device),
+            "m": torch.full((*lead, batch, H), -1e30, dtype=f32,
+                            device=device),
+            "conv": torch.zeros((*lead, batch, cfg.conv_kernel - 1, inner),
+                                dtype=cfg.cdtype, device=device)}
+
+
+def mlstm_block_decode(cfg, p, x, cache, pos: int):
+    """One token through ``_mlstm_step``; writes the new state and conv
+    buffer into ``cache`` in place."""
+    inner, H, hd = _mlstm_dims(cfg)
+    B = x.shape[0]
+    h0 = L.norm_apply(cfg, p["ln"], x)
+    u = (h0 @ p["w_up"].to(h0.dtype))[:, 0]
+    g = (h0 @ p["w_gate"].to(h0.dtype))[:, 0]
+    u, conv_buf = conv1d_step(u, cache["conv"], p["conv_w"], p["conv_b"])
+    q, k, v, log_i, log_f = _mlstm_qkvif(cfg, p, F.silu(u)[:, None])
+    (C, n, m), h = _mlstm_step(
+        (cache["C"], cache["n"], cache["m"]),
+        (q[:, 0].float(), k[:, 0].float(), v[:, 0].float(), log_i[:, 0],
+         log_f[:, 0]))
+    h = h.reshape(B, inner).to(x.dtype)
+    out = ((h * F.silu(g)) @ p["w_down"].to(x.dtype))[:, None]
+    for key, val in (("C", C), ("n", n), ("m", m), ("conv", conv_buf)):
+        cache[key].copy_(val)
+    return x + out, cache
+
+
+# ---------------------------------------------------------------------------
+# xLSTM: sLSTM block (scalar memory, per-head recurrent)
+# ---------------------------------------------------------------------------
+
+def init_slstm_block(cfg, init, *, lead=()):
+    d = cfg.d_model
+    H = cfg.num_heads
+    hd = d // H
+    up = int(cfg.proj_factor * d)
+    return {
+        "ln": L.init_norm(cfg, init, d, lead=lead),
+        "w_zifo": L.dense_init(init, d, 4 * d, cfg.pdtype, lead=lead),
+        "b_zifo": init.full((*lead, 4 * d), 0.0, cfg.pdtype),
+        # per-head recurrent matrices (4, H, hd_out, hd_in)
+        "r_zifo": init.normal((*lead, 4, H, hd, hd), 1.0 / math.sqrt(hd),
+                              cfg.pdtype),
+        "w_up": L.dense_init(init, d, up, cfg.pdtype, lead=lead),
+        "w_down": L.dense_init(init, up, d, cfg.pdtype, lead=lead),
+    }
+
+
+def _slstm_recurrent(r_zifo):
+    """(4,H,hd,hd) [gate, head, out, in] -> (H, hd_in, 4*hd_out) f32, so
+    that ``h @ R`` of a head-major h (H,B,hd) gives the four gates'
+    recurrent pre-activations side by side."""
+    g, H, hd, _ = r_zifo.shape
+    return r_zifo.float().permute(1, 3, 0, 2).reshape(H, hd, g * hd)
+
+
+def _slstm_step(R, carry, pre_x):
+    """One sLSTM step, head-major: carry (c, n, h, m) each (H,B,hd) f32,
+    pre_x (H,B,4*hd) f32 the input pre-activations (z, i, f, o), R from
+    ``_slstm_recurrent``.  Returns the new carry and the step's
+    pre-activations (H,B,4*hd).  Autograd never differentiates it: the
+    sequence path runs ``_SLSTMScan``'s derivatives, decode none."""
+    c, n, h, m = carry
+    pre = torch.baddbmm(pre_x, h, R)
+    zp, log_i, fp, op = pre.unflatten(-1, (4, -1)).unbind(-2)
+    z = torch.tanh(zp)
+    log_f = F.logsigmoid(fp)
+    o = torch.sigmoid(op)
+    a = log_f + m
+    m_new = torch.maximum(a, log_i)
+    i = torch.exp(log_i - m_new)
+    f = torch.exp(a - m_new)
+    c_new = torch.addcmul(f * c, i, z)
+    n_new = torch.addcmul(i, f, n)
+    h_new = o * c_new / n_new.clamp(min=1.0)
+    return (c_new, n_new, h_new, m_new), pre
+
+
+def _slstm_zero(pre_x):
+    """The zero state (c, n, h, m = -1e30) for inputs (..., H, B, 4*hd)."""
+    zero = pre_x.new_zeros(pre_x.shape[-3:-1] + (pre_x.shape[-1] // 4,))
+    return zero, zero, zero, torch.full_like(zero, -1e30)
+
+
+class _ChunkGraph:
+    """``chunk`` steps of ``step`` captured as one CUDA graph that reads
+    static buffers: the constants, the carried state (updated in place by
+    each replay) and a chunk of the per-step inputs; its per-step outputs
+    land in ``ys``."""
+
+    def __init__(self, step, consts, state, xs, n_ys, chunk, reverse):
+        self.consts = [c.clone() for c in consts]
+        self.state = [s.clone() for s in state]
+        self.xs = [x[:chunk].clone() for x in xs]
+        order = range(chunk - 1, -1, -1) if reverse else range(chunk)
+
+        def body():
+            carry, outs = tuple(self.state), [None] * chunk
+            for i in order:
+                carry, outs[i] = step(self.consts, carry,
+                                      tuple(x[i] for x in self.xs))
+            for static, new in zip(self.state, carry):
+                static.copy_(new)
+            return [torch.stack([o[k] for o in outs]) for k in range(n_ys)]
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            body()                              # warm-up before capture
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.ys = body()
+
+
+_CHUNK_GRAPHS: OrderedDict = OrderedDict()
+# a graph keeps its memory pool (a chunk of every step's intermediates)
+# while it is cached: at most this many shapes, the least recently used
+# one dropped first
+_CHUNK_GRAPHS_MAX = 16
+
+
+def _cached_graph(key, make):
+    """``_CHUNK_GRAPHS[key]``, made by ``make()`` at its first use and
+    marked most recently used."""
+    g = _CHUNK_GRAPHS.pop(key, None)
+    _CHUNK_GRAPHS[key] = make() if g is None else g
+    while len(_CHUNK_GRAPHS) > _CHUNK_GRAPHS_MAX:
+        _CHUNK_GRAPHS.popitem(last=False)
+    return _CHUNK_GRAPHS[key]
+
+
+def _scan(step, consts, state, xs, n_ys, *, reverse=False, chunk=64):
+    """Runs ``state, ys_t = step(consts, state, xs_t)`` for t along dim 0
+    of the tensors ``xs`` (from the end with ``reverse``); returns the
+    last state and the ``n_ys`` outputs stacked over t.
+
+    On the card every run of ``chunk`` steps replays one CUDA graph
+    (``_ChunkGraph``), captured at the first call with these shapes: a
+    recurrence step is about twenty small kernels, whose launches cost
+    the host far more than they cost the card.  The remaining T % chunk
+    steps, and every step off the card, run as a plain loop; both give
+    the same bits.  The outputs are concatenated, never written into a
+    buffer in place, so that ``torch.func.linearize`` can trace them."""
+    T = xs[0].shape[0]
+    full = T // chunk if xs[0].is_cuda and not _wrapped(xs[0]) else 0
+    graphed = (range(T - full * chunk, T) if reverse
+               else range(full * chunk))
+    pieces = []                                 # in the order they run
+    if full:
+        key = (step, n_ys, chunk, reverse) + tuple(
+            (tuple(t.shape), t.dtype, t.device) for t in consts + state) \
+            + tuple((tuple(x.shape[1:]), x.dtype) for x in xs)
+        g = _cached_graph(key, lambda: _ChunkGraph(
+            step, consts, state, xs, n_ys, chunk, reverse))
+        for static, value in zip(g.consts + g.state, consts + state):
+            static.copy_(value)
+        starts = range(graphed.start, graphed.stop, chunk)
+        for t0 in (reversed(starts) if reverse else starts):
+            for static, x in zip(g.xs, xs):
+                static.copy_(x[t0:t0 + chunk])
+            g.graph.replay()
+            pieces.append([y.clone() for y in g.ys])
+        state = tuple(s.clone() for s in g.state)
+    rest = (range(T - full * chunk - 1, -1, -1) if reverse
+            else range(full * chunk, T))
+    for t in rest:
+        state, ys = step(consts, state, tuple(x[t] for x in xs))
+        pieces.append([y[None] for y in ys])
+    if reverse:
+        pieces.reverse()
+    return state, tuple(torch.cat([ys[k] for ys in pieces])
+                        for k in range(n_ys))
+
+
+def _wrapped(t) -> bool:
+    return _functorch.is_functorch_wrapped_tensor(t)
+
+
+def _unwrap_one_level(tensors):
+    """``torch.func.jvp`` hands a custom jvp its tangents and saved tensors
+    wrapped at its level, and every operation on them then passes through
+    its dispatch (and cannot be captured in a CUDA graph).  Returns the
+    tensors with that one level's wrapper removed and the level, or the
+    tensors and None when they are not all wrapped at one level."""
+    levels = {_functorch.maybe_get_level(t) if _wrapped(t) else None
+              for t in tensors if t is not None}
+    if len(levels) != 1 or None in levels:
+        return tensors, None
+    (level,) = levels
+    return tuple(None if t is None else _functorch._unwrap_for_grad(t, level)
+                 for t in tensors), level
+
+
+def _first_order_only(tensors, own: int):
+    """``_SLSTMScan``'s derivatives read its saved states as constants, so
+    they are right to first order only: raises when they would run under
+    a further transform, that is when a tensor has more ``torch.func``
+    wrappers than the derivative's own transform leaves (``own``: none in
+    the jvp, which removed its own; one in the backward), or when
+    autograd records the tensor inside them."""
+    for t in tensors:
+        if t is None:
+            continue
+        wrappers = 0
+        while _wrapped(t):
+            wrappers, t = wrappers + 1, _functorch.get_unwrapped(t)
+        if wrappers > own or (torch.is_grad_enabled() and t.requires_grad):
+            raise NotImplementedError(
+                "the sLSTM's derivatives are first-order only: a jvp or "
+                "vjp of slstm_block_apply cannot itself be differentiated")
+
+
+def _tie_weight(x, y):
+    """d max(x, y) / dx as JAX's maximum has it: 1, 0.5 at a tie, or 0."""
+    return (x > y).to(x.dtype) + 0.5 * (x == y).to(x.dtype)
+
+
+def _shift(x, first: float):
+    """x_{t-1} along dim 0, ``first`` at t = 0."""
+    return torch.cat([torch.full_like(x[:1], first), x[:-1]])
+
+
+class _SLSTMScan(torch.autograd.Function):
+    """The sLSTM over a sequence (``_slstm_step`` from the zero state) with
+    hand-written forward- and reverse-mode derivatives.
+
+    pre_x (T,H,B,4*hd), R (H,hd,4*hd) -> (hs, pre, cs, ns, ms), each
+    (T,H,B,·); only hs is differentiable, the rest is what the derivatives
+    read.  Autograd through the time loop records about 20 operations a
+    step, and ``torch.func.jvp`` wraps each in a dual tensor: the
+    curvature products then pay that per-operation cost T times a layer.
+    The derivatives of the recurrence are linear recurrences in the
+    tangents (or cotangents) whose coefficients depend only on the
+    forward's values; those are computed for all steps at once
+    (``_coefficients``), and the loop that remains carries four tangents
+    in about a dozen operations a step.  At ties they split half and half,
+    as JAX's maximum does (m_t = max(log_f + m, log_i); the normaliser
+    max(n_t, 1) is exactly 1 at the first step).  All three loops run
+    through ``_scan`` (CUDA graphs on the card); the jvp first removes
+    ``torch.func.jvp``'s wrapper from its inputs (``_unwrap_one_level``)
+    and puts its result back at that level.  The derivatives are
+    first-order only (``_first_order_only``): ``torch.func.jvp``,
+    ``vjp``, ``grad``, ``linearize`` and ``torch.autograd.grad`` run them,
+    and a derivative of them raises."""
+
+    @staticmethod
+    def forward(pre_x, R):
+        return _scan(_slstm_record_step, (R,), _slstm_zero(pre_x), (pre_x,),
+                     5)[1]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, R = inputs
+        ctx.mark_non_differentiable(*output[1:])
+        ctx.save_for_backward(R, *output)
+        ctx.save_for_forward(R, *output)
+
+    @staticmethod
+    def _coefficients(hs, pre, cs, ns, ms):
+        """Per step (T,H,B,hd), in the order ``_slstm_reverse_step`` reads
+        them: with u = a' - log_i' (a = log_f + m_prev), m_t' = a' - wl u,
+        c_t' = f c' + A_c u + B_z z', n_t' = f n' + A_n u and h_t' = K_o o'
+        + Q c_t' - S n_t'."""
+        zp, ip, fp, op = pre.unflatten(-1, (4, -1)).unbind(-2)
+        z, o = torch.tanh(zp), torch.sigmoid(op)
+        a = F.logsigmoid(fp) + _shift(ms, -1e30)
+        i, f = torch.exp(ip - ms), torch.exp(a - ms)
+        wa = _tie_weight(a, ip)
+        wl = 1.0 - wa
+        d = ns.clamp(min=1.0)
+        return {"Q": o / d, "S": o * cs * _tie_weight(ns, 1.0) / (d * d),
+                "A_c": f * wl * _shift(cs, 0.0) - i * wa * z,
+                "A_n": f * wl * _shift(ns, 0.0) - i * wa, "wl": wl,
+                "B_z": i * (1.0 - z * z), "s_lf": torch.sigmoid(-fp),
+                "K_o": o * (1.0 - o) * cs / d, "f": f}
+
+    @staticmethod
+    def jvp(ctx, d_pre_x, d_R):
+        wrapped_hs = ctx.saved_tensors[1]
+        (R, hs, pre, cs, ns, ms, d_pre_x, d_R), level = _unwrap_one_level(
+            ctx.saved_tensors + (d_pre_x, d_R))
+        _first_order_only((R, hs, pre, cs, ns, ms, d_pre_x, d_R), 0)
+        k = _SLSTMScan._coefficients(hs, pre, cs, ns, ms)
+        drive = torch.zeros_like(pre) if d_pre_x is None else d_pre_x
+        if d_R is not None:
+            drive = drive + torch.einsum("thbk,hkg->thbg", _shift(hs, 0.0),
+                                         d_R)
+        zero = torch.zeros_like(hs[0])
+        d_hs = _scan(_slstm_tangent_step, (R,), (zero,) * 4,
+                     (drive,) + tuple(k.values()), 1)[1][0]
+        if level is not None:                 # back to the jvp's level
+            d_hs = torch.zeros_like(wrapped_hs) + d_hs
+        return (d_hs,) + (None,) * 4
+
+    @staticmethod
+    def backward(ctx, g_hs, *_):
+        R, hs, pre, cs, ns, ms = ctx.saved_tensors
+        _first_order_only((R, hs, pre, cs, ns, ms, g_hs), 1)
+        k = _SLSTMScan._coefficients(hs, pre, cs, ns, ms)
+        zero = torch.zeros_like(hs[0])
+        state = (zero, zero, zero, zero, torch.zeros_like(pre[0]))
+        g_pre = _scan(_slstm_reverse_step, (R.transpose(1, 2),), state,
+                      (g_hs,) + tuple(k.values()), 1, reverse=True)[1][0]
+        return g_pre, torch.einsum("thbk,thbg->hkg", _shift(hs, 0.0), g_pre)
+
+
+def _slstm_record_step(consts, carry, xs):
+    """``_scan`` step of ``_SLSTMScan.forward``: outputs h, the
+    pre-activations, c, n and m."""
+    carry, pre = _slstm_step(consts[0], carry, xs[0])
+    c, n, h, m = carry
+    return carry, (h, pre, c, n, m)
+
+
+def _slstm_h_step(consts, carry, xs):
+    """``_scan`` step of the sLSTM without autograd: outputs h alone."""
+    carry, _ = _slstm_step(consts[0], carry, xs[0])
+    return carry, (carry[2],)
+
+
+def _slstm_tangent_step(consts, carry, xs):
+    """``_scan`` step of ``_SLSTMScan.jvp``: the tangents of (c, n, h, m)
+    carried, h's out."""
+    (R,) = consts
+    dc, dn, dh, dm = carry
+    drive, Q, S, A_c, A_n, wl, B_z, s_lf, K_o, f = xs
+    dz, di, df, do = torch.baddbmm(drive, dh, R).unflatten(
+        -1, (4, -1)).unbind(-2)
+    da = torch.addcmul(dm, s_lf, df)
+    u = da - di
+    dm = torch.addcmul(da, wl, u, value=-1.0)
+    dc = torch.addcmul(torch.addcmul(f * dc, A_c, u), B_z, dz)
+    dn = torch.addcmul(f * dn, A_n, u)
+    dh = torch.addcmul(torch.addcmul(K_o * do, Q, dc), S, dn, value=-1.0)
+    return (dc, dn, dh, dm), (dh,)
+
+
+def _slstm_reverse_step(consts, carry, xs):
+    """``_scan`` step of ``_SLSTMScan.backward``, from the last step: the
+    cotangents of (c, n, m) and of the next step's pre-activations
+    carried, those of this step's pre-activations out."""
+    (Rt,) = consts
+    gc, gn, gm, f_next, g_next = carry
+    g_h, Q, S, A_c, A_n, wl, B_z, s_lf, K_o, f = xs
+    gh = torch.baddbmm(g_h, g_next, Rt)
+    gc = torch.addcmul(f_next * gc, Q, gh)
+    gn = torch.addcmul(f_next * gn, S, gh, value=-1.0)
+    gu = torch.addcmul(torch.addcmul(A_c * gc, A_n, gn), wl, gm, value=-1.0)
+    gm = gm + gu
+    g_pre = torch.stack([B_z * gc, -gu, s_lf * gm, K_o * gh], -2).flatten(-2)
+    return (gc, gn, gm, f, g_pre), (g_pre,)
+
+
+def _slstm_inputs(cfg, p, x):
+    """The input pre-activations (z, i, f, o) of x (B,T,d) in f32, laid
+    out head-major for ``_slstm_step``: (T,H,B,4*hd)."""
+    B, T, d = x.shape
+    H = cfg.num_heads
+    h0 = L.norm_apply(cfg, p["ln"], x)
+    wx = h0 @ p["w_zifo"].to(h0.dtype) + p["b_zifo"].to(h0.dtype)
+    return wx.float().reshape(B, T, 4, H, d // H).permute(
+        1, 3, 0, 2, 4).reshape(T, H, B, 4 * (d // H))
+
+
+def _slstm_out(p, hs, x):
+    """hs (B,T,d) in x's dtype -> the block's output x + MLP(hs)."""
+    up = F.gelu(hs @ p["w_up"].to(x.dtype), approximate="tanh")
+    return x + up @ p["w_down"].to(x.dtype)
+
+
+def slstm_block_apply(cfg, p, x, positions):
+    """The sLSTM over a sequence: h feeds back through ``r_zifo``, so it
+    stays a time loop of ``_slstm_step``; ``r_zifo`` is cast to f32 once,
+    not at every step.  Under autograd (and ``torch.func``) the loop runs
+    in ``_SLSTMScan``, which saves (T,H,B,·)-sized states and
+    pre-activations (no recompute) and differentiates by hand; without
+    it, a plain loop that keeps only h."""
+    B, T, d = x.shape
+    wx = _slstm_inputs(cfg, p, x)
+    R = _slstm_recurrent(p["r_zifo"])
+    if torch.is_grad_enabled():
+        hs = _SLSTMScan.apply(wx, R)[0]
+    else:
+        hs = _scan(_slstm_h_step, (R,), _slstm_zero(wx), (wx,), 1)[1][0]
+    hs = hs.permute(2, 0, 1, 3).reshape(B, T, d)
+    return _slstm_out(p, hs.to(x.dtype), x), 0.0
+
+
+def init_slstm_cache(cfg, batch, *, lead=(), device=None):
+    H = cfg.num_heads
+    shape = (*lead, batch, H, cfg.d_model // H)
+    return {key: torch.full(shape, val, dtype=torch.float32, device=device)
+            for key, val in (("c", 0.0), ("n", 0.0), ("h", 0.0),
+                             ("m", -1e30))}
+
+
+def slstm_block_decode(cfg, p, x, cache, pos: int):
+    """One token; writes the new (c, n, h, m) into ``cache`` in place (its
+    tensors keep the reference's (B,H,hd) layout)."""
+    B, _, d = x.shape
+    carry = tuple(cache[key].transpose(0, 1) for key in "cnhm")
+    new, _ = _slstm_step(_slstm_recurrent(p["r_zifo"]), carry,
+                         _slstm_inputs(cfg, p, x)[0])
+    for key, val in zip("cnhm", new):
+        cache[key].copy_(val.transpose(0, 1))
+    hs = new[2].transpose(0, 1).reshape(B, 1, d).to(x.dtype)
+    return _slstm_out(p, hs, x), cache
+
+
+# ---------------------------------------------------------------------------
 # Dispatch tables
 # ---------------------------------------------------------------------------
 
@@ -270,7 +824,11 @@ def init_block(cfg, init, kind, *, lead=()):
         return init_attention_block(cfg, init, kind, lead=lead)
     if kind == "rglru":
         return init_rglru_block(cfg, init, lead=lead)
-    raise _not_ported(kind)
+    if kind == "mlstm":
+        return init_mlstm_block(cfg, init, lead=lead)
+    if kind == "slstm":
+        return init_slstm_block(cfg, init, lead=lead)
+    raise ValueError(kind)
 
 
 def block_apply(cfg, kind, p, x, positions):
@@ -278,7 +836,11 @@ def block_apply(cfg, kind, p, x, positions):
         return attention_block_apply(cfg, kind, p, x, positions)
     if kind == "rglru":
         return rglru_block_apply(cfg, p, x, positions)
-    raise _not_ported(kind)
+    if kind == "mlstm":
+        return mlstm_block_apply(cfg, p, x, positions)
+    if kind == "slstm":
+        return slstm_block_apply(cfg, p, x, positions)
+    raise ValueError(kind)
 
 
 def init_block_cache(cfg, kind, batch, cache_len, *, lead=(),
@@ -288,7 +850,11 @@ def init_block_cache(cfg, kind, batch, cache_len, *, lead=(),
                                     long_mode=long_mode, device=device)
     if kind == "rglru":
         return init_rglru_cache(cfg, batch, lead=lead, device=device)
-    raise _not_ported(kind)
+    if kind == "mlstm":
+        return init_mlstm_cache(cfg, batch, lead=lead, device=device)
+    if kind == "slstm":
+        return init_slstm_cache(cfg, batch, lead=lead, device=device)
+    raise ValueError(kind)
 
 
 def block_decode(cfg, kind, p, x, cache, pos: int, *, long_mode=False):
@@ -297,4 +863,8 @@ def block_decode(cfg, kind, p, x, cache, pos: int, *, long_mode=False):
                                       long_mode=long_mode)
     if kind == "rglru":
         return rglru_block_decode(cfg, p, x, cache, pos)
-    raise _not_ported(kind)
+    if kind == "mlstm":
+        return mlstm_block_decode(cfg, p, x, cache, pos)
+    if kind == "slstm":
+        return slstm_block_decode(cfg, p, x, cache, pos)
+    raise ValueError(kind)

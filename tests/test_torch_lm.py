@@ -117,23 +117,24 @@ def test_config_is_the_reference_config(smoke):
 
 
 def test_unported_archs_and_blocks_raise():
-    """Since the MoE slice only xLSTM is left: its arch and its two block
-    kinds raise, naming ROADMAP; the MoE kinds build."""
+    """Since the xLSTM slice every arch of the reference's pool is ported
+    (the name is kept from when xLSTM raised): ``NOT_PORTED`` is empty,
+    xlstm-125m is registered, every block kind builds, and an unknown
+    arch still raises, naming ROADMAP."""
     assert TCB.list_archs() == [ARCH, "whisper-base", "stablelm-1.6b",
                                 "qwen2.5-3b", "minitron-8b", "chameleon-34b",
                                 "qwen2-72b", "granite-moe-3b-a800m",
-                                "mixtral-8x22b"]
-    assert TCB.NOT_PORTED == ("xlstm-125m",)
+                                "mixtral-8x22b", "xlstm-125m"]
+    assert TCB.NOT_PORTED == ()
+    assert TCB.get_config("xlstm-125m").block_pattern == (
+        "mlstm", "mlstm", "mlstm", "slstm")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TCB.get_config("xlstm-125m")
+        TCB.get_config("gpt-5")
     cfg = TCB.get_config(ARCH).smoke()
     for kind in ("moe", "swamoe"):
         assert "moe" in TB.init_block(cfg, TL.Init("meta"), kind)
-    for kind in ("mlstm", "slstm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TB.init_block(cfg, TL.Init("meta"), kind)
-        with pytest.raises(NotImplementedError):
-            TB.block_apply(cfg, kind, {}, None, None)
+    assert "w_q" in TB.init_block(cfg, TL.Init("meta"), "mlstm")
+    assert "r_zifo" in TB.init_block(cfg, TL.Init("meta"), "slstm")
 
 
 def test_full_width_parameter_tree_by_shape_only():
@@ -420,8 +421,8 @@ def test_serve_cli_long_mode_is_not_ported(capsys):
     when it raised): on recurrentgemma-9b it changes nothing (its caches
     are windowed rings already), and on qwen2.5-3b it bounds the global
     caches to the smoke ``long_context_window`` of 64 slots."""
-    base = ["--smoke", "--device", "cpu", "--requests", "2", "--max-new",
-            "4"]
+    base = ["--arch", ARCH, "--smoke", "--device", "cpu", "--requests",
+            "2", "--max-new", "4"]
     tokens = []
     for extra in (["--long-mode"], []):
         TS.main(base + extra)

@@ -242,10 +242,14 @@ def test_cli_lm_smoke_trains_and_refuses_the_rest():
     log = ttrain.main(CLI + ["--steps", "2", "--optimizer", "nghf"])
     assert len(log) == 2 and all(np.isfinite(m["loss"]) for m in log)
     for argv in (["--arch", "mixtral-8x22b"],
-                 ["--arch", "lm-xlstm-125m"],
                  ["--arch", "recurrentgemma-9b"]):
         with pytest.raises(NotImplementedError, match="ROADMAP 1.3"):
             ttrain.main(argv + ["--smoke", "--device", "cpu"])
+    # since the xLSTM slice lm-xlstm-125m trains
+    log = ttrain.main(["--arch", "lm-xlstm-125m", "--smoke", "--device",
+                       "cpu", "--steps", "1", "--batch", "4", "--seq", "16",
+                       "--cg-iters", "2", "--ng-iters", "1"])
+    assert len(log) == 1 and all(np.isfinite(v) for v in log[0].values())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cpu"):
             ttrain.main(["--arch", ARCH, "--smoke", "--steps", "1"])
