@@ -33,7 +33,12 @@ paths against its plain PyTorch version on the card:
     its head geometry (G = 6, hd 128, window 4096);
   * the xLSTM arch: xlstm-125m (150,319,176 parameters, 9 mLSTM and 3
     sLSTM blocks, tied) served and trained by NGHF with the fused CG
-    kernel at full width and depth.
+    kernel at full width and depth;
+  * training through the windowed attention: recurrentgemma-9b at full
+    width and 3 of its 38 layers (2,753,638,400 parameters) trained by SGD
+    through the attention's backward kernels; recurrentgemma-9b and
+    mixtral-8x22b at their smoke configs trained by NGHF through the
+    backward and jvp kernels.
 
 Phases:
 
@@ -234,7 +239,29 @@ Phases:
      last-iterate Δθ within relative L2 2e-2, the stage split, a device
      trace of one of its curvature products at T 512); one update at B 8
      x T 4096 (train_4k's length, its time and peak); Adam through the CLI, 3 steps; ``cg_fused_update`` timed at N
-     = 150,319,176 against its bound (the ``xlstm_*`` keys of its row).
+     = 150,319,176 against its bound (the ``xlstm_*`` keys of its row);
+ 13. training recurrentgemma-9b and mixtral-8x22b (run after phase 12,
+     before phase 7, on a card freed with ``empty_cache``): (a) the
+     windowed attention's derivative kernels (``csrc/swa_attention_bwd.
+     cu``: dq, dk/dv and jvp) against their plain versions on phase 2's
+     adversarial shapes, recurrentgemma-9b's training shape (B 2, T 4096,
+     H 16, K 1, hd 256, window 2048, bf16) and mixtral-8x22b's geometry
+     (B 1, T 8192, H 48, K 8, hd 128, window 4096, bf16): f32 relative L2
+     1e-5 per tensor, bf16 within 1.5 x the plain bf16 result's distance
+     from the f32 one (+ 1e-6), bitwise on a repeat; at the two full
+     shapes timed in turns with the plain versions and SDPA's backward
+     with the band mask; (b) recurrentgemma-9b at full width and 3 layers
+     trained by SGD through ``build_step``, 3 steps at B 2 x T 4096
+     (train_4k with its batch cut from 256): finite loss, one forward, dq
+     and dk/dv launch a step, no jvp, the step time and peak memory; one
+     step's gradient against the plain path (attention's plain version on
+     the card) within relative L2 2e-2; (c) both archs' smoke configs
+     trained by NGHF at T 64 past their window of 16, one update per
+     curvature mode (``rematvp``, ``linearize``): the kernel path (the
+     attention kernels, fused CG) takes the plain path's decision (or a
+     tie within the paths' spread), last-iterate Δθ within relative L2
+     2e-2.  The three kernels' rows of the ``{"kernels": ...}`` line
+     follow the TPU kernels'.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; without a card, or outside a checkout of the repo,
@@ -3398,6 +3425,406 @@ def xlstm_cg_times(xl: dict, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: training recurrentgemma-9b and mixtral-8x22b — the windowed
+# attention's derivative kernels and the differentiable RG-LRU scan
+# ---------------------------------------------------------------------------
+
+# the derivative kernels (csrc/swa_attention_bwd.cu): no TPU kernel; the
+# reference differentiates its jnp windowed_attention by autodiff
+BWD_KERNELS = ("swa_attention_dq", "swa_attention_dkdv", "swa_attention_jvp")
+BWD_SOURCE = "src/repro_torch/kernels/csrc/swa_attention_bwd.cu"
+BWD_REFERENCE = "src/repro/models/layers.py:232"
+# recurrentgemma-9b's training shape (train_4k, B 256 -> 2) and mixtral-
+# 8x22b's attention geometry at T 8192: (B, T, H, K, hd, window)
+SWA_TRAIN = (2, 4096, 16, 1, 256, 2048)
+SWA_MIXTRAL = (1, 8192, 48, 8, 128, 4096)
+# kernel vs plain version, relative L2 per tensor: f32 1e-5 (the same f32
+# arithmetic, sums in another order); bf16 no farther from the plain
+# version on the inputs upcast to f32 than the plain version in bf16 is,
+# x 1.5 (phase 7's rule), + 1e-6 (where the bf16 plain result is exact,
+# as window 0's tangent tv is, the kernel keeps its f32 sums' rounding)
+BWD_F32_REL_L2 = 1e-5
+BWD_BF16_FACTOR = 1.5
+BWD_BF16_FLOOR = 1e-6
+# recurrentgemma-9b at full width, depth 38 -> 3 (rglru, rglru, local: the
+# first depth with a windowed layer), trained by SGD at B 2 x T 4096
+RG_TRAIN_LAYERS = 3
+RG_TRAIN_PARAMS = 2_753_638_400
+RG_TRAIN_BATCH, RG_TRAIN_SEQ, RG_TRAIN_STEPS = 2, 4096, 3
+RG_TRAIN_LR = 0.3                  # launch.train's SGD default
+# one step's gradient, kernel path vs plain path (attention's plain
+# version), relative L2 over every leaf: both run bf16 activations, and
+# the forward kernels' outputs differ from the plain version's by a bf16
+# ulp in under 1 % of the entries (phase 2)
+RG_GRAD_REL_L2 = 2e-2
+# NGHF at the smoke configs (window 16) at T 64 > window, B 8 (CG batch 2)
+SMOKE_TRAIN_ARCHS = ("recurrentgemma-9b", "mixtral-8x22b")
+SMOKE_TRAIN_BATCH, SMOKE_TRAIN_SEQ = 8, 64
+
+
+def bwd_counts() -> tuple:
+    from repro_torch.kernels import swa_attention as SWA
+    return (SWA.swa_attention_vjp.dq_launches,
+            SWA.swa_attention_vjp.dkdv_launches,
+            SWA.swa_attention_jvp.launches)
+
+
+def set_bwd_counts(n: tuple) -> None:
+    from repro_torch.kernels import swa_attention as SWA
+    (SWA.swa_attention_vjp.dq_launches, SWA.swa_attention_vjp.dkdv_launches,
+     SWA.swa_attention_jvp.launches) = n
+
+
+def bwd_rel(got, plain, plain32, dtype) -> tuple:
+    """(kernel's relative L2, its limit) for one tensor: against the plain
+    version in f32; against the f32 plain result in bf16."""
+    if dtype == torch.float32:
+        return rel_l2(got, plain), BWD_F32_REL_L2
+    return (rel_l2(got, plain32),
+            BWD_BF16_FACTOR * rel_l2(plain, plain32) + BWD_BF16_FLOOR)
+
+
+def check_bwd_case(dev, shape, dtype, seed: int, errs: dict) -> dict:
+    """The dq, dk/dv and jvp kernels against their plain versions at one
+    shape, each bitwise on a repeat; returns the inputs for timing."""
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import swa_attention as SWA
+    q, k, v = swa_inputs(dev, shape, dtype, seed)
+    g, tq, tk, tv = (torch.randn_like(x) for x in (q, q, k, v))
+    w = shape[-1]
+    tag = "x".join(map(str, shape)) + f"_{str(dtype)[6:]}"
+    got = SWA.swa_attention_vjp(q, k, v, g, w)
+    again = SWA.swa_attention_vjp(q, k, v, g, w)
+    got += (SWA.swa_attention_jvp(q, k, v, tq, tk, tv, w),)
+    again += (SWA.swa_attention_jvp(q, k, v, tq, tk, tv, w),)
+    plain = R.swa_attention_vjp_ref(q, k, v, g, w) + (
+        R.swa_attention_jvp_ref(q, k, v, tq, tk, tv, w),)
+    if dtype == torch.float32:
+        plain32 = plain
+    else:
+        up = [x.float() for x in (q, k, v, g, tq, tk, tv)]
+        plain32 = R.swa_attention_vjp_ref(*up[:4], w) + (
+            R.swa_attention_jvp_ref(*up[:3], *up[4:], w),)
+    torch.cuda.synchronize()
+    parts = []
+    for name, a, b, p, p32 in zip(("dq", "dk", "dv", "dO"), got, again,
+                                  plain, plain32):
+        check(a.dtype == p.dtype == dtype and a.shape == p.shape
+              and bool(torch.isfinite(a).all()),
+              f"swa_attention {name}[{tag}]: {a.dtype} {tuple(a.shape)}, "
+              f"plain {p.dtype} {tuple(p.shape)}, finite "
+              f"{bool(torch.isfinite(a).all())}")
+        check(torch.equal(a, b), f"swa_attention {name}[{tag}]: two "
+              f"launches gave other bits")
+        rel, limit = bwd_rel(a, p, p32, dtype)
+        check(rel <= limit, f"swa_attention {name}[{tag}]: rel-L2 {rel:.3g} "
+              f"> {limit:.3g}")
+        kern = {"dq": BWD_KERNELS[0], "dk": BWD_KERNELS[1],
+                "dv": BWD_KERNELS[1], "dO": BWD_KERNELS[2]}[name]
+        d = float((a.float() - p.float()).abs().max()) if a.numel() else 0.0
+        errs[f"{kern}[{tag}:{name}]"] = d
+        parts.append(f"{name} {rel:.3g} (limit {limit:.3g}, max |d| {d:.3g})")
+    log(f"swa_attention derivatives == plain at (B,T,H,K,hd,window)="
+        f"{shape} {dtype}: rel-L2 " + ", ".join(parts)
+        + "; a repeat launch bitwise")
+    return {"q": q, "k": k, "v": v, "g": g, "tq": tq, "tk": tk, "tv": tv}
+
+
+def bwd_work(shape, dtype) -> dict:
+    """(bytes, flops) of each derivative kernel: every input read once and
+    every output written once (dq's (B, H, T) f32 log-sum-exp and D
+    included); the products over the band's (query, key) pairs, 2 hd
+    flops each: dq S, dP and dS K (6 hd); dk/dv S, dP, dS^T q and P^T g
+    (8 hd); jvp S, its tangent's two products, P V, (P ds) V and P tv
+    (12 hd)."""
+    B, T, H, K, hd, w = shape
+    size = torch.finfo(dtype).bits // 8
+    side = 8 * B * H * T
+    pairs = swa_work(shape, dtype)[1] // (4 * B * H * hd)
+    per = B * H * hd * pairs
+    return {BWD_KERNELS[0]: (size * B * T * (3 * H + 2 * K) * hd + side,
+                             6 * per),
+            BWD_KERNELS[1]: (size * B * T * (2 * H + 4 * K) * hd + side,
+                             8 * per),
+            BWD_KERNELS[2]: (size * B * T * (3 * H + 4 * K) * hd, 12 * per)}
+
+
+def sdpa_backward(x: dict, window: int):
+    """``scaled_dot_product_attention``'s backward with the band mask (the
+    yardstick, never on the port's path): a call computing (dq, dk, dv)
+    for the cotangent g, or None where it does not run."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    q, k, v, g = x["q"], x["k"], x["v"], x["g"]
+    B, T, H, hd = q.shape
+    G = H // k.shape[2]
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt, vt = (t.transpose(1, 2).repeat_interleave(G, dim=1).detach()
+              .requires_grad_() for t in (k, v))
+    pos = torch.arange(T, device=q.device)
+    mask = ((pos[None, :] <= pos[:, None])
+            & (pos[None, :] >= pos[:, None] - window))
+    gt = g.transpose(1, 2)
+    try:
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION]):
+            out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)
+        torch.cuda.synchronize()
+    except RuntimeError as exc:
+        log(f"scaled_dot_product_attention backward at {tuple(q.shape)}: "
+            f"{str(exc).splitlines()[0][:200]}")
+        return None
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), gt,
+                                       retain_graph=True)
+
+
+def bwd_times(x: dict, shape) -> dict:
+    """The derivative kernels timed in turns (ABC.. ..CBA, CUDA events)
+    with their plain versions and SDPA's backward, at one shape; the
+    comparison launches are not counted."""
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import swa_attention as SWA
+    n = bwd_counts()
+    w = shape[-1]
+    q, k, v, g = x["q"], x["k"], x["v"], x["g"]
+    tq, tk, tv = x["tq"], x["tk"], x["tv"]
+    _, lse, dd = SWA.launch_dq(q, k, v, g, w)
+    fns = {BWD_KERNELS[0]: (lambda: SWA.launch_dq(q, k, v, g, w), 3),
+           BWD_KERNELS[1]: (lambda: SWA.launch_dkdv(q, k, v, g, lse, dd,
+                                                    w), 3),
+           BWD_KERNELS[2]: (lambda: SWA.swa_attention_jvp(q, k, v, tq, tk,
+                                                          tv, w), 3),
+           "plain_vjp": (lambda: R.swa_attention_vjp_ref(q, k, v, g, w), 1),
+           "plain_jvp": (lambda: R.swa_attention_jvp_ref(q, k, v, tq, tk,
+                                                         tv, w), 1),
+           "library_vjp": (sdpa_backward(x, w), 2)}
+    order = [name for name in fns if fns[name][0] is not None]
+    turns: dict = {name: [] for name in order}
+    for name in order + order[::-1]:
+        fn, reps = fns[name]
+        turns[name].append(cuda_time_ms(fn, reps))
+    set_bwd_counts(n)
+    t = {name: sum(ms) / len(ms) for name, ms in turns.items()}
+    out = {}
+    for name, (byt, flops) in bwd_work(shape, q.dtype).items():
+        b_ms, b_by = swa_bound(byt, flops)
+        out[name] = {"ms": t[name], "bound_ms": b_ms, "bound_by": b_by,
+                     "plain_ms": t["plain_jvp" if name == BWD_KERNELS[2]
+                                   else "plain_vjp"],
+                     "library_ms": (None if name == BWD_KERNELS[2]
+                                    else t.get("library_vjp")),
+                     "tflops": flops / t[name] * 1e-9}
+    log(f"swa_attention derivatives timed at (B,T,H,K,hd,window)={shape} "
+        f"{q.dtype}: " + "; ".join(
+            f"{k} {v['ms']:.4f} ms ({v['tflops']:.3f} TFLOP/s useful, "
+            f"bound {v['bound_ms']:.4f} ms by {v['bound_by']})"
+            for k, v in out.items())
+        + f"; plain vjp {t['plain_vjp']:.4f} ms, plain jvp "
+        f"{t['plain_jvp']:.4f} ms, SDPA backward (band mask) "
+        f"{t.get('library_vjp')} ms; turns (ms) "
+        + ", ".join(f"{k} {[round(y, 3) for y in v]}"
+                    for k, v in turns.items()))
+    return out
+
+
+def bwd_kernel_checks(dev, errs: dict) -> dict:
+    """(a): phase 2's adversarial shapes, then the two full geometries,
+    each checked; the full ones timed.  Returns {shape key: times}."""
+    times = {}
+    cases = SWA_CASES + ((SWA_TRAIN, torch.bfloat16),
+                         (SWA_MIXTRAL, torch.bfloat16))
+    for i, (shape, dtype) in enumerate(cases):
+        x = check_bwd_case(dev, shape, dtype, SEED + 130 + i, errs)
+        if shape in (SWA_TRAIN, SWA_MIXTRAL):
+            times[shape] = bwd_times(x, shape)
+        del x
+        torch.cuda.empty_cache()
+    return times
+
+
+def rg_sgd_training(dev) -> dict:
+    """(b): recurrentgemma-9b at full width and 3 layers trained by SGD
+    through ``build_step``, 3 steps at B 2 x T 4096: finite loss, one
+    forward, dq and dk/dv launch a step (the one local layer), no jvp;
+    then one step's gradient through the kernels against the plain path."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.curvature import grad_and_loss
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels import swa_attention as SWA
+    from repro_torch.launch.steps import build_step, lm_forward
+    from repro_torch.losses.chunked_lm import ChunkedCELoss
+    from repro_torch.models.registry import get_model
+    cfg = get_config(LM_ARCH).replace(num_layers=RG_TRAIN_LAYERS)
+    model = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(SEED, device=dev)
+    n_params = sum(p.numel() for p in params.values())
+    check(n_params == RG_TRAIN_PARAMS == model.param_count(),
+          f"{LM_ARCH} at {RG_TRAIN_LAYERS} layers has {n_params} parameters")
+    step, opt = build_step(cfg, "sgd", lr=RG_TRAIN_LR)
+    state = opt.init(params)
+    local = sum(k == "local" for k in (cfg.block_pattern * RG_TRAIN_LAYERS)
+                [:RG_TRAIN_LAYERS])
+
+    def batch(i):
+        return lm_batch(i, batch=RG_TRAIN_BATCH, seq_len=RG_TRAIN_SEQ,
+                        vocab=cfg.vocab_size, device=dev)
+
+    # the main path: counts at 0 just before each step, read just after
+    times, launches = [], {"fwd": 0, "dq": 0, "dkdv": 0, "jvp": 0}
+    for i in range(RG_TRAIN_STEPS):
+        b = batch(i)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        m = {k: float(v) for k, v in m.items()}
+        n = (SWA.swa_attention.launches, SWA.swa_attention.cuda_core_launches)
+        dq, dkdv, jvp = bwd_counts()
+        check(n == (local, 0) and (dq, dkdv, jvp) == (local, local, 0),
+              f"{LM_ARCH} SGD step {i}: forward launches {n}, dq {dq}, "
+              f"dk/dv {dkdv}, jvp {jvp}; want {local} tensor-core, "
+              f"{local} dq and dk/dv, no jvp")
+        check(read_counts() == {k: 0 for k in read_counts()},
+              f"{LM_ARCH} SGD step {i}: lattice/CG launches {read_counts()}")
+        check(np.isfinite(m["loss"]), f"{LM_ARCH} SGD step {i}: loss "
+              f"{m['loss']}")
+        for key, c in zip(("fwd", "dq", "dkdv", "jvp"), (n[0], dq, dkdv,
+                                                         jvp)):
+            launches[key] += c
+        log(f"{LM_ARCH} ({RG_TRAIN_LAYERS} layers, {n_params} parameters) "
+            f"SGD step {i} at B {RG_TRAIN_BATCH} x T {RG_TRAIN_SEQ}: "
+            f"{times[-1] * 1e3:.3f} ms, loss {m['loss']:.6f}, acc "
+            f"{m['acc']:.6f}, grad norm {m['grad_norm']:.4g}; launches: "
+            f"forward {n[0]} (tensor-core), dq {dq}, dk/dv {dkdv}, jvp "
+            f"{jvp}")
+    peak = torch.cuda.max_memory_allocated()
+    del state
+    # one step's gradient, kernel path vs plain path, same parameters
+    fwd, loss = lm_forward(cfg, model), ChunkedCELoss()
+    b = dict(batch(RG_TRAIN_STEPS), labels=batch(RG_TRAIN_STEPS)["tokens"])
+    l_k, _, g_k = grad_and_loss(fwd, loss, params, b)
+    with plain_attention():
+        n = bwd_counts()
+        l_p, _, g_p = grad_and_loss(fwd, loss, params, b)
+        check(bwd_counts() == n, "the plain path launched a derivative "
+              "kernel")
+    num = sum(float(((g_k[k].float() - g_p[k].float()) ** 2).sum())
+              for k in g_p)
+    den = sum(float((g_p[k].float() ** 2).sum()) for k in g_p)
+    rel = (num / den) ** 0.5
+    check(rel <= RG_GRAD_REL_L2, f"{LM_ARCH} gradient kernel vs plain path "
+          f"rel-L2 {rel:.3g} > {RG_GRAD_REL_L2}")
+    log(f"{LM_ARCH} gradient, kernel path == plain path (attention's plain "
+        f"version under autograd on the card): rel-L2 {rel:.4g} over "
+        f"{len(g_p)} leaves (limit {RG_GRAD_REL_L2}), loss {float(l_k):.6f} "
+        f"vs {float(l_p):.6f}; SGD steps "
+        f"{[round(t * 1e3, 3) for t in times]} ms, peak device memory "
+        f"{peak / 1e9:.3f} GB")
+    del params, g_k, g_p
+    torch.cuda.empty_cache()
+    return {"step_s": times, "peak": peak, "grad_rel": rel,
+            "launches": launches}
+
+
+def smoke_nghf(dev) -> dict:
+    """(c): NGHF at the smoke configs (T 64 past the window of 16), one
+    update per curvature mode: the kernel path (the attention kernels,
+    fused CG) against the plain path (attention's plain version, unfused
+    CG): the same decision, or a tie within the paths' spread, and the
+    last iterate's Δθ within LM_DELTA_REL_L2."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.models.registry import get_model
+    out = {"jvp": 0, "dq": 0, "dkdv": 0}
+    for arch in SMOKE_TRAIN_ARCHS:
+        cfg = get_config(arch).smoke()
+        params = get_model(cfg).init(SEED, device=dev)
+        b = lm_batch(0, batch=SMOKE_TRAIN_BATCH, seq_len=SMOKE_TRAIN_SEQ,
+                     vocab=cfg.vocab_size, device=dev)
+        b = dict(b, labels=b["tokens"])
+        for mode in ("rematvp", "linearize"):
+            tag = f"{arch} smoke ({cfg.sliding_window} window, T " \
+                  f"{SMOKE_TRAIN_SEQ}) NGHF {mode}"
+            kw = {"curvature_mode": mode}
+            reset_counts()
+            _, m_k, t_k = lm_one_update(cfg, params, b, True, **kw)
+            dq, dkdv, jvp = bwd_counts()
+            check(min(dq, dkdv, jvp) > 0, f"{tag}: derivative kernel "
+                  f"launches dq {dq}, dk/dv {dkdv}, jvp {jvp}")
+            for key, c in zip(("dq", "dkdv", "jvp"), (dq, dkdv, jvp)):
+                out[key] += c
+            with plain_attention():
+                _, m_p, t_p = lm_one_update(cfg, params, b, False, **kw)
+            check(bwd_counts() == (dq, dkdv, jvp), f"{tag}: the plain "
+                  f"path launched a derivative kernel")
+            text = same_choice(tag, m_k, m_p)
+            new_k, _, _ = lm_one_update(cfg, params, b, True,
+                                        eval_candidates=False, **kw)
+            with plain_attention():
+                new_p, _, _ = lm_one_update(cfg, params, b, False,
+                                            eval_candidates=False, **kw)
+            rel = delta_rel_l2(new_k, new_p, params)
+            check(rel <= LM_DELTA_REL_L2, f"{tag}: last-iterate Δθ kernel "
+                  f"vs plain path rel-L2 {rel:.3g}")
+            log(f"{tag}: kernel path == plain path: {text}; last-iterate "
+                f"Δθ rel-L2 {rel:.3g} (limit {LM_DELTA_REL_L2}); kernel "
+                f"update {t_k * 1e3:.3f} ms (dq {dq}, dk/dv {dkdv}, jvp "
+                f"{jvp} launches), plain {t_p * 1e3:.3f} ms")
+        del params
+    return out
+
+
+def phase_rg_train(dev, errs: dict) -> dict:
+    t0 = time.perf_counter()
+    times = bwd_kernel_checks(dev, errs)
+    t1 = time.perf_counter()
+    sgd = rg_sgd_training(dev)
+    t2 = time.perf_counter()
+    nghf = smoke_nghf(dev)
+    t3 = time.perf_counter()
+    log(f"phase 13: {t3 - t0:.3f} s (kernel checks and times "
+        f"{t1 - t0:.3f}, {LM_ARCH} SGD {t2 - t1:.3f}, smoke NGHF "
+        f"{t3 - t2:.3f})")
+    return {"times": times, "sgd": sgd, "nghf": nghf}
+
+
+def bwd_entries(rg: dict, errs: dict) -> list:
+    """The derivative kernels' rows of the ``{"kernels": ...}`` line: time
+    at recurrentgemma-9b's training shape, ``mixtral_*`` keys at mixtral's
+    geometry; launches on phase 13's main paths (the SGD steps and the
+    smoke NGHF kernel-path updates)."""
+    sgd, nghf = rg["sgd"]["launches"], rg["nghf"]
+    launches = {BWD_KERNELS[0]: sgd["dq"] + nghf["dq"],
+                BWD_KERNELS[1]: sgd["dkdv"] + nghf["dkdv"],
+                BWD_KERNELS[2]: sgd["jvp"] + nghf["jvp"]}
+    rows = []
+    for name in BWD_KERNELS:
+        t = rg["times"][SWA_TRAIN][name]
+        mx = rg["times"][SWA_MIXTRAL][name]
+        rows.append({
+            "name": name, "route": "cuda", "source": BWD_SOURCE,
+            "replaces": BWD_REFERENCE,
+            "note": "no TPU kernel: the reference differentiates its jnp "
+                    "windowed_attention by autodiff",
+            "launches": launches[name],
+            "max_abs_err": max(v for k, v in errs.items()
+                               if k.startswith(name + "[")),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "shape": f"B,T,H,K,hd,window={list(SWA_TRAIN)} bf16",
+            "mixtral_ms": mx["ms"], "mixtral_plain_ms": mx["plain_ms"],
+            "mixtral_bound_ms": mx["bound_ms"],
+            "mixtral_library_ms": mx["library_ms"],
+            "mixtral_shape": f"B,T,H,K,hd,window={list(SWA_MIXTRAL)} bf16"})
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # LM serving: sliding-window attention and recurrentgemma-9b
 # ---------------------------------------------------------------------------
 
@@ -3501,9 +3928,11 @@ class plain_attention:
 
 
 def rel_l2(a, b) -> float:
+    """||a - b|| / ||b||; 0 for two zero tensors, inf for b = 0 alone."""
     a, b = a.float(), b.float()
-    return float(torch.linalg.vector_norm(a - b)
-                 / torch.linalg.vector_norm(b))
+    num = float(torch.linalg.vector_norm(a - b))
+    den = float(torch.linalg.vector_norm(b))
+    return num / den if den > 0 else (0.0 if num == 0 else float("inf"))
 
 
 def phase_lm(dev) -> dict:
@@ -3820,7 +4249,7 @@ def main() -> int:
         if any(w in line for w in ("registers", "spill", "entry function")):
             log(f"ptxas: {line.strip()}")
     for stem in ("lattice_sausage", "cg_fused", "swa_attention",
-                 "swa_attention_sm90"):
+                 "swa_attention_sm90", "swa_attention_bwd"):
         for line in build.build_log(stem).splitlines():
             if any(w in line for w in ("registers", "spill", "C7519",
                                        "wgmma")):
@@ -3859,10 +4288,14 @@ def main() -> int:
     cg_row.update(xlstm_cg_times(xl, dev))
     del xl
     torch.cuda.empty_cache()
+    rg = phase_rg_train(dev, errs)
+    torch.cuda.empty_cache()
     lm = phase_lm(dev)
     kernels.append(swa_times(lm, errs, dev))
     kernels[-1].update(swa_moe)
-    check(len(kernels) == len(TPU_KERNELS), "a kernel has no entry")
+    kernels += bwd_entries(rg, errs)
+    check(len(kernels) == len(TPU_KERNELS) + len(BWD_KERNELS),
+          "a kernel has no entry")
     log(f"total {time.perf_counter() - t_start:.3f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -324,3 +324,75 @@ def swa_attention_ref(q, k, v, window: int, *, q_chunk: int = 512,
         o = torch.einsum("bkgqs,bskd->bqkgd", p, vb)
         out[:, t0:t1] = o.reshape(B, t1 - t0, H, hd).to(q.dtype)
     return out
+
+
+def _swa_chunk(q, k, v, t0: int, t1: int, window: int):
+    """The f32 pieces of query chunk [t0, t1) of the windowed attention
+    (q_offset 0): lo, (q (B, n, K, G, hd), k, v (B, span, K, hd)), the band
+    mask (n, span) and P (B, K, G, n, span)."""
+    B, _, H, hd = q.shape
+    K = k.shape[2]
+    lo = max(0, t0 - window)
+    qb = q[:, t0:t1].float().reshape(B, t1 - t0, K, H // K, hd)
+    kb, vb = k[:, lo:t1].float(), v[:, lo:t1].float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qb, kb) / math.sqrt(hd)
+    qpos = torch.arange(t0, t1, device=q.device)
+    kpos = torch.arange(lo, t1, device=q.device)
+    mask = ((kpos[None, :] <= qpos[:, None])
+            & (kpos[None, :] > qpos[:, None] - window - 1))
+    p = torch.softmax(torch.where(mask, s, torch.full_like(s, NEG)), -1)
+    return lo, qb, kb, vb, mask, p
+
+
+def swa_attention_vjp_ref(q, k, v, g, window: int, *, q_chunk: int = 512):
+    """Plain version of the attention's backward kernels: (dq, dk, dv) of
+    ``swa_attention_ref`` (q_offset 0) for the output's cotangent ``g``, in
+    the inputs' dtypes.  Chunked over queries as ``swa_attention_ref``, in
+    f32, written out rather than taken by autograd, which cannot run inside
+    a ``torch.func`` transform's backward: with dP = g V^T and D =
+    sum_j P dP, dS = P (dP - D), dq = scale dS K, dk = scale dS^T q and
+    dv = P^T g."""
+    B, T, H, hd = q.shape
+    K = k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    dq = torch.empty_like(q)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros_like(dk)
+    for t0 in range(0, T, q_chunk):
+        t1 = min(t0 + q_chunk, T)
+        lo, qb, kb, vb, _, p = _swa_chunk(q, k, v, t0, t1, window)
+        gb = g[:, t0:t1].float().reshape(qb.shape)
+        dp = torch.einsum("bqkgd,bskd->bkgqs", gb, vb)
+        ds = p * (dp - (p * dp).sum(-1, keepdim=True)) * scale
+        dq[:, t0:t1] = torch.einsum("bkgqs,bskd->bqkgd", ds, kb).reshape(
+            B, t1 - t0, H, hd).to(q.dtype)
+        dk[:, lo:t1] += torch.einsum("bkgqs,bqkgd->bskd", ds, qb)
+        dv[:, lo:t1] += torch.einsum("bkgqs,bqkgd->bskd", p, gb)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+def swa_attention_jvp_ref(q, k, v, tq, tk, tv, window: int, *,
+                          q_chunk: int = 512):
+    """Plain version of the attention's jvp kernel: the tangent of
+    ``swa_attention_ref`` (q_offset 0) for tangents (tq, tk, tv), in q's
+    dtype.  Chunked over queries as ``swa_attention_ref``, in f32, written
+    out rather than taken by ``torch.func.jvp``, which cannot run inside
+    ``torch.func.linearize``'s trace (forward AD does not nest): with ds =
+    scale (tq.k + q.tk), dP = P (ds - sum_j P ds) and d(PV) = dP V + P tv.
+    """
+    B, T, H, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    out = torch.empty_like(q)
+    for t0 in range(0, T, q_chunk):
+        t1 = min(t0 + q_chunk, T)
+        lo, qb, kb, vb, mask, p = _swa_chunk(q, k, v, t0, t1, window)
+        tqb = tq[:, t0:t1].float().reshape(qb.shape)
+        tkb, tvb = tk[:, lo:t1].float(), tv[:, lo:t1].float()
+        ds = (torch.einsum("bqkgd,bskd->bkgqs", tqb, kb)
+              + torch.einsum("bqkgd,bskd->bkgqs", qb, tkb)) * scale
+        pds = p * torch.where(mask, ds, torch.zeros_like(ds))
+        dp = pds - p * pds.sum(-1, keepdim=True)
+        o = (torch.einsum("bkgqs,bskd->bqkgd", dp, vb)
+             + torch.einsum("bkgqs,bskd->bqkgd", p, tvb))
+        out[:, t0:t1] = o.reshape(B, t1 - t0, H, hd).to(q.dtype)
+    return out

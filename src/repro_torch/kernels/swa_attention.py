@@ -1,4 +1,5 @@
-"""Wrappers of the hand-written Hopper sliding-window attention kernels.
+"""Wrappers of the hand-written Hopper sliding-window attention kernels,
+forward and derivatives.
 
 Port of ``repro.kernels.swa_attention.swa_attention``: the forward of
 sliding-window causal attention, query t over the keys t - window ... t
@@ -9,9 +10,10 @@ h // (H // K), so MQA/GQA K/V are never repeated (the Pallas kernel
 takes them repeated).  Any T, any window >= 0 and hd <= 256 are taken;
 the kernels mask the ragged edge themselves.
 
-Routing, by device and dtype only (never by failure):
+Routing of the forward, by device and dtype only (never by failure):
 
-* CPU tensors: the plain version ``kernels.ref.swa_attention_ref``;
+* CPU tensors: the plain version ``kernels.ref.swa_attention_ref``,
+  differentiated by autograd and ``torch.func``;
 * CUDA bf16 tensors with hd % 8 == 0: the tensor-core kernel
   ``csrc/swa_attention_sm90.cu`` (wgmma + TMA, P.V at f32 accuracy by a
   split P), launched with the geometry of ``swa_geometry``;
@@ -20,16 +22,26 @@ Routing, by device and dtype only (never by failure):
   tensors whose hd is not a multiple of 8, which TMA's 16-byte strides
   cannot describe (no arch in the repo has such an hd).
 
-A CUDA launch that fails to build or launch raises.  The kernels have no
-backward: on CUDA tensors both raise when autograd would record the call
-(``needs_backward``) instead of returning a result with no gradient; the
-plain version on the CPU stays differentiable.  ``q_offset != 0``
+Every CUDA call runs through ``_SwaAttention``, an ``autograd.Function``
+whose derivatives are hand-written kernels too (``csrc/swa_attention_bwd.
+cu``): its backward launches ``swa_attention_vjp``'s dq kernel and then
+its dk/dv kernel, its jvp ``swa_attention_jvp``'s kernel.  Plain autograd,
+``torch.func.jvp``, ``vjp``, ``grad`` and ``linearize`` (NGHF's curvature
+products) run them; under ``torch.no_grad`` (prefill) the Function
+launches the forward kernel alone, the same bits as before it existed.
+The forward and jvp launches are ``torch.library`` custom ops with fake
+implementations, so ``torch.func.linearize``'s trace records them instead
+of baking their output into the graph as a constant.  The derivatives are
+first-order only: a jvp or vjp of them raises.
+
+A CUDA launch that fails to build or launch raises.  ``q_offset != 0``
 (queries past the keys' start; no caller in the repo) is taken by the
 plain version only.
 
-``swa_attention.launches`` counts launches of the tensor-core kernel (the
-bf16 main path) and ``swa_attention.cuda_core_launches`` those of the
-CUDA-core kernel; the plain version counts nothing.
+Launch counts: ``swa_attention.launches`` (the tensor-core kernel, the
+bf16 main path), ``swa_attention.cuda_core_launches`` (the CUDA-core
+kernel), ``swa_attention_vjp.dq_launches`` and ``.dkdv_launches``, and
+``swa_attention_jvp.launches``; the plain versions count nothing.
 """
 from __future__ import annotations
 
@@ -39,6 +51,9 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.functorch_levels import (first_order_only,
+                                               outside_transforms, rewrap,
+                                               unwrap_one_level)
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.lattice_fb import _check_kernel_input, _on_cuda
 
@@ -48,14 +63,21 @@ KEY_TILE = 64       # keys per K/V tile of the tensor-core kernel
 _STORAGE = {torch.float32: 0, torch.bfloat16: 1}
 
 _PTR, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# q k v o | batch seq heads kv_heads hd window | scale | storage | stream
-_CORE_SIGNATURES = {"swa_attention_launch": [_PTR] * 4 + [_INT] * 6
-                    + [_F32, _INT, _PTR]}
+# batch seq heads kv_heads hd window | scale | storage | stream: the
+# shape arguments of every launcher but the tensor-core one's
+_SHAPE = [_INT] * 6 + [_F32, _INT, _PTR]
+# q k v o | shape
+_CORE_SIGNATURES = {"swa_attention_launch": [_PTR] * 4 + _SHAPE}
 # q k v o | batch seq heads kv_heads hd window | queries heads head_tiles
 # hd_pad grid_x grid_y | scale | stream
 _SM90_SIGNATURES = {"swa_attention_sm90_launch": [_PTR] * 4 + [_INT] * 12
                     + [_F32, _PTR],
                     "swa_attention_sm90_smem_bytes": [_INT]}
+# q k v g dq lse dd | q k v g lse dd dk dv | q k v tq tk tv tout, then
+# the shape
+_BWD_SIGNATURES = {"swa_attention_dq_launch": [_PTR] * 7 + _SHAPE,
+                   "swa_attention_dkdv_launch": [_PTR] * 8 + _SHAPE,
+                   "swa_attention_jvp_launch": [_PTR] * 7 + _SHAPE}
 
 
 class SwaGeometry(NamedTuple):
@@ -134,34 +156,190 @@ def sm90_smem_bytes(hd_pad: int) -> int:
     return lib.swa_attention_sm90_smem_bytes(hd_pad)
 
 
-def needs_backward(*tensors) -> bool:
-    """True when autograd is on and an input requires grad: the kernels'
-    result would carry no gradient to it, so their wrappers refuse."""
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+def _shape_args(q, k, window: int) -> tuple:
+    """The launchers' shape arguments (``_SHAPE``); the kernels take the
+    window clipped to T."""
+    B, T, H, hd = q.shape
+    return (B, T, H, k.shape[2], hd, min(window, T), 1.0 / math.sqrt(hd),
+            _STORAGE[q.dtype])
 
 
-def _refuse_autograd(name: str, q, k, v) -> None:
-    if needs_backward(q, k, v):
-        raise NotImplementedError(
-            f"{name}: the CUDA kernels have no backward, and q/k/v require "
-            f"grad with autograd on; run under torch.no_grad() (the "
-            f"attention backward is ROADMAP item 1.3)")
+def _forward(q, k, v, window: int, core: bool):
+    """The forward kernels' routing on validated CUDA inputs (``core``
+    forces the CUDA-core kernel), or the plain version on CPU inputs."""
+    if not q.is_cuda:
+        return ref.swa_attention_ref(q, k, v, window)
+    out = torch.empty_like(q)
+    if core or q.dtype != torch.bfloat16 or q.shape[3] % 8:
+        build.launch("swa_attention", _CORE_SIGNATURES,
+                     "swa_attention_launch", q.device, q.data_ptr(),
+                     k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     *_shape_args(q, k, window))
+        swa_attention.cuda_core_launches += 1
+        return out
+    for arg, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"swa_attention: {arg} is not 16-byte aligned, "
+                             f"as the tensor-core kernel's TMA loads need")
+    _launch_sm90(q, k, v, out, window)
+    return out
+
+
+def _check_like(name: str, ts: dict, q) -> None:
+    for arg, t in ts.items():
+        _check_kernel_input(name, arg, t, q.dtype)
+
+
+def launch_dq(q, k, v, g, window: int) -> tuple:
+    """The backward's first kernel on checked CUDA inputs: (dq, lse, dd),
+    lse and dd each row's log-sum-exp and D = sum_j P dP as (B, H, T)
+    f32.  Counts ``swa_attention_vjp.dq_launches``."""
+    B, T, H, _ = q.shape
+    dq = torch.empty_like(q)
+    lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
+    dd = torch.empty_like(lse)
+    build.launch("swa_attention_bwd", _BWD_SIGNATURES,
+                 "swa_attention_dq_launch", q.device, q.data_ptr(),
+                 k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(),
+                 lse.data_ptr(), dd.data_ptr(), *_shape_args(q, k, window))
+    swa_attention_vjp.dq_launches += 1
+    return dq, lse, dd
+
+
+def launch_dkdv(q, k, v, g, lse, dd, window: int) -> tuple:
+    """The backward's second kernel on checked CUDA inputs and
+    ``launch_dq``'s lse and dd: (dk, dv).  Counts
+    ``swa_attention_vjp.dkdv_launches``."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    build.launch("swa_attention_bwd", _BWD_SIGNATURES,
+                 "swa_attention_dkdv_launch", q.device, q.data_ptr(),
+                 k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                 dd.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 *_shape_args(q, k, window))
+    swa_attention_vjp.dkdv_launches += 1
+    return dk, dv
+
+
+def swa_attention_vjp(q, k, v, g, window: int):
+    """The backward of ``swa_attention`` (q_offset 0): (dq, dk, dv) for
+    the output's cotangent ``g`` (B, T, H, hd).  CUDA tensors (contiguous,
+    all of q's dtype) launch the dq kernel (``launch_dq``) and then the
+    dk/dv kernel (``launch_dkdv``) of ``csrc/swa_attention_bwd.cu``; CPU
+    tensors take ``ref.swa_attention_vjp_ref``."""
+    name = "swa_attention_vjp"
+    if not _on_cuda(name, q, k, v, g):
+        return ref.swa_attention_vjp_ref(q, k, v, g, window)
+    _check_like(name, {"q": q, "k": k, "v": v, "g": g}, q)
+    dq, lse, dd = launch_dq(q, k, v, g, window)
+    return (dq,) + launch_dkdv(q, k, v, g, lse, dd, window)
+
+
+def swa_attention_jvp(q, k, v, tq, tk, tv, window: int):
+    """The forward-mode derivative of ``swa_attention`` (q_offset 0): the
+    output's tangent for tangents (tq, tk, tv) of (q, k, v).  CUDA tensors
+    (contiguous, all of q's dtype) launch the jvp kernel, counting
+    ``launches``; CPU tensors take ``ref.swa_attention_jvp_ref``."""
+    name = "swa_attention_jvp"
+    if not _on_cuda(name, q, k, v, tq, tk, tv):
+        return ref.swa_attention_jvp_ref(q, k, v, tq, tk, tv, window)
+    _check_like(name, {"q": q, "k": k, "v": v, "tq": tq, "tk": tk,
+                       "tv": tv}, q)
+    out = torch.empty_like(q)
+    build.launch("swa_attention_bwd", _BWD_SIGNATURES,
+                 "swa_attention_jvp_launch", q.device, q.data_ptr(),
+                 k.data_ptr(), v.data_ptr(), tq.data_ptr(), tk.data_ptr(),
+                 tv.data_ptr(), out.data_ptr(), *_shape_args(q, k, window))
+    swa_attention_jvp.launches += 1
+    return out
+
+
+# The forward and jvp launches are custom ops, so that
+# ``torch.func.linearize``'s trace (``make_fx``) records them as operations
+# of its graph: a ctypes launch inside the trace would be invisible to it,
+# and the graph would replay the output the trace saw for every later
+# tangent.  Nothing traces a backward, which launches directly (autograd
+# does not run inside a custom op, and the CPU path's plain backward is
+# autograd's).
+@torch.library.custom_op("repro_torch::swa_attention_fwd", mutates_args=())
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
+            core: bool) -> torch.Tensor:
+    return _forward(q, k, v, window, core)
+
+
+@_fwd_op.register_fake
+def _(q, k, v, window, core):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("repro_torch::swa_attention_jvp", mutates_args=())
+def _jvp_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            tq: torch.Tensor, tk: torch.Tensor, tv: torch.Tensor,
+            window: int) -> torch.Tensor:
+    return swa_attention_jvp(q, k, v, tq, tk, tv, window)
+
+
+@_jvp_op.register_fake
+def _(q, k, v, tq, tk, tv, window):
+    return torch.empty_like(q)
+
+
+class _SwaAttention(torch.autograd.Function):
+    """``swa_attention`` on validated inputs (q_offset 0, as many keys as
+    queries) with kernel derivatives.  ``core`` forces the CUDA-core
+    forward kernel.  It saves q, k and v; the backward and jvp remove
+    ``torch.func``'s wrapper (``unwrap_one_level``), launch outside the
+    transforms and rewrap.  First order only (``first_order_only``)."""
+
+    @staticmethod
+    def forward(q, k, v, window: int, core: bool):
+        return _fwd_op(q, k, v, window, core)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, window, _ = inputs
+        ctx.window = window
+        ctx.save_for_backward(q, k, v)
+        ctx.save_for_forward(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        (q, k, v, g), level = unwrap_one_level(ctx.saved_tensors + (g,))
+        first_order_only((q, k, v, g), 0, "windowed attention")
+        with outside_transforms():
+            grads = swa_attention_vjp(q, k, v, g.contiguous(), ctx.window)
+        return tuple(rewrap(t, level) for t in grads) + (None, None)
+
+    @staticmethod
+    def jvp(ctx, tq, tk, tv, *_):
+        (q, k, v, tq, tk, tv), level = unwrap_one_level(
+            ctx.saved_tensors + (tq, tk, tv))
+        first_order_only((q, k, v, tq, tk, tv), 0, "windowed attention")
+        with outside_transforms():
+            tangents = [torch.zeros_like(x) if t is None else t.contiguous()
+                        for x, t in ((q, tq), (k, tk), (v, tv))]
+            out = _jvp_op(q, k, v, *tangents, ctx.window)
+        return rewrap(out, level)
+
+
+def _validate(name: str, q, k, v) -> None:
+    if q.dtype not in _STORAGE:
+        raise TypeError(f"{name}: q is {q.dtype}, the kernel takes float32 "
+                        f"or bfloat16")
+    if q.shape[3] > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {q.shape[3]} > {MAX_HEAD_DIM}")
+    for arg, t in (("q", q), ("k", k), ("v", v)):
+        _check_kernel_input(name, arg, t, q.dtype)
 
 
 def cuda_core_swa_attention(q, k, v, window: int):
-    """The CUDA-core kernel (``csrc/swa_attention.cu``) on CUDA q (B, T,
-    H, hd), k/v (B, T, K, hd), f32 or bf16; the wrapper sends it f32
+    """``swa_attention`` through the CUDA-core forward kernel
+    (``csrc/swa_attention.cu``) on CUDA q (B, T, H, hd), k/v (B, T, K,
+    hd), f32 or bf16, whatever the dtype; ``swa_attention`` sends it f32
     inputs and bf16 inputs with hd % 8 != 0.  Counts
-    ``swa_attention.cuda_core_launches``; raises where ``needs_backward``."""
-    _refuse_autograd("cuda_core_swa_attention", q, k, v)
-    B, T, H, hd = q.shape
-    out = torch.empty_like(q)
-    build.launch("swa_attention", _CORE_SIGNATURES, "swa_attention_launch",
-                 q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), B, T, H, k.shape[2], hd, min(window, T),
-                 1.0 / math.sqrt(hd), _STORAGE[q.dtype])
-    swa_attention.cuda_core_launches += 1
-    return out
+    ``swa_attention.cuda_core_launches``; differentiable as
+    ``swa_attention``."""
+    _validate("cuda_core_swa_attention", q, k, v)
+    return _SwaAttention.apply(q, k, v, window, True)
 
 
 def swa_attention(q, k, v, window: int, *, q_chunk: int = 512,
@@ -185,36 +363,26 @@ def swa_attention(q, k, v, window: int, *, q_chunk: int = 512,
     if not _on_cuda(name, q, k, v):
         return ref.swa_attention_ref(q, k, v, window, q_chunk=q_chunk,
                                      q_offset=q_offset)
-    _refuse_autograd(name, q, k, v)
     if q_offset != 0 or S != T:
         raise NotImplementedError(
             f"{name}: the kernel takes q_offset 0 and as many keys as "
             f"queries (got q_offset {q_offset}, T {T}, S {S})")
-    if q.dtype not in _STORAGE:
-        raise TypeError(f"{name}: q is {q.dtype}, the kernel takes float32 "
-                        f"or bfloat16")
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head dim {hd} > {MAX_HEAD_DIM}")
-    for arg, t in (("q", q), ("k", k), ("v", v)):
-        _check_kernel_input(name, arg, t, q.dtype)
-    if q.dtype != torch.bfloat16 or hd % 8:
-        return cuda_core_swa_attention(q, k, v, window)
-    for arg, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: {arg} is not 16-byte aligned, as "
-                             f"the tensor-core kernel's TMA loads need")
-    out = torch.empty_like(q)
-    _launch_sm90(q, k, v, out, window)
-    return out
+    _validate(name, q, k, v)
+    return _SwaAttention.apply(q, k, v, window, False)
 
 
 swa_attention.launches = 0
 swa_attention.cuda_core_launches = 0
+swa_attention_vjp.dq_launches = 0
+swa_attention_vjp.dkdv_launches = 0
+swa_attention_jvp.launches = 0
 
-KERNELS = (swa_attention,)
+KERNELS = (swa_attention, swa_attention_jvp)
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
     swa_attention.cuda_core_launches = 0
+    swa_attention_vjp.dq_launches = 0
+    swa_attention_vjp.dkdv_launches = 0

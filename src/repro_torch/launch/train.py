@@ -23,13 +23,17 @@ run continues exactly).
         --arch granite-moe-3b-a800m --smoke --device cpu --steps 2
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \
         --smoke --device cpu --steps 2
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch recurrentgemma-9b --smoke --device cpu --steps 1
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x22b \
+        --smoke --device cpu --steps 1
 
 ``device`` defaults to ``"cuda"`` and raises without a card; pass
 ``device="cpu"`` (with ``smoke=True`` for the reduced geometry) to run
 the plain PyTorch versions of the kernels on the CPU.  ``mesh`` raises
 ``NotImplementedError`` until the distribution slice (ROADMAP 1.4).  The
-LM archs that train are ``LM_TRAIN_ARCHS``; the others raise, naming
-ROADMAP 1.3.
+LM archs that train are ``LM_TRAIN_ARCHS``, every registered one; another
+name raises, naming ROADMAP 1.3.
 """
 from __future__ import annotations
 
@@ -56,14 +60,14 @@ from repro_torch.models.registry import get_model
 # have no ``lr`` field)
 SEQ_DEFAULT_LR = {"sgd": 0.2, "adam": 2e-3}
 LM_DEFAULT_LR = {"sgd": 0.3, "adam": 3e-4}
-# the LM archs the port trains; recurrentgemma-9b and mixtral-8x22b serve
-# only (their windowed attention has no backward on the card, and their
-# f32 parameters, 41.8 and 562.5 GB, leave no room for the CG state on
-# one card).  An arch whose state does not fit the card runs out of its
-# memory.
+# the LM archs the port trains: every registered one, as the reference's
+# driver.  An arch whose state does not fit the card runs out of its
+# memory: NGHF on recurrentgemma-9b (10.4 B parameters) and mixtral-8x22b
+# (140.6 B) at full width waits for distribution (ROADMAP 1.4).
 LM_TRAIN_ARCHS = ("whisper-base", "stablelm-1.6b", "qwen2.5-3b",
                   "minitron-8b", "chameleon-34b", "qwen2-72b",
-                  "granite-moe-3b-a800m", "xlstm-125m")
+                  "granite-moe-3b-a800m", "xlstm-125m",
+                  "recurrentgemma-9b", "mixtral-8x22b")
 
 
 def parse_sample_schedule(sched):
@@ -285,8 +289,7 @@ def evaluate_sequence(acfg, params, *, loss="mpe", kappa=0.5, frames=32,
 def main(argv=None):
     """The training CLI; returns the log.  ``*-asr`` archs run
     ``train_sequence``, the LM archs of ``LM_TRAIN_ARCHS`` (or
-    ``lm-<arch>``) ``train_lm``; the other LM archs raise, naming
-    ROADMAP 1.3."""
+    ``lm-<arch>``) ``train_lm``."""
     lm_archs = arch_configs.list_archs() + list(arch_configs.NOT_PORTED)
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-3b",
@@ -294,8 +297,7 @@ def main(argv=None):
                              + sorted(ASR_ARCHS)),
                     help="architecture id; '*-asr' ids run lattice "
                     "sequence training, LM ids (or 'lm-<arch>') LM "
-                    f"training ({', '.join(LM_TRAIN_ARCHS)}; the others "
-                    "raise until ported)")
+                    "training")
     ap.add_argument("--optimizer", default="nghf",
                     choices=list_optimizers())
     ap.add_argument("--steps", type=int, default=10)

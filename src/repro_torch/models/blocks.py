@@ -33,8 +33,10 @@ from collections import OrderedDict
 
 import torch
 import torch.nn.functional as F
-from torch._C import _functorch
 
+from repro_torch.core.functorch_levels import (first_order_only,
+                                               outside_transforms, rewrap,
+                                               unwrap_one_level, wrapped)
 from repro_torch.models import layers as L
 
 # ---------------------------------------------------------------------------
@@ -204,24 +206,89 @@ def _rglru_gates(p, u):
     return log_a, beta * ig * uf
 
 
+def _doubling_scan(a, h, *, reverse: bool = False):
+    """h_t = a_t h_{t-1} + h_t over dim 1 (from the last step down with
+    ``reverse``: h_t = a_t h_{t+1} + h_t): a log-depth doubling scan in f32
+    (ceil(log2 T) passes, 15 at T = 32768); pass s folds each (a, h) pair
+    with the one 2^s steps earlier (later with ``reverse``).  No buffer is
+    written in place: ``torch.func.linearize`` traces the scan, and its
+    constant folding drops writes into a tensor whose result goes unused.
+    Writing the passes in place would give the same bits."""
+    T = h.shape[1]
+    shift = 1
+    while shift < T:
+        pad = (0, 0, 0, shift) if reverse else (0, 0, shift, 0)
+        part = (slice(None), slice(shift, None) if reverse
+                else slice(None, -shift))
+        h = h + a * F.pad(h[part], pad)
+        if 2 * shift < T:
+            a = a * F.pad(a[part], pad, value=1.0)
+        shift *= 2
+    return h
+
+
+def _previous(h):
+    """h_{t-1} along dim 1, 0 at t = 0."""
+    return F.pad(h[:, :-1], (0, 0, 1, 0))
+
+
+class _LinearScan(torch.autograd.Function):
+    """h_t = a_t h_{t-1} + x_t from h_{-1} = 0, over dim 1 of (B, T, rg)
+    f32 tensors, with hand-written derivatives.  Autograd through the
+    doubling scan would save two (B, T, rg) tensors a pass (15 passes at
+    T = 32768); the derivatives are the same scan instead:
+
+    * backward: the cotangent runs the scan in reverse, lambda_t = g_t +
+      a_{t+1} lambda_{t+1}; then dx = lambda and da_t = lambda_t h_{t-1};
+    * jvp: the forward scan of da_t h_{t-1} + dx_t.
+
+    It saves a and h alone.  Its derivatives are first-order only
+    (``first_order_only``)."""
+
+    @staticmethod
+    def forward(a, x):
+        h = _doubling_scan(a, x)
+        return h.clone() if h is x else h            # T = 1
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        a, _ = inputs
+        ctx.save_for_backward(a, output)
+        ctx.save_for_forward(a, output)
+
+    @staticmethod
+    def jvp(ctx, d_a, d_x):
+        (a, h, d_a, d_x), level = unwrap_one_level(ctx.saved_tensors
+                                                   + (d_a, d_x))
+        first_order_only((a, h, d_a, d_x), 0, "RG-LRU scan")
+        with outside_transforms():
+            drive = torch.zeros_like(h) if d_x is None else d_x
+            if d_a is not None:
+                drive = drive + d_a * _previous(h)
+            d_h = _doubling_scan(a, drive)
+        return rewrap(d_h, level)
+
+    @staticmethod
+    def backward(ctx, g):
+        (a, h, g), level = unwrap_one_level(ctx.saved_tensors + (g,))
+        first_order_only((a, h, g), 0, "RG-LRU scan")
+        with outside_transforms():
+            a_next = F.pad(a[:, 1:], (0, 0, 0, 1))
+            lam = _doubling_scan(a_next, g, reverse=True)
+            d_a = lam * _previous(h)
+        return rewrap(d_a, level), rewrap(lam, level)
+
+
 def rglru_scan(p, u):
     """RG-LRU over time, h_t = a_t h_{t-1} + x_t, u: (B,T,rg).
 
     The reference's ``jax.lax.associative_scan`` becomes a log-depth
-    doubling scan in f32 (ceil(log2 T) passes, 15 at T = 32768): pass s
-    folds each (a, h) pair with the one 2^s steps earlier.  It combines
-    the same pairs in another tree than XLA's, so it agrees with the
-    reference to f32 rounding, not bitwise."""
-    log_a, h = _rglru_gates(p, u)
-    a = torch.exp(log_a)
-    T = u.shape[1]
-    shift = 1
-    while shift < T:
-        h[:, shift:] = h[:, shift:] + a[:, shift:] * h[:, :-shift]
-        if 2 * shift < T:
-            a[:, shift:] = a[:, shift:] * a[:, :-shift]
-        shift *= 2
-    return h.to(u.dtype)
+    doubling scan in f32 (``_LinearScan``, differentiated by hand).  It
+    combines the same pairs in another tree than XLA's, so it agrees with
+    the reference to f32 rounding, not bitwise.  The gates stay plain
+    PyTorch under autograd."""
+    log_a, x = _rglru_gates(p, u)
+    return _LinearScan.apply(torch.exp(log_a), x).to(u.dtype)
 
 
 def rglru_block_apply(cfg, p, x, positions):
@@ -550,7 +617,7 @@ def _scan(step, consts, state, xs, n_ys, *, reverse=False, chunk=64):
     the same bits.  The outputs are concatenated, never written into a
     buffer in place, so that ``torch.func.linearize`` can trace them."""
     T = xs[0].shape[0]
-    full = T // chunk if xs[0].is_cuda and not _wrapped(xs[0]) else 0
+    full = T // chunk if xs[0].is_cuda and not wrapped(xs[0]) else 0
     graphed = (range(T - full * chunk, T) if reverse
                else range(full * chunk))
     pieces = []                                 # in the order they run
@@ -580,44 +647,6 @@ def _scan(step, consts, state, xs, n_ys, *, reverse=False, chunk=64):
                         for k in range(n_ys))
 
 
-def _wrapped(t) -> bool:
-    return _functorch.is_functorch_wrapped_tensor(t)
-
-
-def _unwrap_one_level(tensors):
-    """``torch.func.jvp`` hands a custom jvp its tangents and saved tensors
-    wrapped at its level, and every operation on them then passes through
-    its dispatch (and cannot be captured in a CUDA graph).  Returns the
-    tensors with that one level's wrapper removed and the level, or the
-    tensors and None when they are not all wrapped at one level."""
-    levels = {_functorch.maybe_get_level(t) if _wrapped(t) else None
-              for t in tensors if t is not None}
-    if len(levels) != 1 or None in levels:
-        return tensors, None
-    (level,) = levels
-    return tuple(None if t is None else _functorch._unwrap_for_grad(t, level)
-                 for t in tensors), level
-
-
-def _first_order_only(tensors, own: int):
-    """``_SLSTMScan``'s derivatives read its saved states as constants, so
-    they are right to first order only: raises when they would run under
-    a further transform, that is when a tensor has more ``torch.func``
-    wrappers than the derivative's own transform leaves (``own``: none in
-    the jvp, which removed its own; one in the backward), or when
-    autograd records the tensor inside them."""
-    for t in tensors:
-        if t is None:
-            continue
-        wrappers = 0
-        while _wrapped(t):
-            wrappers, t = wrappers + 1, _functorch.get_unwrapped(t)
-        if wrappers > own or (torch.is_grad_enabled() and t.requires_grad):
-            raise NotImplementedError(
-                "the sLSTM's derivatives are first-order only: a jvp or "
-                "vjp of slstm_block_apply cannot itself be differentiated")
-
-
 def _tie_weight(x, y):
     """d max(x, y) / dx as JAX's maximum has it: 1, 0.5 at a tie, or 0."""
     return (x > y).to(x.dtype) + 0.5 * (x == y).to(x.dtype)
@@ -645,9 +674,9 @@ class _SLSTMScan(torch.autograd.Function):
     as JAX's maximum does (m_t = max(log_f + m, log_i); the normaliser
     max(n_t, 1) is exactly 1 at the first step).  All three loops run
     through ``_scan`` (CUDA graphs on the card); the jvp first removes
-    ``torch.func.jvp``'s wrapper from its inputs (``_unwrap_one_level``)
+    ``torch.func.jvp``'s wrapper from its inputs (``unwrap_one_level``)
     and puts its result back at that level.  The derivatives are
-    first-order only (``_first_order_only``): ``torch.func.jvp``,
+    first-order only (``first_order_only``): ``torch.func.jvp``,
     ``vjp``, ``grad``, ``linearize`` and ``torch.autograd.grad`` run them,
     and a derivative of them raises."""
 
@@ -685,9 +714,9 @@ class _SLSTMScan(torch.autograd.Function):
     @staticmethod
     def jvp(ctx, d_pre_x, d_R):
         wrapped_hs = ctx.saved_tensors[1]
-        (R, hs, pre, cs, ns, ms, d_pre_x, d_R), level = _unwrap_one_level(
+        (R, hs, pre, cs, ns, ms, d_pre_x, d_R), level = unwrap_one_level(
             ctx.saved_tensors + (d_pre_x, d_R))
-        _first_order_only((R, hs, pre, cs, ns, ms, d_pre_x, d_R), 0)
+        first_order_only((R, hs, pre, cs, ns, ms, d_pre_x, d_R), 0, "sLSTM")
         k = _SLSTMScan._coefficients(hs, pre, cs, ns, ms)
         drive = torch.zeros_like(pre) if d_pre_x is None else d_pre_x
         if d_R is not None:
@@ -703,7 +732,7 @@ class _SLSTMScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_hs, *_):
         R, hs, pre, cs, ns, ms = ctx.saved_tensors
-        _first_order_only((R, hs, pre, cs, ns, ms, g_hs), 1)
+        first_order_only((R, hs, pre, cs, ns, ms, g_hs), 1, "sLSTM")
         k = _SLSTMScan._coefficients(hs, pre, cs, ns, ms)
         zero = torch.zeros_like(hs[0])
         state = (zero, zero, zero, zero, torch.zeros_like(pre[0]))

@@ -56,6 +56,17 @@ KEYS = ("cg_accepted", "cg_best_iter", "cg_best_loss", "cg_losses",
         "cg_curv", "update_norm", "grad_norm", "logZ")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """PyTorch on one thread for this module: beside the suite's parallel
+    workers the default thread pool oversubscribes the cores and
+    multiplies the file's time."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def ce_start_update(hidden: int = HIDDEN) -> dict:
     """CE-pretrain in the reference, then one NGHF update in each
     package; {"jax": metrics, "torch": metrics} as numpy."""

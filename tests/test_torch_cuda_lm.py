@@ -146,26 +146,44 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_refuse_autograd(cuda, dtype):
-    """The kernels have no backward: with autograd on and an input that
-    requires grad, ``swa_attention`` (both routes) and
-    ``cuda_core_swa_attention`` raise, naming ROADMAP item 1.3, and launch
-    nothing; under ``torch.no_grad`` the same inputs run."""
+    """The kernels refused autograd until their derivatives were written
+    (ROADMAP 1.3.3); now gradients flow.  With autograd on and inputs that
+    require grad, ``swa_attention`` (both routes) and
+    ``cuda_core_swa_attention`` launch their forward kernel, and a backward
+    launches the dq and dk/dv kernels once each, with gradients equal to
+    the plain version's (f32 relative L2 1e-5; bf16 within 1.5 x the
+    plain bf16 gradient's distance from the f32 one); under
+    ``torch.no_grad`` the same inputs give the same bits and no graph."""
     q, k, v = _qkv(cuda, 1, 40, 4, 2, 64, dtype)
-    for t in (q, k, v):
-        t.requires_grad_()
-    counts = _counts()
-    for fn in (SWA.swa_attention, SWA.cuda_core_swa_attention):
-        with pytest.raises(NotImplementedError, match="1.3"):
-            fn(q, k, v, 16)
-    assert _counts() == counts
-    with pytest.raises(NotImplementedError, match="1.3"):
-        SWA.swa_attention(q.detach(), k.detach(), v, 16)
-    with torch.no_grad():
-        got = SWA.swa_attention(q, k, v, 16)
-    torch.cuda.synchronize()
+    g = torch.randn_like(q)
+    plain = R.swa_attention_vjp_ref(q, k, v, g, 16)
+    plain32 = R.swa_attention_vjp_ref(q.float(), k.float(), v.float(),
+                                      g.float(), 16)
     tc = int(dtype == torch.bfloat16)
-    assert _counts() == (counts[0] + tc, counts[1] + 1 - tc)
-    assert got.grad_fn is None
+    for fn, core in ((SWA.swa_attention, 1 - tc),
+                     (SWA.cuda_core_swa_attention, 1)):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        counts = _counts()
+        bwd = (SWA.swa_attention_vjp.dq_launches,
+               SWA.swa_attention_vjp.dkdv_launches)
+        out = fn(*leaves, 16)
+        assert out.grad_fn is not None
+        out.backward(g)
+        torch.cuda.synchronize()
+        assert _counts() == (counts[0] + 1 - core, counts[1] + core)
+        assert (SWA.swa_attention_vjp.dq_launches,
+                SWA.swa_attention_vjp.dkdv_launches) == (bwd[0] + 1,
+                                                         bwd[1] + 1)
+        for x, p, p32 in zip(leaves, plain, plain32):
+            err = float((x.grad.float() - p32.float()).norm() / p32.norm())
+            if dtype == torch.float32:
+                assert err <= 1e-5
+            else:
+                assert err <= 1.5 * float((p.float() - p32).norm()
+                                          / p32.norm())
+        with torch.no_grad():
+            quiet = fn(*leaves, 16)
+        assert quiet.grad_fn is None and torch.equal(quiet, out.detach())
 
 
 def test_smoke_prefill_and_serve_on_the_card_match_the_cpu(cuda):

@@ -2,7 +2,7 @@
 width against the same calls on the CPU, the sliding-window attention
 kernels at mixtral-8x22b's head geometry against their plain version,
 the smoke models' prefill and decode against the CPU's, and mixtral's
-training refused by the attention kernels' autograd guard.
+training through the attention's derivative kernels.
 
 These tests need a CUDA card and skip without one (decided inside the
 ``cuda`` fixture, never at import).  They import no JAX, so they run on
@@ -132,9 +132,10 @@ def test_smoke_forward_and_decode_match_the_cpu(cuda, arch, impl):
 
 def test_mixtral_training_meets_the_autograd_guard(cuda):
     """An NGHF step of mixtral's smoke model on the card: the gradient
-    stage differentiates through the windowed attention, whose kernels
-    have no backward, so the step raises naming ROADMAP item 1.3 (§3.1)
-    and launches no attention kernel; granite's runs."""
+    stage differentiates through the windowed attention, which met an
+    autograd guard until its derivative kernels were written (ROADMAP
+    1.3.3); now the step runs through them (the dq, dk/dv and jvp kernels
+    launch) with finite metrics, as granite's does without them."""
     for arch in (MIXTRAL, GRANITE):
         cfg = get_config(arch).smoke()
         params = get_model(cfg).init(0, device=cuda)
@@ -142,14 +143,13 @@ def test_mixtral_training_meets_the_autograd_guard(cuda):
                                ng_iters=1)
         batch = lm_batch(0, batch=4, seq_len=32, vocab=cfg.vocab_size,
                          device=cuda)
-        n = (SWA.swa_attention.launches,
-             SWA.swa_attention.cuda_core_launches)
-        if arch == MIXTRAL:
-            with pytest.raises(NotImplementedError, match="1.3"):
-                step(params, opt.init(params), batch)
-            assert (SWA.swa_attention.launches,
-                    SWA.swa_attention.cuda_core_launches) == n
-        else:
-            _, _, m = step(params, opt.init(params), batch)
-            assert all(torch.isfinite(torch.as_tensor(v)).all()
-                       for v in m.values())
+        n = (SWA.swa_attention_vjp.dkdv_launches,
+             SWA.swa_attention_jvp.launches)
+        _, _, m = step(params, opt.init(params), batch)
+        torch.cuda.synchronize()
+        assert all(torch.isfinite(torch.as_tensor(v)).all()
+                   for v in m.values())
+        launched = (SWA.swa_attention_vjp.dkdv_launches > n[0],
+                    SWA.swa_attention_jvp.launches > n[1])
+        assert launched == ((True, True) if arch == MIXTRAL
+                            else (False, False))

@@ -1,0 +1,234 @@
+"""The windowed attention's derivative kernels on a card
+(``csrc/swa_attention_bwd.cu``): the backward's dq and dk/dv kernels
+(``swa_attention_vjp``) and the jvp kernel (``swa_attention_jvp``) against
+their plain versions (``kernels.ref.swa_attention_vjp_ref`` and
+``swa_attention_jvp_ref``) on adversarial shapes, bitwise on a repeat; the
+no-grad forward through the autograd Function bitwise equal to the direct
+launch; ``torch.func.linearize``'s tangent at two vectors; second order
+raising; and the smoke models' curvature products and NGHF step through
+the kernels against the CPU's plain path.
+
+These tests need a CUDA card and skip without one (decided inside the
+``cuda`` fixture, never at import).  They import no JAX:
+
+    PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda_swa_train.py
+
+Limits, per output tensor: f32 relative L2 1e-5 against the plain version
+(the same f32 arithmetic, sums in another order); bf16 no farther, in
+relative L2, from the plain version on the inputs upcast to f32 than the
+plain version in bf16 is, times 1.5 (the rule of ``chip_smoke.py``'s
+logits check), plus 1e-6.  No atomics, so a repeat launch is bitwise equal.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+pytestmark = pytest.mark.cuda
+
+from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.core.curvature import make_curvature_ops  # noqa: E402
+from repro_torch.data.synthetic import lm_batch  # noqa: E402
+from repro_torch.kernels import ref as R  # noqa: E402
+from repro_torch.kernels import swa_attention as SWA  # noqa: E402
+from repro_torch.launch.steps import build_step, lm_forward  # noqa: E402
+from repro_torch.losses.chunked_lm import ChunkedCELoss  # noqa: E402
+from repro_torch.models.registry import get_model  # noqa: E402
+
+F32_REL_L2 = 1e-5
+BF16_FACTOR = 1.5
+# added to the bf16 limit: where the plain bf16 result is exact (window
+# 0's tangent is tv itself), the kernel keeps only its f32 sums' rounding
+BF16_FLOOR = 1e-6
+# (B, T, H, K, hd, window): T = 1, T <= window, ragged T, window 0, a window
+# past T, MHA/GQA/MQA, hd 32-256, G = H / K of 1, 2, 3, 4 and 16
+CASES = [
+    (1, 1, 4, 4, 64, 16),
+    (2, 100, 4, 1, 64, 128),
+    (2, 333, 8, 2, 128, 64),
+    (1, 200, 2, 2, 256, 0),
+    (1, 300, 4, 4, 32, 1000),
+    (1, 513, 4, 4, 80, 96),
+    (1, 300, 6, 2, 64, 37),
+    (2, 9, 32, 2, 256, 100),
+    (1, 1100, 16, 1, 256, 200),
+]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _inputs(dev, B, T, H, K, hd, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(B, T, h, hd, generator=gen, device=dev).to(dtype)
+            for h in (H, K, K, H, K, K, H)]
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    num = float(torch.linalg.vector_norm(a - b))
+    den = float(torch.linalg.vector_norm(b))
+    return num / den if den > 0 else (0.0 if num == 0 else float("inf"))
+
+
+def _check(tag, got, plain, plain32, dtype):
+    """got and plain: the kernel's and the plain version's tensors in
+    ``dtype``; plain32: the plain version on the inputs upcast to f32."""
+    for name, a, p, p32 in zip(("dq", "dk", "dv", "dO"), got, plain,
+                               plain32):
+        assert a.dtype == dtype and a.shape == p.shape, (tag, name)
+        assert bool(torch.isfinite(a).all()), (tag, name)
+        if dtype == torch.float32:
+            assert _rel_l2(a, p) <= F32_REL_L2, (tag, name, _rel_l2(a, p))
+        else:
+            limit = BF16_FACTOR * _rel_l2(p, p32) + BF16_FLOOR
+            assert _rel_l2(a, p32) <= limit, (tag, name, _rel_l2(a, p32),
+                                              limit)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,K,hd,window", CASES)
+def test_backward_kernels_match_plain_version(cuda, B, T, H, K, hd, window,
+                                              dtype):
+    q, k, v, _, _, _, g = _inputs(cuda, B, T, H, K, hd, dtype, T + hd)
+    n = (SWA.swa_attention_vjp.dq_launches,
+         SWA.swa_attention_vjp.dkdv_launches)
+    got = SWA.swa_attention_vjp(q, k, v, g, window)
+    again = SWA.swa_attention_vjp(q, k, v, g, window)
+    torch.cuda.synchronize()
+    assert (SWA.swa_attention_vjp.dq_launches,
+            SWA.swa_attention_vjp.dkdv_launches) == (n[0] + 2, n[1] + 2)
+    plain = R.swa_attention_vjp_ref(q, k, v, g, window)
+    plain32 = R.swa_attention_vjp_ref(*(x.float() for x in (q, k, v, g)),
+                                      window)
+    _check((B, T, H, K, hd, window), got, plain, plain32, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,K,hd,window", CASES)
+def test_jvp_kernel_matches_plain_version(cuda, B, T, H, K, hd, window,
+                                          dtype):
+    q, k, v, tq, tk, tv, _ = _inputs(cuda, B, T, H, K, hd, dtype, T + H)
+    n = SWA.swa_attention_jvp.launches
+    got = SWA.swa_attention_jvp(q, k, v, tq, tk, tv, window)
+    again = SWA.swa_attention_jvp(q, k, v, tq, tk, tv, window)
+    torch.cuda.synchronize()
+    assert SWA.swa_attention_jvp.launches == n + 2
+    plain = R.swa_attention_jvp_ref(q, k, v, tq, tk, tv, window)
+    plain32 = R.swa_attention_jvp_ref(
+        *(x.float() for x in (q, k, v, tq, tk, tv)), window)
+    _check((B, T, H, K, hd, window), [got], [plain], [plain32], dtype)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_function_forward_is_the_direct_launch(cuda, dtype):
+    """Under ``torch.no_grad`` and under autograd the Function's output is
+    bitwise the forward kernel's direct launch; gradients then flow
+    through the backward kernels to all three inputs."""
+    q, k, v, _, _, _, g = _inputs(cuda, 2, 300, 8, 2, 128, dtype, 1)
+    direct = SWA._forward(q, k, v, 64, False)
+    with torch.no_grad():
+        quiet = SWA.swa_attention(q, k, v, 64)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out = SWA.swa_attention(*leaves, 64)
+    assert torch.equal(quiet, direct) and torch.equal(out.detach(), direct)
+    out.backward(g)
+    want = SWA.swa_attention_vjp(q, k, v, g, 64)
+    assert all(torch.equal(x.grad, w) for x, w in zip(leaves, want))
+
+
+def test_linearize_tangent_at_two_vectors(cuda):
+    """``torch.func.linearize`` records the jvp kernel's launch: its
+    tangent at two different vectors matches the plain version's."""
+    q, k, v, tq, tk, tv, _ = _inputs(cuda, 1, 200, 4, 1, 64,
+                                     torch.float32, 2)
+
+    def f(a, b, c):
+        return SWA.swa_attention(a, b, c, 37)
+
+    _, jvp_fn = torch.func.linearize(f, q, k, v)
+    n = SWA.swa_attention_jvp.launches
+    for scale in (1.0, -3.0):
+        t = (scale * tq, tk.flip(1), scale * tv)
+        got = jvp_fn(*t)
+        want = R.swa_attention_jvp_ref(q, k, v, *t, 37)
+        assert _rel_l2(got, want) <= F32_REL_L2
+        direct = torch.func.jvp(f, (q, k, v), t)[1]
+        assert _rel_l2(direct, want) <= F32_REL_L2
+    assert SWA.swa_attention_jvp.launches == n + 4
+
+
+def test_second_order_raises(cuda):
+    q, k, v, tq, _, _, g = _inputs(cuda, 1, 64, 2, 1, 32, torch.float32, 3)
+
+    def f(x):
+        return SWA.swa_attention(x, k, v, 8)
+
+    with pytest.raises(NotImplementedError, match="first-order only"):
+        torch.func.jvp(lambda x: torch.func.vjp(f, x)[1](g)[0], (q,), (tq,))
+    with pytest.raises(NotImplementedError, match="first-order only"):
+        torch.func.vjp(lambda x: torch.func.jvp(f, (x,), (tq,))[1], q)[1](g)
+    # a backward that would record its own graph (create_graph) raises
+    x = q.detach().requires_grad_()
+    with pytest.raises(NotImplementedError, match="first-order only"):
+        torch.autograd.grad((f(x) * g).sum(), x, create_graph=True)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mixtral-8x22b"])
+def test_curvature_products_match_the_cpu(cuda, arch):
+    """The smoke model at f32 compute, T 48 past its window of 16: a GN
+    product in each curvature mode (``linearize`` at two vectors) through
+    the kernels on the card, against the plain path on the CPU."""
+    cfg = get_config(arch).smoke().replace(compute_dtype="float32")
+    model = get_model(cfg)
+    params = model.init(0, device=cuda)
+    batch = lm_batch(0, batch=2, seq_len=48, vocab=cfg.vocab_size,
+                     device=cuda)
+    batch = dict(batch, labels=batch["tokens"])
+    fwd = lm_forward(cfg, model)
+    loss = ChunkedCELoss()
+    cpu = {k: v.cpu() for k, v in params.items()}
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    gen = torch.Generator().manual_seed(5)
+    vecs = [{k: torch.randn(v.shape, generator=gen) for k, v in cpu.items()}
+            for _ in range(2)]
+    want = [make_curvature_ops(fwd, loss, cpu, cpu_batch).gnvp(u)
+            for u in vecs]
+    for mode in ("rematvp", "linearize"):
+        n = (SWA.swa_attention_jvp.launches,
+             SWA.swa_attention_vjp.dkdv_launches)
+        ops = make_curvature_ops(fwd, loss, params, batch, mode=mode)
+        for u, w in zip(vecs, want):
+            got = ops.gnvp({k: x.to(cuda) for k, x in u.items()})
+            num = sum(float(((got[k].cpu() - w[k]) ** 2).sum()) for k in w)
+            den = sum(float((w[k] ** 2).sum()) for k in w)
+            assert (num / den) ** 0.5 <= 1e-4, (mode, (num / den) ** 0.5)
+        assert SWA.swa_attention_jvp.launches > n[0]
+        assert SWA.swa_attention_vjp.dkdv_launches > n[1]
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mixtral-8x22b"])
+def test_sgd_step_through_the_kernels(cuda, arch):
+    """One SGD step of the smoke model in bf16 through ``build_step``:
+    each windowed layer launches the forward, dq and dk/dv kernels once."""
+    cfg = get_config(arch).smoke()
+    params = get_model(cfg).init(0, device=cuda)
+    step, opt = build_step(cfg, "sgd", lr=0.1)
+    batch = lm_batch(0, batch=2, seq_len=48, vocab=cfg.vocab_size,
+                     device=cuda)
+    windowed = sum(kind in ("local", "swa", "swamoe")
+                   for kind in (cfg.block_pattern * cfg.num_layers)
+                   [:cfg.num_layers])
+    SWA.reset_launch_counts()
+    new, _, m = step(params, opt.init(params), batch)
+    torch.cuda.synchronize()
+    assert (SWA.swa_attention.launches,
+            SWA.swa_attention_vjp.dq_launches,
+            SWA.swa_attention_vjp.dkdv_launches) == (windowed,) * 3
+    assert bool(torch.isfinite(torch.as_tensor(m["loss"])).all())
+    assert any(not torch.equal(new[k], params[k]) for k in params)

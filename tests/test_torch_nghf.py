@@ -39,6 +39,17 @@ CASES = {"nghf": ("nghf", False), "nghf_fused": ("nghf", True),
          "ng": ("ng", False), "hf_fused": ("hf", True)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """PyTorch on one thread for this module: beside the suite's parallel
+    workers the default thread pool oversubscribes the cores and
+    multiplies the file's time."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _batches(mod_batch, **kw):
     return [mod_batch(i, batch=8, num_frames=24, num_states=CFG.num_outputs,
                       input_dim=CFG.input_dim, **kw) for i in range(2)]

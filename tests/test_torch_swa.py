@@ -149,14 +149,21 @@ def test_wrapper_rejects_what_no_path_can_take():
 @pytest.mark.parametrize("requires", [None, 0, 1, 2])
 def test_autograd_guard_fires_only_with_grad_on_and_an_input_requiring_grad(
         grad_on, requires):
-    """``needs_backward``, the condition on which the CUDA kernels (no
-    backward) refuse a call: autograd on and one of q/k/v requiring grad;
-    the card test shows both kernels raising on it."""
+    """Autograd records the windowed attention only with grad on and one
+    of q/k/v requiring grad.  The CUDA kernels refused exactly that case
+    until their derivative kernels were written; now the autograd
+    Function every CUDA call runs through (here on CPU tensors, its
+    launches taking the plain versions) records it, as the plain version
+    on the CPU does, and otherwise runs the forward alone."""
     _, qkv = _qkv(1, 8, 2, 1, 16, "float32", seed=5)
     if requires is not None:
         qkv[requires].requires_grad_()
+    recorded = grad_on and requires is not None
     with torch.set_grad_enabled(grad_on):
-        assert SWA.needs_backward(*qkv) == (grad_on and requires is not None)
+        for out in (SWA._SwaAttention.apply(*qkv, 4, False),
+                    SWA.swa_attention(*qkv, 4)):
+            assert (out.grad_fn is not None) == recorded
+            assert out.requires_grad == recorded
 
 
 def test_cpu_wrapper_stays_differentiable_as_the_reference_layer():
