@@ -242,23 +242,30 @@ Phases:
      = 150,319,176 against its bound (the ``xlstm_*`` keys of its row);
  13. training recurrentgemma-9b and mixtral-8x22b (run after phase 12,
      before phase 7, on a card freed with ``empty_cache``): (a) the
-     windowed attention's derivative kernels (``csrc/swa_attention_bwd.
-     cu``: dq, dk/dv and jvp) against their plain versions on phase 2's
-     adversarial shapes, recurrentgemma-9b's training shape (B 2, T 4096,
-     H 16, K 1, hd 256, window 2048, bf16) and mixtral-8x22b's geometry
-     (B 1, T 8192, H 48, K 8, hd 128, window 4096, bf16): f32 relative L2
-     1e-5 per tensor, bf16 within 1.5 x the plain bf16 result's distance
-     from the f32 one (+ 1e-6), bitwise on a repeat; at the two full
-     shapes timed in turns with the plain versions and SDPA's backward
-     with the band mask; (b) recurrentgemma-9b at full width and 3 layers
+     windowed attention's derivative kernels (dq and dk/dv: bf16 on the
+     tensor cores, ``csrc/swa_attention_bwd_sm90.cu``, f32 on the CUDA
+     cores, ``csrc/swa_attention_bwd.cu``; the jvp, ``csrc/swa_attention_
+     bwd.cu``) against their plain versions on phase 2's adversarial
+     shapes, recurrentgemma-9b's training shape (B 2, T 4096, H 16, K 1,
+     hd 256, window 2048, bf16) and mixtral-8x22b's geometry (B 1, T 8192,
+     H 48, K 8, hd 128, window 4096, bf16), each backward route on every
+     shape (the CUDA-core pair on bf16 inputs too, the tensor-core pair on
+     the f32 shapes' inputs in bf16), each route's launches counted: f32
+     relative L2 1e-5 per tensor, bf16 within 1.5 x the plain bf16
+     result's distance from the f32 one (+ 1e-6), bitwise on a repeat; at
+     the two full shapes timed in turns with the CUDA-core pair on the
+     same bf16 inputs, the plain versions and SDPA's backward with the
+     band mask; (b) recurrentgemma-9b at full width and 3 layers
      trained by SGD through ``build_step``, 3 steps at B 2 x T 4096
      (train_4k with its batch cut from 256): finite loss, one forward, dq
-     and dk/dv launch a step, no jvp, the step time and peak memory; one
+     and dk/dv launch a step on the tensor cores (none on the CUDA cores),
+     no jvp, the step time and peak memory; one
      step's gradient against the plain path (attention's plain version on
      the card) within relative L2 2e-2; (c) both archs' smoke configs
      trained by NGHF at T 64 past their window of 16, one update per
      curvature mode (``rematvp``, ``linearize``): the kernel path (the
-     attention kernels, fused CG) takes the plain path's decision (or a
+     attention kernels, the tensor-core backward among them, fused CG)
+     takes the plain path's decision (or a
      tie within the paths' spread), last-iterate Δθ within relative L2
      2e-2.  The three kernels' rows of the ``{"kernels": ...}`` line
      follow the TPU kernels'.
@@ -274,6 +281,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -3429,10 +3437,12 @@ def xlstm_cg_times(xl: dict, dev) -> dict:
 # attention's derivative kernels and the differentiable RG-LRU scan
 # ---------------------------------------------------------------------------
 
-# the derivative kernels (csrc/swa_attention_bwd.cu): no TPU kernel; the
-# reference differentiates its jnp windowed_attention by autodiff
+# the derivative kernels: no TPU kernel; the reference differentiates its
+# jnp windowed_attention by autodiff.  dq and dk/dv take bf16 on the tensor
+# cores (BWD_SM90_SOURCE), f32 on the CUDA cores (BWD_SOURCE, with the jvp)
 BWD_KERNELS = ("swa_attention_dq", "swa_attention_dkdv", "swa_attention_jvp")
 BWD_SOURCE = "src/repro_torch/kernels/csrc/swa_attention_bwd.cu"
+BWD_SM90_SOURCE = "src/repro_torch/kernels/csrc/swa_attention_bwd_sm90.cu"
 BWD_REFERENCE = "src/repro/models/layers.py:232"
 # recurrentgemma-9b's training shape (train_4k, B 256 -> 2) and mixtral-
 # 8x22b's attention geometry at T 8192: (B, T, H, K, hd, window)
@@ -3463,16 +3473,19 @@ SMOKE_TRAIN_BATCH, SMOKE_TRAIN_SEQ = 8, 64
 
 
 def bwd_counts() -> tuple:
+    """(tensor-core dq, tensor-core dk/dv, jvp, CUDA-core dq, CUDA-core
+    dk/dv) launches so far."""
     from repro_torch.kernels import swa_attention as SWA
-    return (SWA.swa_attention_vjp.dq_launches,
-            SWA.swa_attention_vjp.dkdv_launches,
-            SWA.swa_attention_jvp.launches)
+    f = SWA.swa_attention_vjp
+    return (f.dq_launches, f.dkdv_launches, SWA.swa_attention_jvp.launches,
+            f.cuda_core_dq_launches, f.cuda_core_dkdv_launches)
 
 
 def set_bwd_counts(n: tuple) -> None:
     from repro_torch.kernels import swa_attention as SWA
-    (SWA.swa_attention_vjp.dq_launches, SWA.swa_attention_vjp.dkdv_launches,
-     SWA.swa_attention_jvp.launches) = n
+    f = SWA.swa_attention_vjp
+    (f.dq_launches, f.dkdv_launches, SWA.swa_attention_jvp.launches,
+     f.cuda_core_dq_launches, f.cuda_core_dkdv_launches) = n
 
 
 def bwd_rel(got, plain, plain32, dtype) -> tuple:
@@ -3484,27 +3497,40 @@ def bwd_rel(got, plain, plain32, dtype) -> tuple:
             BWD_BF16_FACTOR * rel_l2(plain, plain32) + BWD_BF16_FLOOR)
 
 
-def check_bwd_case(dev, shape, dtype, seed: int, errs: dict) -> dict:
-    """The dq, dk/dv and jvp kernels against their plain versions at one
-    shape, each bitwise on a repeat; returns the inputs for timing."""
+def check_bwd_case(dev, shape, dtype, seed: int, errs: dict,
+                   core: bool = False) -> dict:
+    """The dq and dk/dv kernels (the CUDA-core pair if ``core``, else the
+    pair the dtype routes to) and, unless ``core``, the jvp kernel against
+    their plain versions at one shape, each bitwise on a repeat and counted
+    on its route's counters; returns the inputs for timing."""
     from repro_torch.kernels import ref as R
     from repro_torch.kernels import swa_attention as SWA
     q, k, v = swa_inputs(dev, shape, dtype, seed)
     g, tq, tk, tv = (torch.randn_like(x) for x in (q, q, k, v))
     w = shape[-1]
+    tc = int(dtype == torch.bfloat16 and shape[4] % 8 == 0 and not core)
+    route = "tensor-core" if tc else "CUDA-core"
     tag = "x".join(map(str, shape)) + f"_{str(dtype)[6:]}"
-    got = SWA.swa_attention_vjp(q, k, v, g, w)
-    again = SWA.swa_attention_vjp(q, k, v, g, w)
-    got += (SWA.swa_attention_jvp(q, k, v, tq, tk, tv, w),)
-    again += (SWA.swa_attention_jvp(q, k, v, tq, tk, tv, w),)
-    plain = R.swa_attention_vjp_ref(q, k, v, g, w) + (
-        R.swa_attention_jvp_ref(q, k, v, tq, tk, tv, w),)
+    n = bwd_counts()
+    got = SWA.swa_attention_vjp(q, k, v, g, w, core=core)
+    again = SWA.swa_attention_vjp(q, k, v, g, w, core=core)
+    plain = R.swa_attention_vjp_ref(q, k, v, g, w)
+    if not core:
+        got += (SWA.swa_attention_jvp(q, k, v, tq, tk, tv, w),)
+        again += (SWA.swa_attention_jvp(q, k, v, tq, tk, tv, w),)
+        plain += (R.swa_attention_jvp_ref(q, k, v, tq, tk, tv, w),)
+    jvps = 0 if core else 2
+    check(bwd_counts() == (n[0] + 2 * tc, n[1] + 2 * tc, n[2] + jvps,
+                           n[3] + 2 - 2 * tc, n[4] + 2 - 2 * tc),
+          f"swa_attention derivatives[{tag}]: launches {bwd_counts()} from "
+          f"{n}; want two of each {route} kernel")
     if dtype == torch.float32:
         plain32 = plain
     else:
         up = [x.float() for x in (q, k, v, g, tq, tk, tv)]
-        plain32 = R.swa_attention_vjp_ref(*up[:4], w) + (
-            R.swa_attention_jvp_ref(*up[:3], *up[4:], w),)
+        plain32 = R.swa_attention_vjp_ref(*up[:4], w)
+        if not core:
+            plain32 += (R.swa_attention_jvp_ref(*up[:3], *up[4:], w),)
     torch.cuda.synchronize()
     parts = []
     for name, a, b, p, p32 in zip(("dq", "dk", "dv", "dO"), got, again,
@@ -3514,18 +3540,20 @@ def check_bwd_case(dev, shape, dtype, seed: int, errs: dict) -> dict:
               f"swa_attention {name}[{tag}]: {a.dtype} {tuple(a.shape)}, "
               f"plain {p.dtype} {tuple(p.shape)}, finite "
               f"{bool(torch.isfinite(a).all())}")
-        check(torch.equal(a, b), f"swa_attention {name}[{tag}]: two "
+        check(torch.equal(a, b), f"swa_attention {name}[{tag}] {route}: two "
               f"launches gave other bits")
         rel, limit = bwd_rel(a, p, p32, dtype)
-        check(rel <= limit, f"swa_attention {name}[{tag}]: rel-L2 {rel:.3g} "
-              f"> {limit:.3g}")
+        check(rel <= limit, f"swa_attention {name}[{tag}] {route}: rel-L2 "
+              f"{rel:.3g} > {limit:.3g}")
         kern = {"dq": BWD_KERNELS[0], "dk": BWD_KERNELS[1],
                 "dv": BWD_KERNELS[1], "dO": BWD_KERNELS[2]}[name]
+        if name != "dO" and not tc:
+            kern += "_cuda_core"
         d = float((a.float() - p.float()).abs().max()) if a.numel() else 0.0
         errs[f"{kern}[{tag}:{name}]"] = d
         parts.append(f"{name} {rel:.3g} (limit {limit:.3g}, max |d| {d:.3g})")
     log(f"swa_attention derivatives == plain at (B,T,H,K,hd,window)="
-        f"{shape} {dtype}: rel-L2 " + ", ".join(parts)
+        f"{shape} {dtype}, {route} dq and dk/dv: rel-L2 " + ", ".join(parts)
         + "; a repeat launch bitwise")
     return {"q": q, "k": k, "v": v, "g": g, "tq": tq, "tk": tk, "tv": tv}
 
@@ -3590,9 +3618,13 @@ def bwd_times(x: dict, shape) -> dict:
     q, k, v, g = x["q"], x["k"], x["v"], x["g"]
     tq, tk, tv = x["tq"], x["tk"], x["tv"]
     _, lse, dd = SWA.launch_dq(q, k, v, g, w)
-    fns = {BWD_KERNELS[0]: (lambda: SWA.launch_dq(q, k, v, g, w), 3),
+    _, lse_c, dd_c = SWA.launch_dq(q, k, v, g, w, True)
+    fns = {BWD_KERNELS[0]: (lambda: SWA.launch_dq(q, k, v, g, w), 5),
            BWD_KERNELS[1]: (lambda: SWA.launch_dkdv(q, k, v, g, lse, dd,
-                                                    w), 3),
+                                                    w), 5),
+           "cuda_core_dq": (lambda: SWA.launch_dq(q, k, v, g, w, True), 2),
+           "cuda_core_dkdv": (lambda: SWA.launch_dkdv(q, k, v, g, lse_c,
+                                                      dd_c, w, True), 2),
            BWD_KERNELS[2]: (lambda: SWA.swa_attention_jvp(q, k, v, tq, tk,
                                                           tv, w), 3),
            "plain_vjp": (lambda: R.swa_attention_vjp_ref(q, k, v, g, w), 1),
@@ -3615,11 +3647,23 @@ def bwd_times(x: dict, shape) -> dict:
                      "library_ms": (None if name == BWD_KERNELS[2]
                                     else t.get("library_vjp")),
                      "tflops": flops / t[name] * 1e-9}
+        if name != BWD_KERNELS[2]:
+            core = t["cuda_core_" + name.split("_")[-1]]
+            out[name].update(cuda_core_ms=core,
+                             cuda_core_tflops=flops / core * 1e-9)
+    pair, core_pair = (t[BWD_KERNELS[0]] + t[BWD_KERNELS[1]],
+                       t["cuda_core_dq"] + t["cuda_core_dkdv"])
+    lib = t.get("library_vjp")
     log(f"swa_attention derivatives timed at (B,T,H,K,hd,window)={shape} "
         f"{q.dtype}: " + "; ".join(
             f"{k} {v['ms']:.4f} ms ({v['tflops']:.3f} TFLOP/s useful, "
             f"bound {v['bound_ms']:.4f} ms by {v['bound_by']})"
+            + (f", CUDA-core pair's {v['cuda_core_ms']:.4f} ms"
+               if "cuda_core_ms" in v else "")
             for k, v in out.items())
+        + f"; tensor-core dq + dk/dv {pair:.4f} ms, CUDA-core "
+        f"{core_pair:.4f} ms ({core_pair / pair:.2f}x), SDPA backward "
+        + (f"{lib:.4f} ms ({lib / pair:.2f}x the pair)" if lib else "none")
         + f"; plain vjp {t['plain_vjp']:.4f} ms, plain jvp "
         f"{t['plain_jvp']:.4f} ms, SDPA backward (band mask) "
         f"{t.get('library_vjp')} ms; turns (ms) "
@@ -3630,12 +3674,20 @@ def bwd_times(x: dict, shape) -> dict:
 
 def bwd_kernel_checks(dev, errs: dict) -> dict:
     """(a): phase 2's adversarial shapes, then the two full geometries,
-    each checked; the full ones timed.  Returns {shape key: times}."""
+    each checked on both backward routes; the full ones timed.  Returns
+    {shape key: times}."""
     times = {}
     cases = SWA_CASES + ((SWA_TRAIN, torch.bfloat16),
                          (SWA_MIXTRAL, torch.bfloat16))
     for i, (shape, dtype) in enumerate(cases):
         x = check_bwd_case(dev, shape, dtype, SEED + 130 + i, errs)
+        # the other backward route on the same shape: the CUDA-core pair
+        # on the bf16 inputs, or the tensor-core pair on the f32 case's
+        # shape in bf16
+        if dtype == torch.bfloat16:
+            check_bwd_case(dev, shape, dtype, SEED + 130 + i, errs, True)
+        else:
+            check_bwd_case(dev, shape, torch.bfloat16, SEED + 130 + i, errs)
         if shape in (SWA_TRAIN, SWA_MIXTRAL):
             times[shape] = bwd_times(x, shape)
         del x
@@ -3683,11 +3735,13 @@ def rg_sgd_training(dev) -> dict:
         times.append(time.perf_counter() - t0)
         m = {k: float(v) for k, v in m.items()}
         n = (SWA.swa_attention.launches, SWA.swa_attention.cuda_core_launches)
-        dq, dkdv, jvp = bwd_counts()
-        check(n == (local, 0) and (dq, dkdv, jvp) == (local, local, 0),
+        dq, dkdv, jvp, cdq, cdkdv = bwd_counts()
+        check(n == (local, 0) and (dq, dkdv, jvp, cdq, cdkdv)
+              == (local, local, 0, 0, 0),
               f"{LM_ARCH} SGD step {i}: forward launches {n}, dq {dq}, "
-              f"dk/dv {dkdv}, jvp {jvp}; want {local} tensor-core, "
-              f"{local} dq and dk/dv, no jvp")
+              f"dk/dv {dkdv}, jvp {jvp}, CUDA-core dq {cdq}, dk/dv "
+              f"{cdkdv}; want {local} tensor-core, {local} tensor-core dq "
+              f"and dk/dv, no jvp, no CUDA-core backward")
         check(read_counts() == {k: 0 for k in read_counts()},
               f"{LM_ARCH} SGD step {i}: lattice/CG launches {read_counts()}")
         check(np.isfinite(m["loss"]), f"{LM_ARCH} SGD step {i}: loss "
@@ -3699,8 +3753,8 @@ def rg_sgd_training(dev) -> dict:
             f"SGD step {i} at B {RG_TRAIN_BATCH} x T {RG_TRAIN_SEQ}: "
             f"{times[-1] * 1e3:.3f} ms, loss {m['loss']:.6f}, acc "
             f"{m['acc']:.6f}, grad norm {m['grad_norm']:.4g}; launches: "
-            f"forward {n[0]} (tensor-core), dq {dq}, dk/dv {dkdv}, jvp "
-            f"{jvp}")
+            f"forward {n[0]} (tensor-core), dq {dq}, dk/dv {dkdv} "
+            f"(tensor-core), jvp {jvp}")
     peak = torch.cuda.max_memory_allocated()
     del state
     # one step's gradient, kernel path vs plain path, same parameters
@@ -3752,15 +3806,17 @@ def smoke_nghf(dev) -> dict:
             kw = {"curvature_mode": mode}
             reset_counts()
             _, m_k, t_k = lm_one_update(cfg, params, b, True, **kw)
-            dq, dkdv, jvp = bwd_counts()
-            check(min(dq, dkdv, jvp) > 0, f"{tag}: derivative kernel "
-                  f"launches dq {dq}, dk/dv {dkdv}, jvp {jvp}")
+            dq, dkdv, jvp, cdq, cdkdv = bwd_counts()
+            check(min(dq, dkdv, jvp) > 0 and cdq == cdkdv == 0,
+                  f"{tag}: derivative kernel launches dq {dq}, dk/dv "
+                  f"{dkdv} (tensor-core), jvp {jvp}, CUDA-core dq {cdq}, "
+                  f"dk/dv {cdkdv}")
             for key, c in zip(("dq", "dkdv", "jvp"), (dq, dkdv, jvp)):
                 out[key] += c
             with plain_attention():
                 _, m_p, t_p = lm_one_update(cfg, params, b, False, **kw)
-            check(bwd_counts() == (dq, dkdv, jvp), f"{tag}: the plain "
-                  f"path launched a derivative kernel")
+            check(bwd_counts() == (dq, dkdv, jvp, cdq, cdkdv), f"{tag}: the "
+                  f"plain path launched a derivative kernel")
             text = same_choice(tag, m_k, m_p)
             new_k, _, _ = lm_one_update(cfg, params, b, True,
                                         eval_candidates=False, **kw)
@@ -3772,8 +3828,8 @@ def smoke_nghf(dev) -> dict:
                   f"vs plain path rel-L2 {rel:.3g}")
             log(f"{tag}: kernel path == plain path: {text}; last-iterate "
                 f"Δθ rel-L2 {rel:.3g} (limit {LM_DELTA_REL_L2}); kernel "
-                f"update {t_k * 1e3:.3f} ms (dq {dq}, dk/dv {dkdv}, jvp "
-                f"{jvp} launches), plain {t_p * 1e3:.3f} ms")
+                f"update {t_k * 1e3:.3f} ms (tensor-core dq {dq}, dk/dv "
+                f"{dkdv}, jvp {jvp} launches), plain {t_p * 1e3:.3f} ms")
         del params
     return out
 
@@ -3796,7 +3852,9 @@ def bwd_entries(rg: dict, errs: dict) -> list:
     """The derivative kernels' rows of the ``{"kernels": ...}`` line: time
     at recurrentgemma-9b's training shape, ``mixtral_*`` keys at mixtral's
     geometry; launches on phase 13's main paths (the SGD steps and the
-    smoke NGHF kernel-path updates)."""
+    smoke NGHF kernel-path updates, bf16: the tensor-core dq and dk/dv);
+    dq's and dk/dv's ``cuda_core_*`` keys time the CUDA-core pair (f32's
+    route) on the same bf16 inputs."""
     sgd, nghf = rg["sgd"]["launches"], rg["nghf"]
     launches = {BWD_KERNELS[0]: sgd["dq"] + nghf["dq"],
                 BWD_KERNELS[1]: sgd["dkdv"] + nghf["dkdv"],
@@ -3805,8 +3863,10 @@ def bwd_entries(rg: dict, errs: dict) -> list:
     for name in BWD_KERNELS:
         t = rg["times"][SWA_TRAIN][name]
         mx = rg["times"][SWA_MIXTRAL][name]
+        sm90 = name != BWD_KERNELS[2]
         rows.append({
-            "name": name, "route": "cuda", "source": BWD_SOURCE,
+            "name": name, "route": "cuda",
+            "source": BWD_SM90_SOURCE if sm90 else BWD_SOURCE,
             "replaces": BWD_REFERENCE,
             "note": "no TPU kernel: the reference differentiates its jnp "
                     "windowed_attention by autodiff",
@@ -3821,6 +3881,10 @@ def bwd_entries(rg: dict, errs: dict) -> list:
             "mixtral_bound_ms": mx["bound_ms"],
             "mixtral_library_ms": mx["library_ms"],
             "mixtral_shape": f"B,T,H,K,hd,window={list(SWA_MIXTRAL)} bf16"})
+        if sm90:
+            rows[-1].update(cuda_core_source=BWD_SOURCE,
+                            cuda_core_ms=t["cuda_core_ms"],
+                            mixtral_cuda_core_ms=mx["cuda_core_ms"])
     return rows
 
 
@@ -4249,15 +4313,26 @@ def main() -> int:
         if any(w in line for w in ("registers", "spill", "entry function")):
             log(f"ptxas: {line.strip()}")
     for stem in ("lattice_sausage", "cg_fused", "swa_attention",
-                 "swa_attention_sm90", "swa_attention_bwd"):
+                 "swa_attention_sm90", "swa_attention_bwd",
+                 "swa_attention_bwd_sm90"):
         for line in build.build_log(stem).splitlines():
             if any(w in line for w in ("registers", "spill", "C7519",
-                                       "wgmma")):
+                                       "C7520", "wgmma")):
                 log(f"ptxas {stem}: {line.strip()}")
+    # the tensor-core backward: no spill, no serialised wgmma
+    sm90_bwd = build.build_log("swa_attention_bwd_sm90")
+    check(not re.search(r"\(C75(19|20)\)|\b[1-9][0-9]* bytes spill",
+                        sm90_bwd),
+          "ptxas: swa_attention_bwd_sm90 spills or serialises a wgmma")
     from repro_torch.kernels import swa_attention as SWA
     log("swa_attention_sm90 dynamic shared memory at hd_pad 64/128/256: "
         + "/".join(str(SWA.sm90_smem_bytes(p)) for p in (64, 128, 256))
         + " bytes")
+    for kern in ("dq", "dkdv"):
+        log(f"swa_attention_bwd_sm90 {kern} dynamic shared memory at hd_pad "
+            f"64/128/256: " + "/".join(
+                str(SWA.sm90_bwd_smem_bytes(kern, p)) for p in (64, 128, 256))
+            + " bytes")
     errs: dict = {}
     phase_kernels(dev, errs)
     phase_sausage_kernels(dev, errs)

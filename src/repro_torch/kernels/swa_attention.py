@@ -23,9 +23,14 @@ Routing of the forward, by device and dtype only (never by failure):
   cannot describe (no arch in the repo has such an hd).
 
 Every CUDA call runs through ``_SwaAttention``, an ``autograd.Function``
-whose derivatives are hand-written kernels too (``csrc/swa_attention_bwd.
-cu``): its backward launches ``swa_attention_vjp``'s dq kernel and then
-its dk/dv kernel, its jvp ``swa_attention_jvp``'s kernel.  Plain autograd,
+whose derivatives are hand-written kernels too: its backward launches
+``swa_attention_vjp``'s dq kernel and then its dk/dv kernel, its jvp
+``swa_attention_jvp``'s kernel (``csrc/swa_attention_bwd.cu``).  The
+backward routes as the forward does, by dtype and hd only: bf16 with
+hd % 8 == 0 takes the tensor-core pair ``csrc/swa_attention_bwd_sm90.cu``
+(wgmma + TMA, P and dS split for f32 accuracy; the dk/dv kernel walks the
+tiles of ``swa_bwd_geometry``), f32 and any other hd the CUDA-core pair
+of ``csrc/swa_attention_bwd.cu``, the exact f32 path.  Plain autograd,
 ``torch.func.jvp``, ``vjp``, ``grad`` and ``linearize`` (NGHF's curvature
 products) run them; under ``torch.no_grad`` (prefill) the Function
 launches the forward kernel alone, the same bits as before it existed.
@@ -40,7 +45,9 @@ plain version only.
 
 Launch counts: ``swa_attention.launches`` (the tensor-core kernel, the
 bf16 main path), ``swa_attention.cuda_core_launches`` (the CUDA-core
-kernel), ``swa_attention_vjp.dq_launches`` and ``.dkdv_launches``, and
+kernel), ``swa_attention_vjp.dq_launches`` and ``.dkdv_launches`` (the
+tensor-core backward), ``.cuda_core_dq_launches`` and
+``.cuda_core_dkdv_launches`` (the CUDA-core backward), and
 ``swa_attention_jvp.launches``; the plain versions count nothing.
 """
 from __future__ import annotations
@@ -78,6 +85,15 @@ _SM90_SIGNATURES = {"swa_attention_sm90_launch": [_PTR] * 4 + [_INT] * 12
 _BWD_SIGNATURES = {"swa_attention_dq_launch": [_PTR] * 7 + _SHAPE,
                    "swa_attention_dkdv_launch": [_PTR] * 8 + _SHAPE,
                    "swa_attention_jvp_launch": [_PTR] * 7 + _SHAPE}
+# q k v g dq lse dd | batch seq heads kv_heads hd window | queries heads
+# head_tiles hd_pad grid_x grid_y | scale | stream; q k v g lse dd dk dv |
+# batch seq heads kv_heads hd window | walk queries heads head_tiles mag
+# hd_pad grid_x | scale | stream
+_SM90_BWD_SIGNATURES = {
+    "swa_attention_dq_sm90_launch": [_PTR] * 7 + [_INT] * 12 + [_F32, _PTR],
+    "swa_attention_dkdv_sm90_launch": [_PTR] * 8 + [_INT] * 12
+    + [_F32, _PTR],
+    "swa_attention_bwd_sm90_smem_bytes": [_INT, _INT]}
 
 
 class SwaGeometry(NamedTuple):
@@ -137,6 +153,75 @@ def swa_geometry(B: int, T: int, H: int, K: int, hd: int,
                        group, min(window, T))
 
 
+class SwaBwdGeometry(NamedTuple):
+    """The walk of the tensor-core dk/dv kernel.
+
+    Block (x, y, z) owns keys ``x * KEY_TILE`` + 0 .. KEY_TILE - 1 of kv
+    head y in batch row z and walks tiles of ``rows`` (query, head) rows:
+    ``queries`` queries x ``heads`` query heads of the kv group (all G when
+    G <= 64, else ``head_tiles`` tiles of 64), row r being query r //
+    heads and head r % heads of the tile.  Its query tiles start at the
+    key tile's first key and step by ``queries`` up to the last query that
+    sees one of its keys (``query_span``); each query tile is walked for
+    every head tile in turn.  The kernel forms r // heads as (r * mag) >>
+    16.  The dq kernel writes each row's log-sum-exp and D to a (B, K, T,
+    G) f32 side output, so a walked tile's valid rows are one run of it
+    (``walk``'s side offsets)."""
+    rows: int            # (query, head) rows of a walked tile
+    queries: int         # queries per walked tile
+    heads: int           # query heads per walked tile
+    head_tiles: int      # walked tiles across the G heads of one kv head
+    mag: int             # ceil(2^16 / heads)
+    hd_pad: int
+    grid: tuple          # (key tiles, K, B)
+    seq: int
+    group: int
+    window: int          # min(window, T), as the kernel takes it
+
+    def query_span(self, x: int) -> tuple:
+        """(first query, query tiles) of key tile x: the queries s .. min(s
+        + KEY_TILE - 1 + window, T - 1), s = x * KEY_TILE."""
+        s = x * KEY_TILE
+        last = min(s + KEY_TILE - 1 + self.window, self.seq - 1)
+        return s, (last - s) // self.queries + 1
+
+    def walked_tiles(self, x: int) -> int:
+        return self.query_span(x)[1] * self.head_tiles
+
+    def walk(self, x: int, y: int):
+        """(query, head, valid, side-output offset within batch row 0),
+        each (walked tiles, rows), of every walked tile of block (x, y, .)
+        in the kernel's order: its row mapping."""
+        s, _ = self.query_span(x)
+        i = torch.arange(self.walked_tiles(x))[:, None]
+        t0 = s + (i // self.head_tiles) * self.queries
+        hb = (i % self.head_tiles) * self.heads
+        r = torch.arange(self.rows)[None, :]
+        t = t0 + ((r * self.mag) >> 16)
+        head = y * self.group + hb + r % self.heads
+        if self.head_tiles == 1:
+            n_valid = torch.clamp((self.seq - t0) * self.group,
+                                  max=self.queries * self.heads)
+        else:
+            n_valid = torch.clamp(self.group - hb, max=self.heads)
+        side = (y * self.seq + t0) * self.group + hb + r
+        return t, head, r < n_valid, side
+
+
+def swa_bwd_geometry(B: int, T: int, H: int, K: int, hd: int,
+                     window: int) -> SwaBwdGeometry:
+    """The tensor-core dk/dv kernel's walk for q (B, T, H, hd) and k/v (B,
+    T, K, hd): one block per (64-key tile, kv head, batch row), walked
+    tiles of 64 rows, 64 // G queries x the G heads of one kv head (G > 64:
+    one query x 64 heads a tile)."""
+    group = H // K
+    heads = min(group, KEY_TILE)
+    return SwaBwdGeometry(
+        KEY_TILE, KEY_TILE // heads, heads, -(-group // heads),
+        -(-65536 // heads), swa_geometry(B, T, H, K, hd, window).hd_pad,
+        (-(-T // KEY_TILE), K, B), T, group, min(window, T))
+
+
 def _launch_sm90(q, k, v, out, window: int) -> None:
     B, T, H, hd = q.shape
     K = k.shape[2]
@@ -164,23 +249,42 @@ def _shape_args(q, k, window: int) -> tuple:
             _STORAGE[q.dtype])
 
 
+def sm90_bwd_smem_bytes(kernel: str, hd_pad: int) -> int:
+    """Dynamic shared memory (bytes) of a tensor-core backward launch
+    (``kernel`` "dq" or "dkdv") at padded head dim ``hd_pad``; builds the
+    library if it is missing."""
+    lib = build.library("swa_attention_bwd_sm90", _SM90_BWD_SIGNATURES)
+    return lib.swa_attention_bwd_sm90_smem_bytes(
+        {"dq": 0, "dkdv": 1}[kernel], hd_pad)
+
+
+def _tensor_core(q) -> bool:
+    """The tensor-core kernels take bf16 with hd % 8 == 0 (TMA's 16-byte
+    strides); everything else goes to the CUDA-core kernels."""
+    return q.dtype == torch.bfloat16 and q.shape[3] % 8 == 0
+
+
+def _check_aligned(name: str, ts: dict) -> None:
+    for arg, t in ts.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} is not 16-byte aligned, as the "
+                             f"tensor-core kernel's TMA loads need")
+
+
 def _forward(q, k, v, window: int, core: bool):
     """The forward kernels' routing on validated CUDA inputs (``core``
     forces the CUDA-core kernel), or the plain version on CPU inputs."""
     if not q.is_cuda:
         return ref.swa_attention_ref(q, k, v, window)
     out = torch.empty_like(q)
-    if core or q.dtype != torch.bfloat16 or q.shape[3] % 8:
+    if core or not _tensor_core(q):
         build.launch("swa_attention", _CORE_SIGNATURES,
                      "swa_attention_launch", q.device, q.data_ptr(),
                      k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      *_shape_args(q, k, window))
         swa_attention.cuda_core_launches += 1
         return out
-    for arg, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"swa_attention: {arg} is not 16-byte aligned, "
-                             f"as the tensor-core kernel's TMA loads need")
+    _check_aligned("swa_attention", {"q": q, "k": k, "v": v})
     _launch_sm90(q, k, v, out, window)
     return out
 
@@ -190,48 +294,87 @@ def _check_like(name: str, ts: dict, q) -> None:
         _check_kernel_input(name, arg, t, q.dtype)
 
 
-def launch_dq(q, k, v, g, window: int) -> tuple:
+def launch_dq(q, k, v, g, window: int, core: bool = False) -> tuple:
     """The backward's first kernel on checked CUDA inputs: (dq, lse, dd),
-    lse and dd each row's log-sum-exp and D = sum_j P dP as (B, H, T)
-    f32.  Counts ``swa_attention_vjp.dq_launches``."""
-    B, T, H, _ = q.shape
+    lse and dd each row's log-sum-exp and D = sum_j P dP in f32.  bf16 with
+    hd % 8 == 0 (unless ``core``) launches the tensor-core kernel, lse and
+    dd then (B, K, T, G), and counts ``swa_attention_vjp.dq_launches``;
+    otherwise the CUDA-core kernel, lse and dd (B, H, T), counting
+    ``.cuda_core_dq_launches``."""
+    B, T, H, hd = q.shape
+    K = k.shape[2]
     dq = torch.empty_like(q)
-    lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
+    if core or not _tensor_core(q):
+        lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
+        dd = torch.empty_like(lse)
+        build.launch("swa_attention_bwd", _BWD_SIGNATURES,
+                     "swa_attention_dq_launch", q.device, q.data_ptr(),
+                     k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(),
+                     lse.data_ptr(), dd.data_ptr(),
+                     *_shape_args(q, k, window))
+        swa_attention_vjp.cuda_core_dq_launches += 1
+        return dq, lse, dd
+    _check_aligned("swa_attention_vjp", {"q": q, "k": k, "v": v, "g": g})
+    geo = swa_geometry(B, T, H, K, hd, window)
+    lse = torch.empty(B, K, T, H // K, dtype=torch.float32, device=q.device)
     dd = torch.empty_like(lse)
-    build.launch("swa_attention_bwd", _BWD_SIGNATURES,
-                 "swa_attention_dq_launch", q.device, q.data_ptr(),
+    build.launch("swa_attention_bwd_sm90", _SM90_BWD_SIGNATURES,
+                 "swa_attention_dq_sm90_launch", q.device, q.data_ptr(),
                  k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(),
-                 lse.data_ptr(), dd.data_ptr(), *_shape_args(q, k, window))
+                 lse.data_ptr(), dd.data_ptr(), B, T, H, K, hd, geo.window,
+                 geo.queries, geo.heads, geo.head_tiles, geo.hd_pad,
+                 geo.grid[0], geo.grid[1], 1.0 / math.sqrt(hd))
     swa_attention_vjp.dq_launches += 1
     return dq, lse, dd
 
 
-def launch_dkdv(q, k, v, g, lse, dd, window: int) -> tuple:
+def launch_dkdv(q, k, v, g, lse, dd, window: int,
+                core: bool = False) -> tuple:
     """The backward's second kernel on checked CUDA inputs and
-    ``launch_dq``'s lse and dd: (dk, dv).  Counts
-    ``swa_attention_vjp.dkdv_launches``."""
+    ``launch_dq``'s lse and dd (of the same ``core``): (dk, dv).  Routes
+    and counts as ``launch_dq``: ``swa_attention_vjp.dkdv_launches`` (the
+    tensor-core kernel) or ``.cuda_core_dkdv_launches``."""
+    B, T, H, hd = q.shape
+    K = k.shape[2]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    build.launch("swa_attention_bwd", _BWD_SIGNATURES,
-                 "swa_attention_dkdv_launch", q.device, q.data_ptr(),
+    if core or not _tensor_core(q):
+        build.launch("swa_attention_bwd", _BWD_SIGNATURES,
+                     "swa_attention_dkdv_launch", q.device, q.data_ptr(),
+                     k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                     lse.data_ptr(), dd.data_ptr(), dk.data_ptr(),
+                     dv.data_ptr(), *_shape_args(q, k, window))
+        swa_attention_vjp.cuda_core_dkdv_launches += 1
+        return dk, dv
+    _check_aligned("swa_attention_vjp", {"q": q, "k": k, "v": v, "g": g})
+    if lse.shape != (B, K, T, H // K) or dd.shape != lse.shape:
+        raise ValueError(f"swa_attention_vjp: lse {tuple(lse.shape)} and dd "
+                         f"{tuple(dd.shape)} are not the tensor-core dq "
+                         f"kernel's (B, K, T, G) side outputs")
+    geo = swa_bwd_geometry(B, T, H, K, hd, window)
+    build.launch("swa_attention_bwd_sm90", _SM90_BWD_SIGNATURES,
+                 "swa_attention_dkdv_sm90_launch", q.device, q.data_ptr(),
                  k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
-                 dd.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 *_shape_args(q, k, window))
+                 dd.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, H, K, hd,
+                 geo.window, geo.queries, geo.heads, geo.head_tiles, geo.mag,
+                 geo.hd_pad, geo.grid[0], 1.0 / math.sqrt(hd))
     swa_attention_vjp.dkdv_launches += 1
     return dk, dv
 
 
-def swa_attention_vjp(q, k, v, g, window: int):
+def swa_attention_vjp(q, k, v, g, window: int, *, core: bool = False):
     """The backward of ``swa_attention`` (q_offset 0): (dq, dk, dv) for
     the output's cotangent ``g`` (B, T, H, hd).  CUDA tensors (contiguous,
     all of q's dtype) launch the dq kernel (``launch_dq``) and then the
-    dk/dv kernel (``launch_dkdv``) of ``csrc/swa_attention_bwd.cu``; CPU
-    tensors take ``ref.swa_attention_vjp_ref``."""
+    dk/dv kernel (``launch_dkdv``): bf16 with hd % 8 == 0 those of
+    ``csrc/swa_attention_bwd_sm90.cu``, f32, other hd and ``core`` those of
+    ``csrc/swa_attention_bwd.cu``.  CPU tensors take
+    ``ref.swa_attention_vjp_ref``."""
     name = "swa_attention_vjp"
     if not _on_cuda(name, q, k, v, g):
         return ref.swa_attention_vjp_ref(q, k, v, g, window)
     _check_like(name, {"q": q, "k": k, "v": v, "g": g}, q)
-    dq, lse, dd = launch_dq(q, k, v, g, window)
-    return (dq,) + launch_dkdv(q, k, v, g, lse, dd, window)
+    dq, lse, dd = launch_dq(q, k, v, g, window, core)
+    return (dq,) + launch_dkdv(q, k, v, g, lse, dd, window, core)
 
 
 def swa_attention_jvp(q, k, v, tq, tk, tv, window: int):
@@ -375,6 +518,8 @@ swa_attention.launches = 0
 swa_attention.cuda_core_launches = 0
 swa_attention_vjp.dq_launches = 0
 swa_attention_vjp.dkdv_launches = 0
+swa_attention_vjp.cuda_core_dq_launches = 0
+swa_attention_vjp.cuda_core_dkdv_launches = 0
 swa_attention_jvp.launches = 0
 
 KERNELS = (swa_attention, swa_attention_jvp)
@@ -386,3 +531,5 @@ def reset_launch_counts() -> None:
     swa_attention.cuda_core_launches = 0
     swa_attention_vjp.dq_launches = 0
     swa_attention_vjp.dkdv_launches = 0
+    swa_attention_vjp.cuda_core_dq_launches = 0
+    swa_attention_vjp.cuda_core_dkdv_launches = 0

@@ -150,7 +150,8 @@ def test_kernels_refuse_autograd(cuda, dtype):
     (ROADMAP 1.3.3); now gradients flow.  With autograd on and inputs that
     require grad, ``swa_attention`` (both routes) and
     ``cuda_core_swa_attention`` launch their forward kernel, and a backward
-    launches the dq and dk/dv kernels once each, with gradients equal to
+    launches the dq and dk/dv kernels once each (bf16 the tensor-core pair,
+    f32 the CUDA-core pair, whatever the forward), with gradients equal to
     the plain version's (f32 relative L2 1e-5; bf16 within 1.5 x the
     plain bf16 gradient's distance from the f32 one); under
     ``torch.no_grad`` the same inputs give the same bits and no graph."""
@@ -164,16 +165,19 @@ def test_kernels_refuse_autograd(cuda, dtype):
                      (SWA.cuda_core_swa_attention, 1)):
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         counts = _counts()
-        bwd = (SWA.swa_attention_vjp.dq_launches,
-               SWA.swa_attention_vjp.dkdv_launches)
+        f = SWA.swa_attention_vjp
+        bwd = (f.dq_launches, f.dkdv_launches, f.cuda_core_dq_launches,
+               f.cuda_core_dkdv_launches)
         out = fn(*leaves, 16)
         assert out.grad_fn is not None
         out.backward(g)
         torch.cuda.synchronize()
         assert _counts() == (counts[0] + 1 - core, counts[1] + core)
-        assert (SWA.swa_attention_vjp.dq_launches,
-                SWA.swa_attention_vjp.dkdv_launches) == (bwd[0] + 1,
-                                                         bwd[1] + 1)
+        # the backward routes by dtype alone: bf16 to the tensor-core pair
+        assert (f.dq_launches, f.dkdv_launches, f.cuda_core_dq_launches,
+                f.cuda_core_dkdv_launches) == (bwd[0] + tc, bwd[1] + tc,
+                                               bwd[2] + 1 - tc,
+                                               bwd[3] + 1 - tc)
         for x, p, p32 in zip(leaves, plain, plain32):
             err = float((x.grad.float() - p32.float()).norm() / p32.norm())
             if dtype == torch.float32:

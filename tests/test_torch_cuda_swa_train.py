@@ -1,8 +1,11 @@
-"""The windowed attention's derivative kernels on a card
-(``csrc/swa_attention_bwd.cu``): the backward's dq and dk/dv kernels
-(``swa_attention_vjp``) and the jvp kernel (``swa_attention_jvp``) against
+"""The windowed attention's derivative kernels on a card: the backward's
+dq and dk/dv kernels (``swa_attention_vjp``; bf16 with hd % 8 == 0 on the
+tensor cores, ``csrc/swa_attention_bwd_sm90.cu``, f32 on the CUDA cores,
+``csrc/swa_attention_bwd.cu``, each route counted apart) and the jvp
+kernel (``swa_attention_jvp``, ``csrc/swa_attention_bwd.cu``) against
 their plain versions (``kernels.ref.swa_attention_vjp_ref`` and
-``swa_attention_jvp_ref``) on adversarial shapes, bitwise on a repeat; the
+``swa_attention_jvp_ref``) on adversarial shapes and both training shapes,
+bitwise on a repeat; the
 no-grad forward through the autograd Function bitwise equal to the direct
 launch; ``torch.func.linearize``'s tangent at two vectors; second order
 raising; and the smoke models' curvature products and NGHF step through
@@ -52,6 +55,22 @@ CASES = [
     (2, 9, 32, 2, 256, 100),
     (1, 1100, 16, 1, 256, 200),
 ]
+# phase 13's bf16 shapes (chip_smoke.py SWA_CASES): G = 1, 2, 3, 4 and 16,
+# T from 1 to 4100, windows 0 to past T; recurrentgemma-9b's training shape
+# and mixtral-8x22b's geometry (G = 6)
+BF16_CASES = [
+    (1, 513, 4, 4, 80, 96),
+    (2, 1000, 16, 1, 256, 200),
+    (1, 4100, 16, 1, 256, 2048),
+    (1, 1, 4, 4, 64, 16),
+    (1, 7, 16, 1, 128, 0),
+    (2, 9, 32, 2, 256, 100),
+    (1, 300, 6, 2, 64, 37),
+    (2, 333, 8, 4, 128, 64),
+    (1, 200, 2, 2, 256, 0),
+    (2, 100, 4, 1, 64, 128),
+]
+TRAIN_CASES = [(2, 4096, 16, 1, 256, 2048), (1, 8192, 48, 8, 128, 4096)]
 
 
 @pytest.fixture
@@ -65,6 +84,13 @@ def _inputs(dev, B, T, H, K, hd, dtype, seed):
     gen = torch.Generator(device=dev).manual_seed(seed)
     return [torch.randn(B, T, h, hd, generator=gen, device=dev).to(dtype)
             for h in (H, K, K, H, K, K, H)]
+
+
+def _bwd_counts() -> tuple:
+    """(tensor-core dq, dk/dv, CUDA-core dq, dk/dv) launches so far."""
+    f = SWA.swa_attention_vjp
+    return (f.dq_launches, f.dkdv_launches, f.cuda_core_dq_launches,
+            f.cuda_core_dkdv_launches)
 
 
 def _rel_l2(a, b) -> float:
@@ -89,23 +115,53 @@ def _check(tag, got, plain, plain32, dtype):
                                               limit)
 
 
+@pytest.mark.parametrize("core", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,T,H,K,hd,window", CASES)
+@pytest.mark.parametrize("B,T,H,K,hd,window",
+                         CASES + BF16_CASES + TRAIN_CASES)
 def test_backward_kernels_match_plain_version(cuda, B, T, H, K, hd, window,
-                                              dtype):
+                                              dtype, core):
+    """bf16 (hd % 8 == 0) launches the tensor-core pair, f32 and ``core``
+    the CUDA-core pair, each seen on its own counters."""
     q, k, v, _, _, _, g = _inputs(cuda, B, T, H, K, hd, dtype, T + hd)
-    n = (SWA.swa_attention_vjp.dq_launches,
-         SWA.swa_attention_vjp.dkdv_launches)
-    got = SWA.swa_attention_vjp(q, k, v, g, window)
-    again = SWA.swa_attention_vjp(q, k, v, g, window)
+    n = _bwd_counts()
+    got = SWA.swa_attention_vjp(q, k, v, g, window, core=core)
+    again = SWA.swa_attention_vjp(q, k, v, g, window, core=core)
     torch.cuda.synchronize()
-    assert (SWA.swa_attention_vjp.dq_launches,
-            SWA.swa_attention_vjp.dkdv_launches) == (n[0] + 2, n[1] + 2)
+    tc = int(dtype == torch.bfloat16 and hd % 8 == 0 and not core)
+    assert _bwd_counts() == (n[0] + 2 * tc, n[1] + 2 * tc,
+                             n[2] + 2 * (1 - tc), n[3] + 2 * (1 - tc))
     plain = R.swa_attention_vjp_ref(q, k, v, g, window)
     plain32 = R.swa_attention_vjp_ref(*(x.float() for x in (q, k, v, g)),
                                       window)
     _check((B, T, H, K, hd, window), got, plain, plain32, dtype)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("B,T,H,K,hd,window", TRAIN_CASES)
+def test_tensor_core_backward_repeats_its_bits(cuda, B, T, H, K, hd,
+                                               window):
+    """No atomics and sums in a fixed order: three launches of each
+    tensor-core kernel give the same bits."""
+    q, k, v, _, _, _, g = _inputs(cuda, B, T, H, K, hd, torch.bfloat16, 7)
+    outs = [SWA.launch_dq(q, k, v, g, window) for _ in range(3)]
+    for o in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(o, outs[0]))
+    _, lse, dd = outs[0]
+    assert lse.shape == dd.shape == (B, K, T, H // K)
+    grads = [SWA.launch_dkdv(q, k, v, g, lse, dd, window) for _ in range(3)]
+    torch.cuda.synchronize()
+    for o in grads[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(o, grads[0]))
+
+
+def test_tensor_core_backward_refuses_misaligned_inputs(cuda):
+    q, k, v, _, _, _, g = _inputs(cuda, 1, 64, 4, 1, 64, torch.bfloat16, 8)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+    shifted = flat[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        SWA.swa_attention_vjp(shifted, k, v, g, 16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -200,8 +256,9 @@ def test_curvature_products_match_the_cpu(cuda, arch):
     want = [make_curvature_ops(fwd, loss, cpu, cpu_batch).gnvp(u)
             for u in vecs]
     for mode in ("rematvp", "linearize"):
+        # f32: the CUDA-core backward
         n = (SWA.swa_attention_jvp.launches,
-             SWA.swa_attention_vjp.dkdv_launches)
+             SWA.swa_attention_vjp.cuda_core_dkdv_launches)
         ops = make_curvature_ops(fwd, loss, params, batch, mode=mode)
         for u, w in zip(vecs, want):
             got = ops.gnvp({k: x.to(cuda) for k, x in u.items()})
@@ -209,13 +266,14 @@ def test_curvature_products_match_the_cpu(cuda, arch):
             den = sum(float((w[k] ** 2).sum()) for k in w)
             assert (num / den) ** 0.5 <= 1e-4, (mode, (num / den) ** 0.5)
         assert SWA.swa_attention_jvp.launches > n[0]
-        assert SWA.swa_attention_vjp.dkdv_launches > n[1]
+        assert SWA.swa_attention_vjp.cuda_core_dkdv_launches > n[1]
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mixtral-8x22b"])
 def test_sgd_step_through_the_kernels(cuda, arch):
     """One SGD step of the smoke model in bf16 through ``build_step``:
-    each windowed layer launches the forward, dq and dk/dv kernels once."""
+    each windowed layer launches the forward and the tensor-core dq and
+    dk/dv kernels once, and the CUDA-core backward never."""
     cfg = get_config(arch).smoke()
     params = get_model(cfg).init(0, device=cuda)
     step, opt = build_step(cfg, "sgd", lr=0.1)
@@ -230,5 +288,7 @@ def test_sgd_step_through_the_kernels(cuda, arch):
     assert (SWA.swa_attention.launches,
             SWA.swa_attention_vjp.dq_launches,
             SWA.swa_attention_vjp.dkdv_launches) == (windowed,) * 3
+    assert (SWA.swa_attention_vjp.cuda_core_dq_launches,
+            SWA.swa_attention_vjp.cuda_core_dkdv_launches) == (0, 0)
     assert bool(torch.isfinite(torch.as_tensor(m["loss"])).all())
     assert any(not torch.equal(new[k], params[k]) for k in params)
