@@ -3438,8 +3438,8 @@ def xlstm_cg_times(xl: dict, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 # the derivative kernels: no TPU kernel; the reference differentiates its
-# jnp windowed_attention by autodiff.  dq and dk/dv take bf16 on the tensor
-# cores (BWD_SM90_SOURCE), f32 on the CUDA cores (BWD_SOURCE, with the jvp)
+# jnp windowed_attention by autodiff.  dq, dk/dv and the jvp take bf16 on
+# the tensor cores (BWD_SM90_SOURCE), f32 on the CUDA cores (BWD_SOURCE)
 BWD_KERNELS = ("swa_attention_dq", "swa_attention_dkdv", "swa_attention_jvp")
 BWD_SOURCE = "src/repro_torch/kernels/csrc/swa_attention_bwd.cu"
 BWD_SM90_SOURCE = "src/repro_torch/kernels/csrc/swa_attention_bwd_sm90.cu"
@@ -3473,19 +3473,20 @@ SMOKE_TRAIN_BATCH, SMOKE_TRAIN_SEQ = 8, 64
 
 
 def bwd_counts() -> tuple:
-    """(tensor-core dq, tensor-core dk/dv, jvp, CUDA-core dq, CUDA-core
-    dk/dv) launches so far."""
+    """(tensor-core dq, dk/dv, jvp, CUDA-core dq, dk/dv, jvp) launches so
+    far."""
     from repro_torch.kernels import swa_attention as SWA
-    f = SWA.swa_attention_vjp
-    return (f.dq_launches, f.dkdv_launches, SWA.swa_attention_jvp.launches,
-            f.cuda_core_dq_launches, f.cuda_core_dkdv_launches)
+    f, j = SWA.swa_attention_vjp, SWA.swa_attention_jvp
+    return (f.dq_launches, f.dkdv_launches, j.launches,
+            f.cuda_core_dq_launches, f.cuda_core_dkdv_launches,
+            j.cuda_core_launches)
 
 
 def set_bwd_counts(n: tuple) -> None:
     from repro_torch.kernels import swa_attention as SWA
-    f = SWA.swa_attention_vjp
-    (f.dq_launches, f.dkdv_launches, SWA.swa_attention_jvp.launches,
-     f.cuda_core_dq_launches, f.cuda_core_dkdv_launches) = n
+    f, j = SWA.swa_attention_vjp, SWA.swa_attention_jvp
+    (f.dq_launches, f.dkdv_launches, j.launches, f.cuda_core_dq_launches,
+     f.cuda_core_dkdv_launches, j.cuda_core_launches) = n
 
 
 def bwd_rel(got, plain, plain32, dtype) -> tuple:
@@ -3499,10 +3500,10 @@ def bwd_rel(got, plain, plain32, dtype) -> tuple:
 
 def check_bwd_case(dev, shape, dtype, seed: int, errs: dict,
                    core: bool = False) -> dict:
-    """The dq and dk/dv kernels (the CUDA-core pair if ``core``, else the
-    pair the dtype routes to) and, unless ``core``, the jvp kernel against
-    their plain versions at one shape, each bitwise on a repeat and counted
-    on its route's counters; returns the inputs for timing."""
+    """The dq, dk/dv and jvp kernels (the CUDA-core ones if ``core``, else
+    those the dtype routes to) against their plain versions at one shape,
+    each bitwise on a repeat and counted on its route's counters; returns
+    the inputs for timing."""
     from repro_torch.kernels import ref as R
     from repro_torch.kernels import swa_attention as SWA
     q, k, v = swa_inputs(dev, shape, dtype, seed)
@@ -3512,25 +3513,22 @@ def check_bwd_case(dev, shape, dtype, seed: int, errs: dict,
     route = "tensor-core" if tc else "CUDA-core"
     tag = "x".join(map(str, shape)) + f"_{str(dtype)[6:]}"
     n = bwd_counts()
-    got = SWA.swa_attention_vjp(q, k, v, g, w, core=core)
-    again = SWA.swa_attention_vjp(q, k, v, g, w, core=core)
-    plain = R.swa_attention_vjp_ref(q, k, v, g, w)
-    if not core:
-        got += (SWA.swa_attention_jvp(q, k, v, tq, tk, tv, w),)
-        again += (SWA.swa_attention_jvp(q, k, v, tq, tk, tv, w),)
-        plain += (R.swa_attention_jvp_ref(q, k, v, tq, tk, tv, w),)
-    jvps = 0 if core else 2
-    check(bwd_counts() == (n[0] + 2 * tc, n[1] + 2 * tc, n[2] + jvps,
-                           n[3] + 2 - 2 * tc, n[4] + 2 - 2 * tc),
+    got, again = (SWA.swa_attention_vjp(q, k, v, g, w, core=core)
+                  + (SWA.swa_attention_jvp(q, k, v, tq, tk, tv, w,
+                                           core=core),)
+                  for _ in range(2))
+    plain = R.swa_attention_vjp_ref(q, k, v, g, w) \
+        + (R.swa_attention_jvp_ref(q, k, v, tq, tk, tv, w),)
+    check(bwd_counts() == tuple(c + 2 * (tc if i < 3 else 1 - tc)
+                                for i, c in enumerate(n)),
           f"swa_attention derivatives[{tag}]: launches {bwd_counts()} from "
           f"{n}; want two of each {route} kernel")
     if dtype == torch.float32:
         plain32 = plain
     else:
         up = [x.float() for x in (q, k, v, g, tq, tk, tv)]
-        plain32 = R.swa_attention_vjp_ref(*up[:4], w)
-        if not core:
-            plain32 += (R.swa_attention_jvp_ref(*up[:3], *up[4:], w),)
+        plain32 = R.swa_attention_vjp_ref(*up[:4], w) \
+            + (R.swa_attention_jvp_ref(*up[:3], *up[4:], w),)
     torch.cuda.synchronize()
     parts = []
     for name, a, b, p, p32 in zip(("dq", "dk", "dv", "dO"), got, again,
@@ -3547,13 +3545,14 @@ def check_bwd_case(dev, shape, dtype, seed: int, errs: dict,
               f"{rel:.3g} > {limit:.3g}")
         kern = {"dq": BWD_KERNELS[0], "dk": BWD_KERNELS[1],
                 "dv": BWD_KERNELS[1], "dO": BWD_KERNELS[2]}[name]
-        if name != "dO" and not tc:
+        if not tc:
             kern += "_cuda_core"
         d = float((a.float() - p.float()).abs().max()) if a.numel() else 0.0
         errs[f"{kern}[{tag}:{name}]"] = d
         parts.append(f"{name} {rel:.3g} (limit {limit:.3g}, max |d| {d:.3g})")
     log(f"swa_attention derivatives == plain at (B,T,H,K,hd,window)="
-        f"{shape} {dtype}, {route} dq and dk/dv: rel-L2 " + ", ".join(parts)
+        f"{shape} {dtype}, {route} dq, dk/dv and jvp: rel-L2 "
+        + ", ".join(parts)
         + "; a repeat launch bitwise")
     return {"q": q, "k": k, "v": v, "g": g, "tq": tq, "tk": tk, "tv": tv}
 
@@ -3607,10 +3606,53 @@ def sdpa_backward(x: dict, window: int):
                                        retain_graph=True)
 
 
+def sdpa_jvp(x: dict, window: int, want):
+    """``torch.func.jvp`` through ``scaled_dot_product_attention`` with the
+    band mask, under its efficient and cuDNN backends (the yardstick,
+    never on the port's path): a call computing the output's tangent for
+    (tq, tk, tv), or None where PyTorch does not run it; its first result's
+    relative L2 from ``want`` (the f32 plain jvp) is logged."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    q, k, v = x["q"], x["k"], x["v"]
+    B, T, H, hd = q.shape
+    G = H // k.shape[2]
+    heads = (lambda t: t.transpose(1, 2),
+             lambda t: t.transpose(1, 2).repeat_interleave(G, dim=1))
+    primals = tuple(heads[i > 0](x[n]) for i, n in enumerate("qkv"))
+    tangents = tuple(heads[i > 0](x[n])
+                     for i, n in enumerate(("tq", "tk", "tv")))
+    pos = torch.arange(T, device=q.device)
+    mask = ((pos[None, :] <= pos[:, None])
+            & (pos[None, :] >= pos[:, None] - window))
+
+    def f(a, b, c):
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION]):
+            return F.scaled_dot_product_attention(a, b, c, attn_mask=mask)
+
+    def call():
+        return torch.func.jvp(f, primals, tangents)[1]
+
+    try:
+        out = call().transpose(1, 2)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as exc:
+        log(f"scaled_dot_product_attention jvp (torch.func.jvp, band mask) "
+            f"at {tuple(q.shape)}: {type(exc).__name__}: "
+            f"{str(exc).splitlines()[0][:200]}")
+        return None
+    log(f"scaled_dot_product_attention jvp (torch.func.jvp, band mask) at "
+        f"{tuple(q.shape)}: rel-L2 {rel_l2(out, want):.4g} from the f32 "
+        f"plain jvp")
+    return call
+
+
 def bwd_times(x: dict, shape) -> dict:
-    """The derivative kernels timed in turns (ABC.. ..CBA, CUDA events)
-    with their plain versions and SDPA's backward, at one shape; the
-    comparison launches are not counted."""
+    """The derivative kernels on both routes timed in turns (ABC.. ..CBA,
+    CUDA events) with their plain versions and SDPA's backward and jvp
+    where PyTorch runs them, at one shape; the comparison launches are not
+    counted."""
     from repro_torch.kernels import ref as R
     from repro_torch.kernels import swa_attention as SWA
     n = bwd_counts()
@@ -3626,11 +3668,16 @@ def bwd_times(x: dict, shape) -> dict:
            "cuda_core_dkdv": (lambda: SWA.launch_dkdv(q, k, v, g, lse_c,
                                                       dd_c, w, True), 2),
            BWD_KERNELS[2]: (lambda: SWA.swa_attention_jvp(q, k, v, tq, tk,
-                                                          tv, w), 3),
+                                                          tv, w), 5),
+           "cuda_core_jvp": (lambda: SWA.swa_attention_jvp(
+               q, k, v, tq, tk, tv, w, core=True), 2),
            "plain_vjp": (lambda: R.swa_attention_vjp_ref(q, k, v, g, w), 1),
            "plain_jvp": (lambda: R.swa_attention_jvp_ref(q, k, v, tq, tk,
                                                          tv, w), 1),
-           "library_vjp": (sdpa_backward(x, w), 2)}
+           "library_vjp": (sdpa_backward(x, w), 2),
+           "library_jvp": (sdpa_jvp(x, w, R.swa_attention_jvp_ref(
+               *(x[n].float() for n in ("q", "k", "v", "tq", "tk", "tv")),
+               w)), 2)}
     order = [name for name in fns if fns[name][0] is not None]
     turns: dict = {name: [] for name in order}
     for name in order + order[::-1]:
@@ -3641,32 +3688,31 @@ def bwd_times(x: dict, shape) -> dict:
     out = {}
     for name, (byt, flops) in bwd_work(shape, q.dtype).items():
         b_ms, b_by = swa_bound(byt, flops)
+        kind = "jvp" if name == BWD_KERNELS[2] else "vjp"
+        core = t["cuda_core_" + name.split("_")[-1]]
         out[name] = {"ms": t[name], "bound_ms": b_ms, "bound_by": b_by,
-                     "plain_ms": t["plain_jvp" if name == BWD_KERNELS[2]
-                                   else "plain_vjp"],
-                     "library_ms": (None if name == BWD_KERNELS[2]
-                                    else t.get("library_vjp")),
-                     "tflops": flops / t[name] * 1e-9}
-        if name != BWD_KERNELS[2]:
-            core = t["cuda_core_" + name.split("_")[-1]]
-            out[name].update(cuda_core_ms=core,
-                             cuda_core_tflops=flops / core * 1e-9)
+                     "plain_ms": t["plain_" + kind],
+                     "library_ms": t.get("library_" + kind),
+                     "tflops": flops / t[name] * 1e-9, "cuda_core_ms": core,
+                     "cuda_core_tflops": flops / core * 1e-9}
     pair, core_pair = (t[BWD_KERNELS[0]] + t[BWD_KERNELS[1]],
                        t["cuda_core_dq"] + t["cuda_core_dkdv"])
-    lib = t.get("library_vjp")
+    lib, lib_jvp = t.get("library_vjp"), t.get("library_jvp")
+    jvp, core_jvp = t[BWD_KERNELS[2]], t["cuda_core_jvp"]
     log(f"swa_attention derivatives timed at (B,T,H,K,hd,window)={shape} "
         f"{q.dtype}: " + "; ".join(
             f"{k} {v['ms']:.4f} ms ({v['tflops']:.3f} TFLOP/s useful, "
             f"bound {v['bound_ms']:.4f} ms by {v['bound_by']})"
-            + (f", CUDA-core pair's {v['cuda_core_ms']:.4f} ms"
-               if "cuda_core_ms" in v else "")
+            + f", CUDA-core {v['cuda_core_ms']:.4f} ms"
             for k, v in out.items())
         + f"; tensor-core dq + dk/dv {pair:.4f} ms, CUDA-core "
         f"{core_pair:.4f} ms ({core_pair / pair:.2f}x), SDPA backward "
         + (f"{lib:.4f} ms ({lib / pair:.2f}x the pair)" if lib else "none")
+        + f"; tensor-core jvp {jvp:.4f} ms, CUDA-core {core_jvp:.4f} ms "
+        f"({core_jvp / jvp:.2f}x), SDPA jvp "
+        + (f"{lib_jvp:.4f} ms ({lib_jvp / jvp:.2f}x)" if lib_jvp else "none")
         + f"; plain vjp {t['plain_vjp']:.4f} ms, plain jvp "
-        f"{t['plain_jvp']:.4f} ms, SDPA backward (band mask) "
-        f"{t.get('library_vjp')} ms; turns (ms) "
+        f"{t['plain_jvp']:.4f} ms; turns (ms) "
         + ", ".join(f"{k} {[round(y, 3) for y in v]}"
                     for k, v in turns.items()))
     return out
@@ -3735,13 +3781,13 @@ def rg_sgd_training(dev) -> dict:
         times.append(time.perf_counter() - t0)
         m = {k: float(v) for k, v in m.items()}
         n = (SWA.swa_attention.launches, SWA.swa_attention.cuda_core_launches)
-        dq, dkdv, jvp, cdq, cdkdv = bwd_counts()
-        check(n == (local, 0) and (dq, dkdv, jvp, cdq, cdkdv)
-              == (local, local, 0, 0, 0),
+        dq, dkdv, jvp, cdq, cdkdv, cjvp = bwd_counts()
+        check(n == (local, 0) and (dq, dkdv, jvp, cdq, cdkdv, cjvp)
+              == (local, local, 0, 0, 0, 0),
               f"{LM_ARCH} SGD step {i}: forward launches {n}, dq {dq}, "
               f"dk/dv {dkdv}, jvp {jvp}, CUDA-core dq {cdq}, dk/dv "
-              f"{cdkdv}; want {local} tensor-core, {local} tensor-core dq "
-              f"and dk/dv, no jvp, no CUDA-core backward")
+              f"{cdkdv}, jvp {cjvp}; want {local} tensor-core, {local} "
+              f"tensor-core dq and dk/dv, no jvp, no CUDA-core kernel")
         check(read_counts() == {k: 0 for k in read_counts()},
               f"{LM_ARCH} SGD step {i}: lattice/CG launches {read_counts()}")
         check(np.isfinite(m["loss"]), f"{LM_ARCH} SGD step {i}: loss "
@@ -3789,7 +3835,9 @@ def smoke_nghf(dev) -> dict:
     update per curvature mode: the kernel path (the attention kernels,
     fused CG) against the plain path (attention's plain version, unfused
     CG): the same decision, or a tie within the paths' spread, and the
-    last iterate's Δθ within LM_DELTA_REL_L2."""
+    last iterate's Δθ within LM_DELTA_REL_L2.  In ``rematvp`` the kernel
+    path also runs with the CUDA-core jvp (``cuda_core_jvp``), and its
+    Δθ from both is printed: the spread of two f32-accurate jvps."""
     from repro_torch.configs.base import get_config
     from repro_torch.data.synthetic import lm_batch
     from repro_torch.models.registry import get_model
@@ -3806,17 +3854,17 @@ def smoke_nghf(dev) -> dict:
             kw = {"curvature_mode": mode}
             reset_counts()
             _, m_k, t_k = lm_one_update(cfg, params, b, True, **kw)
-            dq, dkdv, jvp, cdq, cdkdv = bwd_counts()
-            check(min(dq, dkdv, jvp) > 0 and cdq == cdkdv == 0,
+            dq, dkdv, jvp, cdq, cdkdv, cjvp = bwd_counts()
+            check(min(dq, dkdv, jvp) > 0 and cdq == cdkdv == cjvp == 0,
                   f"{tag}: derivative kernel launches dq {dq}, dk/dv "
-                  f"{dkdv} (tensor-core), jvp {jvp}, CUDA-core dq {cdq}, "
-                  f"dk/dv {cdkdv}")
+                  f"{dkdv}, jvp {jvp} (tensor-core), CUDA-core dq {cdq}, "
+                  f"dk/dv {cdkdv}, jvp {cjvp}")
             for key, c in zip(("dq", "dkdv", "jvp"), (dq, dkdv, jvp)):
                 out[key] += c
             with plain_attention():
                 _, m_p, t_p = lm_one_update(cfg, params, b, False, **kw)
-            check(bwd_counts() == (dq, dkdv, jvp, cdq, cdkdv), f"{tag}: the "
-                  f"plain path launched a derivative kernel")
+            check(bwd_counts() == (dq, dkdv, jvp, cdq, cdkdv, cjvp),
+                  f"{tag}: the plain path launched a derivative kernel")
             text = same_choice(tag, m_k, m_p)
             new_k, _, _ = lm_one_update(cfg, params, b, True,
                                         eval_candidates=False, **kw)
@@ -3826,10 +3874,20 @@ def smoke_nghf(dev) -> dict:
             rel = delta_rel_l2(new_k, new_p, params)
             check(rel <= LM_DELTA_REL_L2, f"{tag}: last-iterate Δθ kernel "
                   f"vs plain path rel-L2 {rel:.3g}")
+            if mode == "rematvp":
+                with cuda_core_jvp():
+                    new_c, _, _ = lm_one_update(cfg, params, b, True,
+                                                eval_candidates=False, **kw)
+                text += (f"; with the CUDA-core jvp the kernel path's Δθ is "
+                         f"{delta_rel_l2(new_c, new_p, params):.4g} from "
+                         f"the plain path's, "
+                         f"{delta_rel_l2(new_k, new_c, params):.4g} from "
+                         f"the tensor-core jvp's")
             log(f"{tag}: kernel path == plain path: {text}; last-iterate "
                 f"Δθ rel-L2 {rel:.3g} (limit {LM_DELTA_REL_L2}); kernel "
                 f"update {t_k * 1e3:.3f} ms (tensor-core dq {dq}, dk/dv "
-                f"{dkdv}, jvp {jvp} launches), plain {t_p * 1e3:.3f} ms")
+                f"{dkdv}, jvp {jvp} launches; CUDA-core none), plain "
+                f"{t_p * 1e3:.3f} ms")
         del params
     return out
 
@@ -3852,9 +3910,9 @@ def bwd_entries(rg: dict, errs: dict) -> list:
     """The derivative kernels' rows of the ``{"kernels": ...}`` line: time
     at recurrentgemma-9b's training shape, ``mixtral_*`` keys at mixtral's
     geometry; launches on phase 13's main paths (the SGD steps and the
-    smoke NGHF kernel-path updates, bf16: the tensor-core dq and dk/dv);
-    dq's and dk/dv's ``cuda_core_*`` keys time the CUDA-core pair (f32's
-    route) on the same bf16 inputs."""
+    smoke NGHF kernel-path updates, bf16: the tensor-core kernels); the
+    ``cuda_core_*`` keys time each one's CUDA-core kernel (f32's route) on
+    the same bf16 inputs."""
     sgd, nghf = rg["sgd"]["launches"], rg["nghf"]
     launches = {BWD_KERNELS[0]: sgd["dq"] + nghf["dq"],
                 BWD_KERNELS[1]: sgd["dkdv"] + nghf["dkdv"],
@@ -3863,10 +3921,8 @@ def bwd_entries(rg: dict, errs: dict) -> list:
     for name in BWD_KERNELS:
         t = rg["times"][SWA_TRAIN][name]
         mx = rg["times"][SWA_MIXTRAL][name]
-        sm90 = name != BWD_KERNELS[2]
         rows.append({
-            "name": name, "route": "cuda",
-            "source": BWD_SM90_SOURCE if sm90 else BWD_SOURCE,
+            "name": name, "route": "cuda", "source": BWD_SM90_SOURCE,
             "replaces": BWD_REFERENCE,
             "note": "no TPU kernel: the reference differentiates its jnp "
                     "windowed_attention by autodiff",
@@ -3880,11 +3936,9 @@ def bwd_entries(rg: dict, errs: dict) -> list:
             "mixtral_ms": mx["ms"], "mixtral_plain_ms": mx["plain_ms"],
             "mixtral_bound_ms": mx["bound_ms"],
             "mixtral_library_ms": mx["library_ms"],
-            "mixtral_shape": f"B,T,H,K,hd,window={list(SWA_MIXTRAL)} bf16"})
-        if sm90:
-            rows[-1].update(cuda_core_source=BWD_SOURCE,
-                            cuda_core_ms=t["cuda_core_ms"],
-                            mixtral_cuda_core_ms=mx["cuda_core_ms"])
+            "mixtral_shape": f"B,T,H,K,hd,window={list(SWA_MIXTRAL)} bf16",
+            "cuda_core_source": BWD_SOURCE, "cuda_core_ms": t["cuda_core_ms"],
+            "mixtral_cuda_core_ms": mx["cuda_core_ms"]})
     return rows
 
 
@@ -3989,6 +4043,26 @@ class plain_attention:
     def __exit__(self, *exc):
         from repro_torch.models import layers
         layers.swa_attention = self._saved
+
+
+class cuda_core_jvp:
+    """Within the block, the windowed attention's jvp launches the
+    CUDA-core kernel whatever the dtype (a comparison path only: its
+    launches are counted on the stand-in, not on the wrapper)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import swa_attention as SWA
+        self._saved = saved = SWA.swa_attention_jvp
+
+        def core(*args, **kw):
+            return saved(*args, **kw, core=True)
+
+        core.launches = core.cuda_core_launches = 0
+        SWA.swa_attention_jvp = core
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import swa_attention as SWA
+        SWA.swa_attention_jvp = self._saved
 
 
 def rel_l2(a, b) -> float:
@@ -4319,7 +4393,7 @@ def main() -> int:
             if any(w in line for w in ("registers", "spill", "C7519",
                                        "C7520", "wgmma")):
                 log(f"ptxas {stem}: {line.strip()}")
-    # the tensor-core backward: no spill, no serialised wgmma
+    # the tensor-core derivatives: no spill, no serialised wgmma
     sm90_bwd = build.build_log("swa_attention_bwd_sm90")
     check(not re.search(r"\(C75(19|20)\)|\b[1-9][0-9]* bytes spill",
                         sm90_bwd),
@@ -4328,7 +4402,7 @@ def main() -> int:
     log("swa_attention_sm90 dynamic shared memory at hd_pad 64/128/256: "
         + "/".join(str(SWA.sm90_smem_bytes(p)) for p in (64, 128, 256))
         + " bytes")
-    for kern in ("dq", "dkdv"):
+    for kern in ("dq", "dkdv", "jvp"):
         log(f"swa_attention_bwd_sm90 {kern} dynamic shared memory at hd_pad "
             f"64/128/256: " + "/".join(
                 str(SWA.sm90_bwd_smem_bytes(kern, p)) for p in (64, 128, 256))

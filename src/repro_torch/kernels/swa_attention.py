@@ -25,12 +25,13 @@ Routing of the forward, by device and dtype only (never by failure):
 Every CUDA call runs through ``_SwaAttention``, an ``autograd.Function``
 whose derivatives are hand-written kernels too: its backward launches
 ``swa_attention_vjp``'s dq kernel and then its dk/dv kernel, its jvp
-``swa_attention_jvp``'s kernel (``csrc/swa_attention_bwd.cu``).  The
-backward routes as the forward does, by dtype and hd only: bf16 with
-hd % 8 == 0 takes the tensor-core pair ``csrc/swa_attention_bwd_sm90.cu``
-(wgmma + TMA, P and dS split for f32 accuracy; the dk/dv kernel walks the
-tiles of ``swa_bwd_geometry``), f32 and any other hd the CUDA-core pair
-of ``csrc/swa_attention_bwd.cu``, the exact f32 path.  Plain autograd,
+``swa_attention_jvp``'s kernel.  The derivatives route as the forward
+does, by dtype and hd only: bf16 with hd % 8 == 0 takes the tensor-core
+kernels of ``csrc/swa_attention_bwd_sm90.cu`` (wgmma + TMA; P, dS and the
+jvp's X split for f32 accuracy; the dq and jvp kernels run the forward's
+tiles, the dk/dv kernel walks those of ``swa_bwd_geometry``), f32 and any
+other hd the CUDA-core kernels of ``csrc/swa_attention_bwd.cu``, the
+exact f32 path.  Plain autograd,
 ``torch.func.jvp``, ``vjp``, ``grad`` and ``linearize`` (NGHF's curvature
 products) run them; under ``torch.no_grad`` (prefill) the Function
 launches the forward kernel alone, the same bits as before it existed.
@@ -47,8 +48,10 @@ Launch counts: ``swa_attention.launches`` (the tensor-core kernel, the
 bf16 main path), ``swa_attention.cuda_core_launches`` (the CUDA-core
 kernel), ``swa_attention_vjp.dq_launches`` and ``.dkdv_launches`` (the
 tensor-core backward), ``.cuda_core_dq_launches`` and
-``.cuda_core_dkdv_launches`` (the CUDA-core backward), and
-``swa_attention_jvp.launches``; the plain versions count nothing.
+``.cuda_core_dkdv_launches`` (the CUDA-core backward),
+``swa_attention_jvp.launches`` (the tensor-core jvp) and
+``.cuda_core_launches`` (the CUDA-core jvp); the plain versions count
+nothing.
 """
 from __future__ import annotations
 
@@ -88,10 +91,12 @@ _BWD_SIGNATURES = {"swa_attention_dq_launch": [_PTR] * 7 + _SHAPE,
 # q k v g dq lse dd | batch seq heads kv_heads hd window | queries heads
 # head_tiles hd_pad grid_x grid_y | scale | stream; q k v g lse dd dk dv |
 # batch seq heads kv_heads hd window | walk queries heads head_tiles mag
-# hd_pad grid_x | scale | stream
+# hd_pad grid_x | scale | stream; q k v tq tk tv tout | as dq's
 _SM90_BWD_SIGNATURES = {
     "swa_attention_dq_sm90_launch": [_PTR] * 7 + [_INT] * 12 + [_F32, _PTR],
     "swa_attention_dkdv_sm90_launch": [_PTR] * 8 + [_INT] * 12
+    + [_F32, _PTR],
+    "swa_attention_jvp_sm90_launch": [_PTR] * 7 + [_INT] * 12
     + [_F32, _PTR],
     "swa_attention_bwd_sm90_smem_bytes": [_INT, _INT]}
 
@@ -250,12 +255,12 @@ def _shape_args(q, k, window: int) -> tuple:
 
 
 def sm90_bwd_smem_bytes(kernel: str, hd_pad: int) -> int:
-    """Dynamic shared memory (bytes) of a tensor-core backward launch
-    (``kernel`` "dq" or "dkdv") at padded head dim ``hd_pad``; builds the
-    library if it is missing."""
+    """Dynamic shared memory (bytes) of a tensor-core derivative launch
+    (``kernel`` "dq", "dkdv" or "jvp") at padded head dim ``hd_pad``;
+    builds the library if it is missing."""
     lib = build.library("swa_attention_bwd_sm90", _SM90_BWD_SIGNATURES)
     return lib.swa_attention_bwd_sm90_smem_bytes(
-        {"dq": 0, "dkdv": 1}[kernel], hd_pad)
+        {"dq": 0, "dkdv": 1, "jvp": 2}[kernel], hd_pad)
 
 
 def _tensor_core(q) -> bool:
@@ -377,21 +382,40 @@ def swa_attention_vjp(q, k, v, g, window: int, *, core: bool = False):
     return (dq,) + launch_dkdv(q, k, v, g, lse, dd, window, core)
 
 
-def swa_attention_jvp(q, k, v, tq, tk, tv, window: int):
+def swa_attention_jvp(q, k, v, tq, tk, tv, window: int, *,
+                      core: bool = False):
     """The forward-mode derivative of ``swa_attention`` (q_offset 0): the
     output's tangent for tangents (tq, tk, tv) of (q, k, v).  CUDA tensors
-    (contiguous, all of q's dtype) launch the jvp kernel, counting
-    ``launches``; CPU tensors take ``ref.swa_attention_jvp_ref``."""
+    (contiguous, all of q's dtype): bf16 with hd % 8 == 0 (unless
+    ``core``) launch the tensor-core kernel of
+    ``csrc/swa_attention_bwd_sm90.cu`` on the forward's tiles
+    (``swa_geometry``), counting ``launches``; f32, other hd and ``core``
+    the CUDA-core kernel of ``csrc/swa_attention_bwd.cu``, counting
+    ``cuda_core_launches``.  CPU tensors take
+    ``ref.swa_attention_jvp_ref``."""
     name = "swa_attention_jvp"
     if not _on_cuda(name, q, k, v, tq, tk, tv):
         return ref.swa_attention_jvp_ref(q, k, v, tq, tk, tv, window)
-    _check_like(name, {"q": q, "k": k, "v": v, "tq": tq, "tk": tk,
-                       "tv": tv}, q)
+    ts = {"q": q, "k": k, "v": v, "tq": tq, "tk": tk, "tv": tv}
+    _check_like(name, ts, q)
     out = torch.empty_like(q)
-    build.launch("swa_attention_bwd", _BWD_SIGNATURES,
-                 "swa_attention_jvp_launch", q.device, q.data_ptr(),
-                 k.data_ptr(), v.data_ptr(), tq.data_ptr(), tk.data_ptr(),
-                 tv.data_ptr(), out.data_ptr(), *_shape_args(q, k, window))
+    if core or not _tensor_core(q):
+        build.launch("swa_attention_bwd", _BWD_SIGNATURES,
+                     "swa_attention_jvp_launch", q.device, q.data_ptr(),
+                     k.data_ptr(), v.data_ptr(), tq.data_ptr(),
+                     tk.data_ptr(), tv.data_ptr(), out.data_ptr(),
+                     *_shape_args(q, k, window))
+        swa_attention_jvp.cuda_core_launches += 1
+        return out
+    _check_aligned(name, ts)
+    B, T, H, hd = q.shape
+    geo = swa_geometry(B, T, H, k.shape[2], hd, window)
+    build.launch("swa_attention_bwd_sm90", _SM90_BWD_SIGNATURES,
+                 "swa_attention_jvp_sm90_launch", q.device,
+                 *(t.data_ptr() for t in ts.values()), out.data_ptr(), B, T,
+                 H, k.shape[2], hd, geo.window, geo.queries, geo.heads,
+                 geo.head_tiles, geo.hd_pad, geo.grid[0], geo.grid[1],
+                 1.0 / math.sqrt(hd))
     swa_attention_jvp.launches += 1
     return out
 
@@ -521,6 +545,7 @@ swa_attention_vjp.dkdv_launches = 0
 swa_attention_vjp.cuda_core_dq_launches = 0
 swa_attention_vjp.cuda_core_dkdv_launches = 0
 swa_attention_jvp.launches = 0
+swa_attention_jvp.cuda_core_launches = 0
 
 KERNELS = (swa_attention, swa_attention_jvp)
 
@@ -533,3 +558,4 @@ def reset_launch_counts() -> None:
     swa_attention_vjp.dkdv_launches = 0
     swa_attention_vjp.cuda_core_dq_launches = 0
     swa_attention_vjp.cuda_core_dkdv_launches = 0
+    swa_attention_jvp.cuda_core_launches = 0

@@ -1,15 +1,15 @@
 """The windowed attention's derivative kernels on a card: the backward's
-dq and dk/dv kernels (``swa_attention_vjp``; bf16 with hd % 8 == 0 on the
-tensor cores, ``csrc/swa_attention_bwd_sm90.cu``, f32 on the CUDA cores,
-``csrc/swa_attention_bwd.cu``, each route counted apart) and the jvp
-kernel (``swa_attention_jvp``, ``csrc/swa_attention_bwd.cu``) against
-their plain versions (``kernels.ref.swa_attention_vjp_ref`` and
-``swa_attention_jvp_ref``) on adversarial shapes and both training shapes,
-bitwise on a repeat; the
-no-grad forward through the autograd Function bitwise equal to the direct
-launch; ``torch.func.linearize``'s tangent at two vectors; second order
-raising; and the smoke models' curvature products and NGHF step through
-the kernels against the CPU's plain path.
+dq and dk/dv kernels (``swa_attention_vjp``) and the jvp kernel
+(``swa_attention_jvp``), each on both routes (bf16 with hd % 8 == 0 on the
+tensor cores, ``csrc/swa_attention_bwd_sm90.cu``; f32 and ``core=True``
+on the CUDA cores, ``csrc/swa_attention_bwd.cu``; each route counted
+apart), against their plain versions (``kernels.ref.swa_attention_vjp_ref``
+and ``swa_attention_jvp_ref``) on adversarial shapes and both training
+shapes, bitwise on a repeat, misaligned inputs refused; the no-grad
+forward through the autograd Function bitwise equal to the direct launch;
+``torch.func.linearize``'s tangent at two vectors; second order raising;
+and the smoke models' curvature products and SGD step through the
+kernels against the CPU's plain path.
 
 These tests need a CUDA card and skip without one (decided inside the
 ``cuda`` fixture, never at import).  They import no JAX:
@@ -164,21 +164,56 @@ def test_tensor_core_backward_refuses_misaligned_inputs(cuda):
         SWA.swa_attention_vjp(shifted, k, v, g, 16)
 
 
+def _jvp_counts() -> tuple:
+    """(tensor-core, CUDA-core) jvp launches so far."""
+    f = SWA.swa_attention_jvp
+    return f.launches, f.cuda_core_launches
+
+
+@pytest.mark.parametrize("core", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,T,H,K,hd,window", CASES)
+@pytest.mark.parametrize("B,T,H,K,hd,window",
+                         CASES + BF16_CASES + TRAIN_CASES)
 def test_jvp_kernel_matches_plain_version(cuda, B, T, H, K, hd, window,
-                                          dtype):
+                                          dtype, core):
+    """bf16 (hd % 8 == 0) launches the tensor-core jvp, f32 and ``core``
+    the CUDA-core one, each seen on its own counter."""
     q, k, v, tq, tk, tv, _ = _inputs(cuda, B, T, H, K, hd, dtype, T + H)
-    n = SWA.swa_attention_jvp.launches
-    got = SWA.swa_attention_jvp(q, k, v, tq, tk, tv, window)
-    again = SWA.swa_attention_jvp(q, k, v, tq, tk, tv, window)
+    n = _jvp_counts()
+    got = SWA.swa_attention_jvp(q, k, v, tq, tk, tv, window, core=core)
+    again = SWA.swa_attention_jvp(q, k, v, tq, tk, tv, window, core=core)
     torch.cuda.synchronize()
-    assert SWA.swa_attention_jvp.launches == n + 2
+    tc = int(dtype == torch.bfloat16 and hd % 8 == 0 and not core)
+    assert _jvp_counts() == (n[0] + 2 * tc, n[1] + 2 * (1 - tc))
     plain = R.swa_attention_jvp_ref(q, k, v, tq, tk, tv, window)
     plain32 = R.swa_attention_jvp_ref(
         *(x.float() for x in (q, k, v, tq, tk, tv)), window)
     _check((B, T, H, K, hd, window), [got], [plain], [plain32], dtype)
     assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("B,T,H,K,hd,window", TRAIN_CASES)
+def test_tensor_core_jvp_repeats_its_bits(cuda, B, T, H, K, hd, window):
+    """No atomics and sums in a fixed order: three launches of the
+    tensor-core jvp give the same bits."""
+    q, k, v, tq, tk, tv, _ = _inputs(cuda, B, T, H, K, hd, torch.bfloat16,
+                                     9)
+    n = _jvp_counts()
+    outs = [SWA.swa_attention_jvp(q, k, v, tq, tk, tv, window)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    assert _jvp_counts() == (n[0] + 3, n[1])
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+def test_tensor_core_jvp_refuses_misaligned_inputs(cuda):
+    q, k, v, tq, tk, tv, _ = _inputs(cuda, 1, 64, 4, 1, 64, torch.bfloat16,
+                                     8)
+    flat = torch.empty(tk.numel() + 1, dtype=tk.dtype, device=cuda)
+    shifted = flat[1:].view(tk.shape)
+    shifted.copy_(tk)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        SWA.swa_attention_jvp(q, k, v, tq, shifted, tv, 16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -198,25 +233,30 @@ def test_function_forward_is_the_direct_launch(cuda, dtype):
     assert all(torch.equal(x.grad, w) for x, w in zip(leaves, want))
 
 
-def test_linearize_tangent_at_two_vectors(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_linearize_tangent_at_two_vectors(cuda, dtype):
     """``torch.func.linearize`` records the jvp kernel's launch: its
-    tangent at two different vectors matches the plain version's."""
-    q, k, v, tq, tk, tv, _ = _inputs(cuda, 1, 200, 4, 1, 64,
-                                     torch.float32, 2)
+    tangent at two different vectors matches the plain version's.  f32
+    launches the CUDA-core jvp, bf16 the tensor-core one and never the
+    CUDA-core one."""
+    q, k, v, tq, tk, tv, _ = _inputs(cuda, 1, 200, 4, 1, 64, dtype, 2)
 
     def f(a, b, c):
         return SWA.swa_attention(a, b, c, 37)
 
     _, jvp_fn = torch.func.linearize(f, q, k, v)
-    n = SWA.swa_attention_jvp.launches
+    n = _jvp_counts()
     for scale in (1.0, -3.0):
         t = (scale * tq, tk.flip(1), scale * tv)
         got = jvp_fn(*t)
-        want = R.swa_attention_jvp_ref(q, k, v, *t, 37)
-        assert _rel_l2(got, want) <= F32_REL_L2
         direct = torch.func.jvp(f, (q, k, v), t)[1]
-        assert _rel_l2(direct, want) <= F32_REL_L2
-    assert SWA.swa_attention_jvp.launches == n + 4
+        want = R.swa_attention_jvp_ref(q, k, v, *t, 37)
+        want32 = R.swa_attention_jvp_ref(
+            *(x.float() for x in (q, k, v) + t), 37)
+        _check(scale, [got], [want], [want32], dtype)
+        _check(scale, [direct], [want], [want32], dtype)
+    tc = int(dtype == torch.bfloat16)
+    assert _jvp_counts() == (n[0] + 4 * tc, n[1] + 4 * (1 - tc))
 
 
 def test_second_order_raises(cuda):
@@ -235,38 +275,62 @@ def test_second_order_raises(cuda):
         torch.autograd.grad((f(x) * g).sum(), x, create_graph=True)
 
 
+def _tree_rel_l2(a: dict, b: dict) -> float:
+    num = sum(float(((a[k].float().cpu() - b[k].float()) ** 2).sum())
+              for k in b)
+    den = sum(float((b[k].float() ** 2).sum()) for k in b)
+    return (num / den) ** 0.5
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mixtral-8x22b"])
-def test_curvature_products_match_the_cpu(cuda, arch):
-    """The smoke model at f32 compute, T 48 past its window of 16: a GN
-    product in each curvature mode (``linearize`` at two vectors) through
-    the kernels on the card, against the plain path on the CPU."""
-    cfg = get_config(arch).smoke().replace(compute_dtype="float32")
+def test_curvature_products_match_the_cpu(cuda, arch, compute):
+    """The smoke model, T 48 past its window of 16: a GN product in each
+    curvature mode (``linearize`` at two vectors) through the kernels on
+    the card, against the plain path on the CPU.  f32 compute runs the
+    CUDA-core jvp and backward, within 1e-4 of the CPU; bf16 the
+    tensor-core jvp and backward and no CUDA-core kernel, no farther from
+    the CPU's f32 product than the CPU's bf16 product is, x 1.5 (the
+    kernels' rule), + 1e-6."""
+    base = get_config(arch).smoke()
+    cfg = base.replace(compute_dtype=compute)
     model = get_model(cfg)
     params = model.init(0, device=cuda)
     batch = lm_batch(0, batch=2, seq_len=48, vocab=cfg.vocab_size,
                      device=cuda)
     batch = dict(batch, labels=batch["tokens"])
-    fwd = lm_forward(cfg, model)
     loss = ChunkedCELoss()
     cpu = {k: v.cpu() for k, v in params.items()}
     cpu_batch = {k: v.cpu() for k, v in batch.items()}
     gen = torch.Generator().manual_seed(5)
     vecs = [{k: torch.randn(v.shape, generator=gen) for k, v in cpu.items()}
             for _ in range(2)]
-    want = [make_curvature_ops(fwd, loss, cpu, cpu_batch).gnvp(u)
-            for u in vecs]
+
+    def cpu_products(c):
+        ops = make_curvature_ops(lm_forward(c, get_model(c)), loss, cpu,
+                                 cpu_batch)
+        return [ops.gnvp(u) for u in vecs]
+
+    want32 = cpu_products(base.replace(compute_dtype="float32"))
+    want = cpu_products(cfg) if compute == "bfloat16" else want32
+    fwd = lm_forward(cfg, model)
     for mode in ("rematvp", "linearize"):
-        # f32: the CUDA-core backward
-        n = (SWA.swa_attention_jvp.launches,
-             SWA.swa_attention_vjp.cuda_core_dkdv_launches)
+        n = _jvp_counts() + _bwd_counts()
         ops = make_curvature_ops(fwd, loss, params, batch, mode=mode)
-        for u, w in zip(vecs, want):
+        for u, w, w32 in zip(vecs, want, want32):
             got = ops.gnvp({k: x.to(cuda) for k, x in u.items()})
-            num = sum(float(((got[k].cpu() - w[k]) ** 2).sum()) for k in w)
-            den = sum(float((w[k] ** 2).sum()) for k in w)
-            assert (num / den) ** 0.5 <= 1e-4, (mode, (num / den) ** 0.5)
-        assert SWA.swa_attention_jvp.launches > n[0]
-        assert SWA.swa_attention_vjp.cuda_core_dkdv_launches > n[1]
+            rel = _tree_rel_l2(got, w32)
+            limit = (1e-4 if compute == "float32" else
+                     BF16_FACTOR * _tree_rel_l2(w, w32) + BF16_FLOOR)
+            assert rel <= limit, (mode, rel, limit)
+        jvp, core_jvp, dq, dkdv, core_dq, core_dkdv = (
+            now - then for now, then in zip(_jvp_counts() + _bwd_counts(),
+                                            n))
+        if compute == "float32":
+            assert jvp == dq == dkdv == 0 and min(core_jvp, core_dkdv) > 0
+        else:
+            assert min(jvp, dq, dkdv) > 0
+            assert core_jvp == core_dq == core_dkdv == 0
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mixtral-8x22b"])
