@@ -38,7 +38,11 @@ paths against its plain PyTorch version on the card:
     width and 3 of its 38 layers (2,753,638,400 parameters) trained by SGD
     through the attention's backward kernels; recurrentgemma-9b and
     mixtral-8x22b at their smoke configs trained by NGHF through the
-    backward and jvp kernels.
+    backward and jvp kernels;
+  * distribution: the paper's data-parallel NGHF sequence training of
+    the full-width LSTM on a mesh (``launch.mesh``), at world size 1
+    over NCCL through ``train_sequence(mesh="1x1")`` and on two ranks
+    of the one card over gloo.
 
 Phases:
 
@@ -237,8 +241,9 @@ Phases:
      ``cg_fused_update`` launches an update and no other kernel); one
      update through the kernel and the plain path (the same decision,
      last-iterate Δθ within relative L2 2e-2, the stage split, a device
-     trace of one of its curvature products at T 512); one update at B 8
-     x T 4096 (train_4k's length, its time and peak); Adam through the CLI, 3 steps; ``cg_fused_update`` timed at N
+     trace of one of its curvature products at T 512); Adam through the
+     CLI, 3 steps (the update at train_4k's T 4096, 133-162 s, was cut
+     when phase 14 came, to keep the script near 1000 s); ``cg_fused_update`` timed at N
      = 150,319,176 against its bound (the ``xlstm_*`` keys of its row);
  13. training recurrentgemma-9b and mixtral-8x22b (run after phase 12,
      before phase 7, on a card freed with ``empty_cache``): (a) the
@@ -269,6 +274,23 @@ Phases:
      tie within the paths' spread), last-iterate Δθ within relative L2
      2e-2.  The three kernels' rows of the ``{"kernels": ...}`` line
      follow the TPU kernels'.
+ 14. the mesh (run after phase 13, before phase 7): (a)
+     ``train_sequence(mesh="1x1")`` over NCCL at world size 1 with phase
+     5's settings, 2 updates: finite metrics, the sausage kernels'
+     launches as on one device and ``cg_fused_update`` once per leaf per
+     CG iteration (``cg_fused_update_tree``), the collectives' share of
+     the update time (each collective between two synchronizes); phase
+     5's update 0 on the mesh takes the one-process kernel path's
+     decision (or a tie within the paths' spread), last-iterate Δθ
+     within relative L2 2e-2, and its time beside phase 5's; (b) two
+     processes on the card, a 2x1 mesh over gloo, each running 16 of
+     the 32 gradient rows and 4 of the 8 CG rows through the kernels:
+     the two ranks' parameters bitwise equal, last-iterate Δθ within 2e-2
+     of the one-process kernel path, each rank's launches; (c)
+     ``cg_fused_update_tree`` at the LSTM's leaves against its plain
+     per-leaf version (x, r bitwise, rr within 1e-6 relative), timed
+     beside the flat call.  Its numbers join ``cg_fused_update``'s row
+     (``tree_*`` and ``mesh_*`` keys).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; without a card, or outside a checkout of the repo,
@@ -1361,18 +1383,22 @@ def dag_asr_batch(seed: int, n: int, frames: int, input_dim: int, dev):
             "labels": lat.ref_states, "lattice": lat}
 
 
-def one_update(acfg, params, gb, cb, counts, backend, fused, **overrides):
+def one_update(acfg, params, gb, cb, counts, backend, fused, mesh=None,
+               **overrides):
     """One NGHF update from ``params`` through the optimiser's ``step``
-    (all metrics, the CG histories included); (new params, metrics as
-    floats / lists, seconds)."""
+    (all metrics, the CG histories included), on ``mesh`` (the state
+    replicated) or one device; (new params, metrics as floats / lists,
+    seconds)."""
+    from repro_torch.launch.sharding import replicated_shardings
     from repro_torch.launch.steps import build_sequence_step
+    ss = None if mesh is None else replicated_shardings(mesh, params)
     _, opt = build_sequence_step(
-        acfg, "nghf", loss="mpe", kappa=KAPPA, backend=backend,
-        share_counts=counts, cg_iters=TRAIN["cg_iters"],
+        acfg, "nghf", loss="mpe", kappa=KAPPA, backend=backend, mesh=mesh,
+        state_sharding=ss, share_counts=counts, cg_iters=TRAIN["cg_iters"],
         ng_iters=TRAIN["ng_iters"], cg_fused=fused, **overrides)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    new, _, m = opt.step(params, opt.init(params), gb, cb)
+    new, _, m = opt.step(params, opt.init(params, state_sharding=ss), gb, cb)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     return new, {k: (v.tolist() if torch.is_tensor(v) else float(v))
@@ -1430,7 +1456,9 @@ def compare_paths(tag: str, acfg, params, gb, cb, counts) -> tuple:
     path (``backend="levelized"``, unfused): the same decision
     (``same_choice``), and — without candidate selection, so that the
     returned step is the last CG iterate on both paths whatever an
-    argmin or a rejection does — Δθ within ``DELTA_REL_L2``."""
+    argmin or a rejection does — Δθ within ``DELTA_REL_L2``.  Returns
+    the kernel path's {"metrics", "last" (its last-iterate parameters),
+    "s" (its update's seconds)}."""
     _, m_k, t_k = one_update(acfg, params, gb, cb, counts, "auto", True)
     _, m_p, t_p = one_update(acfg, params, gb, cb, counts, "levelized",
                              False)
@@ -1451,7 +1479,7 @@ def compare_paths(tag: str, acfg, params, gb, cb, counts) -> tuple:
         f"plain path against its own repeat {rel_pp:.3g}; last-iterate "
         f"|Δθ| {m_n['update_norm']:.4g}); update {t_k * 1e3:.3f} ms vs "
         f"plain {t_p * 1e3:.3f} ms (untimed)")
-    return m_k
+    return {"metrics": m_k, "last": new_k, "s": t_k}
 
 
 def phase_training(dev) -> dict:
@@ -1508,7 +1536,7 @@ def phase_training(dev) -> dict:
     gb = asr_batch(plan.grad_seed(0, 0), batch=TRAIN["batch"], **kw)
     cb = asr_batch(plan.cg_seed(0, 0), batch=TRAIN["cg_batch"], **kw)
     counts = acoustic.share_counts(acfg, params0)
-    compare_paths("update 0", acfg, params0, gb, cb, counts)
+    kernel_path = compare_paths("update 0", acfg, params0, gb, cb, counts)
 
     # NGHF on general-DAG lattices: the DAG kernels under training
     dgb = dag_asr_batch(SEED + 7, 8, 100, acfg.input_dim, dev)
@@ -1538,7 +1566,7 @@ def phase_training(dev) -> dict:
             lat.start_t.shape[0], 100, NUM_STATES, generator=gen,
             device=dev).log_softmax(-1)}
     return {"logs": logs, "launches": launches, "gb": gb, "cb": cb,
-            "device": dev,
+            "device": dev, "kernel_path": kernel_path,
             "dag": {"launches": dag_launches, **shape(dgb["lattice"])},
             "dag_cg": shape(dcb["lattice"])}
 
@@ -1845,12 +1873,14 @@ def phase_cli(dev) -> dict:
     saved = []
     real_save = T.save_train_state
 
-    def save_and_keep(ckpt_dir, params, opt_state, *, step=0, extra=None):
+    def save_and_keep(ckpt_dir, params, opt_state, *, step=0, extra=None,
+                      shardings=None):
         # keep what train_sequence held when it saved, cloned on the card
         kept = (step, clone_tree(params), clone_tree(opt_state))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        real_save(ckpt_dir, params, opt_state, step=step, extra=extra)
+        real_save(ckpt_dir, params, opt_state, step=step, extra=extra,
+                  shardings=shardings)
         saved.append(kept + (time.perf_counter() - t0,))
 
     handler = logging.StreamHandler(sys.stdout)
@@ -2139,11 +2169,13 @@ def cli_checkpointed(tag: str, args: list, per_update: int) -> dict:
     saved = []
     real_save = T.save_train_state
 
-    def save_and_keep(ckpt_dir, params, opt_state, *, step=0, extra=None):
+    def save_and_keep(ckpt_dir, params, opt_state, *, step=0, extra=None,
+                      shardings=None):
         kept = (step, clone_tree(params), clone_tree(opt_state))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        real_save(ckpt_dir, params, opt_state, step=step, extra=extra)
+        real_save(ckpt_dir, params, opt_state, step=step, extra=extra,
+                  shardings=shardings)
         saved.append(kept + (time.perf_counter() - t0,))
 
     out = {}
@@ -3047,10 +3079,8 @@ XLSTM_ORACLE_L2, XLSTM_ORACLE_GRAD_L2 = 1e-5, 1e-4
 # on the same inputs (relative L2; bitwise printed)
 XLSTM_GRAPH_L2 = 1e-6
 # NGHF through the CLI: train_4k's B 256 x T 4096 cut to B 8 x T 512 (CG
-# batch 2), the share-counts preconditioner; then one update at train_4k's
-# own T with B 8
+# batch 2), the share-counts preconditioner
 XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ = 8, 512
-XLSTM_LONG_TRAIN_T = 4096
 XLSTM_TRAIN_ARGS = ["--arch", XLSTM_ARCH, "--optimizer", "nghf",
                     "--batch", str(XLSTM_TRAIN_BATCH), "--seq",
                     str(XLSTM_TRAIN_SEQ), "--cg-iters", str(LM_CG_ITERS),
@@ -3328,8 +3358,8 @@ def xlstm_oracle(dev) -> dict:
 def xlstm_training(dev) -> dict:
     """xlstm-125m at full width and depth trained by NGHF with
     ``--cg-fused`` through the CLI, checkpointed and resumed; one update
-    through the kernel path against the plain path; one update at T =
-    XLSTM_LONG_TRAIN_T; Adam through the CLI."""
+    through the kernel path against the plain path; Adam through the
+    CLI."""
     from repro_torch.configs.base import get_config
     from repro_torch.data.synthetic import lm_batch
     from repro_torch.launch import train as T
@@ -3351,29 +3381,6 @@ def xlstm_training(dev) -> dict:
     out.update(lm_paths_compared(XLSTM_ARCH, cfg, params, batch, dev,
                                  traced=curvature_product(cfg, params,
                                                           batch, dev)))
-
-    # one update at train_4k's length through the kernel path
-    batch = lm_batch(0, batch=XLSTM_TRAIN_BATCH, seq_len=XLSTM_LONG_TRAIN_T,
-                     vocab=cfg.vocab_size, device=dev)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    _, m, out["long_update_s"] = lm_one_update(cfg, params, batch, True)
-    launches = read_counts()
-    check_update(f"{XLSTM_ARCH} NGHF T={XLSTM_LONG_TRAIN_T}", m)
-    want = {k: 0 for k in launches}
-    want["cg_fused_update"] = per_update
-    check(launches == want, f"{XLSTM_ARCH} NGHF T={XLSTM_LONG_TRAIN_T}: "
-          f"launches {launches}")
-    out["long_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    used = int(m["cg_iters_used"])
-    text = lm_update_text(dict(m, time_s=out["long_update_s"],
-                               cg_curv_first=m["cg_curv"][0],
-                               cg_curv_last=m["cg_curv"][used - 1]))
-    log(f"{XLSTM_ARCH} NGHF update at B={XLSTM_TRAIN_BATCH} "
-        f"T={XLSTM_LONG_TRAIN_T} (train_4k's length; CG batch "
-        f"{XLSTM_TRAIN_BATCH // 4}): {text}; {per_update} cg_fused_update "
-        f"launches; peak device memory {out['long_peak_gb']:.3f} GB")
     del params, batch
     torch.cuda.empty_cache()
 
@@ -4366,6 +4373,277 @@ def swa_times(lm: dict, errs: dict, dev) -> dict:
     return entry
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the mesh — the paper's data-parallel NGHF sequence training
+# ---------------------------------------------------------------------------
+
+# the training phase's LSTM update on a mesh: world size 1 over NCCL (the
+# script needs one card), and two ranks on the one card over gloo (NCCL puts
+# no two ranks on one GPU; gloo reduces CUDA tensors through the host),
+# each rank running 16 of the 32 gradient rows and 4 of the 8 CG rows
+MESH_STEPS = 2
+MESH_RANKS = 2
+MESH_TIMEOUT_S = 300
+
+
+def mesh_launches(n_leaves: int) -> dict:
+    """Launches per NGHF update on a mesh with TRAIN's settings: the
+    sausage kernels as on one device (on this rank's rows), and
+    ``cg_fused_update`` once per leaf per CG iteration
+    (``cg_fused_update_tree``)."""
+    return {"sausage_forward": PER_UPDATE["forward"],
+            "sausage_backward": PER_UPDATE["backward"],
+            "cg_fused_update": PER_UPDATE["cg"] * n_leaves}
+
+
+def timed_collectives():
+    """Time every collective of an update (``core.curvature``'s
+    ``all_reduce_sum``) between two synchronizes; returns (stats,
+    restore)."""
+    from repro_torch.core import curvature
+    inner = curvature.all_reduce_sum
+    stats = {"calls": 0, "s": 0.0}
+
+    def timed(tree, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(tree, group)
+        torch.cuda.synchronize()
+        stats["calls"] += 1
+        stats["s"] += time.perf_counter() - t0
+        return out
+
+    curvature.all_reduce_sum = timed
+    return stats, lambda: setattr(curvature, "all_reduce_sum", inner)
+
+
+def mesh_inputs(dev):
+    """(config, parameters, share counts, gradient batch, CG batch) of
+    the training phase's update 0, from the seed."""
+    from repro_torch.configs.acoustic import get_acoustic_config
+    from repro_torch.data.synthetic import EpochPlan, asr_batch
+    from repro_torch.models import acoustic
+    acfg = get_acoustic_config(TRAIN["arch"])
+    params = acoustic.init_params(acfg, SEED, device=dev)
+    plan = EpochPlan(num_updates_per_epoch=TRAIN["steps"], base_seed=SEED)
+    kw = dict(num_frames=TRAIN["frames"], num_states=acfg.num_outputs,
+              input_dim=acfg.input_dim, noise=1.2, device=dev)
+    return (acfg, params, acoustic.share_counts(acfg, params),
+            asr_batch(plan.grad_seed(0, 0), batch=TRAIN["batch"], **kw),
+            asr_batch(plan.cg_seed(0, 0), batch=TRAIN["cg_batch"], **kw))
+
+
+def mesh_rank(rank: int, world: int, tmp: str, device: str) -> None:
+    """One of the gloo ranks on the card: the update of ``mesh_inputs``
+    on a (world, 1) mesh without candidate selection; its launches,
+    metrics and last-iterate parameters written to ``tmp``."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    try:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
+            rank=rank, world_size=world)
+        mesh = make_debug_mesh(world, 1, device=dev, backend="gloo")
+        acfg, params, counts, gb, cb = mesh_inputs(dev)
+        reset_counts()
+        new, m, dt = one_update(acfg, params, gb, cb, counts, "auto", True,
+                                mesh=mesh, eval_candidates=False)
+        launches = read_counts()
+        dist.barrier()
+        dist.destroy_process_group()
+        np.savez(os.path.join(tmp, f"rank{rank}.npz"),
+                 **{k: v.cpu().numpy() for k, v in new.items()})
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump({"metrics": m, "launches": launches, "s": dt,
+                       "data_index": mesh.data_index}, f)
+    except BaseException:
+        import traceback
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def mesh_two_ranks(dev) -> list:
+    """Start ``MESH_RANKS`` gloo ranks on ``dev``, wait for them (killed
+    past ``MESH_TIMEOUT_S``), and return each rank's (parameters,
+    record)."""
+    import tempfile
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=mesh_rank,
+                             args=(r, MESH_RANKS, tmp, str(dev)))
+                 for r in range(MESH_RANKS)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(MESH_TIMEOUT_S)
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+        errs = "".join(Path(tmp, f"rank{r}.err").read_text()
+                       for r in range(MESH_RANKS)
+                       if Path(tmp, f"rank{r}.err").exists())
+        check(not hung and not errs and all(p.exitcode == 0 for p in procs),
+              f"mesh ranks: {len(hung)} hung, exit codes "
+              f"{[p.exitcode for p in procs]}\n{errs}")
+        out = []
+        for r in range(MESH_RANKS):
+            with np.load(Path(tmp, f"rank{r}.npz")) as f:
+                params = {k: torch.from_numpy(f[k]) for k in f.files}
+            out.append((params, json.loads(Path(tmp,
+                                                f"rank{r}.json").read_text())))
+    return out
+
+
+def mesh_tree_times(params: dict, errs: dict) -> dict:
+    """``cg_fused_update_tree`` at the LSTM's leaves against its plain
+    per-leaf version (x, r bitwise, rr within RR_RTOL), then timed beside
+    the flat call over the same N."""
+    from repro_torch.kernels import cg_fused as CG
+    from repro_torch.kernels import ref as R
+    gen = torch.Generator(device=params["out.w"].device).manual_seed(SEED + 14)
+    x, v, r, bv = ({k: torch.randn(p.shape, generator=gen, device=p.device)
+                    for k, p in params.items()} for _ in range(4))
+    alpha = torch.tensor(0.37, device=params["out.w"].device)
+    before = CG.cg_fused_update.launches
+    got = CG.cg_fused_update_tree(alpha, x, v, r, bv)
+    check(CG.cg_fused_update.launches - before == len(params),
+          "cg_fused_update_tree: not one launch a leaf")
+    want = R.cg_fused_update_tree_ref(alpha, x, v, r, bv)
+    for name, g, w in (("x", got[0], want[0]), ("r", got[1], want[1])):
+        check(all(torch.equal(g[k], w[k]) for k in params),
+              f"cg_fused_update_tree {name}: not the plain version's bits")
+    d_rr = abs(float(got[2]) - float(want[2]))
+    check(d_rr <= RR_RTOL * float(want[2]),
+          f"cg_fused_update_tree rr {float(got[2])} vs {float(want[2])}")
+    errs["cg_fused_update[tree]"] = d_rr
+    flat = [torch.cat([t[k].reshape(-1) for k in R.tree_order(t)])
+            for t in (x, v, r, bv)]
+    out = {"tree_ms": cuda_time_ms(
+               lambda: CG.cg_fused_update_tree(alpha, x, v, r, bv), 20),
+           "tree_plain_ms": cuda_time_ms(
+               lambda: R.cg_fused_update_tree_ref(alpha, x, v, r, bv), 3),
+           "tree_flat_ms": cuda_time_ms(
+               lambda: CG.cg_fused_update(alpha, *flat), 20),
+           "tree_kernel_alone_ms": kernel_alone_ms(
+               lambda: CG.cg_fused_update_tree(alpha, x, v, r, bv)),
+           "tree_leaves": len(params)}
+    log(f"cg_fused_update_tree == plain per-leaf version at the LSTM's "
+        f"{len(params)} leaves (N = {sum(p.numel() for p in params.values())}"
+        f"): x, r bitwise, rr |d| {d_rr:.3g}; {out['tree_ms']:.6g} ms a "
+        f"call ({len(params)} launches; "
+        f"{out['tree_kernel_alone_ms']:.6g} ms of device time alone, "
+        f"behind a busy stream) against the flat call's "
+        f"{out['tree_flat_ms']:.6g} ms (one launch) and the plain per-leaf "
+        f"version's {out['tree_plain_ms']:.6g} ms")
+    return out
+
+
+def phase_mesh(dev, errs: dict, kernel_path: dict) -> dict:
+    """Phase 14: (a) ``train_sequence(mesh="1x1")`` over NCCL at world
+    size 1, the training phase's settings, MESH_STEPS updates, launches
+    counted and collectives timed; the update of the training phase's
+    ``compare_paths`` (``kernel_path``: the one-process kernel path's
+    metrics, last iterate and seconds) on the mesh (decision, last-
+    iterate Δθ, time); (b) the same update on two gloo ranks on the card
+    against the one-process kernel path; (c) ``cg_fused_update_tree``
+    against its plain version."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.train import train_sequence
+    t_phase = time.perf_counter()
+    acfg, params0, counts, gb, cb = mesh_inputs(dev)
+    n_leaves = len(params0)
+    per = mesh_launches(n_leaves)
+
+    # (a) the entry point at world size 1 over NCCL
+    stats, restore = timed_collectives()
+    reset_counts()
+    try:
+        _, logs = train_sequence(**dict(TRAIN, steps=MESH_STEPS),
+                                 init_params=params0, device=dev,
+                                 verbose=False, mesh="1x1")
+    finally:
+        restore()
+    launches = read_counts()
+    check(dist.is_initialized() and dist.get_backend() == "nccl"
+          and dist.get_world_size() == 1, "mesh 1x1: not NCCL at world 1")
+    for m in logs:
+        check_update(f"mesh 1x1 update {m['step']}", m)
+    want = {k: v * MESH_STEPS for k, v in per.items()}
+    want["sausage_loss_only"] = sum(int(m["cg_evaluated"]) + 1 for m in logs)
+    want.update(dag_forward=0, dag_backward=0, dag_loss_only=0)
+    check(launches == want, f"mesh 1x1 launches {launches} != {want}")
+    wall = sum(m["time_s"] for m in logs)
+    log(f"mesh 1x1 (NCCL, world 1): {MESH_STEPS} NGHF updates through "
+        f"train_sequence(mesh='1x1'): "
+        + ", ".join(f"{m['time_s'] * 1e3:.3f} ms" for m in logs)
+        + f"; collectives {stats['calls']} calls, {stats['s'] * 1e3:.3f} ms"
+        f" ({100 * stats['s'] / wall:.2f} % of the updates, each timed "
+        f"between two synchronizes); launches {launches}")
+
+    # the training phase's update 0 on the mesh, against the one-process
+    # kernel path's run of it in the training phase (decision, Δθ) and
+    # here, just before (time)
+    mesh = make_debug_mesh(1, 1, device=dev)
+    m_p, new_p, t_p5 = (kernel_path[k] for k in ("metrics", "last", "s"))
+    _, _, t_p = one_update(acfg, params0, gb, cb, counts, "auto", True)
+    _, m_m, t_m = one_update(acfg, params0, gb, cb, counts, "auto", True,
+                             mesh=mesh)
+    text = same_choice("mesh 1x1 vs no mesh", m_m, m_p)
+    new_m, _, _ = one_update(acfg, params0, gb, cb, counts, "auto", True,
+                             mesh=mesh, eval_candidates=False)
+    rel = delta_rel_l2(new_m, new_p, params0)
+    check(rel <= DELTA_REL_L2, f"mesh 1x1: last-iterate Δθ vs no mesh "
+          f"rel-L2 {rel:.3g}")
+    log(f"mesh 1x1 vs no mesh, update 0: {text}; last-iterate Δθ rel-L2 "
+        f"{rel:.3g} (limit {DELTA_REL_L2}); update {t_m * 1e3:.3f} ms on "
+        f"the mesh vs {t_p * 1e3:.3f} ms without, just before it (the "
+        f"training phase's run of it: {t_p5 * 1e3:.3f} ms)")
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # (b) two gloo ranks on the one card
+    ranks = mesh_two_ranks(dev)
+    first = ranks[0][0]
+    for r, (new_r, rec) in enumerate(ranks):
+        check(all(torch.equal(new_r[k], first[k]) for k in first),
+              f"gloo rank {r}: other parameters than rank 0")
+        check(rec["launches"] == dict(
+            per, sausage_loss_only=0, dag_forward=0, dag_backward=0,
+            dag_loss_only=0), f"gloo rank {r} launches {rec['launches']}")
+    rel2 = delta_rel_l2({k: v.to(dev) for k, v in first.items()}, new_p,
+                        params0)
+    check(rel2 <= DELTA_REL_L2, f"gloo 2x1: last-iterate Δθ vs one "
+          f"process rel-L2 {rel2:.3g}")
+    log(f"gloo 2x1 on one card: data indices "
+        f"{[rec['data_index'] for _, rec in ranks]}, ranks bitwise equal; "
+        f"last-iterate Δθ vs the one-process kernel path rel-L2 "
+        f"{rel2:.3g} (limit {DELTA_REL_L2}); vᵀBv per outer iteration "
+        f"{['%.3g' % c for c in ranks[0][1]['metrics']['cg_curv']]} (one "
+        f"process: {['%.3g' % c for c in m_p['cg_curv']]}); update "
+        + ", ".join(f"{rec['s'] * 1e3:.3f}" for _, rec in ranks)
+        + f" ms a rank, each rank's first, without candidates (one "
+        f"process, with them: {t_p * 1e3:.3f} ms); launches a rank "
+        f"{ranks[0][1]['launches']}")
+
+    # (c) the per-leaf fused update alone
+    out = mesh_tree_times(params0, errs)
+    out.update(mesh_launches=launches["cg_fused_update"],
+               mesh_launches_per=per["cg_fused_update"],
+               mesh_update_ms=[m["time_s"] * 1e3 for m in logs],
+               mesh_step_ms=t_m * 1e3, nomesh_step_ms=t_p * 1e3,
+               mesh_collective_share=stats["s"] / wall,
+               mesh_gloo_update_ms=[rec["s"] * 1e3 for _, rec in ranks])
+    log(f"phase 14 (mesh) {time.perf_counter() - t_phase:.3f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[chip_smoke] torch.cuda.is_available() is False: this "
@@ -4416,6 +4694,7 @@ def main() -> int:
     training = phase_training(dev)
     kernels = dag_times(service, stream, training, errs) \
         + train_times(training, errs)
+    kernel_path = training["kernel_path"]
     del service, stream, training
     torch.cuda.empty_cache()
     phase_cli(dev)
@@ -4438,6 +4717,10 @@ def main() -> int:
     del xl
     torch.cuda.empty_cache()
     rg = phase_rg_train(dev, errs)
+    torch.cuda.empty_cache()
+    cg_row.update(phase_mesh(dev, errs, kernel_path))
+    cg_row["max_abs_err"] = max(v for k, v in errs.items()
+                                if k.startswith("cg_fused_update["))
     torch.cuda.empty_cache()
     lm = phase_lm(dev)
     kernels.append(swa_times(lm, errs, dev))

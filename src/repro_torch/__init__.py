@@ -18,10 +18,14 @@ Slice 1 is the lattice-rescoring service, slice 2 NGHF sequence training:
                               plain PyTorch versions (``ref``)
   * ``models.acoustic``     — the paper's RNN / LSTM / TDNN
   * ``core``                — theta-vector helpers, CG, curvature
-                              products, the optimiser registry
+                              products, the optimiser registry, the
+                              collectives of a mesh run
   * ``data.synthetic``      — seeded synthetic ASR batches
+  * ``data.pipeline``       — each rank's share of a batch, prefetch
   * ``launch``              — the sequence step builder and the training
-                              driver (``launch.train.train_sequence``)
+                              driver (``launch.train.train_sequence``);
+                              meshes of ranks (``launch.mesh``) and the
+                              sharding rules (``launch.sharding``)
   * ``serving``             — bucket packing, the batched service and the
                               streaming alpha-resume session
   * ``analysis.corpus``     — the adversarial lattice corpus

@@ -28,6 +28,14 @@ moments, λ, the warm-start Δθ, the preconditioner's statistics and the
 step counter all survive).  ``load_train_state`` also reads the
 reference's legacy params-only checkpoints; the optimiser state then
 starts fresh.
+
+Under a mesh (``shardings=``, a tree of ``launch.sharding.NamedSharding``
+matching the saved tree, or the parameters for the train state): rank 0
+alone writes, and every rank waits at a barrier until the checkpoint is
+on disk; every rank reads, and ``place`` cuts each loaded leaf to the
+rank's share.  A leaf split across ranks cannot be saved from rank 0's
+share alone: gathering it comes with the LM archs' distribution (ROADMAP
+1.4), and such a save raises.
 """
 from __future__ import annotations
 
@@ -41,6 +49,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 logger = logging.getLogger(__name__)
 
@@ -48,13 +57,6 @@ SEP = "/"
 TRAIN_STATE_FORMAT = "train-state-v1"
 BF16_RECORD = np.dtype("V2")       # how numpy stores a bfloat16 leaf
 TREEDEF = "repro_torch: keys"      # the manifest's treedef, never read
-
-
-def _no_shardings(shardings) -> None:
-    if shardings is not None:
-        raise NotImplementedError(
-            "shardings: sharded restore comes with the port's distribution "
-            "slice (ROADMAP 1.4); the port loads onto one device")
 
 
 def _children(tree):
@@ -120,11 +122,50 @@ def _to_tensor(arr: np.ndarray, like):
     return t
 
 
+def _sharding_leaves(shardings) -> list:
+    """The shardings of a sharding tree; ``TypeError`` for a leaf that
+    is not one."""
+    leaves = [s for s in _flatten(shardings).values() if s is not None]
+    for s in leaves:
+        if not (hasattr(s, "place") and hasattr(s, "mesh")):
+            raise TypeError(f"shardings: a leaf is a {type(s).__name__}, "
+                            f"not a launch.sharding.NamedSharding")
+    return leaves
+
+
+def _place(tree, like, shardings):
+    """Each leaf of ``tree`` (whole, as read) cut to this rank's share by
+    its sharding; it must then have ``like``'s shape."""
+    _sharding_leaves(shardings)
+    flat, flat_like = _flatten(tree), _flatten(like)
+    flat_s = _flatten(shardings)
+    out = {}
+    for k, v in flat.items():
+        s = flat_s.get(k)
+        out[k] = v if s is None else s.place(v)
+        want = tuple(getattr(flat_like[k], "shape", ()))
+        if isinstance(out[k], torch.Tensor) and tuple(out[k].shape) != want:
+            raise ValueError(f"{k}: this rank's share is "
+                             f"{tuple(out[k].shape)}, the state holds {want}")
+    return _rebuild(tree, out)
+
+
 def save_checkpoint(ckpt_dir: str, tree, *, step: int = 0,
-                    extra: Optional[dict] = None) -> None:
+                    extra: Optional[dict] = None, shardings=None) -> None:
     """Atomic save: write a temp dir beside ``ckpt_dir``, then replace
     ``ckpt_dir`` by it.  A save that fails while writing leaves the
-    previous checkpoint (if any) and no temp dir."""
+    previous checkpoint (if any) and no temp dir.  Under ``shardings``
+    rank 0 writes and every rank returns once it has."""
+    if shardings is not None:
+        if not all(s.is_replicated() for s in _sharding_leaves(shardings)):
+            raise NotImplementedError(
+                "save_checkpoint: a leaf split across ranks needs a gather "
+                "before rank 0 writes; it comes with the LM archs' "
+                "distribution (ROADMAP 1.4)")
+        if dist.get_rank() == 0:
+            save_checkpoint(ckpt_dir, tree, step=step, extra=extra)
+        dist.barrier()
+        return
     t0 = time.perf_counter()
     flat = {k: _to_numpy(v) for k, v in _flatten(tree).items()}
     t_host = time.perf_counter() - t0
@@ -155,8 +196,9 @@ def read_manifest(ckpt_dir: str) -> dict:
 
 def load_checkpoint(ckpt_dir: str, like, *, shardings=None):
     """Restore into the structure of ``like``; returns ``(tree, step)``.
-    Raises ``ValueError`` when a leaf of ``like`` has no array."""
-    _no_shardings(shardings)
+    Raises ``ValueError`` when a leaf of ``like`` has no array.
+    ``shardings``: a tree of ``NamedSharding`` matching ``like`` (None
+    leaves load as they are); each leaf is placed by its sharding."""
     t0 = time.perf_counter()
     manifest = read_manifest(ckpt_dir)
     flat_like = _flatten(like)
@@ -168,6 +210,8 @@ def load_checkpoint(ckpt_dir: str, like, *, shardings=None):
         leaves = {k: _to_tensor(data[k], leaf)
                   for k, leaf in flat_like.items()}
     tree = _rebuild(like, leaves)
+    if shardings is not None:
+        tree = _place(tree, like, shardings)
     logger.info("loaded %d leaves at step %d from %s in %.3f s",
                 len(leaves), manifest["step"], ckpt_dir,
                 time.perf_counter() - t0)
@@ -175,26 +219,33 @@ def load_checkpoint(ckpt_dir: str, like, *, shardings=None):
 
 
 def save_train_state(ckpt_dir: str, params, opt_state, *, step: int = 0,
-                     extra: Optional[dict] = None) -> None:
-    """Atomic save of the full training state (params + optimiser state)."""
+                     extra: Optional[dict] = None, shardings=None) -> None:
+    """Atomic save of the full training state (params + optimiser state).
+    ``shardings``: the parameters' (a mesh run: rank 0 writes)."""
     meta = dict(extra or {}, format=TRAIN_STATE_FORMAT)
     save_checkpoint(ckpt_dir, {"params": params, "opt_state": opt_state},
-                    step=step, extra=meta)
+                    step=step, extra=meta,
+                    shardings=None if shardings is None
+                    else {"params": shardings})
 
 
 def load_train_state(ckpt_dir: str, params_like, opt_state_like, *,
                      shardings=None):
     """Restore ``(params, opt_state, step)``.  A legacy params-only
     checkpoint restores the params and returns ``opt_state_like``
-    untouched (fresh optimiser state)."""
-    _no_shardings(shardings)
+    untouched (fresh optimiser state).  ``shardings``: the parameters'
+    (``NamedSharding`` by key); the params are placed by them, and each
+    optimiser-state leaf takes its ``opt_state_like`` leaf's shape."""
     if read_manifest(ckpt_dir).get("extra", {}).get("format") \
             != TRAIN_STATE_FORMAT:
-        params, step = load_checkpoint(ckpt_dir, params_like)
+        params, step = load_checkpoint(ckpt_dir, params_like,
+                                       shardings=shardings)
         return params, opt_state_like, step
     try:
         tree, step = load_checkpoint(
-            ckpt_dir, {"params": params_like, "opt_state": opt_state_like})
+            ckpt_dir, {"params": params_like, "opt_state": opt_state_like},
+            shardings=None if shardings is None
+            else {"params": shardings})
     except ValueError as e:
         raise ValueError(
             f"checkpoint at {ckpt_dir!r} does not match the current "

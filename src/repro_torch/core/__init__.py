@@ -1,2 +1,3 @@
-"""The optimisation core: theta-vector helpers, CG, curvature products and
-the stateful optimisers.  Port of ``repro.core``."""
+"""The optimisation core: theta-vector helpers, CG, curvature products,
+the stateful optimisers and the collectives of a mesh run.  Port of
+``repro.core``."""

@@ -18,6 +18,12 @@ operator, with the reference's features:
   5. **Adaptive budget** (``tol > 0``) — stop once the quadratic model's
      relative per-iteration gain drops below ``tol``; ``iters`` is the
      ceiling.
+  6. **The per-leaf fused path** (``fused=True`` with ``constrain``, a
+     ``tree_math.Layout``: a mesh's state layout) — the vectors stay
+     dicts, each leaf in its layout, and each iteration's vector work is
+     ``kernels.cg_fused.cg_fused_update_tree`` (one kernel a leaf on the
+     card; a leaf split across ranks sums its ⟨r, r⟩ partial over its
+     group).
 
 The reference runs the iterations inside ``lax.scan``/``while_loop`` and
 decides ``lax.cond(do_eval & ~bad, ...)`` and the ``tol`` stop on the
@@ -35,7 +41,8 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.core import tree_math as tm
-from repro_torch.kernels.cg_fused import cg_fused_update
+from repro_torch.kernels.cg_fused import (cg_fused_update,
+                                         cg_fused_update_tree)
 
 
 class CGResult(NamedTuple):
@@ -83,7 +90,8 @@ def _flatten(b, bv_fn, eval_fn, x0, precond):
 def cg_solve(bv_fn: Callable, b, *, iters: int, precond=None,
              eval_fn: Optional[Callable] = None, damping: float = 0.0,
              eval_every: int = 1, x0=None, tol: float = 0.0,
-             min_iters: int = 1, fused: bool = False) -> CGResult:
+             min_iters: int = 1, fused: bool = False,
+             constrain: Optional[tm.Layout] = None) -> CGResult:
     """Run up to ``iters`` CG iterations on B x = b.
 
     bv_fn:   v -> B v (theta-sized in/out).
@@ -94,10 +102,17 @@ def cg_solve(bv_fn: Callable, b, *, iters: int, precond=None,
     damping: Tikhonov η (B + ηI).
     x0:      warm-start iterate (one extra B product for the residual).
     tol:     adaptive budget (0.0 keeps the fixed ``iters``).
-    fused:   one flat buffer and ``cg_fused_update`` per iteration.
+    fused:   one flat buffer and ``cg_fused_update`` per iteration; with
+             ``constrain``, ``cg_fused_update_tree`` over the dicts.
+    constrain: the state's layout under a mesh (``tree_math.Layout``);
+             x0 and the warm-start residual are checked against it.
     """
+    tree_fused = fused and constrain is not None
+    if constrain is None:
+        def constrain(t):                       # noqa: F811
+            return t
     unravel = None
-    if fused:
+    if fused and not tree_fused:
         b, unravel, bv_fn, eval_fn, x0, precond = _flatten(
             b, bv_fn, eval_fn, x0, precond)
 
@@ -122,7 +137,8 @@ def cg_solve(bv_fn: Callable, b, *, iters: int, precond=None,
         x0 = tm.zeros_like(b)
         r0 = b
     else:
-        r0 = tm.sub(b, B(x0))
+        x0 = constrain(x0)
+        r0 = constrain(tm.sub(b, B(x0)))
     z0 = Minv(r0)
     v0 = z0
     rz0 = tm.vdot(r0, z0)
@@ -135,7 +151,11 @@ def cg_solve(bv_fn: Callable, b, *, iters: int, precond=None,
         bad = (vbv <= 0.0) | dead
         alpha = torch.where(bad, 0.0, rz / vbv.clamp(min=1e-30))
         if fused:
-            x_new, r_new, rr = cg_fused_update(alpha, x, v, r, bv)
+            if tree_fused:
+                x_new, r_new, rr = cg_fused_update_tree(
+                    alpha, x, v, r, bv, groups=constrain.groups)
+            else:
+                x_new, r_new, rr = cg_fused_update(alpha, x, v, r, bv)
             if identity_precond:
                 # with M = I the kernel's blockwise <r, r> IS <r, z>
                 z_new, rz_new = r_new, rr

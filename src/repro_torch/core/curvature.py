@@ -21,6 +21,18 @@ Sec. 4.2 stabilisation: with ``stabilize=True`` the product runs on
 v' = (‖θ‖/‖v‖) v and is rescaled by the inverse factor — a no-op for the
 linear G, and what keeps the directional derivative precise when
 ‖θ‖ ≫ ‖v‖.
+
+Under a mesh (``mesh=``, a ``launch.mesh.Mesh``) every function here
+takes the GLOBAL batch, as the reference's jitted update does, and runs
+this rank's share of it (``data.pipeline.shard_batch``).  The loss
+spec's batch normalisers (``loss_spec.normalisers``) are summed over the
+data group once per batch and handed in as constants under
+``batch["norms"]``, so each rank's loss is the sum over its rows divided
+by the global normaliser; the gradient stage, each curvature product and
+each candidate evaluation then sum their result over the data group with
+one ``all_reduce`` (``core.collectives``), and every rank holds the
+reference's mean.  A batch that does not divide the data extent is kept
+whole on every rank and summed over none.
 """
 from __future__ import annotations
 
@@ -31,7 +43,9 @@ import torch
 import torch.func
 
 from repro_torch.core import tree_math as tm
-from repro_torch.losses.lattice import Lattice
+from repro_torch.core.collectives import all_reduce_sum
+from repro_torch.data.pipeline import (batch_size, batch_splits, map_batch,
+                                       shard_batch)
 
 
 class CurvatureOps(NamedTuple):
@@ -43,51 +57,38 @@ class CurvatureOps(NamedTuple):
     logits: torch.Tensor  # primal logits on the curvature batch (linearize)
 
 
-def batch_size(batch) -> int:
-    """Leading dim of the first tensor leaf (keys sorted, as JAX's tree
-    order), Lattice fields included."""
-    for leaf in _leaves(batch):
-        if leaf.dim() >= 1:
-            return leaf.shape[0]
-    raise ValueError("batch has no tensor with a leading dimension")
-
-
-def _leaves(batch):
-    if isinstance(batch, torch.Tensor):
-        yield batch
-    elif isinstance(batch, Lattice):
-        for f in batch:
-            if f is not None:
-                yield f
-    elif isinstance(batch, dict):
-        for k in sorted(batch):
-            yield from _leaves(batch[k])
-
-
-def map_batch(fn, batch, B: int):
-    """Apply ``fn`` to every tensor of ``batch`` (dicts and ``Lattice``
-    tuples) whose leading dim is B; everything else passes untouched."""
-    if isinstance(batch, torch.Tensor):
-        return fn(batch) if batch.dim() >= 1 and batch.shape[0] == B \
-            else batch
-    if isinstance(batch, Lattice):
-        return Lattice(*(None if f is None else map_batch(fn, f, B)
-                         for f in batch))
-    if isinstance(batch, dict):
-        return {k: map_batch(fn, v, B) for k, v in batch.items()}
-    return batch
-
-
-def subsample_batch(batch, fraction: float):
+def subsample_batch(batch, fraction: float, multiple: int = 1):
     """Deterministic leading-dim prefix of a batch: keeps
     ``max(1, round(B * fraction))`` utterances of every batch-leading
     tensor.  The CG batch is itself drawn at random (Sec. 4.1), so a
-    prefix is an unbiased sample."""
+    prefix is an unbiased sample.
+
+    ``multiple`` (the mesh's data extent) rounds the kept size up to a
+    whole multiple when B divides it, so that the sample splits evenly
+    over the data ranks (He et al.'s worker split); the sample is then
+    a prefix of the GLOBAL batch, of which each rank runs its share."""
     B = batch_size(batch)
     n = max(1, int(round(B * float(fraction))))
+    if multiple > 1 and B % multiple == 0:
+        n = min(B, -(-n // multiple) * multiple)
     if n >= B:
         return batch
     return map_batch(lambda x: x[:n], batch, B)
+
+
+def shard_for(loss_spec, batch, mesh):
+    """(the batch this rank computes, the group to sum its results over).
+
+    Without a mesh, or for a batch that does not divide the mesh's data
+    extent: (``batch``, None), computed whole.  Otherwise this rank's
+    share, with the global normalisers of ``loss_spec`` (its
+    ``normalisers`` of the share, summed over the data group by one
+    ``all_reduce``) under ``"norms"``, and the data group."""
+    if mesh is None or not batch_splits(batch, mesh):
+        return batch, None
+    local = shard_batch(batch, mesh)
+    norms = all_reduce_sum(loss_spec.normalisers(local), mesh.data_group)
+    return dict(local, norms=norms), mesh.data_group
 
 
 def _eval_kwargs(loss_spec, eval_accumulators: str) -> dict:
@@ -107,19 +108,29 @@ def make_curvature_ops(forward_fn, loss_spec, params: dict, batch, *,
                        stabilize: bool = True, theta_norm=None,
                        mode: str = "rematvp",
                        eval_accumulators: str = "full",
-                       curvature_sample: float = 1.0) -> CurvatureOps:
+                       curvature_sample: float = 1.0,
+                       mesh=None) -> CurvatureOps:
     """forward_fn(params, batch) -> (logits, aux).
 
     eval_accumulators: statistics mode of ``eval_loss`` (candidate
     evaluation); "loss_only" asks the loss spec for its value-only path.
     curvature_sample: fraction of the CG batch the GN/Fisher products run
     on (a deterministic prefix); ``eval_loss`` always sees the full batch.
+    mesh: the products and ``eval_loss`` run this rank's share and sum
+    their results over the data group (one ``all_reduce`` each); the
+    sample is rounded up to a multiple of the data extent.
     """
     if mode not in ("rematvp", "linearize"):
         raise ValueError(f"unknown curvature mode {mode!r} "
                          "(rematvp | linearize)")
-    curv_batch = (batch if curvature_sample >= 1.0
-                  else subsample_batch(batch, curvature_sample))
+    extent = 1 if mesh is None else mesh.data_extent
+    curv_global = (batch if curvature_sample >= 1.0
+                   else subsample_batch(batch, curvature_sample,
+                                        multiple=extent))
+    curv_batch, curv_group = shard_for(loss_spec, curv_global, mesh)
+    eval_batch, eval_group = (
+        (curv_batch, curv_group) if curv_global is batch
+        else shard_for(loss_spec, batch, mesh))
 
     def f(p):
         return forward_fn(p, curv_batch)[0]
@@ -149,6 +160,8 @@ def make_curvature_ops(forward_fn, loss_spec, params: dict, batch, *,
             hu = factor_vp(out_primal, curv_batch, jv)
             _, pullback = torch.func.vjp(f, params)
             (out,) = pullback(hu)
+        if curv_group is not None:
+            out = all_reduce_sum(out, curv_group)
         return tm.scale(out, 1.0 / s) if stabilize else out
 
     def gnvp(v):
@@ -164,22 +177,31 @@ def make_curvature_ops(forward_fn, loss_spec, params: dict, batch, *,
         # minimises (loss + aux)
         with torch.no_grad():
             lg, aux = forward_fn(tm.add(params, tm.cast_like(delta, params)),
-                                 batch)
-            return loss_spec.value(lg, batch, **eval_kw)[0] + aux
+                                 eval_batch)
+            loss = loss_spec.value(lg, eval_batch, **eval_kw)[0] + aux
+        if eval_group is not None:
+            loss = all_reduce_sum({"loss": loss}, eval_group)["loss"]
+        return loss
 
     return CurvatureOps(gnvp=gnvp, fvp=fvp, eval_loss=eval_loss,
                         logits=logits)
 
 
 def grad_and_loss(forward_fn, loss_spec, params: dict, batch, *,
-                  microbatches: int = 1):
+                  microbatches: int = 1, mesh=None):
     """Gradient stage: (mean loss, metrics, grads) over the gradient
     batch, by ``torch.autograd.grad``.  ``microbatches > 1`` splits the
     batch's leading dim and accumulates the gradient sequentially (grads
-    and loss divided by the count, metrics averaged)."""
+    and loss divided by the count, metrics averaged).  Under ``mesh``
+    each microbatch of the global batch runs as this rank's share, and
+    the gradient, loss and metrics are summed over the data group by one
+    ``all_reduce``."""
     keys = list(params)
+    group = None
 
     def one(b):
+        nonlocal group
+        b, group = shard_for(loss_spec, b, mesh)
         leaves = {k: params[k].detach().requires_grad_(True) for k in keys}
         with torch.enable_grad():
             logits, aux = forward_fn(leaves, b)
@@ -190,7 +212,8 @@ def grad_and_loss(forward_fn, loss_spec, params: dict, batch, *,
                 dict(zip(keys, grads)))
 
     if microbatches <= 1:
-        return one(batch)
+        loss, metrics, grads = one(batch)
+        return _summed(loss, metrics, grads, group)
     B = batch_size(batch)
     k = microbatches
     if B % k:
@@ -210,4 +233,17 @@ def grad_and_loss(forward_fn, loss_spec, params: dict, batch, *,
             grads = tm.add(grads, go)
     metrics = {key: torch.stack([m[key] for m in metrics]).mean()
                for key in metrics[0]}
-    return loss, metrics, grads
+    return _summed(loss, metrics, grads, group)
+
+
+def _summed(loss, metrics: dict, grads: dict, group):
+    """(loss, metrics, grads) summed over ``group`` (one ``all_reduce``);
+    as they are without one."""
+    if group is None:
+        return loss, metrics, grads
+    out = all_reduce_sum({"loss": loss, **{"m." + k: v for k, v in
+                                          metrics.items()},
+                          **{"g." + k: v for k, v in grads.items()}},
+                         group)
+    return (out["loss"], {k: out["m." + k] for k in metrics},
+            {k: out["g." + k] for k in grads})

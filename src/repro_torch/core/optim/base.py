@@ -20,8 +20,14 @@ keys, scalars 0-d tensors on the parameters' device.  State contents:
                 "precond": preconditioner state ({} unless fisher_diag),
                 "delta": theta-like previous Δθ (iff ``warm_start``)}
 
-Sharded optimiser state (the reference's ``state_sharding``) waits for
-the distribution slice: passing one raises ``NotImplementedError``.
+Under a mesh ``state_sharding`` is a dict of ``launch.sharding.
+NamedSharding`` matching the parameters (``get_optimizer(...,
+state_sharding=)``, ``init(params, state_sharding=)``): each rank holds
+its share of every leaf (the whole leaf where the spec replicates it,
+as for every acoustic model), theta-sized state takes its parameter's
+sharding and scalars are replicated (``state_shardings``).  The
+optimiser reads its mesh off the shardings (``mesh_of``) and runs the
+gradient and curvature sums over the mesh's data group.
 """
 from __future__ import annotations
 
@@ -31,11 +37,30 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import torch
 
 
-def no_state_sharding(state_sharding) -> None:
-    if state_sharding is not None:
-        raise NotImplementedError(
-            "state_sharding: sharded optimiser state comes with the "
-            "port's distribution slice; the port runs on one device")
+def mesh_of(state_sharding):
+    """The mesh of a state sharding ({key: NamedSharding}); None without
+    one.  Raises ``TypeError`` for anything else."""
+    if state_sharding is None:
+        return None
+    if not isinstance(state_sharding, dict) or not all(
+            hasattr(s, "mesh") and hasattr(s, "spec")
+            for s in state_sharding.values()):
+        raise TypeError(f"state_sharding must be a dict of launch.sharding."
+                        f"NamedSharding, got {type(state_sharding).__name__}")
+    meshes = {id(s.mesh) for s in state_sharding.values()}
+    if len(meshes) != 1:
+        raise ValueError("state_sharding: the leaves lie on "
+                         f"{len(meshes)} meshes, the optimiser needs one")
+    return next(iter(state_sharding.values())).mesh
+
+
+def split_groups(state_sharding) -> dict:
+    """{key: process group} of the leaves the sharding splits across
+    ranks (none for replicated state)."""
+    if state_sharding is None:
+        return {}
+    return {k: s.mesh.group(s.split_axes())
+            for k, s in state_sharding.items() if not s.is_replicated()}
 
 
 def theta_zeros(params: dict, cast: Optional[Callable] = None) -> dict:
@@ -64,9 +89,29 @@ class Optimizer:
         raise NotImplementedError
 
     def init(self, params: dict, state_sharding=None) -> Dict:
-        no_state_sharding(state_sharding)
+        """Fresh state for ``params``.  Under ``state_sharding`` the
+        parameters are this rank's shares, so each theta-sized slot is
+        built as its parameter's share; the sharding must cover every
+        parameter."""
+        if state_sharding is not None:
+            mesh_of(state_sharding)
+            if set(state_sharding) != set(params):
+                raise ValueError(
+                    "state_sharding does not match the parameters: "
+                    f"{sorted(set(state_sharding) ^ set(params))[:5]}")
         return self.state_template(
             lambda cast=None: theta_zeros(params, cast), scalar_on(params))
+
+    def state_shardings(self, param_shardings: dict,
+                        scalar_sharding=None) -> Dict:
+        """The sharding of each leaf of ``init``'s state: theta-sized
+        slots take their parameter's, scalars ``scalar_sharding`` (by
+        default replicated on the same mesh)."""
+        if scalar_sharding is None:
+            first = next(iter(param_shardings.values()))
+            scalar_sharding = type(first)(first.mesh, type(first.spec)())
+        return self.state_template(lambda cast=None: param_shardings,
+                                   lambda dt, v0: scalar_sharding)
 
     def step(self, params, state, grad_batch, cg_batch=None):
         """One update: (params, state, metrics)."""
@@ -76,7 +121,8 @@ class Optimizer:
 class OptimizerSpec(NamedTuple):
     config_cls: type
     defaults: Dict[str, Any]
-    factory: Callable          # (cfg, forward_fn, loss_spec, share_counts=)
+    factory: Callable          # (cfg, forward_fn, loss_spec, share_counts=,
+                               #  state_sharding=)
 
 
 OPTIMIZERS: Dict[str, OptimizerSpec] = {}
@@ -119,8 +165,9 @@ def get_optimizer(spec, forward_fn, loss_spec, *,
                   state_sharding=None, **overrides) -> Optimizer:
     """The one constructor: ``spec`` is a registry name ("sgd" | "adam" |
     "ng" | "hf" | "nghf") or a config dataclass.  ``share_counts`` feeds
-    the Sec. 4.3 preconditioner (second-order only)."""
-    no_state_sharding(state_sharding)
+    the Sec. 4.3 preconditioner (second-order only); ``state_sharding``
+    ({key: NamedSharding}) puts the optimiser on its mesh."""
+    mesh_of(state_sharding)
     if isinstance(spec, str):
         if spec not in OPTIMIZERS:
             raise ValueError(f"unknown optimizer {spec!r} "
@@ -137,4 +184,5 @@ def get_optimizer(spec, forward_fn, loss_spec, *,
         cfg = dataclasses.replace(spec, **overrides) if overrides else spec
         name = _name_of_config(cfg)
     return OPTIMIZERS[name].factory(cfg, forward_fn, loss_spec,
-                                    share_counts=share_counts)
+                                    share_counts=share_counts,
+                                    state_sharding=state_sharding)

@@ -1,7 +1,10 @@
 """First-order optimisers on the unified protocol: SGD with momentum
 (optional 1/(1+kt) learning-rate decay) and Adam.  Port of
 ``repro.core.optim.first_order`` — the paper's baselines, through the
-same protocol, step builder and driver as NG/HF/NGHF."""
+same protocol, step builder and driver as NG/HF/NGHF.  Under a mesh
+(``state_sharding``) each step takes the gradient summed over the data
+group (``core.curvature.grad_and_loss``); the update is then the same on
+every rank."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -10,7 +13,8 @@ import torch
 
 from repro_torch.core import tree_math as tm
 from repro_torch.core.curvature import grad_and_loss
-from repro_torch.core.optim.base import Optimizer, register_optimizer
+from repro_torch.core.optim.base import (Optimizer, mesh_of,
+                                         register_optimizer)
 
 
 @dataclass(frozen=True)
@@ -42,8 +46,10 @@ class SGD(Optimizer):
 
     name = "sgd"
 
-    def __init__(self, cfg: SGDConfig, forward_fn, loss_spec, **_):
+    def __init__(self, cfg: SGDConfig, forward_fn, loss_spec, *,
+                 state_sharding=None, **_):
         self.cfg, self.forward_fn, self.loss_spec = cfg, forward_fn, loss_spec
+        self.mesh = mesh_of(state_sharding)
 
     def state_template(self, theta, scalar):
         return {"mom": theta(), "step": scalar(torch.int32, 0)}
@@ -51,7 +57,8 @@ class SGD(Optimizer):
     def step(self, params, state, grad_batch, cg_batch=None):
         cfg = self.cfg
         loss, metrics, grads = grad_and_loss(self.forward_fn, self.loss_spec,
-                                             params, grad_batch)
+                                             params, grad_batch,
+                                             mesh=self.mesh)
         grads = _clip(grads, cfg.clip_norm)
         mom = tm.axpy(cfg.momentum, state["mom"], grads)
         lr = torch.full((), cfg.lr, dtype=torch.float32,
@@ -68,8 +75,10 @@ class Adam(Optimizer):
 
     name = "adam"
 
-    def __init__(self, cfg: AdamConfig, forward_fn, loss_spec, **_):
+    def __init__(self, cfg: AdamConfig, forward_fn, loss_spec, *,
+                 state_sharding=None, **_):
         self.cfg, self.forward_fn, self.loss_spec = cfg, forward_fn, loss_spec
+        self.mesh = mesh_of(state_sharding)
 
     def state_template(self, theta, scalar):
         return {"m": theta(), "v": theta(), "step": scalar(torch.int32, 0)}
@@ -77,7 +86,8 @@ class Adam(Optimizer):
     def step(self, params, state, grad_batch, cg_batch=None):
         cfg = self.cfg
         loss, metrics, grads = grad_and_loss(self.forward_fn, self.loss_spec,
-                                             params, grad_batch)
+                                             params, grad_batch,
+                                             mesh=self.mesh)
         grads = _clip(grads, cfg.clip_norm)
         step = state["step"] + 1
         m = {k: cfg.b1 * mm + (1 - cfg.b1) * grads[k]

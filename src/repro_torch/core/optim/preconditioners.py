@@ -5,7 +5,7 @@ Port of ``repro.core.optim.preconditioners``:
 
     pre    = get_preconditioner(name, share_counts=...)
     pstate = pre.init(params)                  # dict ({} if stateless)
-    pstate = pre.update(pstate, grads)         # gradient-stage accumulation
+    pstate = pre.update(pstate, grads, constrain=None)  # gradient stage
     minv   = pre.apply_fn(pstate)              # None | (r -> M⁻¹ r)
 
   identity      — no preconditioning (``apply_fn`` is None).
@@ -36,7 +36,10 @@ class Preconditioner:
         return self.state_template(
             lambda cast=None: theta_zeros(params, cast), scalar_on(params))
 
-    def update(self, pstate, grads):
+    def update(self, pstate, grads, constrain=None):
+        """Gradient-stage accumulation; ``constrain`` (a ``tree_math.
+        Layout``, under a mesh) checks theta-sized state against the
+        optimiser's state layout."""
         return pstate
 
     def apply_fn(self, pstate) -> Optional[Callable]:
@@ -76,10 +79,12 @@ class FisherDiagPreconditioner(Preconditioner):
         return {"d": theta(cast=lambda p: torch.float32),
                 "n": scalar(torch.int32, 0)}
 
-    def update(self, pstate, grads):
+    def update(self, pstate, grads, constrain=None):
         b = self.decay
         d = {k: b * dd + (1.0 - b) * grads[k].to(torch.float32) ** 2
              for k, dd in pstate["d"].items()}
+        if constrain is not None:
+            d = constrain(d)
         return {"d": d, "n": pstate["n"] + 1}
 
     def apply_fn(self, pstate):

@@ -1,8 +1,8 @@
 """The two-stage second-order optimisers (paper Secs. 4-6) on the
 unified stateful protocol.
 
-Port of ``repro.core.optim.second_order`` for one device.  One update =
-gradient stage (large gradient batch) + CG stage (small CG batch):
+Port of ``repro.core.optim.second_order``.  One update = gradient stage
+(large gradient batch) + CG stage (small CG batch):
 
   NG   (Sec. 5):  solve   λ F Δθ = -∇L          with CG on Fisher products
   HF   (Sec. 3):  solve     G Δθ = -∇L          with CG on GN products
@@ -19,6 +19,18 @@ decisions (``core.cg``), ``metrics["cg_host_syncs"]`` counts them.
 ``timer`` (a ``core.timing.StageTimer``) optionally splits the update
 into the gradient stage, the curvature products and the candidate
 evaluations; the rest of the CG stage is its vector work.
+
+Under a mesh (``state_sharding``, the paper's synchronous master/worker
+accumulation): ``step`` takes the GLOBAL batches, the gradient stage,
+each curvature product and each candidate evaluation run this rank's
+share of them and are summed over the data group
+(``core.curvature``), and the curvature sample is rounded up to a
+multiple of the data extent.  Every θ-sized vector the CG solves see is
+then the same on every rank, so each host decision (the curvature
+guard, the ``cg_tol`` stop, the best candidate, acceptance, adaptive λ)
+is taken on the same values everywhere and the ranks never fork.  With
+``cg_fused`` the vector work runs per leaf (``cg_fused_update_tree``) in
+the state's layout.
 """
 from __future__ import annotations
 
@@ -31,7 +43,8 @@ import torch
 from repro_torch.core import tree_math as tm
 from repro_torch.core.cg import cg_solve
 from repro_torch.core.curvature import grad_and_loss, make_curvature_ops
-from repro_torch.core.optim.base import Optimizer, register_optimizer
+from repro_torch.core.optim.base import (Optimizer, mesh_of,
+                                         register_optimizer, split_groups)
 from repro_torch.core.optim.preconditioners import get_preconditioner
 
 STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -44,7 +57,8 @@ class SecondOrderConfig:
     ng_iters: int = 4             # inner Fisher-CG iterations for NGHF
     cg_tol: float = 0.0           # adaptive CG budget (0 = fixed budget)
     cg_min_iters: int = 1         # floor before cg_tol may fire
-    cg_fused: bool = False        # fused flat-buffer CG vector work
+    cg_fused: bool = False        # fused CG vector work: one flat buffer,
+                                  # per leaf under a mesh
     curvature_sample: float = 1.0  # fraction of the CG batch for products
     lam: float = 1.0              # λ, KL trust multiplier on F (Eqn. 17)
     damping: float = 0.0          # Tikhonov η (baseline)
@@ -89,7 +103,7 @@ class SecondOrderOptimizer(Optimizer):
     uses_cg_batch = True
 
     def __init__(self, cfg: SecondOrderConfig, forward_fn, loss_spec, *,
-                 share_counts=None):
+                 share_counts=None, state_sharding=None):
         if cfg.method not in ("ng", "hf", "nghf"):
             raise ValueError(cfg.method)
         if cfg.adapt_lam and not cfg.eval_candidates:
@@ -103,6 +117,8 @@ class SecondOrderOptimizer(Optimizer):
         self.forward_fn = forward_fn
         self.loss_spec = loss_spec
         self.timer = None
+        self.mesh = mesh_of(state_sharding)
+        self.groups = split_groups(state_sharding)
         pname = cfg.preconditioner if cfg.precondition else "identity"
         self.precond = get_preconditioner(
             pname, share_counts=share_counts, fisher_decay=cfg.fisher_decay,
@@ -126,13 +142,18 @@ class SecondOrderOptimizer(Optimizer):
             raise ValueError(f"{self.name} needs an explicit CG batch "
                              "(paper Sec. 4.1)")
         timer = self.timer or _NoTimer()
+        mesh = self.mesh
+        # the state's layout under a mesh: each leaf's shape on this rank
+        constrain = None if mesh is None else tm.Layout(
+            {k: tuple(p.shape) for k, p in params.items()}, self.groups)
 
         # --- stage 1: gradient accumulation (Fig. 1, left) -----------------
         with timer.section("gradient"):
             loss, metrics, grads = grad_and_loss(
                 self.forward_fn, self.loss_spec, params, grad_batch,
-                microbatches=cfg.grad_microbatches)
-        pstate = self.precond.update(state["precond"], grads)
+                microbatches=cfg.grad_microbatches, mesh=mesh)
+        pstate = self.precond.update(state["precond"], grads,
+                                     constrain=constrain)
         st_dtype = STATE_DTYPES[cfg.state_dtype]
 
         def _st(t):
@@ -149,11 +170,12 @@ class SecondOrderOptimizer(Optimizer):
                                  theta_norm=theta_norm,
                                  mode=cfg.curvature_mode,
                                  eval_accumulators=cfg.eval_accumulators,
-                                 curvature_sample=cfg.curvature_sample)
+                                 curvature_sample=cfg.curvature_sample,
+                                 mesh=mesh)
         precond = self.precond.apply_fn(pstate)
         lam = state["lam"] if cfg.adapt_lam else cfg.lam
         solve_kw = dict(tol=cfg.cg_tol, min_iters=cfg.cg_min_iters,
-                        fused=cfg.cg_fused)
+                        fused=cfg.cg_fused, constrain=constrain)
         ops_fvp = timer.wrap("curvature", ops.fvp)
         ops_gnvp = timer.wrap("curvature", ops.gnvp)
         eval_loss = timer.wrap("candidates", ops.eval_loss)

@@ -5,7 +5,8 @@ Port of ``repro.core.tree_math``.  A theta-sized value is either a flat
 ``dict[str, Tensor]`` mirroring the parameter dict (``"rec0.w"`` ...) or
 a single tensor (the flat buffer of the fused CG path); every helper
 takes either.  Reductions are f32: ``vdot`` takes one f32 sum per leaf,
-then sums the leaves in key order.
+then sums the leaves in key order.  ``Layout`` is the layout of
+theta-sized dicts under a mesh (``core.cg.cg_solve``'s ``constrain``).
 """
 from __future__ import annotations
 
@@ -107,3 +108,26 @@ def ravel(tree: dict):
         return {k: parts[k].view(shapes[keys.index(k)]) for k in order}
 
     return flat, unravel
+
+
+class Layout:
+    """The layout of theta-sized dicts under a mesh: ``shapes`` holds each
+    leaf's local shape (this rank's share), ``groups`` the process group
+    of each leaf split across ranks (absent for a replicated leaf).
+
+    Calling it checks a theta-sized dict against the layout and returns
+    it.  Under explicit SPMD each rank already holds its share, so there
+    is nothing to move where the reference's ``with_sharding_constraint``
+    pins GSPMD's placement; a leaf of another shape is a fault and
+    raises."""
+
+    def __init__(self, shapes: dict, groups: dict):
+        self.shapes = shapes
+        self.groups = groups
+
+    def __call__(self, tree: dict) -> dict:
+        for k, t in tree.items():
+            if tuple(t.shape) != self.shapes[k]:
+                raise ValueError(f"{k}: shape {tuple(t.shape)}, its layout "
+                                 f"holds {self.shapes[k]} on this rank")
+        return tree

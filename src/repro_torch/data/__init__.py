@@ -1,1 +1,2 @@
-"""Deterministic synthetic data (``data.synthetic``)."""
+"""Deterministic synthetic data (``data.synthetic``) and batches under a
+mesh (``data.pipeline``)."""

@@ -20,16 +20,21 @@ Secs. 7-8 on synthetic data):
      the wall time of each stage.
 
 ``run_pipeline(acfg, ...)`` runs the same pipeline on another acoustic
-config, e.g. the paper's full-width LSTM on the card.
+config, e.g. the paper's full-width LSTM on the card.  ``--mesh DxM``
+runs every stage data-parallel over D x M ranks (one process a rank,
+under ``torchrun --nproc-per-node D*M``), as ``launch.train`` does;
+rank 0 prints.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import torch.distributed as dist
+
 from repro_torch.configs.acoustic import LSTM
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
-from repro_torch.launch.train import evaluate_sequence, no_mesh, \
+from repro_torch.launch.train import evaluate_sequence, resolve_mesh, \
     train_sequence
 
 CFG = LSTM.smoke().replace(hidden_dim=48, num_outputs=30)
@@ -46,17 +51,23 @@ def evaluate(acfg, params, device) -> float:
 
 
 def run_pipeline(acfg=CFG, *, updates: int = 8, device=DEFAULT_DEVICE,
-                 verbose: bool = True) -> dict:
+                 verbose: bool = True, mesh=None) -> dict:
     """CE pretraining, NGHF, SGD and Adam on ``acfg``.  Returns {"rows":
     {stage: {"updates", "acc", "wall_s"}}, "nghf_log": NGHF's log,
-    "ce_params": the CE-pretrained parameters}."""
+    "ce_params": the CE-pretrained parameters}.  ``mesh``: as
+    ``launch.train.resolve_mesh`` takes it."""
     dev = resolve_device(device)
+    mesh = resolve_mesh(mesh, dev)
     rows = {}
+
+    def say(*a):
+        if mesh is None or mesh.rank == 0:
+            print(*a)
 
     def stage(name, n_updates, **kw):
         t0 = time.perf_counter()
         params, log = train_sequence(acfg=acfg, frames=FRAMES, noise=NOISE,
-                                     device=dev, **kw)
+                                     device=dev, mesh=mesh, **kw)
         wall = time.perf_counter() - t0      # the log's floats synchronized
         rows[name] = {"updates": n_updates, "acc": evaluate(acfg, params,
                                                             dev),
@@ -67,7 +78,7 @@ def run_pipeline(acfg=CFG, *, updates: int = 8, device=DEFAULT_DEVICE,
     # seed=1000 keeps the CE stream disjoint from the MPE gradient seeds
     base, _ = stage("CE", 0, optimizer="adam", loss="ce", steps=60,
                     batch=16, lr=3e-3, seed=1000, verbose=False)
-    print(f"CE baseline MPE-acc: {rows['CE']['acc']:.4f}")
+    say(f"CE baseline MPE-acc: {rows['CE']['acc']:.4f}")
 
     # --- 2. MPE with NGHF --------------------------------------------------
     _, nghf_log = stage("NGHF", updates, optimizer="nghf", loss="mpe",
@@ -75,11 +86,11 @@ def run_pipeline(acfg=CFG, *, updates: int = 8, device=DEFAULT_DEVICE,
                         cg_iters=6, ng_iters=2, init_params=base,
                         verbose=verbose)
     for m in nghf_log:
-        print(f"  [nghf] update {m['step']}: accepted "
-              f"{bool(m['cg_accepted'])}, best iterate "
-              f"{int(m['cg_best_iter'])}, best {m['cg_best_loss']:.6f} vs "
-              f"Δθ=0 {m['cg_base_loss']:.6f}; outer CG vᵀBv "
-              f"{m['cg_curv_first']:.4g} -> {m['cg_curv_last']:.4g}")
+        say(f"  [nghf] update {m['step']}: accepted "
+            f"{bool(m['cg_accepted'])}, best iterate "
+            f"{int(m['cg_best_iter'])}, best {m['cg_best_loss']:.6f} vs "
+            f"Δθ=0 {m['cg_base_loss']:.6f}; outer CG vᵀBv "
+            f"{m['cg_curv_first']:.4g} -> {m['cg_curv_last']:.4g}")
 
     # --- 3. SGD / Adam with 20x the updates --------------------------------
     for name, lr in BASELINES:
@@ -90,10 +101,10 @@ def run_pipeline(acfg=CFG, *, updates: int = 8, device=DEFAULT_DEVICE,
               init_params=base, dataset_batches=64, verbose=False)
 
     # --- 4. summary (paper Table 2 shape) ----------------------------------
-    print("\noptimiser  #updates   MPE acc (held out)   wall s")
+    say("\noptimiser  #updates   MPE acc (held out)   wall s")
     for name, row in rows.items():
-        print(f"{name:<11s} {row['updates']:<10d} {row['acc']:<20.4f} "
-              f"{row['wall_s']:.3f}")
+        say(f"{name:<11s} {row['updates']:<10d} {row['acc']:<20.4f} "
+            f"{row['wall_s']:.3f}")
     return {"rows": rows, "nghf_log": nghf_log, "ce_params": base}
 
 
@@ -101,13 +112,19 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--updates", type=int, default=8)
     ap.add_argument("--mesh", default=None,
-                    help="none only: meshes come with the distribution "
-                    "slice (ROADMAP 1.4)")
+                    help="none (default), 'DxM', 'single-pod' or "
+                    "'multi-pod': every stage data-parallel over the mesh "
+                    "(under torchrun, one process a rank)")
     ap.add_argument("--device", default=DEFAULT_DEVICE,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    no_mesh(args.mesh)
-    return run_pipeline(updates=args.updates, device=args.device)
+    started = not dist.is_initialized()
+    try:
+        return run_pipeline(updates=args.updates, device=args.device,
+                            mesh=args.mesh)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -23,6 +23,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.distributed
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.lattice_fb import (_check_kernel_input,
@@ -73,6 +74,35 @@ def cg_fused_update(alpha, x, v, r, bv):
 
 
 cg_fused_update.launches = 0
+
+
+def cg_fused_update_tree(alpha, x, v, r, bv, groups=None):
+    """The fused CG update over theta-sized dicts, one leaf at a time:
+    ``cg_fused_update`` on each leaf's flat view (one kernel launch a leaf
+    on the card), then rr = the per-leaf partials summed in double in
+    ``ref.tree_order`` and rounded to f32.
+
+    Port of ``repro.kernels.ops.cg_fused_update_tree``, the fused path of
+    a sharded state: each leaf stays in its own layout, which under a
+    mesh is this rank's share of it.  ``groups``: {key: process group}
+    for the leaves split across ranks; each such leaf's partial is summed
+    over its group by one ``all_reduce`` before the fold, so rr is the
+    whole vector's.  Replicated leaves (every leaf of the acoustic
+    models) need no collective.  Returns (x_new, r_new, rr 0-d f32)."""
+    groups = groups or {}
+    x_new, r_new, rr = {}, {}, None
+    for k in ref.tree_order(x):
+        xk, rk, part = cg_fused_update(alpha, x[k].reshape(-1),
+                                       v[k].reshape(-1), r[k].reshape(-1),
+                                       bv[k].reshape(-1))
+        x_new[k], r_new[k] = xk.view(x[k].shape), rk.view(r[k].shape)
+        # one scalar a leaf, folded in double as the kernel folds its tiles
+        part = part.to(torch.float64)  # reprolint: disable=RL007
+        if groups.get(k) is not None:
+            torch.distributed.all_reduce(part, group=groups[k])
+        rr = part if rr is None else rr + part
+    return ({k: x_new[k] for k in x}, {k: r_new[k] for k in x},
+            rr.to(torch.float32))
 
 KERNELS = (cg_fused_update,)
 

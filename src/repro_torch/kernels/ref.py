@@ -287,6 +287,28 @@ def cg_fused_update_ref(alpha, x, v, r, bv):
     return (xf + alpha * vf).to(x.dtype), rn.to(r.dtype), (rn * rn).sum()
 
 
+def tree_order(tree: dict) -> list:
+    """``tree``'s keys in ``ravel_pytree``'s leaf order (sorted by the
+    dotted path), the order the per-leaf partials are summed in."""
+    return sorted(tree, key=lambda k: tuple(k.split(".")))
+
+
+def cg_fused_update_tree_ref(alpha, x, v, r, bv):
+    """Plain version of the per-leaf fused CG update: ``x``, ``v``, ``r``,
+    ``bv`` are dicts of one key set, each leaf updated as by
+    :func:`cg_fused_update_ref` in its own shape, and rr the sum of the
+    per-leaf f32 partials, taken in double in ``tree_order`` and rounded
+    to f32."""
+    x_new, r_new, rr = {}, {}, 0.0
+    for k in tree_order(x):
+        x_new[k], r_new[k], part = cg_fused_update_ref(alpha, x[k], v[k],
+                                                       r[k], bv[k])
+        # one scalar a leaf, folded in double as the kernel folds its tiles
+        rr = rr + part.to(torch.float64)  # reprolint: disable=RL007
+    return ({k: x_new[k] for k in x}, {k: r_new[k] for k in x},
+            torch.as_tensor(rr).to(torch.float32))
+
+
 def swa_attention_ref(q, k, v, window: int, *, q_chunk: int = 512,
                       q_offset: int = 0):
     """Sliding-window causal attention, chunked over queries.

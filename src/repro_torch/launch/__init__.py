@@ -1,2 +1,2 @@
-"""Step builders and the training driver (single device).  Port of the
-sequence-training half of ``repro.launch``."""
+"""Step builders, the training driver, meshes of ranks and the sharding
+rules.  Port of ``repro.launch``."""

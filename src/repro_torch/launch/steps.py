@@ -24,8 +24,13 @@ is lattice sequence training, with both batches from
 ``data.synthetic.asr_batch`` (feats + labels + a ``Lattice``).  Its CG
 batch is explicit because the paper samples it from the whole training
 set (Sec. 4.1); first-order optimisers ignore it (``opt.uses_cg_batch``).
-The port runs on one device: ``mesh`` and ``state_sharding`` raise
-``NotImplementedError`` until the distribution slice (ROADMAP 1.4).
+Under a mesh (``mesh=`` and ``state_sharding=``, the acoustic state
+replicated: ``launch.sharding.replicated_shardings``) the step takes the
+same global batches on every rank and runs data-parallel over the
+mesh's data axes (``core.optim.second_order``).  The LM path
+(``build_step``) runs on one device: its ``mesh`` and ``state_sharding``
+raise ``NotImplementedError`` until the LM archs' distribution
+(ROADMAP 1.4).
 
 LM serving: ``build_prefill_step(cfg)`` runs a prompt batch through the
 backbone and returns the last position's logits (the prefill_32k step;
@@ -40,6 +45,7 @@ from typing import Callable, Tuple
 import torch
 
 from repro_torch.core.optim import Optimizer, get_optimizer
+from repro_torch.core.optim.base import mesh_of
 from repro_torch.losses.chunked_lm import ChunkedCELoss
 from repro_torch.losses.sequence import get_loss
 from repro_torch.models import acoustic
@@ -67,8 +73,9 @@ def step_metrics(metrics: dict) -> dict:
 def one_device(mesh, state_sharding) -> None:
     if mesh is not None or state_sharding is not None:
         raise NotImplementedError(
-            "mesh / state_sharding: the port's steps run on one device; "
-            "the distribution slice brings them (ROADMAP 1.4)")
+            "mesh / state_sharding: the port's LM step runs on one "
+            "device; tensor-parallel and FSDP-sharded LM training comes "
+            "with the LM archs' distribution (ROADMAP 1.4)")
 
 
 # ---------------------------------------------------------------------------
@@ -148,11 +155,18 @@ def build_sequence_step(acfg, opt_spec, *, loss: str = "mpe",
     ``backend``: lattice-engine backend, ``"auto" | "cuda" |
     "levelized"`` (``lattice_engine.api``).  ``timer``: an optional
     ``core.timing.StageTimer`` for second-order optimisers.
+    ``mesh`` / ``state_sharding``: data-parallel over the mesh, the
+    state laid out by ``state_sharding`` (which a mesh requires, and
+    whose mesh it must be).
     """
-    one_device(mesh, state_sharding)
+    if mesh is not None and mesh_of(state_sharding) is not mesh:
+        raise ValueError("build_sequence_step: a mesh needs the state's "
+                         "sharding on it (launch.sharding."
+                         "replicated_shardings(mesh, params))")
     loss_spec = get_loss(loss, kappa=kappa, backend=backend)
     opt = get_optimizer(opt_spec, acoustic_forward_fn(acfg), loss_spec,
-                        share_counts=share_counts, **opt_overrides)
+                        share_counts=share_counts,
+                        state_sharding=state_sharding, **opt_overrides)
     if timer is not None:
         opt.timer = timer
 

@@ -1,6 +1,7 @@
 """Training driver: lattice MPE/MMI (or frame-CE) sequence training of an
-acoustic model, the paper's experiment, and LM training on the synthetic
-token pipeline, on one device.
+acoustic model, the paper's experiment, data-parallel over a mesh of
+ranks or on one device, and LM training on the synthetic token pipeline,
+on one device.
 
 Port of ``repro.launch.train``: ``train_sequence``, ``evaluate_sequence``,
 the LM loop of its ``main`` (``train_lm`` here) and the CLI ``main``.
@@ -30,10 +31,22 @@ run continues exactly).
 
 ``device`` defaults to ``"cuda"`` and raises without a card; pass
 ``device="cpu"`` (with ``smoke=True`` for the reduced geometry) to run
-the plain PyTorch versions of the kernels on the CPU.  ``mesh`` raises
-``NotImplementedError`` until the distribution slice (ROADMAP 1.4).  The
-LM archs that train are ``LM_TRAIN_ARCHS``, every registered one; another
-name raises, naming ROADMAP 1.3.
+the plain PyTorch versions of the kernels on the CPU.  The LM archs that
+train are ``LM_TRAIN_ARCHS``, every registered one; another name raises,
+naming ROADMAP 1.3.
+
+Sequence training runs data-parallel over a mesh of ranks (``mesh=``:
+"DxM", "single-pod", "multi-pod" or a ``launch.mesh.Mesh``), one
+process a rank, with the acoustic state replicated: every rank draws the
+same global batches from the seed, and each update runs its share of
+them (``launch.steps.build_sequence_step``).  Under torchrun:
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.train --arch lstm-asr --smoke --device cpu \
+        --mesh 4x1 --steps 2 --batch 8 --frames 24
+
+LM training refuses a mesh until the LM archs' distribution (ROADMAP
+1.4).
 """
 from __future__ import annotations
 
@@ -44,14 +57,19 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.io import load_train_state, save_train_state
 from repro_torch.configs import base as arch_configs
 from repro_torch.configs.acoustic import ASR_ARCHS, get_acoustic_config
+from repro_torch.core.collectives import broadcast_tree
 from repro_torch.core.optim import config_for, list_optimizers
 from repro_torch.data.synthetic import EpochPlan, asr_batch, lm_batch
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.launch import steps as S
+from repro_torch.launch.mesh import (Mesh, make_debug_mesh,
+                                     make_production_mesh)
+from repro_torch.launch.sharding import replicated_shardings
 from repro_torch.losses.sequence import get_loss
 from repro_torch.models import acoustic
 from repro_torch.models.registry import get_model
@@ -83,8 +101,29 @@ def parse_sample_schedule(sched):
 def no_mesh(mesh) -> None:
     if mesh not in (None, "none"):
         raise NotImplementedError(
-            f"mesh={mesh!r}: the port trains on one device; meshes come "
-            f"with the distribution slice (ROADMAP 1.4)")
+            f"mesh={mesh!r}: the port trains the LM archs on one device; "
+            f"their meshes (FSDP, tensor parallel) come with the LM "
+            f"archs' distribution (ROADMAP 1.4)")
+
+
+def resolve_mesh(mesh, device=DEFAULT_DEVICE):
+    """None / "none" -> None; "DxM" -> ``make_debug_mesh(D, M)`` (D-way
+    data x M-way model); "single-pod" / "multi-pod" ->
+    ``make_production_mesh``; a ``Mesh`` passes.  Each raises unless the
+    run has the mesh's number of ranks."""
+    if mesh is None or mesh == "none":
+        return None
+    if isinstance(mesh, Mesh):
+        return mesh
+    if isinstance(mesh, str) and "x" in mesh \
+            and mesh.split("x")[0].isdigit():
+        d, m = (int(v) for v in mesh.split("x"))
+        return make_debug_mesh(d, m, device=device)
+    if mesh in ("single-pod", "multi-pod"):
+        return make_production_mesh(multi_pod=mesh == "multi-pod",
+                                    device=device)
+    raise ValueError(f"mesh={mesh!r}: expected 'none', 'DxM', "
+                     f"'single-pod', 'multi-pod' or a launch.mesh.Mesh")
 
 
 def train_sequence(*, arch=None, acfg=None, optimizer="nghf", loss="mpe",
@@ -108,9 +147,12 @@ def train_sequence(*, arch=None, acfg=None, optimizer="nghf", loss="mpe",
     the saved step.  ``timer``: an optional
     ``core.timing.StageTimer`` handed to a second-order optimiser; each
     log entry then carries its update's ``stage_<name>_s`` seconds.
+    ``mesh`` (``resolve_mesh``): data-parallel over its data axes, the
+    parameters and optimiser state replicated (rank 0's initial values
+    broadcast to every rank); rank 0 alone prints and writes checkpoints.
     """
-    no_mesh(mesh)
     dev = resolve_device(device)
+    mesh = resolve_mesh(mesh, dev)
     if acfg is None:
         acfg = get_acoustic_config(arch)
         if smoke:
@@ -120,6 +162,11 @@ def train_sequence(*, arch=None, acfg=None, optimizer="nghf", loss="mpe",
                   for k, v in init_params.items()}
     else:
         params = acoustic.init_params(acfg, seed, device=dev)
+    state_sharding = None
+    if mesh is not None:
+        state_sharding = replicated_shardings(mesh, params)
+        params = broadcast_tree(params)
+        verbose = verbose and mesh.rank == 0
 
     def make_batch(s, n):
         return asr_batch(s, batch=n, num_frames=frames,
@@ -139,8 +186,9 @@ def train_sequence(*, arch=None, acfg=None, optimizer="nghf", loss="mpe",
     def build(frac=None):
         cfg_u = ocfg if frac is None else ocfg.replace(curvature_sample=frac)
         return S.build_sequence_step(acfg, cfg_u, loss=loss, kappa=kappa,
-                                     backend=backend, share_counts=counts,
-                                     timer=timer)
+                                     backend=backend, mesh=mesh,
+                                     state_sharding=state_sharding,
+                                     share_counts=counts, timer=timer)
 
     def sched_frac(u):
         if not sample_sched:
@@ -152,11 +200,11 @@ def train_sequence(*, arch=None, acfg=None, optimizer="nghf", loss="mpe",
         return frac
 
     step, opt = build()
-    opt_state = opt.init(params)
+    opt_state = opt.init(params, state_sharding=state_sharding)
     start = 0
     if resume and ckpt_dir and os.path.exists(ckpt_dir):
-        params, opt_state, start = load_train_state(ckpt_dir, params,
-                                                    opt_state)
+        params, opt_state, start = load_train_state(
+            ckpt_dir, params, opt_state, shardings=state_sharding)
         if verbose:
             print(f"[train] resumed from step {start}")
     plan = EpochPlan(num_updates_per_epoch=max(steps, 1), base_seed=seed)
@@ -192,9 +240,11 @@ def train_sequence(*, arch=None, acfg=None, optimizer="nghf", loss="mpe",
                 "mmi", metrics.get("ce", metrics.get("loss", float("nan")))))
             print(f"  seq step {u:4d} {loss}={key_metric:.4f} ({dt:.3f}s)")
         if ckpt_dir and (u + 1) % ckpt_every == 0:
-            save_train_state(ckpt_dir, params, opt_state, step=u + 1)
+            save_train_state(ckpt_dir, params, opt_state, step=u + 1,
+                             shardings=state_sharding)
     if ckpt_dir:
-        save_train_state(ckpt_dir, params, opt_state, step=steps)
+        save_train_state(ckpt_dir, params, opt_state, step=steps,
+                         shardings=state_sharding)
     return params, log
 
 
@@ -202,7 +252,7 @@ def train_lm(*, arch="whisper-base", optimizer="nghf", steps=10, batch=8,
              seq=128, cg_iters=8, ng_iters=4, lr=None, smoke=False,
              ckpt_dir=None, resume=False, warm_start=False,
              adapt_lam=False, preconditioner=None, curvature_sample=None,
-             cg_tol=None, cg_fused=False, device=DEFAULT_DEVICE):
+             cg_tol=None, cg_fused=False, device=DEFAULT_DEVICE, mesh=None):
     """LM training on ``lm_batch`` streams (the reference's ``main`` LM
     loop); returns ``(params, log)``.
 
@@ -214,7 +264,10 @@ def train_lm(*, arch="whisper-base", optimizer="nghf", steps=10, batch=8,
     (``cg_frac=4``).  ``ckpt_dir``: the train state is saved
     there every 10 steps and after the last; with ``resume`` and an
     existing ``ckpt_dir`` the run continues from the saved step.
+    ``mesh`` raises (``no_mesh``): the LM archs' distribution is ROADMAP
+    1.4's second part.
     """
+    no_mesh(mesh)
     if arch.startswith("lm-"):
         arch = arch[3:]                # 'lm-whisper-base' alias
     if arch not in LM_TRAIN_ARCHS:
@@ -330,8 +383,11 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true",
                     help="reduced geometry for the CPU")
     ap.add_argument("--mesh", default="none",
-                    help="'none' only: meshes come with the distribution "
-                    "slice (ROADMAP 1.4)")
+                    help="'none', 'DxM' (D-way data x M-way model), "
+                    "'single-pod' or 'multi-pod': data-parallel sequence "
+                    "training of the *-asr archs, one process a rank "
+                    "(run under torchrun --nproc-per-node D*M); the LM "
+                    "archs refuse a mesh (ROADMAP 1.4)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-json", default=None)
@@ -345,7 +401,16 @@ def main(argv=None):
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    no_mesh(args.mesh)
+    started = not dist.is_initialized()
+    try:
+        return _run(args)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args) -> list:
+    """``main``'s run; the log is written (by rank 0 under a mesh)."""
     common = dict(
         optimizer=args.optimizer, steps=args.steps, batch=args.batch,
         cg_iters=args.cg_iters, ng_iters=args.ng_iters, lr=args.lr,
@@ -353,7 +418,7 @@ def main(argv=None):
         warm_start=args.warm_start, adapt_lam=args.adapt_lam,
         preconditioner=args.preconditioner,
         curvature_sample=args.curvature_sample, cg_tol=args.cg_tol,
-        cg_fused=args.cg_fused, device=args.device)
+        cg_fused=args.cg_fused, device=args.device, mesh=args.mesh)
     if args.arch in ASR_ARCHS:
         _, log = train_sequence(
             arch=args.arch, loss=args.loss, cg_batch=args.cg_batch,
@@ -363,7 +428,7 @@ def main(argv=None):
             **common)
     else:
         _, log = train_lm(arch=args.arch, seq=args.seq, **common)
-    if args.log_json:
+    if args.log_json and (not dist.is_initialized() or dist.get_rank() == 0):
         with open(args.log_json, "w") as f:
             json.dump(log, f, indent=1)
     return log

@@ -20,7 +20,14 @@ f32 copy of the logits.  The curvature products call it from
 so no transform ever wraps that autograd call.
 
 Normalisation convention: ``value`` is a batch *mean*; both curvature
-factors are normalised the same way (mean over loss atoms).
+factors are normalised the same way (mean over loss atoms).  Under a
+mesh each rank holds a share of the batch, and the means must stay the
+whole batch's: ``normalisers(batch)`` gives the counts a spec divides by
+(rows; MMI's real frames; CE's mask sum) summed over the share, the
+caller (``core.curvature.shard_for``) sums them over the data group once
+per batch and hands them back as ``batch["norms"]``, and every value,
+metric and factor then divides this rank's sums by those global counts.
+Without ``"norms"`` each spec divides by its batch's own counts.
 
 Matrix-free identities (never materialising K x K blocks):
   CE / matching loss :  H^u = w (p ⊙ u - p (pᵀu)),   ĝ = w (p - y)
@@ -46,6 +53,24 @@ def _one_hot(labels, num_states: int):
     return out.scatter_(-1, labels.long()[..., None], 1.0)
 
 
+def _norm(batch, key: str, local):
+    """The normaliser ``key`` of ``batch``: the global count handed in
+    under ``batch["norms"]``, else ``local`` (the batch's own)."""
+    norms = batch.get("norms")
+    return local if norms is None else norms[key]
+
+
+def _mean(x, batch):
+    """The batch mean of per-utterance values: over the global rows
+    under ``batch["norms"]``, else ``x.mean()``."""
+    norms = batch.get("norms")
+    return x.mean() if norms is None else x.sum() / norms["rows"]
+
+
+def _rows(x) -> torch.Tensor:
+    return torch.tensor(float(x.shape[0]), device=x.device)
+
+
 def _grad_of_value(spec, logits, batch):
     lg = logits.detach().to(torch.float32).requires_grad_(True)
     with torch.enable_grad():
@@ -59,41 +84,48 @@ class CELoss:
 
     name = "ce"
 
-    def _mask(self, logits, batch):
+    def _mask(self, batch):
         m = batch.get("label_mask")
         if m is None:
-            m = torch.ones(logits.shape[:2], dtype=torch.float32,
-                           device=logits.device)
+            labels = batch["labels"]
+            m = torch.ones(labels.shape[:2], dtype=torch.float32,
+                           device=labels.device)
         return m.to(torch.float32)
+
+    def _denom(self, m, batch):
+        return _norm(batch, "mask", m.sum()).clamp(min=1.0)
+
+    def normalisers(self, batch) -> dict:
+        return {"mask": self._mask(batch).sum()}
 
     def value(self, logits, batch, accumulators: str = "full"):
         labels = batch["labels"].long()
-        m = self._mask(logits, batch)
+        m = self._mask(batch)
         lp = F.log_softmax(logits.to(torch.float32), -1)
         nll = -lp.gather(-1, labels[..., None])[..., 0]
-        denom = m.sum().clamp(min=1.0)
+        denom = self._denom(m, batch)
         loss = (nll * m).sum() / denom
         acc = ((logits.argmax(-1) == labels) * m).sum() / denom
         return loss, {"ce": loss, "acc": acc}
 
     def logit_grad(self, logits, batch):
         labels = batch["labels"].long()
-        m = self._mask(logits, batch)
+        m = self._mask(batch)
         p = F.softmax(logits.to(torch.float32), -1)
         y = _one_hot(labels, logits.shape[-1])
-        w = m / m.sum().clamp(min=1.0)
+        w = m / self._denom(m, batch)
         return (p - y) * w[..., None]
 
     def gn_vp(self, logits, batch, u):
-        m = self._mask(logits, batch)
+        m = self._mask(batch)
         p = F.softmax(logits.to(torch.float32), -1)
-        w = m / m.sum().clamp(min=1.0)
+        w = m / self._denom(m, batch)
         pu = (p * u).sum(-1, keepdim=True)
         return w[..., None] * (p * u - p * pu)
 
     def fisher_vp(self, logits, batch, u):
         g = self.logit_grad(logits, batch)
-        S = self._mask(logits, batch).sum().clamp(min=1.0)
+        S = self._denom(self._mask(batch), batch)
         gu = (g * u).sum(-1, keepdim=True)
         return S * g * gu
 
@@ -114,8 +146,14 @@ class MMILoss:
         self.kappa = kappa
         self.backend = backend
 
-    def _frames(self, lat: Lattice):
-        return lattice_frame_counts(lat).sum().clamp(min=1.0)
+    def _frames(self, batch):
+        frames = lattice_frame_counts(batch["lattice"]).sum()
+        return _norm(batch, "frames", frames).clamp(min=1.0)
+
+    def normalisers(self, batch) -> dict:
+        lat: Lattice = batch["lattice"]
+        return {"rows": _rows(lat.num_ref_units),
+                "frames": lattice_frame_counts(lat).sum()}
 
     def value(self, logits, batch, accumulators: str = "full"):
         lat: Lattice = batch["lattice"]
@@ -124,8 +162,8 @@ class MMILoss:
         num = self.kappa * (ref_lp * lattice_frame_mask(lat)).sum(-1)
         stats = lattice_stats(lat, lp, self.kappa, backend=self.backend,
                               accumulators=accumulators)
-        loss = -(num - stats.logZ).sum() / self._frames(lat)
-        return loss, {"mmi": loss, "logZ": stats.logZ.mean()}
+        loss = -(num - stats.logZ).sum() / self._frames(batch)
+        return loss, {"mmi": loss, "logZ": _mean(stats.logZ, batch)}
 
     def logit_grad(self, logits, batch):
         return _grad_of_value(self, logits, batch)
@@ -134,17 +172,16 @@ class MMILoss:
         """Exact GN of the numerator matching part plus the rank-1
         denominator term from ``logit_grad`` (same structure as MPE's)."""
         lat: Lattice = batch["lattice"]
-        w = self.kappa ** 2 / self._frames(lat)
+        w = self.kappa ** 2 / self._frames(batch)
         y = _ref_one_hot(lat, logits.shape[-1])
         g = self.logit_grad(logits, batch)
         yu = (y * u).sum(-1, keepdim=True)
         return w * (y * u) + self.kappa * g * yu
 
     def fisher_vp(self, logits, batch, u):
-        lat: Lattice = batch["lattice"]
         g = self.logit_grad(logits, batch)
         gu = (g * u).sum(-1, keepdim=True)
-        return self._frames(lat) * g * gu
+        return self._frames(batch) * g * gu
 
 
 class MPELoss:
@@ -158,14 +195,18 @@ class MPELoss:
         self.backend = backend
         self._mmi = MMILoss(kappa, backend=backend)
 
+    def normalisers(self, batch) -> dict:
+        return self._mmi.normalisers(batch)
+
     def value(self, logits, batch, accumulators: str = "full"):
         lat: Lattice = batch["lattice"]
         lp = F.log_softmax(logits.to(torch.float32), -1)
         stats = lattice_stats(lat, lp, self.kappa, backend=self.backend,
                               accumulators=accumulators)
         acc = stats.c_avg / lat.num_ref_units.clamp(min=1.0)
-        loss = -acc.mean()
-        return loss, {"mpe_acc": acc.mean(), "logZ": stats.logZ.mean()}
+        mean_acc = _mean(acc, batch)
+        return -mean_acc, {"mpe_acc": mean_acc,
+                           "logZ": _mean(stats.logZ, batch)}
 
     def logit_grad(self, logits, batch):
         return _grad_of_value(self, logits, batch)
@@ -175,7 +216,7 @@ class MPELoss:
         H^u = κ² w (y ⊙ u) + κ G (yᵀu), G = dL/dlogits; edge-padded frames
         are masked out of the matching term."""
         lat: Lattice = batch["lattice"]
-        B = logits.shape[0]
+        B = _norm(batch, "rows", logits.shape[0])
         w = (1.0 / (B * lat.num_ref_units.clamp(min=1.0)))[:, None, None]
         y = _ref_one_hot(lat, logits.shape[-1])
         g = self.logit_grad(logits, batch)

@@ -133,12 +133,33 @@ def test_failed_save_leaves_no_partial_state(tmp_path, monkeypatch,
 
 
 def test_shardings_raise_not_implemented(tmp_path):
+    """``shardings`` place each loaded leaf by its ``NamedSharding`` (a
+    replicated one: the leaf as read, on the mesh's device); anything
+    else is refused with ``TypeError``.  (A split leaf's save, which
+    needs a gather, still raises ``NotImplementedError`` naming ROADMAP
+    1.4.)"""
+    from types import SimpleNamespace
+    from repro_torch.launch.sharding import P, NamedSharding
     ck = str(tmp_path / "ck")
-    tio.save_checkpoint(ck, _tree())
-    with pytest.raises(NotImplementedError, match="1.4"):
+    tree = _tree()
+    tio.save_checkpoint(ck, tree)
+    with pytest.raises(TypeError, match="NamedSharding"):
         tio.load_checkpoint(ck, _tree(), shardings=object())
-    with pytest.raises(NotImplementedError, match="1.4"):
+    with pytest.raises(TypeError, match="NamedSharding"):
         tio.load_train_state(ck, {}, {}, shardings=object())
+    mesh = SimpleNamespace(axis_names=("data", "model"),
+                           shape={"data": 2, "model": 1},
+                           device=torch.device("cpu"))
+    rep = {"params": {k: NamedSharding(mesh, P()) for k in
+                      tree["params"]}}
+    got, _ = tio.load_checkpoint(ck, _tree(), shardings=rep)
+    for part in ("params", "opt_state"):
+        for k in ("rec0.w", "out.b", "step", "half"):
+            if k in tree[part]:
+                _assert_same(got[part][k], tree[part][k])
+    split = {"params": {"rec0.w": NamedSharding(mesh, P("data", None))}}
+    with pytest.raises(NotImplementedError, match="1.4"):
+        tio.save_checkpoint(ck, tree, shardings=split)
 
 
 # ---------------------------------------------------------------------------

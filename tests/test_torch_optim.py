@@ -19,8 +19,9 @@ baselines, and the training driver on the CPU.
     the tiniest gradient entries into O(lr) differences of a few
     elements).
   * ``train_sequence(..., device="cpu", steps=2)`` on the smoke config
-    raises the MPE accuracy of its CG batch, and the options of later
-    slices raise ``NotImplementedError``.
+    raises the MPE accuracy of its CG batch; a mesh larger than the run
+    raises, as does a state sharding that is not one, and the card path
+    without a card.
 """
 import numpy as np
 import pytest
@@ -173,11 +174,14 @@ def test_train_sequence_raises_mpe_accuracy_on_cpu():
 
 
 def test_later_slices_raise_not_implemented(setup):
+    """No fallback: a 4x2 mesh in a run of one process raises (meshes
+    run one process a rank, ``tests/test_torch_mesh_train.py``); a
+    state sharding must be a dict of ``NamedSharding``."""
     from repro_torch.launch.train import train_sequence
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.4"):
+    with pytest.raises(RuntimeError, match="needs 8 ranks"):
         train_sequence(arch="lstm-asr", smoke=True, steps=1, device="cpu",
                        verbose=False, mesh="4x2")
-    with pytest.raises(NotImplementedError, match="state_sharding"):
+    with pytest.raises(TypeError, match="state_sharding"):
         build_sequence_step(TCFG, "nghf", state_sharding=object())
     with pytest.raises(RuntimeError, match="cpu"):
         if torch.cuda.is_available():

@@ -16,8 +16,9 @@ with the reference's ``train_sequence``, the CLI and the paper's example.
     logged losses within rtol 1e-5, NGHF's best iterate and acceptance
     exactly.
   * The CLI ``main([...])``: one step of each ``*-asr`` arch, checkpoint
-    then ``--resume``, ``--log-json``, the refusal of ``--mesh``
-    (``NotImplementedError`` naming ROADMAP 1.4), and one step of the
+    then ``--resume``, ``--log-json``, the refusal of an LM arch's
+    ``--mesh`` (``NotImplementedError`` naming ROADMAP 1.4), and one step
+    of the
     windowed LM archs, refused until ROADMAP 1.3.3.
   * The example's pipeline (``repro_torch.examples.train_asr_mpe``) at
     its default config with one NGHF update prints the four-row table
@@ -155,12 +156,14 @@ def test_cli_checkpoint_resume_and_log_json(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--arch", "lstm-asr", "--mesh", "4x2"], "ROADMAP 1.4"),
+    (["--arch", "qwen2.5-3b", "--mesh", "4x2"], "ROADMAP 1.4"),
     (["--arch", "recurrentgemma-9b"], "ROADMAP 1.3"),
     (["--arch", "lm-mixtral-8x22b"], "ROADMAP 1.3"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, item):
-    """A mesh is refused, naming ROADMAP 1.4.  The windowed archs were
+    """An LM arch's mesh is refused, naming ROADMAP 1.4 (the acoustic
+    archs train on a mesh since its first part: ``tests/test_torch_mesh_
+    train.py``).  The windowed archs were
     refused, naming ROADMAP 1.3, until its item 1.3.3 gave their attention
     derivative kernels on the card: now the CLI trains them (one smoke
     step each)."""
