@@ -32,8 +32,8 @@ paths against its plain PyTorch version on the card:
     (5,410,781,184 parameters) through the tensor-core attention kernel at
     its head geometry (G = 6, hd 128, window 4096);
   * the xLSTM arch: xlstm-125m (150,319,176 parameters, 9 mLSTM and 3
-    sLSTM blocks, tied) served and trained by NGHF with the fused CG
-    kernel at full width and depth;
+    sLSTM blocks, tied) served at full width and depth and trained by
+    NGHF with the fused CG kernel at full width and 4 of its 12 layers;
   * training through the windowed attention: recurrentgemma-9b at full
     width and 3 of its 38 layers (2,753,638,400 parameters) trained by SGD
     through the attention's backward kernels; recurrentgemma-9b and
@@ -42,7 +42,11 @@ paths against its plain PyTorch version on the card:
   * distribution: the paper's data-parallel NGHF sequence training of
     the full-width LSTM on a mesh (``launch.mesh``), at world size 1
     over NCCL through ``train_sequence(mesh="1x1")`` and on two ranks
-    of the one card over gloo.
+    of the one card over gloo; and the LM archs' FSDP storage
+    (``launch.fsdp``): qwen2.5-3b trained by NGHF through
+    ``train_lm(mesh="1x1")`` on the same NCCL group, and on two gloo
+    ranks of the card, each storing its share of every parameter and
+    θ-sized state leaf.
 
 Phases:
 
@@ -235,16 +239,19 @@ Phases:
      1e-5, one vjp's parameter gradient and one jvp's tangent within 1e-4;
      layer 3's sLSTM with its loops as CUDA graphs against plain loops
      (the same, within 1e-6, bitwise printed); NGHF through the
-     CLI (B 8, T 512, CG batch 2, 8 CG and 4 NG iterations, the
-     share-counts preconditioner, ``--cg-fused``): 2 updates with a
+     CLI at 4 of the 12 layers (``--layers 4``: one period, 3 mLSTM + 1
+     sLSTM; 75,863,064 parameters; B 8, T 512, CG batch 2, 8 CG and 4 NG
+     iterations, the share-counts preconditioner, ``--cg-fused``): 2
+     updates with a
      checkpoint, then ``--resume`` to 3, with phase 9's checks (12
      ``cg_fused_update`` launches an update and no other kernel); one
      update through the kernel and the plain path (the same decision,
      last-iterate Δθ within relative L2 2e-2, the stage split, a device
      trace of one of its curvature products at T 512); Adam through the
      CLI, 3 steps (the update at train_4k's T 4096, 133-162 s, was cut
-     when phase 14 came, to keep the script near 1000 s); ``cg_fused_update`` timed at N
-     = 150,319,176 against its bound (the ``xlstm_*`` keys of its row);
+     when phase 14 came, and the depth to 4 layers when phase 15 came, to
+     keep the script near 1000 s); ``cg_fused_update`` timed at N =
+     75,863,064 against its bound (the ``xlstm_*`` keys of its row);
  13. training recurrentgemma-9b and mixtral-8x22b (run after phase 12,
      before phase 7, on a card freed with ``empty_cache``): (a) the
      windowed attention's derivative kernels (dq and dk/dv: bf16 on the
@@ -290,7 +297,25 @@ Phases:
      ``cg_fused_update_tree`` at the LSTM's leaves against its plain
      per-leaf version (x, r bitwise, rr within 1e-6 relative), timed
      beside the flat call.  Its numbers join ``cg_fused_update``'s row
-     (``tree_*`` and ``mesh_*`` keys).
+     (``tree_*`` and ``mesh_*`` keys).  Phase 14's NCCL group stays up
+     for phase 15;
+ 15. the LM archs on a mesh under FSDP storage: (a) qwen2.5-3b at
+     phase 10's width, 8 layers, B 8 x T 512 and settings through
+     ``train_lm(mesh="1x1")`` in 2d storage over phase 14's NCCL group
+     (no second group): 2 updates, ``cg_fused_update`` once per leaf per
+     CG iteration (14 leaves x 12 = 168 an update), each update's time
+     beside phase 10's; phase 10's update 0 on the mesh takes phase
+     10's one-process decision (or a tie) with the last-iterate Δθ
+     within 2e-2 (phase 10's limit); the group is destroyed after it;
+     (b) two gloo processes on the card, a 2x1 mesh, qwen2.5-3b at full
+     width and 2 layers, B 4 x T 512, NGHF with 2 CG and 1 NG
+     iterations, warm start and the Fisher diagonal, each rank placing
+     its share from the whole draw: replicated leaves bitwise equal
+     across ranks, the split ones put together and the last-iterate Δθ
+     within 2e-2 of the one-process update on the same CG batch, 42
+     launches a rank, each rank's θ-sized bytes beside one process's,
+     its peak memory and its update's seconds (``fsdp_*`` keys of
+     ``cg_fused_update``'s row).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; without a card, or outside a checkout of the repo,
@@ -1874,13 +1899,13 @@ def phase_cli(dev) -> dict:
     real_save = T.save_train_state
 
     def save_and_keep(ckpt_dir, params, opt_state, *, step=0, extra=None,
-                      shardings=None):
+                      **shardings):
         # keep what train_sequence held when it saved, cloned on the card
         kept = (step, clone_tree(params), clone_tree(opt_state))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         real_save(ckpt_dir, params, opt_state, step=step, extra=extra,
-                  shardings=shardings)
+                  **shardings)
         saved.append(kept + (time.perf_counter() - t0,))
 
     handler = logging.StreamHandler(sys.stdout)
@@ -2050,14 +2075,16 @@ def lm_one_update(cfg, params, batch, fused: bool, timer=None,
 
 
 def lm_paths_compared(tag: str, cfg, params, batch, dev,
-                      traced=None) -> dict:
+                      traced=None, keep: bool = False) -> dict:
     """One NGHF update from ``params`` through the kernel path (fused CG,
     split by the stage timer) and the plain path: the same decision (or
     a tie within the paths' spread) and, without candidate selection,
     the last iterate's Δθ within LM_DELTA_REL_L2, the plain path's own
     repeat printed beside it; then ``traced``, a (name, call) pair, under
     the profiler: by default one kernel-path update.  Returns {"stages",
-    "timed_update_s", "trace"}."""
+    "timed_update_s", "trace"}; with ``keep``, also "kernel_path": the
+    kernel path's {"metrics", "last" (its last-iterate parameters, on the
+    host), "s"}."""
     from repro_torch.core.timing import StageTimer
     timer = StageTimer(dev)
     _, m_k, t_k = lm_one_update(cfg, params, batch, True, timer=timer)
@@ -2069,6 +2096,8 @@ def lm_paths_compared(tag: str, cfg, params, batch, dev,
     new_p, _, _ = lm_one_update(cfg, params, batch, False,
                                 eval_candidates=False)
     rel = delta_rel_l2(new_k, new_p, params)
+    kept = {"metrics": m_k, "s": t_k,
+            "last": {k: v.cpu() for k, v in new_k.items()}} if keep else None
     del new_k
     new_p2, _, _ = lm_one_update(cfg, params, batch, False,
                                  eval_candidates=False)
@@ -2105,7 +2134,10 @@ def lm_paths_compared(tag: str, cfg, params, batch, dev,
         f"{idle:.3f}; most device time: "
         + "; ".join(f"{k[:90]} {ms:.3f} ms x {n}"
                     for k, ms, n in trace["top"]))
-    return {"stages": stages, "timed_update_s": t_k, "trace": trace}
+    out = {"stages": stages, "timed_update_s": t_k, "trace": trace}
+    if keep:
+        out["kernel_path"] = kept
+    return out
 
 
 def device_trace(fn) -> dict:
@@ -2170,12 +2202,12 @@ def cli_checkpointed(tag: str, args: list, per_update: int) -> dict:
     real_save = T.save_train_state
 
     def save_and_keep(ckpt_dir, params, opt_state, *, step=0, extra=None,
-                      shardings=None):
+                      **shardings):
         kept = (step, clone_tree(params), clone_tree(opt_state))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         real_save(ckpt_dir, params, opt_state, step=step, extra=extra,
-                  shardings=shardings)
+                  **shardings)
         saved.append(kept + (time.perf_counter() - t0,))
 
     out = {}
@@ -2573,10 +2605,12 @@ def dense_batch(cfg, step: int, dev) -> dict:
                     vocab=cfg.vocab_size, device=dev)
 
 
-def dense_training(dev, arch: str, layers: int, count: int) -> dict:
+def dense_training(dev, arch: str, layers: int, count: int,
+                   keep: bool = False) -> dict:
     """An arch (qwen2.5-3b, or granite-moe-3b-a800m) at full width and
     ``layers`` layers, trained by NGHF with the fused CG kernel through
-    ``build_step``; one update against the plain path."""
+    ``build_step``; one update against the plain path (``keep``: the
+    kernel path's update is kept, "kernel_path", for phase 15)."""
     from repro_torch.configs.base import get_config
     from repro_torch.core.optim import config_for
     from repro_torch.launch.steps import build_step
@@ -2629,7 +2663,7 @@ def dense_training(dev, arch: str, layers: int, count: int) -> dict:
 
     # the kernel path against the plain path, from the same start
     batch = dense_batch(cfg, 0, dev)
-    out.update(lm_paths_compared(arch, cfg, start, batch, dev))
+    out.update(lm_paths_compared(arch, cfg, start, batch, dev, keep=keep))
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     log(f"{arch} NGHF: peak device memory {out['peak_gb']:.3f} GB")
     del start, batch
@@ -2707,7 +2741,7 @@ def phase_dense(dev) -> dict:
     """Phase 10: the dense attn archs."""
     return {"serving": dense_serving(dev, DENSE_ARCH, DENSE_PARAMS),
             "training": dense_training(dev, DENSE_ARCH, DENSE_TRAIN_LAYERS,
-                                       DENSE_TRAIN_PARAMS),
+                                       DENSE_TRAIN_PARAMS, keep=True),
             "clis": dense_clis(dev)}
 
 
@@ -3079,9 +3113,15 @@ XLSTM_ORACLE_L2, XLSTM_ORACLE_GRAD_L2 = 1e-5, 1e-4
 # on the same inputs (relative L2; bitwise printed)
 XLSTM_GRAPH_L2 = 1e-6
 # NGHF through the CLI: train_4k's B 256 x T 4096 cut to B 8 x T 512 (CG
-# batch 2), the share-counts preconditioner
+# batch 2), the share-counts preconditioner; depth 12 -> 4 (one period:
+# 3 mLSTM + 1 sLSTM blocks): the host sets its updates' time (24-27 s
+# each at full depth on an H100 80GB HBM3, 233 s of phase 12, and the
+# script took 1157.6 s with phase 15 beside it)
 XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ = 8, 512
+XLSTM_TRAIN_LAYERS = 4
+XLSTM_TRAIN_PARAMS = 75_863_064
 XLSTM_TRAIN_ARGS = ["--arch", XLSTM_ARCH, "--optimizer", "nghf",
+                    "--layers", str(XLSTM_TRAIN_LAYERS),
                     "--batch", str(XLSTM_TRAIN_BATCH), "--seq",
                     str(XLSTM_TRAIN_SEQ), "--cg-iters", str(LM_CG_ITERS),
                     "--ng-iters", str(LM_NG_ITERS), "--preconditioner",
@@ -3356,19 +3396,23 @@ def xlstm_oracle(dev) -> dict:
 
 
 def xlstm_training(dev) -> dict:
-    """xlstm-125m at full width and depth trained by NGHF with
-    ``--cg-fused`` through the CLI, checkpointed and resumed; one update
-    through the kernel path against the plain path; Adam through the
-    CLI."""
+    """xlstm-125m at full width and XLSTM_TRAIN_LAYERS layers trained by
+    NGHF with ``--cg-fused`` through the CLI, checkpointed and resumed;
+    one update through the kernel path against the plain path; Adam
+    through the CLI."""
     from repro_torch.configs.base import get_config
     from repro_torch.data.synthetic import lm_batch
     from repro_torch.launch import train as T
     from repro_torch.models.registry import get_model
-    cfg = get_config(XLSTM_ARCH)
+    cfg = get_config(XLSTM_ARCH).replace(num_layers=XLSTM_TRAIN_LAYERS)
     model = get_model(cfg)
+    check(model.param_count() == XLSTM_TRAIN_PARAMS,
+          f"{XLSTM_ARCH} at {XLSTM_TRAIN_LAYERS} layers: "
+          f"{model.param_count()} parameters")
     per_update = LM_CG_ITERS + LM_NG_ITERS
-    log(f"{XLSTM_ARCH} NGHF at full width and depth ({XLSTM_PARAMS} "
-        f"parameters); CLI {' '.join(XLSTM_TRAIN_ARGS)}")
+    log(f"{XLSTM_ARCH} NGHF at full width, {XLSTM_TRAIN_LAYERS} of 12 "
+        f"layers ({XLSTM_TRAIN_PARAMS} parameters); CLI "
+        f"{' '.join(XLSTM_TRAIN_ARGS)}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     out = cli_checkpointed(f"CLI {XLSTM_ARCH}", XLSTM_TRAIN_ARGS, per_update)
@@ -3386,7 +3430,8 @@ def xlstm_training(dev) -> dict:
 
     # Adam through the CLI, 3 steps
     reset_counts()
-    adam = T.main(["--arch", XLSTM_ARCH, "--optimizer", "adam", "--batch",
+    adam = T.main(["--arch", XLSTM_ARCH, "--optimizer", "adam",
+                   "--layers", str(XLSTM_TRAIN_LAYERS), "--batch",
                    str(XLSTM_TRAIN_BATCH), "--seq", str(XLSTM_TRAIN_SEQ),
                    "--steps", "3", "--device", "cuda"])
     check_lm_updates(f"CLI {XLSTM_ARCH} Adam", adam, read_counts(),
@@ -3435,8 +3480,9 @@ def xlstm_cg_times(xl: dict, dev) -> dict:
     """``cg_fused_update`` at xlstm-125m's N, beside phase 12's
     launches."""
     tr = xl["training"]
-    return cg_times_at(XLSTM_PARAMS, tr["launches"], tr["updates"],
-                       "xlstm", XLSTM_ARCH, dev)
+    return cg_times_at(XLSTM_TRAIN_PARAMS, tr["launches"], tr["updates"],
+                       "xlstm", f"{XLSTM_ARCH}, {XLSTM_TRAIN_LAYERS} layers",
+                       dev)
 
 
 # ---------------------------------------------------------------------------
@@ -4605,7 +4651,7 @@ def phase_mesh(dev, errs: dict, kernel_path: dict) -> dict:
         f"{rel:.3g} (limit {DELTA_REL_L2}); update {t_m * 1e3:.3f} ms on "
         f"the mesh vs {t_p * 1e3:.3f} ms without, just before it (the "
         f"training phase's run of it: {t_p5 * 1e3:.3f} ms)")
-    dist.destroy_process_group()
+    # the NCCL group stays up: phase 15's world-1 mesh runs on it
     torch.cuda.empty_cache()
 
     # (b) two gloo ranks on the one card
@@ -4641,6 +4687,348 @@ def phase_mesh(dev, errs: dict, kernel_path: dict) -> dict:
                mesh_collective_share=stats["s"] / wall,
                mesh_gloo_update_ms=[rec["s"] * 1e3 for _, rec in ranks])
     log(f"phase 14 (mesh) {time.perf_counter() - t_phase:.3f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the LM archs on a mesh, FSDP storage (ROADMAP 1.4 part 2)
+# ---------------------------------------------------------------------------
+
+# (a) qwen2.5-3b at phase 10's width, depth, batch and settings through
+# train_lm(mesh="1x1"), on the NCCL group phase 14 started; (b) two gloo
+# ranks on the one card, a 2x1 mesh, at full width and 2 of its 36
+# layers, each storing its share of every parameter and θ-sized state
+# leaf (the 7 layer matrices split over "data", the tied table whole)
+FSDP_STEPS = 2
+FSDP_RANKS = 2
+FSDP_RANK_LAYERS = 2
+FSDP_RANK_PARAMS = 465_320_960
+# (b) runs B 8 -> 4 (two ranks share the card: each peaked at 27.7 GB
+# at B 4 on an H100 80GB HBM3) and the reference acceptance test's 2 CG
+# and 1 NG iterations: on one card gloo stages every collective through
+# the host (75 s an update at 8 and 4), and (b) shows the split and the
+# parity, not speed
+FSDP_RANK_BATCH = 4
+FSDP_RANK_ITERS = dict(cg_iters=2, ng_iters=1)
+# (b) keeps θ-sized state besides the parameters: the warm-start Δθ and
+# the Fisher diagonal
+FSDP_RANK_OPT = dict(warm_start=True, preconditioner="fisher_diag")
+FSDP_TIMEOUT_S = 600
+
+
+def fsdp_launches(n_leaves: int, cg_iters: int = LM_CG_ITERS,
+                  ng_iters: int = LM_NG_ITERS) -> int:
+    """``cg_fused_update`` launches per NGHF update on a mesh: one per
+    leaf (this rank's share) per CG iteration."""
+    return (cg_iters + ng_iters) * n_leaves
+
+
+def fsdp_rank_batch(cfg, dev) -> dict:
+    from repro_torch.data.synthetic import lm_batch
+    return lm_batch(0, batch=FSDP_RANK_BATCH, seq_len=DENSE_TRAIN_SEQ,
+                    vocab=cfg.vocab_size, device=dev)
+
+
+def fsdp_one_update(cfg, params, batch, mesh=None, ss=None, min_cg=1,
+                    cg_iters=LM_CG_ITERS, ng_iters=LM_NG_ITERS,
+                    **overrides) -> tuple:
+    """One NGHF update (``cg_iters``, ``ng_iters``, fused CG) from
+    ``params`` (this rank's shares under ``ss`` on ``mesh``) through
+    ``build_step``'s optimiser inside its FSDP context, all metrics; the
+    CG batch is the first max(B // 4, ``min_cg``) rows (``train_lm``
+    takes the data extent on a mesh).  (new params, metrics, seconds,
+    this rank's θ-sized bytes: the parameters and every θ-sized state
+    slot)."""
+    from repro_torch.launch import fsdp
+    from repro_torch.launch.steps import build_step, cg_sub_batch
+    _, opt = build_step(cfg, "nghf", cg_iters=cg_iters, ng_iters=ng_iters,
+                        cg_fused=True, mesh=mesh, state_sharding=ss,
+                        **overrides)
+    state = opt.init(params, state_sharding=ss)
+    theta = [params] + [t for t in (state.get("delta"),
+                                    state["precond"].get("d")) if t]
+    nbytes = sum(v.numel() * v.element_size() for t in theta
+                 for v in t.values())
+    cg = cg_sub_batch(batch, 4, min_cg if mesh is None
+                      else max(min_cg, mesh.data_extent))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with fsdp.step_context(cfg, mesh, ss):
+        new, _, m = opt.step(params, state, batch, cg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return new, {k: (v.tolist() if torch.is_tensor(v) else float(v))
+                 for k, v in m.items()}, dt, nbytes
+
+
+def delta_rel_l2_to(new_a: dict, new_b: dict, base: dict) -> float:
+    """``delta_rel_l2`` with ``new_b`` and ``base`` on another device
+    than ``new_a`` (moved a leaf at a time)."""
+    num = den = 0.0
+    for k in base:
+        a, b = new_a[k], new_b[k].to(new_a[k].device)
+        num += float(((a - b) ** 2).sum())
+        den += float(((b - base[k].to(a.device)) ** 2).sum())
+    return (num / max(den, 1e-30)) ** 0.5
+
+
+def fsdp_world1(dev, dense_path: dict, dense_log: list) -> dict:
+    """(a) ``train_lm(mesh="1x1")`` over NCCL at phase 10's settings,
+    launches counted; then phase 10's update 0 on the mesh against
+    phase 10's one-process kernel path (``dense_path``): its decision (or
+    a tie within the paths' spread), the last-iterate Δθ within
+    LM_DELTA_REL_L2, the time beside phase 10's (``dense_log``)."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.sharding import param_shardings
+    from repro_torch.launch.train import train_lm
+    from repro_torch.models.registry import get_model
+    check(dist.is_initialized() and dist.get_backend() == "nccl"
+          and dist.get_world_size() == 1,
+          "phase 15: phase 14's NCCL group (world 1) is not running")
+    cfg = get_config(DENSE_ARCH).replace(num_layers=DENSE_TRAIN_LAYERS)
+    model = get_model(cfg)
+    per = fsdp_launches(len(model.param_shapes()))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    _, log_ = train_lm(arch=DENSE_ARCH, num_layers=DENSE_TRAIN_LAYERS,
+                       mesh="1x1", steps=FSDP_STEPS, batch=DENSE_TRAIN_BATCH,
+                       seq=DENSE_TRAIN_SEQ, cg_iters=LM_CG_ITERS,
+                       ng_iters=LM_NG_ITERS, cg_fused=True, device=dev,
+                       verbose=False)
+    launches = read_counts()
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          "phase 15: train_lm left phase 14's NCCL group")
+    check_lm_updates(f"mesh 1x1 {DENSE_ARCH} NGHF (2d storage)", log_,
+                     launches, swa_counts(), list(range(FSDP_STEPS)), per)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"mesh 1x1 {DENSE_ARCH} NGHF through train_lm(mesh='1x1'), "
+        f"{DENSE_TRAIN_LAYERS} layers, B={DENSE_TRAIN_BATCH}, "
+        f"T={DENSE_TRAIN_SEQ}: update times "
+        f"{[round(m['time_s'], 3) for m in log_]} s against phase 10's "
+        f"{[round(m['time_s'], 3) for m in dense_log]} s without a mesh; "
+        f"{per} cg_fused_update launches an update "
+        f"({per // (LM_CG_ITERS + LM_NG_ITERS)} leaves x "
+        f"{LM_CG_ITERS + LM_NG_ITERS} iterations); peak device "
+        f"memory {peak:.3f} GB")
+    torch.cuda.empty_cache()
+
+    # phase 10's update 0 on the mesh: decision and last iterate
+    mesh = make_debug_mesh(1, 1, device=dev)
+    start = model.init(SEED, device=dev)
+    ss = param_shardings(cfg, mesh, start)
+    batch = dense_batch(cfg, 0, dev)
+    _, m_m, t_m, _ = fsdp_one_update(cfg, start, batch, mesh, ss)
+    text = same_choice(f"mesh 1x1 vs no mesh ({DENSE_ARCH})", m_m,
+                       dense_path["metrics"])
+    new_m, _, _, _ = fsdp_one_update(cfg, start, batch, mesh, ss,
+                                     eval_candidates=False)
+    rel = delta_rel_l2_to(new_m, dense_path["last"], start)
+    del new_m, start
+    check(rel <= LM_DELTA_REL_L2, f"mesh 1x1 {DENSE_ARCH}: last-iterate Δθ "
+          f"vs no mesh rel-L2 {rel:.3g}")
+    log(f"mesh 1x1 vs no mesh, {DENSE_ARCH} update 0: {text}; last-iterate "
+        f"Δθ rel-L2 {rel:.3g} (limit {LM_DELTA_REL_L2}); update "
+        f"{t_m * 1e3:.3f} ms on the mesh (all metrics, no stage timer) vs "
+        f"phase 10's {dense_path['s'] * 1e3:.3f} ms (its stage timer's "
+        f"syncs) and {dense_log[0]['time_s'] * 1e3:.3f} ms (its main path)")
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return {"fsdp_launches": launches["cg_fused_update"],
+            "fsdp_launches_per": per,
+            "fsdp_update_ms": [m["time_s"] * 1e3 for m in log_],
+            "fsdp_step_ms": t_m * 1e3, "fsdp_delta_rel_l2": rel,
+            "fsdp_peak_gb": peak}
+
+
+def fsdp_rank(rank: int, world: int, tmp: str, device: str) -> None:
+    """One of the gloo ranks on the card: qwen2.5-3b at full width and
+    FSDP_RANK_LAYERS layers on a (world, 1) mesh, its share of every
+    leaf placed from the whole draw; one NGHF update without candidate
+    selection; its shares, launches, metrics, seconds, θ-sized bytes and
+    peak memory written to ``tmp``."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.sharding import param_shardings
+    from repro_torch.models.registry import get_model
+    try:
+        dev = torch.device(device)
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
+            rank=rank, world_size=world)
+        mesh = make_debug_mesh(world, 1, device=dev, backend="gloo")
+        cfg = get_config(DENSE_ARCH).replace(num_layers=FSDP_RANK_LAYERS)
+        start = get_model(cfg).init(SEED, device=dev)
+        ss = param_shardings(cfg, mesh, start)
+        params = {k: ss[k].place(v) for k, v in start.items()}
+        del start
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        batch = fsdp_rank_batch(cfg, dev)
+        reset_counts()
+        new, m, dt, nbytes = fsdp_one_update(cfg, params, batch, mesh, ss,
+                                             eval_candidates=False,
+                                             **FSDP_RANK_ITERS,
+                                             **FSDP_RANK_OPT)
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        dist.barrier()
+        dist.destroy_process_group()
+        torch.save({k: v.cpu() for k, v in new.items()},
+                   os.path.join(tmp, f"rank{rank}.pt"))
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump({"metrics": m, "launches": launches, "s": dt,
+                       "theta_bytes": nbytes, "peak": peak,
+                       "data_index": mesh.data_index}, f)
+    except BaseException:
+        import traceback
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def spawn_ranks(target, n: int, dev, timeout_s: int, tmp: str) -> None:
+    """Run ``target(rank, n, tmp, device)`` in ``n`` spawned processes;
+    wait for them (killed past ``timeout_s``) and fail on any error."""
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, n, tmp, str(dev)))
+             for r in range(n)]
+    # the ranks share the card: their allocators map segments on demand
+    # rather than caching whole blocks (the setting is read once, when a
+    # process first allocates; this process's own is not touched)
+    saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        for p in procs:
+            p.start()
+    finally:
+        if saved is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
+    for p in procs:
+        p.join(timeout_s)
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join()
+    errs = "".join(Path(tmp, f"rank{r}.err").read_text() for r in range(n)
+                   if Path(tmp, f"rank{r}.err").exists())
+    check(not hung and not errs and all(p.exitcode == 0 for p in procs),
+          f"ranks: {len(hung)} hung, exit codes "
+          f"{[p.exitcode for p in procs]}\n{errs}")
+
+
+def fsdp_two_ranks(dev) -> dict:
+    """(b) the one-process update at FSDP_RANK_LAYERS layers, then the
+    same update on two gloo ranks of the card: the ranks' replicated
+    leaves bitwise equal, their split leaves put together and the
+    last-iterate Δθ within LM_DELTA_REL_L2 of one process's, each rank's
+    launches, θ-sized bytes (against one process's), peak memory and
+    seconds."""
+    import tempfile
+    from types import SimpleNamespace
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.sharding import param_shardings
+    from repro_torch.models.registry import get_model
+    cfg = get_config(DENSE_ARCH).replace(num_layers=FSDP_RANK_LAYERS)
+    model = get_model(cfg)
+    check(model.param_count() == FSDP_RANK_PARAMS,
+          f"{DENSE_ARCH} at {FSDP_RANK_LAYERS} layers: "
+          f"{model.param_count()} parameters")
+    shapes = model.param_shapes()
+    per = fsdp_launches(len(shapes), **FSDP_RANK_ITERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = model.init(SEED, device=dev)
+    new_one, m_one, t_one, bytes_one = fsdp_one_update(
+        cfg, start, fsdp_rank_batch(cfg, dev), min_cg=FSDP_RANKS,
+        eval_candidates=False, **FSDP_RANK_ITERS, **FSDP_RANK_OPT)
+    peak_one = torch.cuda.max_memory_allocated()
+    start = {k: v.cpu() for k, v in start.items()}
+    new_one = {k: v.cpu() for k, v in new_one.items()}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn_ranks(fsdp_rank, FSDP_RANKS, dev, FSDP_TIMEOUT_S, tmp)
+        recs = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                for r in range(FSDP_RANKS)]
+        shares = [torch.load(Path(tmp, f"rank{r}.pt"))
+                  for r in range(FSDP_RANKS)]
+    order = sorted(range(FSDP_RANKS), key=lambda r: recs[r]["data_index"])
+    mesh = SimpleNamespace(axis_names=("data", "model"),
+                           shape={"data": FSDP_RANKS, "model": 1})
+    specs = {k: s.spec for k, s in param_shardings(cfg, mesh,
+                                                    shapes).items()}
+    whole, n_split = {}, 0
+    for k in shapes:
+        dims = [d for d, e in enumerate(specs[k]) if e == "data"]
+        if dims:
+            n_split += 1
+            whole[k] = torch.cat([shares[r][k] for r in order], dims[0])
+        else:
+            check(all(torch.equal(sh[k], shares[0][k]) for sh in shares),
+                  f"gloo 2x1 {DENSE_ARCH}: ranks differ on {k}")
+            whole[k] = shares[0][k]
+        check(tuple(whole[k].shape) == shapes[k][0],
+              f"gloo 2x1 {DENSE_ARCH}: {k} put together as "
+              f"{tuple(whole[k].shape)}")
+    rel = delta_rel_l2(whole, new_one, start)
+    by_leaf = sorted(((delta_rel_l2({k: whole[k]}, {k: new_one[k]},
+                                    {k: start[k]}), k) for k in shapes),
+                     reverse=True)
+    hist = {k: (recs[0]["metrics"][k], m_one[k])
+            for k in ("grad_norm", "update_norm", "ng_quad", "cg_curv",
+                      "cg_quad", "cg_resid")}
+    check(rel <= LM_DELTA_REL_L2, f"gloo 2x1 {DENSE_ARCH}: last-iterate Δθ "
+          f"vs one process rel-L2 {rel:.3g}; by leaf {by_leaf[:6]}; rank 0 "
+          f"vs one process {hist}")
+    for r, rec in enumerate(recs):
+        want = {k: 0 for k in rec["launches"]}
+        want["cg_fused_update"] = per
+        check(rec["launches"] == want,
+              f"gloo rank {r} launches {rec['launches']}, want {want}")
+    ratio = [rec["theta_bytes"] / bytes_one for rec in recs]
+    log(f"gloo 2x1 on one card, {DENSE_ARCH} at full width and "
+        f"{FSDP_RANK_LAYERS} layers, B={FSDP_RANK_BATCH}, "
+        f"T={DENSE_TRAIN_SEQ} ({FSDP_RANK_PARAMS} parameters, "
+        f"{n_split} of {len(shapes)} leaves split over 'data'), NGHF "
+        f"({FSDP_RANK_ITERS['cg_iters']} CG, {FSDP_RANK_ITERS['ng_iters']} "
+        f"NG iterations) with warm start and the Fisher diagonal, without "
+        f"candidates: ranks "
+        f"equal on every replicated leaf; last-iterate Δθ vs one process "
+        f"rel-L2 {rel:.3g} (limit {LM_DELTA_REL_L2}); θ-sized bytes a rank "
+        f"(parameters, Δθ, Fisher diagonal) "
+        + ", ".join(f"{rec['theta_bytes']}" for rec in recs)
+        + f" against one process's {bytes_one} (ratio "
+        + ", ".join(f"{x:.4f}" for x in ratio)
+        + "); peak device memory a rank "
+        + ", ".join(f"{rec['peak'] / 1e9:.3f}" for rec in recs)
+        + f" GB (one process {peak_one / 1e9:.3f} GB); update "
+        + ", ".join(f"{rec['s']:.3f}" for rec in recs)
+        + f" s a rank, each its first (one process {t_one:.3f} s); "
+        f"launches a rank {recs[0]['launches']['cg_fused_update']}; vᵀBv "
+        f"per outer iteration "
+        f"{['%.3g' % c for c in recs[0]['metrics']['cg_curv']]} (one "
+        f"process {['%.3g' % c for c in m_one['cg_curv']]})")
+    return {"fsdp_gloo_update_s": [rec["s"] for rec in recs],
+            "fsdp_gloo_theta_ratio": ratio,
+            "fsdp_gloo_peak_gb": [rec["peak"] / 1e9 for rec in recs],
+            "fsdp_gloo_delta_rel_l2": rel,
+            "fsdp_gloo_launches_per": per}
+
+
+def phase_fsdp(dev, dense_path: dict, dense_log: list) -> dict:
+    """Phase 15: the LM archs on a mesh under FSDP storage, (a) at world
+    size 1 over NCCL and (b) on two gloo ranks of the card."""
+    t_phase = time.perf_counter()
+    out = fsdp_world1(dev, dense_path, dense_log)
+    out.update(fsdp_two_ranks(dev))
+    log(f"phase 15 (LM on a mesh) {time.perf_counter() - t_phase:.3f} s")
     return out
 
 
@@ -4705,6 +5093,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     dense = phase_dense(dev)
     cg_row.update(dense_cg_times(dense, dev))
+    dense_path = dense["training"].pop("kernel_path")
+    dense_log = dense["training"]["log"]
     del dense
     torch.cuda.empty_cache()
     moe = phase_moe(dev, errs)
@@ -4719,6 +5109,8 @@ def main() -> int:
     rg = phase_rg_train(dev, errs)
     torch.cuda.empty_cache()
     cg_row.update(phase_mesh(dev, errs, kernel_path))
+    cg_row.update(phase_fsdp(dev, dense_path, dense_log))
+    del dense_path
     cg_row["max_abs_err"] = max(v for k, v in errs.items()
                                 if k.startswith("cg_fused_update["))
     torch.cuda.empty_cache()

@@ -30,12 +30,13 @@ reference's legacy params-only checkpoints; the optimiser state then
 starts fresh.
 
 Under a mesh (``shardings=``, a tree of ``launch.sharding.NamedSharding``
-matching the saved tree, or the parameters for the train state): rank 0
-alone writes, and every rank waits at a barrier until the checkpoint is
-on disk; every rank reads, and ``place`` cuts each loaded leaf to the
-rank's share.  A leaf split across ranks cannot be saved from rank 0's
-share alone: gathering it comes with the LM archs' distribution (ROADMAP
-1.4), and such a save raises.
+matching the saved tree, or the parameters' and the optimiser state's
+for the train state): every rank gathers each leaf split across ranks
+(``launch.fsdp.gather_whole``, one leaf at a time), rank 0 alone writes
+the whole leaves, the same bytes as a one-process save, and every rank
+waits at a barrier until the checkpoint is on disk.  Every rank reads,
+and ``place`` cuts each loaded leaf to the rank's share on the host
+before it moves to the device.
 """
 from __future__ import annotations
 
@@ -50,6 +51,8 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from repro_torch.launch.fsdp import gather_whole
 
 logger = logging.getLogger(__name__)
 
@@ -110,13 +113,16 @@ def _to_numpy(leaf) -> np.ndarray:
     return t.numpy()
 
 
-def _to_tensor(arr: np.ndarray, like):
+def _to_tensor(arr: np.ndarray, like, sharding=None):
     """An array read from the npz -> a tensor with ``like``'s dtype and
-    device (a ``|V2`` record is a bf16 leaf's bits)."""
+    device (a ``|V2`` record is a bf16 leaf's bits), cut to this rank's
+    share by ``sharding`` first when one is given."""
     if arr.dtype == BF16_RECORD:
         t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(arr))
+    if sharding is not None:
+        t = sharding.place(t)
     if isinstance(like, torch.Tensor):
         return t.to(device=like.device, dtype=like.dtype)
     return t
@@ -133,42 +139,16 @@ def _sharding_leaves(shardings) -> list:
     return leaves
 
 
-def _place(tree, like, shardings):
-    """Each leaf of ``tree`` (whole, as read) cut to this rank's share by
-    its sharding; it must then have ``like``'s shape."""
-    _sharding_leaves(shardings)
-    flat, flat_like = _flatten(tree), _flatten(like)
-    flat_s = _flatten(shardings)
-    out = {}
-    for k, v in flat.items():
-        s = flat_s.get(k)
-        out[k] = v if s is None else s.place(v)
-        want = tuple(getattr(flat_like[k], "shape", ()))
-        if isinstance(out[k], torch.Tensor) and tuple(out[k].shape) != want:
-            raise ValueError(f"{k}: this rank's share is "
-                             f"{tuple(out[k].shape)}, the state holds {want}")
-    return _rebuild(tree, out)
+def _check_share(key: str, t, like) -> None:
+    want = tuple(getattr(like, "shape", ()))
+    if isinstance(t, torch.Tensor) and tuple(t.shape) != want:
+        raise ValueError(f"{key}: this rank's share is {tuple(t.shape)}, "
+                         f"the state holds {want}")
 
 
-def save_checkpoint(ckpt_dir: str, tree, *, step: int = 0,
-                    extra: Optional[dict] = None, shardings=None) -> None:
-    """Atomic save: write a temp dir beside ``ckpt_dir``, then replace
-    ``ckpt_dir`` by it.  A save that fails while writing leaves the
-    previous checkpoint (if any) and no temp dir.  Under ``shardings``
-    rank 0 writes and every rank returns once it has."""
-    if shardings is not None:
-        if not all(s.is_replicated() for s in _sharding_leaves(shardings)):
-            raise NotImplementedError(
-                "save_checkpoint: a leaf split across ranks needs a gather "
-                "before rank 0 writes; it comes with the LM archs' "
-                "distribution (ROADMAP 1.4)")
-        if dist.get_rank() == 0:
-            save_checkpoint(ckpt_dir, tree, step=step, extra=extra)
-        dist.barrier()
-        return
-    t0 = time.perf_counter()
-    flat = {k: _to_numpy(v) for k, v in _flatten(tree).items()}
-    t_host = time.perf_counter() - t0
+def _write(ckpt_dir: str, flat: dict, step: int, extra) -> None:
+    """Write {npz key: host array} atomically: a temp dir beside
+    ``ckpt_dir``, then renamed over it."""
     tmp = tempfile.mkdtemp(dir=os.path.dirname(os.path.abspath(ckpt_dir)),
                            prefix=".ckpt-")
     try:
@@ -183,10 +163,43 @@ def save_checkpoint(ckpt_dir: str, tree, *, step: int = 0,
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
-    logger.info("saved %d leaves (%.1f MB) at step %d to %s: host copy "
-                "%.3f s, total %.3f s", len(flat),
-                sum(a.nbytes for a in flat.values()) / 1e6, int(step),
-                ckpt_dir, t_host, time.perf_counter() - t0)
+
+
+def save_checkpoint(ckpt_dir: str, tree, *, step: int = 0,
+                    extra: Optional[dict] = None, shardings=None) -> None:
+    """Atomic save: write a temp dir beside ``ckpt_dir``, then replace
+    ``ckpt_dir`` by it.  A save that fails while writing leaves the
+    previous checkpoint (if any) and no temp dir.  Under ``shardings``
+    every rank gathers the split leaves, rank 0 writes, and every rank
+    returns once it has."""
+    t0 = time.perf_counter()
+    rank0 = True
+    flat_s = {}
+    if shardings is not None:
+        _sharding_leaves(shardings)
+        flat_s = _flatten(shardings)
+        if any(s.pieces() > 1 for s in flat_s.values() if s is not None) \
+                and not dist.is_initialized():
+            raise RuntimeError(
+                "save_checkpoint: a leaf split across ranks is gathered "
+                "over the mesh's process group, and none is running")
+        rank0 = dist.get_rank() == 0
+    flat = {}
+    for k, v in _flatten(tree).items():
+        s = flat_s.get(k)
+        if s is not None and s.pieces() > 1:
+            v = gather_whole(v, s)
+        if rank0:
+            flat[k] = _to_numpy(v)
+    t_host = time.perf_counter() - t0
+    if rank0:
+        _write(ckpt_dir, flat, step, extra)
+        logger.info("saved %d leaves (%.1f MB) at step %d to %s: host copy "
+                    "%.3f s, total %.3f s", len(flat),
+                    sum(a.nbytes for a in flat.values()) / 1e6, int(step),
+                    ckpt_dir, t_host, time.perf_counter() - t0)
+    if shardings is not None:
+        dist.barrier()
 
 
 def read_manifest(ckpt_dir: str) -> dict:
@@ -198,44 +211,59 @@ def load_checkpoint(ckpt_dir: str, like, *, shardings=None):
     """Restore into the structure of ``like``; returns ``(tree, step)``.
     Raises ``ValueError`` when a leaf of ``like`` has no array.
     ``shardings``: a tree of ``NamedSharding`` matching ``like`` (None
-    leaves load as they are); each leaf is placed by its sharding."""
+    leaves load as they are); each leaf is placed by its sharding and
+    must then have its ``like`` leaf's shape."""
     t0 = time.perf_counter()
     manifest = read_manifest(ckpt_dir)
     flat_like = _flatten(like)
+    flat_s = {}
+    if shardings is not None:
+        _sharding_leaves(shardings)
+        flat_s = _flatten(shardings)
     with np.load(os.path.join(ckpt_dir, "arrays.npz")) as data:
         missing = set(flat_like) - set(data.files)
         if missing:
             raise ValueError(
                 f"checkpoint missing keys: {sorted(missing)[:5]} ...")
-        leaves = {k: _to_tensor(data[k], leaf)
-                  for k, leaf in flat_like.items()}
+        leaves = {}
+        for k, leaf in flat_like.items():
+            leaves[k] = _to_tensor(data[k], leaf, flat_s.get(k))
+            if k in flat_s:
+                _check_share(k, leaves[k], leaf)
     tree = _rebuild(like, leaves)
-    if shardings is not None:
-        tree = _place(tree, like, shardings)
     logger.info("loaded %d leaves at step %d from %s in %.3f s",
                 len(leaves), manifest["step"], ckpt_dir,
                 time.perf_counter() - t0)
     return tree, manifest["step"]
 
 
+def _state_shardings(shardings, state_shardings):
+    if shardings is None and state_shardings is None:
+        return None
+    return {"params": shardings, "opt_state": state_shardings}
+
+
 def save_train_state(ckpt_dir: str, params, opt_state, *, step: int = 0,
-                     extra: Optional[dict] = None, shardings=None) -> None:
+                     extra: Optional[dict] = None, shardings=None,
+                     state_shardings=None) -> None:
     """Atomic save of the full training state (params + optimiser state).
-    ``shardings``: the parameters' (a mesh run: rank 0 writes)."""
+    ``shardings``: the parameters' (a mesh run: rank 0 writes);
+    ``state_shardings``: the optimiser state's (``Optimizer.
+    state_shardings``), where it holds split leaves."""
     meta = dict(extra or {}, format=TRAIN_STATE_FORMAT)
     save_checkpoint(ckpt_dir, {"params": params, "opt_state": opt_state},
                     step=step, extra=meta,
-                    shardings=None if shardings is None
-                    else {"params": shardings})
+                    shardings=_state_shardings(shardings, state_shardings))
 
 
 def load_train_state(ckpt_dir: str, params_like, opt_state_like, *,
-                     shardings=None):
+                     shardings=None, state_shardings=None):
     """Restore ``(params, opt_state, step)``.  A legacy params-only
     checkpoint restores the params and returns ``opt_state_like``
     untouched (fresh optimiser state).  ``shardings``: the parameters'
-    (``NamedSharding`` by key); the params are placed by them, and each
-    optimiser-state leaf takes its ``opt_state_like`` leaf's shape."""
+    (``NamedSharding`` by key), ``state_shardings`` the optimiser
+    state's; each leaf is placed by its own, and a leaf without one
+    loads whole."""
     if read_manifest(ckpt_dir).get("extra", {}).get("format") \
             != TRAIN_STATE_FORMAT:
         params, step = load_checkpoint(ckpt_dir, params_like,
@@ -244,8 +272,7 @@ def load_train_state(ckpt_dir: str, params_like, opt_state_like, *,
     try:
         tree, step = load_checkpoint(
             ckpt_dir, {"params": params_like, "opt_state": opt_state_like},
-            shardings=None if shardings is None
-            else {"params": shardings})
+            shardings=_state_shardings(shardings, state_shardings))
     except ValueError as e:
         raise ValueError(
             f"checkpoint at {ckpt_dir!r} does not match the current "

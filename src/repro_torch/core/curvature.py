@@ -33,6 +33,14 @@ each candidate evaluation then sum their result over the data group with
 one ``all_reduce`` (``core.collectives``), and every rank holds the
 reference's mean.  A batch that does not divide the data extent is kept
 whole on every rank and summed over none.
+
+Under FSDP storage (``launch.fsdp``) a leaf split over data axes is
+gathered in the forward, and its gather's backward already sums the
+gradient over those axes (a reduce-scatter): ``data_split`` ({key: the
+data axes its stored spec splits}) leaves it out of the data-group sum,
+or it would count D times.  Every forward runs inside ``fsdp.
+batch_rows``, which tells the gathers (and the MoE aux) whether its rows
+are a split share.
 """
 from __future__ import annotations
 
@@ -46,6 +54,8 @@ from repro_torch.core import tree_math as tm
 from repro_torch.core.collectives import all_reduce_sum
 from repro_torch.data.pipeline import (batch_size, batch_splits, map_batch,
                                        shard_batch)
+from repro_torch.launch import fsdp
+from repro_torch.launch.mesh import DATA_AXES
 
 
 class CurvatureOps(NamedTuple):
@@ -91,6 +101,32 @@ def shard_for(loss_spec, batch, mesh):
     return dict(local, norms=norms), mesh.data_group
 
 
+def batch_sum(tree: dict, group, mesh, data_split=None) -> dict:
+    """``tree`` summed over ``group`` (the data group, over which the
+    batch rows were split; None: nothing to sum), with one
+    ``all_reduce`` a group: a leaf in ``data_split`` ({key: data axes its
+    gather's backward summed over}) is summed over the remaining data
+    axes only, and not at all when none remain."""
+    if group is None:
+        return tree
+    groups: dict = {}
+    for k in tree:
+        axes = (data_split or {}).get(k, ())
+        if axes:
+            rest = tuple(a for a in DATA_AXES
+                         if a in mesh.axis_names and a not in axes)
+            if mesh.extent(rest) == 1:
+                continue
+            g = mesh.group(rest)
+        else:
+            g = group
+        groups.setdefault(id(g), (g, []))[1].append(k)
+    out = dict(tree)
+    for g, keys in groups.values():
+        out.update(all_reduce_sum({k: tree[k] for k in keys}, g))
+    return {k: out[k] for k in tree}
+
+
 def _eval_kwargs(loss_spec, eval_accumulators: str) -> dict:
     """Pass ``accumulators`` only to loss specs that declare it."""
     if eval_accumulators == "full":
@@ -109,7 +145,7 @@ def make_curvature_ops(forward_fn, loss_spec, params: dict, batch, *,
                        mode: str = "rematvp",
                        eval_accumulators: str = "full",
                        curvature_sample: float = 1.0,
-                       mesh=None) -> CurvatureOps:
+                       mesh=None, data_split=None) -> CurvatureOps:
     """forward_fn(params, batch) -> (logits, aux).
 
     eval_accumulators: statistics mode of ``eval_loss`` (candidate
@@ -117,8 +153,9 @@ def make_curvature_ops(forward_fn, loss_spec, params: dict, batch, *,
     curvature_sample: fraction of the CG batch the GN/Fisher products run
     on (a deterministic prefix); ``eval_loss`` always sees the full batch.
     mesh: the products and ``eval_loss`` run this rank's share and sum
-    their results over the data group (one ``all_reduce`` each); the
-    sample is rounded up to a multiple of the data extent.
+    their results over the data group (one ``all_reduce`` each, but for
+    the ``data_split`` leaves, ``batch_sum``); the sample is rounded up
+    to a multiple of the data extent.
     """
     if mode not in ("rematvp", "linearize"):
         raise ValueError(f"unknown curvature mode {mode!r} "
@@ -133,7 +170,8 @@ def make_curvature_ops(forward_fn, loss_spec, params: dict, batch, *,
         else shard_for(loss_spec, batch, mesh))
 
     def f(p):
-        return forward_fn(p, curv_batch)[0]
+        with fsdp.batch_rows(curv_group):
+            return forward_fn(p, curv_batch)[0]
 
     logits = None
     if mode == "linearize":
@@ -160,8 +198,7 @@ def make_curvature_ops(forward_fn, loss_spec, params: dict, batch, *,
             hu = factor_vp(out_primal, curv_batch, jv)
             _, pullback = torch.func.vjp(f, params)
             (out,) = pullback(hu)
-        if curv_group is not None:
-            out = all_reduce_sum(out, curv_group)
+        out = batch_sum(out, curv_group, mesh, data_split)
         return tm.scale(out, 1.0 / s) if stabilize else out
 
     def gnvp(v):
@@ -175,7 +212,7 @@ def make_curvature_ops(forward_fn, loss_spec, params: dict, batch, *,
     def eval_loss(delta):
         # ranks candidates by the SAME objective the gradient stage
         # minimises (loss + aux)
-        with torch.no_grad():
+        with torch.no_grad(), fsdp.batch_rows(eval_group):
             lg, aux = forward_fn(tm.add(params, tm.cast_like(delta, params)),
                                  eval_batch)
             loss = loss_spec.value(lg, eval_batch, **eval_kw)[0] + aux
@@ -188,14 +225,15 @@ def make_curvature_ops(forward_fn, loss_spec, params: dict, batch, *,
 
 
 def grad_and_loss(forward_fn, loss_spec, params: dict, batch, *,
-                  microbatches: int = 1, mesh=None):
+                  microbatches: int = 1, mesh=None, data_split=None):
     """Gradient stage: (mean loss, metrics, grads) over the gradient
     batch, by ``torch.autograd.grad``.  ``microbatches > 1`` splits the
     batch's leading dim and accumulates the gradient sequentially (grads
     and loss divided by the count, metrics averaged).  Under ``mesh``
     each microbatch of the global batch runs as this rank's share, and
     the gradient, loss and metrics are summed over the data group by one
-    ``all_reduce``."""
+    ``all_reduce`` (``batch_sum``: not the ``data_split`` leaves, which
+    their gathers summed)."""
     keys = list(params)
     group = None
 
@@ -203,7 +241,7 @@ def grad_and_loss(forward_fn, loss_spec, params: dict, batch, *,
         nonlocal group
         b, group = shard_for(loss_spec, b, mesh)
         leaves = {k: params[k].detach().requires_grad_(True) for k in keys}
-        with torch.enable_grad():
+        with torch.enable_grad(), fsdp.batch_rows(group):
             logits, aux = forward_fn(leaves, b)
             loss, metrics = loss_spec.value(logits, b)
             loss = loss + aux
@@ -213,7 +251,7 @@ def grad_and_loss(forward_fn, loss_spec, params: dict, batch, *,
 
     if microbatches <= 1:
         loss, metrics, grads = one(batch)
-        return _summed(loss, metrics, grads, group)
+        return _summed(loss, metrics, grads, group, mesh, data_split)
     B = batch_size(batch)
     k = microbatches
     if B % k:
@@ -233,17 +271,18 @@ def grad_and_loss(forward_fn, loss_spec, params: dict, batch, *,
             grads = tm.add(grads, go)
     metrics = {key: torch.stack([m[key] for m in metrics]).mean()
                for key in metrics[0]}
-    return _summed(loss, metrics, grads, group)
+    return _summed(loss, metrics, grads, group, mesh, data_split)
 
 
-def _summed(loss, metrics: dict, grads: dict, group):
-    """(loss, metrics, grads) summed over ``group`` (one ``all_reduce``);
-    as they are without one."""
+def _summed(loss, metrics: dict, grads: dict, group, mesh, data_split):
+    """(loss, metrics, grads) summed over ``group`` (``batch_sum``); as
+    they are without one."""
     if group is None:
         return loss, metrics, grads
-    out = all_reduce_sum({"loss": loss, **{"m." + k: v for k, v in
-                                          metrics.items()},
-                          **{"g." + k: v for k, v in grads.items()}},
-                         group)
+    out = batch_sum({"loss": loss, **{"m." + k: v for k, v in
+                                     metrics.items()},
+                     **{"g." + k: v for k, v in grads.items()}},
+                    group, mesh, {"g." + k: v for k, v in
+                                  (data_split or {}).items()})
     return (out["loss"], {k: out["m." + k] for k in metrics},
             {k: out["g." + k] for k in grads})

@@ -27,14 +27,19 @@ its share of every leaf (the whole leaf where the spec replicates it,
 as for every acoustic model), theta-sized state takes its parameter's
 sharding and scalars are replicated (``state_shardings``).  The
 optimiser reads its mesh off the shardings (``mesh_of``) and runs the
-gradient and curvature sums over the mesh's data group.
+gradient and curvature sums over the mesh's data group.  Each update
+runs inside ``tree_math.reducing`` of the state's layout, so every
+``vdot`` and ``norm`` of a split theta-sized dict is the whole vector's.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
+
+from repro_torch.core import tree_math as tm
 
 
 def mesh_of(state_sharding):
@@ -55,12 +60,34 @@ def mesh_of(state_sharding):
 
 
 def split_groups(state_sharding) -> dict:
-    """{key: process group} of the leaves the sharding splits across
-    ranks (none for replicated state)."""
+    """{key: process group} of the leaves the sharding cuts into more
+    than one piece (none for replicated state): the ranks that hold the
+    distinct pieces, over which a reduction of the leaf sums."""
     if state_sharding is None:
         return {}
     return {k: s.mesh.group(s.split_axes())
-            for k, s in state_sharding.items() if not s.is_replicated()}
+            for k, s in state_sharding.items() if s.pieces() > 1}
+
+
+def split_replicas(state_sharding) -> dict:
+    """{key: how many ranks hold each piece} of the leaves the sharding
+    cuts into more than one piece."""
+    if state_sharding is None:
+        return {}
+    out = {}
+    for k, s in state_sharding.items():
+        if s.pieces() > 1:
+            out[k] = math.prod(s.mesh.shape.values()) // s.pieces()
+    return out
+
+
+def data_splits(state_sharding) -> dict:
+    """{key: the data axes a leaf is split over}: its gather's backward
+    sums its gradient over them (``launch.fsdp``)."""
+    if state_sharding is None:
+        return {}
+    return {k: s.data_split() for k, s in state_sharding.items()
+            if s.data_split()}
 
 
 def theta_zeros(params: dict, cast: Optional[Callable] = None) -> dict:
@@ -81,6 +108,23 @@ class Optimizer:
     name: str = "?"
     uses_cg_batch: bool = False   # second-order optimisers consume an
                                   # explicit CG batch (paper Sec. 4.1)
+    mesh = None
+
+    def bind_mesh(self, state_sharding) -> None:
+        """Read the mesh and the state's split leaves off
+        ``state_sharding`` (None: one device)."""
+        self.mesh = mesh_of(state_sharding)
+        self.groups = split_groups(state_sharding)
+        self.replicas = split_replicas(state_sharding)
+        self.data_split = data_splits(state_sharding)
+
+    def layout(self, params: dict):
+        """The state's layout on this rank (``tree_math.Layout``), or
+        None on one device."""
+        if self.mesh is None:
+            return None
+        return tm.Layout({k: tuple(p.shape) for k, p in params.items()},
+                         self.groups, self.replicas)
 
     def state_template(self, theta: Callable, scalar: Callable) -> Dict:
         """Build the state structure: ``theta(cast=None)`` -> a
@@ -115,6 +159,11 @@ class Optimizer:
 
     def step(self, params, state, grad_batch, cg_batch=None):
         """One update: (params, state, metrics)."""
+        with tm.reducing(self.layout(params)):
+            return self.update(params, state, grad_batch, cg_batch)
+
+    def update(self, params, state, grad_batch, cg_batch=None):
+        """``step``'s body, with the reductions of the state's layout."""
         raise NotImplementedError
 
 

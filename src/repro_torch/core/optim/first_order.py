@@ -4,7 +4,7 @@
 same protocol, step builder and driver as NG/HF/NGHF.  Under a mesh
 (``state_sharding``) each step takes the gradient summed over the data
 group (``core.curvature.grad_and_loss``); the update is then the same on
-every rank."""
+every rank, each rank updating its share of a split leaf."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -13,8 +13,7 @@ import torch
 
 from repro_torch.core import tree_math as tm
 from repro_torch.core.curvature import grad_and_loss
-from repro_torch.core.optim.base import (Optimizer, mesh_of,
-                                         register_optimizer)
+from repro_torch.core.optim.base import Optimizer, register_optimizer
 
 
 @dataclass(frozen=True)
@@ -49,16 +48,17 @@ class SGD(Optimizer):
     def __init__(self, cfg: SGDConfig, forward_fn, loss_spec, *,
                  state_sharding=None, **_):
         self.cfg, self.forward_fn, self.loss_spec = cfg, forward_fn, loss_spec
-        self.mesh = mesh_of(state_sharding)
+        self.bind_mesh(state_sharding)
 
     def state_template(self, theta, scalar):
         return {"mom": theta(), "step": scalar(torch.int32, 0)}
 
-    def step(self, params, state, grad_batch, cg_batch=None):
+    def update(self, params, state, grad_batch, cg_batch=None):
         cfg = self.cfg
         loss, metrics, grads = grad_and_loss(self.forward_fn, self.loss_spec,
                                              params, grad_batch,
-                                             mesh=self.mesh)
+                                             mesh=self.mesh,
+                                             data_split=self.data_split)
         grads = _clip(grads, cfg.clip_norm)
         mom = tm.axpy(cfg.momentum, state["mom"], grads)
         lr = torch.full((), cfg.lr, dtype=torch.float32,
@@ -78,16 +78,17 @@ class Adam(Optimizer):
     def __init__(self, cfg: AdamConfig, forward_fn, loss_spec, *,
                  state_sharding=None, **_):
         self.cfg, self.forward_fn, self.loss_spec = cfg, forward_fn, loss_spec
-        self.mesh = mesh_of(state_sharding)
+        self.bind_mesh(state_sharding)
 
     def state_template(self, theta, scalar):
         return {"m": theta(), "v": theta(), "step": scalar(torch.int32, 0)}
 
-    def step(self, params, state, grad_batch, cg_batch=None):
+    def update(self, params, state, grad_batch, cg_batch=None):
         cfg = self.cfg
         loss, metrics, grads = grad_and_loss(self.forward_fn, self.loss_spec,
                                              params, grad_batch,
-                                             mesh=self.mesh)
+                                             mesh=self.mesh,
+                                             data_split=self.data_split)
         grads = _clip(grads, cfg.clip_norm)
         step = state["step"] + 1
         m = {k: cfg.b1 * mm + (1 - cfg.b1) * grads[k]

@@ -30,7 +30,10 @@ then the same on every rank, so each host decision (the curvature
 guard, the ``cg_tol`` stop, the best candidate, acceptance, adaptive λ)
 is taken on the same values everywhere and the ranks never fork.  With
 ``cg_fused`` the vector work runs per leaf (``cg_fused_update_tree``) in
-the state's layout.
+the state's layout.  Under FSDP storage each rank holds its share of
+every split leaf, of the parameters and of every θ-sized vector alike,
+and each ``vdot``/``norm`` sums over the leaf's ranks
+(``tree_math.reducing``).
 """
 from __future__ import annotations
 
@@ -43,8 +46,7 @@ import torch
 from repro_torch.core import tree_math as tm
 from repro_torch.core.cg import cg_solve
 from repro_torch.core.curvature import grad_and_loss, make_curvature_ops
-from repro_torch.core.optim.base import (Optimizer, mesh_of,
-                                         register_optimizer, split_groups)
+from repro_torch.core.optim.base import Optimizer, register_optimizer
 from repro_torch.core.optim.preconditioners import get_preconditioner
 
 STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -117,8 +119,7 @@ class SecondOrderOptimizer(Optimizer):
         self.forward_fn = forward_fn
         self.loss_spec = loss_spec
         self.timer = None
-        self.mesh = mesh_of(state_sharding)
-        self.groups = split_groups(state_sharding)
+        self.bind_mesh(state_sharding)
         pname = cfg.preconditioner if cfg.precondition else "identity"
         self.precond = get_preconditioner(
             pname, share_counts=share_counts, fisher_decay=cfg.fisher_decay,
@@ -136,7 +137,7 @@ class SecondOrderOptimizer(Optimizer):
             st["delta"] = theta(cast=self._state_dtype)
         return st
 
-    def step(self, params, state, grad_batch, cg_batch=None):
+    def update(self, params, state, grad_batch, cg_batch=None):
         cfg = self.cfg
         if cg_batch is None:
             raise ValueError(f"{self.name} needs an explicit CG batch "
@@ -144,14 +145,14 @@ class SecondOrderOptimizer(Optimizer):
         timer = self.timer or _NoTimer()
         mesh = self.mesh
         # the state's layout under a mesh: each leaf's shape on this rank
-        constrain = None if mesh is None else tm.Layout(
-            {k: tuple(p.shape) for k, p in params.items()}, self.groups)
+        constrain = self.layout(params)
 
         # --- stage 1: gradient accumulation (Fig. 1, left) -----------------
         with timer.section("gradient"):
             loss, metrics, grads = grad_and_loss(
                 self.forward_fn, self.loss_spec, params, grad_batch,
-                microbatches=cfg.grad_microbatches, mesh=mesh)
+                microbatches=cfg.grad_microbatches, mesh=mesh,
+                data_split=self.data_split)
         pstate = self.precond.update(state["precond"], grads,
                                      constrain=constrain)
         st_dtype = STATE_DTYPES[cfg.state_dtype]
@@ -171,7 +172,7 @@ class SecondOrderOptimizer(Optimizer):
                                  mode=cfg.curvature_mode,
                                  eval_accumulators=cfg.eval_accumulators,
                                  curvature_sample=cfg.curvature_sample,
-                                 mesh=mesh)
+                                 mesh=mesh, data_split=self.data_split)
         precond = self.precond.apply_fn(pstate)
         lam = state["lam"] if cfg.adapt_lam else cfg.lam
         solve_kw = dict(tol=cfg.cg_tol, min_iters=cfg.cg_min_iters,

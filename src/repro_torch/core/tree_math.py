@@ -7,10 +7,25 @@ a single tensor (the flat buffer of the fused CG path); every helper
 takes either.  Reductions are f32: ``vdot`` takes one f32 sum per leaf,
 then sums the leaves in key order.  ``Layout`` is the layout of
 theta-sized dicts under a mesh (``core.cg.cg_solve``'s ``constrain``).
+
+Under a mesh a leaf may be split across ranks, each holding its share.
+Inside ``reducing(layout)`` (an optimiser's update) ``vdot`` and ``norm``
+of theta-sized dicts are then the whole vectors': each split leaf's
+partial sum is divided by the number of ranks that hold the same piece,
+the split leaves' partials are summed over the world by one
+``all_reduce``, and the replicated leaves' sums are added on each rank
+(they are the same everywhere), so every rank reads the same bits.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
+import torch.distributed as dist
+
+_REDUCING: contextvars.ContextVar = contextvars.ContextVar(
+    "tree_math_reducing", default=None)
 
 
 def tmap(f, *trees):
@@ -53,12 +68,30 @@ def axpy(alpha, x, y):
                                 + yi.to(xi.dtype)).to(yi.dtype), x, y)
 
 
+def _dot(x, y) -> torch.Tensor:
+    return (x.to(torch.float32) * y.to(torch.float32)).sum()
+
+
 def vdot(a, b) -> torch.Tensor:
-    out = None
-    for x, y in zip(leaves(a), leaves(b)):
-        s = (x.to(torch.float32) * y.to(torch.float32)).sum()
-        out = s if out is None else out + s
-    return out
+    layout = _REDUCING.get()
+    if layout is None or not layout.replicas or not isinstance(a, dict):
+        out = None
+        for x, y in zip(leaves(a), leaves(b)):
+            s = _dot(x, y)
+            out = s if out is None else out + s
+        return out
+    whole, split = None, None
+    for k in a:
+        s = _dot(a[k], b[k])
+        if k in layout.replicas:
+            s = s / layout.replicas[k]
+            split = s if split is None else split + s
+        else:
+            whole = s if whole is None else whole + s
+    if split is None:
+        return whole
+    dist.all_reduce(split)
+    return split if whole is None else whole + split
 
 
 def norm(a) -> torch.Tensor:
@@ -113,7 +146,9 @@ def ravel(tree: dict):
 class Layout:
     """The layout of theta-sized dicts under a mesh: ``shapes`` holds each
     leaf's local shape (this rank's share), ``groups`` the process group
-    of each leaf split across ranks (absent for a replicated leaf).
+    of each leaf split across ranks (absent for a replicated leaf), and
+    ``replicas`` how many ranks hold each piece of such a leaf (the
+    world divided by its pieces).
 
     Calling it checks a theta-sized dict against the layout and returns
     it.  Under explicit SPMD each rank already holds its share, so there
@@ -121,9 +156,10 @@ class Layout:
     pins GSPMD's placement; a leaf of another shape is a fault and
     raises."""
 
-    def __init__(self, shapes: dict, groups: dict):
+    def __init__(self, shapes: dict, groups: dict, replicas=None):
         self.shapes = shapes
         self.groups = groups
+        self.replicas = replicas or {}
 
     def __call__(self, tree: dict) -> dict:
         for k, t in tree.items():
@@ -131,3 +167,14 @@ class Layout:
                 raise ValueError(f"{k}: shape {tuple(t.shape)}, its layout "
                                  f"holds {self.shapes[k]} on this rank")
         return tree
+
+
+@contextlib.contextmanager
+def reducing(layout):
+    """Within the block ``vdot`` and ``norm`` of theta-sized dicts
+    reduce over ``layout``'s split leaves (a ``Layout``; None: none)."""
+    token = _REDUCING.set(layout)
+    try:
+        yield
+    finally:
+        _REDUCING.reset(token)

@@ -24,6 +24,7 @@ a card raises (``device.resolve_device``).
 
     mesh = make_debug_mesh(4, 2, device="cpu")   # under torchrun, 8 ranks
     mesh.data_extent, mesh.data_index, mesh.data_group
+    mesh.group(("data", "model"))                # a 2d leaf's ranks
 """
 from __future__ import annotations
 
@@ -88,36 +89,58 @@ class Mesh:
         grid = device_mesh.mesh
         self.shape = dict(zip(self.axis_names, grid.shape))
         self.rank = dist.get_rank()
-        data_dims = [i for i, a in enumerate(self.axis_names)
-                     if a in DATA_AXES]
-        other = [i for i in range(grid.dim()) if i not in data_dims]
-        # one row a data group: rows run over the non-data coordinates,
-        # columns over (pod, data) row-major
-        rows = grid.permute(*other, *data_dims).reshape(
-            -1, math.prod(grid.shape[i] for i in data_dims))
-        self.data_group = None
-        for row in rows.tolist():
-            # every rank creates every group, in the same order
-            group = dist.new_group(row, timeout=TIMEOUT)
-            if self.rank in row:
-                self.data_group = group
-                self.data_ranks = row
+        self._groups: dict = {}
+        self.data_group = self._new_groups(
+            [i for i, a in enumerate(self.axis_names) if a in DATA_AXES])
+        self.data_ranks = dist.get_process_group_ranks(self.data_group)
         self.data_extent = len(self.data_ranks)
         self.data_index = self.data_ranks.index(self.rank)
 
+    def extent(self, axes) -> int:
+        """The number of ranks along ``axes`` (a name or a tuple of
+        names, as a spec entry)."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return math.prod(self.shape[a] for a in axes)
+
     def group(self, axes):
         """The process group over which a leaf split along ``axes`` (a
-        name or a tuple of names, as a spec entry) is spread."""
+        name, a spec entry, or every axis a spec splits over) is spread:
+        the ranks that share this rank's coordinates on the other axes.
+        A leaf split over "data" and "model" is spread over the world of
+        a (data, model) mesh; a reduction over such a leaf sums over the
+        group.  A group of several axes orders its ranks row-major over
+        them, as ``launch.sharding.NamedSharding.place`` cuts."""
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
-        data = tuple(a for a in DATA_AXES if a in self.axis_names)
-        if axes == data:
+        key = frozenset(axes)
+        if not key <= set(self.axis_names):
+            raise ValueError(f"axes {axes} are not all on the mesh "
+                             f"{self.axis_names}")
+        if key == set(self.axis_names):
+            return dist.group.WORLD
+        if key == set(a for a in DATA_AXES if a in self.axis_names):
             return self.data_group
-        if axes == ("model",):
-            return self.device_mesh.get_group("model")
-        raise NotImplementedError(
-            f"a leaf split over {axes}: the port reduces over the data "
-            f"axes {data} or 'model' alone; tensor-parallel layouts come "
-            f"with the LM archs' distribution (ROADMAP 1.4)")
+        if len(key) == 1:
+            return self.device_mesh.get_group(axes[0])
+        if key not in self._groups:
+            self._groups[key] = self._new_groups(
+                [i for i, a in enumerate(self.axis_names) if a in key])
+        return self._groups[key]
+
+    def _new_groups(self, dims: list):
+        """This rank's group among the groups over the grid's ``dims``:
+        one row a group, rows over the other coordinates, columns over
+        ``dims`` row-major.  Every rank creates every group, in one
+        order."""
+        grid = self.device_mesh.mesh
+        other = [i for i in range(grid.dim()) if i not in dims]
+        rows = grid.permute(*other, *dims).reshape(
+            -1, math.prod(grid.shape[i] for i in dims))
+        mine = None
+        for row in rows.tolist():
+            group = dist.new_group(row, timeout=TIMEOUT)
+            if self.rank in row:
+                mine = group
+        return mine
 
     def __repr__(self):
         return (f"Mesh({self.shape}, rank {self.rank}, data "

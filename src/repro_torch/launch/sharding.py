@@ -21,9 +21,11 @@ CG/optimiser vector.
 
 The sequence trainer uses the batch and lattice rules (``shard_batch``
 in ``data.pipeline``) and replicated state (``NamedSharding(mesh, P())``
-on every leaf).  The LM rules (``param_pspec`` beyond "replicated",
-``input_shardings``) are held against the reference's by the tests and
-wait for the LM archs' distribution (ROADMAP 1.4) to be run.
+on every leaf).  The LM trainer stores each parameter and θ-sized state
+leaf as this rank's share by ``param_shardings`` (``NamedSharding.
+place``) and gathers it where it is used (``launch.fsdp``).
+``input_shardings`` is held against the reference's by the tests;
+placing the serving caches by it is ROADMAP 1.4 part 2, step 5.
 ``placements`` maps a spec to ``torch.distributed.tensor`` placements.
 """
 from __future__ import annotations
@@ -180,9 +182,27 @@ class NamedSharding:
                 out += [e] if isinstance(e, str) else list(e)
         return tuple(out)
 
+    def pieces(self) -> int:
+        """How many distinct pieces the leaf is cut into: the number of
+        ranks along the axes it is split over (1: every rank holds it
+        whole)."""
+        return math.prod(self.mesh.shape[a] for a in self.split_axes())
+
+    def data_split(self) -> tuple:
+        """The data axes (pod, data) of the entries that cut the leaf
+        into more than one piece: the batch axes its gather's backward
+        already sums the gradient over (``launch.fsdp``)."""
+        out = []
+        for e in self.spec:
+            axes = () if e is None else (e,) if isinstance(e, str) else e
+            if axes and all(a in DATA_AXES for a in axes) \
+                    and math.prod(self.mesh.shape[a] for a in axes) > 1:
+                out += list(axes)
+        return tuple(out)
+
     def place(self, tensor: torch.Tensor) -> torch.Tensor:
         """This rank's share of the whole ``tensor``, on the mesh's
-        device."""
+        device, in storage of its own (the whole tensor can be freed)."""
         out = tensor
         for d, e in enumerate(self.spec):
             if e is None:
@@ -195,7 +215,7 @@ class NamedSharding:
                 index = index * self.mesh.shape[a] + coord[a]
             n = out.shape[d] // math.prod(self.mesh.shape[a] for a in axes)
             out = out.narrow(d, index * n, n)
-        return out.to(self.mesh.device)
+        return out.to(self.mesh.device, copy=out.numel() != tensor.numel())
 
 
 def placements(mesh, spec: P, ndim: int) -> tuple:

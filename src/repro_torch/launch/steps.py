@@ -27,10 +27,11 @@ set (Sec. 4.1); first-order optimisers ignore it (``opt.uses_cg_batch``).
 Under a mesh (``mesh=`` and ``state_sharding=``, the acoustic state
 replicated: ``launch.sharding.replicated_shardings``) the step takes the
 same global batches on every rank and runs data-parallel over the
-mesh's data axes (``core.optim.second_order``).  The LM path
-(``build_step``) runs on one device: its ``mesh`` and ``state_sharding``
-raise ``NotImplementedError`` until the LM archs' distribution
-(ROADMAP 1.4).
+mesh's data axes (``core.optim.second_order``).  So does the LM path:
+``build_step(cfg, opt, mesh=, state_sharding=)`` with the state stored
+as each rank's share by ``launch.sharding.param_shardings``, the step
+run inside ``launch.fsdp.step_context``, which gathers each layer's
+leaves where the model uses them.
 
 LM serving: ``build_prefill_step(cfg)`` runs a prompt batch through the
 backbone and returns the last position's logits (the prefill_32k step;
@@ -46,6 +47,7 @@ import torch
 
 from repro_torch.core.optim import Optimizer, get_optimizer
 from repro_torch.core.optim.base import mesh_of
+from repro_torch.launch import fsdp
 from repro_torch.losses.chunked_lm import ChunkedCELoss
 from repro_torch.losses.sequence import get_loss
 from repro_torch.models import acoustic
@@ -70,12 +72,17 @@ def step_metrics(metrics: dict) -> dict:
     return out
 
 
-def one_device(mesh, state_sharding) -> None:
-    if mesh is not None or state_sharding is not None:
-        raise NotImplementedError(
-            "mesh / state_sharding: the port's LM step runs on one "
-            "device; tensor-parallel and FSDP-sharded LM training comes "
-            "with the LM archs' distribution (ROADMAP 1.4)")
+def on_mesh(caller: str, mesh, state_sharding):
+    """The mesh a step runs on: ``mesh``, or the state sharding's when
+    only that is given (None: one device).  A mesh needs the state's
+    sharding on it."""
+    if mesh is None:
+        return mesh_of(state_sharding)
+    if mesh_of(state_sharding) is not mesh:
+        raise ValueError(f"{caller}: a mesh needs the state's sharding on "
+                         f"it (launch.sharding.param_shardings, or "
+                         f"replicated_shardings)")
+    return mesh
 
 
 # ---------------------------------------------------------------------------
@@ -114,20 +121,31 @@ def build_step(cfg, opt_spec, *, cg_frac: int = 8, min_cg: int = 1,
     ``optim.get_optimizer``.  Returns ``(step, opt)`` with ``step(params,
     opt_state, batch) -> (params, opt_state, scalar metrics)``; labels
     default to the tokens.
+
+    ``mesh`` / ``state_sharding`` ({path: ``NamedSharding``} of the
+    parameters, on ``mesh``): ``params`` and every θ-sized slot of
+    ``opt_state`` are this rank's shares (``opt.init(params,
+    state_sharding=)``), the step takes the same GLOBAL batch on every
+    rank, and each layer's leaves are gathered where they are used
+    (``launch.fsdp.step_context``).  The CG batch is cut from the global
+    batch first; pass ``min_cg`` = the data extent so that it splits
+    over the data ranks.
     """
-    one_device(mesh, state_sharding)
+    mesh = on_mesh("build_step", mesh, state_sharding)
     model = get_model(cfg)
     counts = model.share_counts(model.param_shapes())
     opt = get_optimizer(opt_spec, lm_forward(cfg, model), ChunkedCELoss(),
-                        share_counts=counts, **opt_overrides)
+                        share_counts=counts, state_sharding=state_sharding,
+                        **opt_overrides)
 
     def step(params, opt_state, batch):
-        lm = dict(batch)
-        lm.setdefault("labels", lm["tokens"])
-        cg_batch = (cg_sub_batch(lm, cg_frac, min_cg)
-                    if opt.uses_cg_batch else None)
-        new_params, new_state, metrics = opt.step(params, opt_state, lm,
-                                                  cg_batch)
+        with fsdp.step_context(cfg, mesh, state_sharding):
+            lm = dict(batch)
+            lm.setdefault("labels", lm["tokens"])
+            cg_batch = (cg_sub_batch(lm, cg_frac, min_cg)
+                        if opt.uses_cg_batch else None)
+            new_params, new_state, metrics = opt.step(params, opt_state, lm,
+                                                      cg_batch)
         return new_params, new_state, step_metrics(metrics)
 
     return step, opt
@@ -159,10 +177,7 @@ def build_sequence_step(acfg, opt_spec, *, loss: str = "mpe",
     state laid out by ``state_sharding`` (which a mesh requires, and
     whose mesh it must be).
     """
-    if mesh is not None and mesh_of(state_sharding) is not mesh:
-        raise ValueError("build_sequence_step: a mesh needs the state's "
-                         "sharding on it (launch.sharding."
-                         "replicated_shardings(mesh, params))")
+    on_mesh("build_sequence_step", mesh, state_sharding)
     loss_spec = get_loss(loss, kappa=kappa, backend=backend)
     opt = get_optimizer(opt_spec, acoustic_forward_fn(acfg), loss_spec,
                         share_counts=share_counts,

@@ -1,7 +1,6 @@
 """Training driver: lattice MPE/MMI (or frame-CE) sequence training of an
-acoustic model, the paper's experiment, data-parallel over a mesh of
-ranks or on one device, and LM training on the synthetic token pipeline,
-on one device.
+acoustic model, the paper's experiment, and LM training on the synthetic
+token pipeline, each on one device or over a mesh of ranks.
 
 Port of ``repro.launch.train``: ``train_sequence``, ``evaluate_sequence``,
 the LM loop of its ``main`` (``train_lm`` here) and the CLI ``main``.
@@ -45,8 +44,16 @@ them (``launch.steps.build_sequence_step``).  Under torchrun:
         -m repro_torch.launch.train --arch lstm-asr --smoke --device cpu \
         --mesh 4x1 --steps 2 --batch 8 --frames 24
 
-LM training refuses a mesh until the LM archs' distribution (ROADMAP
-1.4).
+LM training runs on a mesh too (``train_lm(mesh=)``, ``--mesh DxM``):
+each rank stores its share of every parameter and θ-sized state leaf,
+cut by ``launch.sharding.param_shardings`` in the config's regime
+(``train_lm(param_sharding=)`` replaces it; a smoke config's is
+"replicated"), gathers each layer where it is used (``launch.fsdp``),
+and runs its share of the global batch:
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.train --arch qwen2.5-3b --smoke --device cpu \
+        --mesh 2x2 --steps 2 --batch 8 --seq 16
 """
 from __future__ import annotations
 
@@ -69,7 +76,8 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.launch import steps as S
 from repro_torch.launch.mesh import (Mesh, make_debug_mesh,
                                      make_production_mesh)
-from repro_torch.launch.sharding import replicated_shardings
+from repro_torch.launch.sharding import (param_shardings,
+                                         replicated_shardings)
 from repro_torch.losses.sequence import get_loss
 from repro_torch.models import acoustic
 from repro_torch.models.registry import get_model
@@ -79,9 +87,9 @@ from repro_torch.models.registry import get_model
 SEQ_DEFAULT_LR = {"sgd": 0.2, "adam": 2e-3}
 LM_DEFAULT_LR = {"sgd": 0.3, "adam": 3e-4}
 # the LM archs the port trains: every registered one, as the reference's
-# driver.  An arch whose state does not fit the card runs out of its
-# memory: NGHF on recurrentgemma-9b (10.4 B parameters) and mixtral-8x22b
-# (140.6 B) at full width waits for distribution (ROADMAP 1.4).
+# launch.train does.  An arch whose state does not fit one card runs out
+# of its memory there: NGHF on recurrentgemma-9b (10.4 B parameters) and
+# mixtral-8x22b (140.6 B) at full width needs a mesh of cards.
 LM_TRAIN_ARCHS = ("whisper-base", "stablelm-1.6b", "qwen2.5-3b",
                   "minitron-8b", "chameleon-34b", "qwen2-72b",
                   "granite-moe-3b-a800m", "xlstm-125m",
@@ -96,14 +104,6 @@ def parse_sample_schedule(sched):
     pairs = ([p.split(":") for p in sched.split(",") if p.strip()]
              if isinstance(sched, str) else sched)
     return sorted((int(s), float(f)) for s, f in pairs)
-
-
-def no_mesh(mesh) -> None:
-    if mesh not in (None, "none"):
-        raise NotImplementedError(
-            f"mesh={mesh!r}: the port trains the LM archs on one device; "
-            f"their meshes (FSDP, tensor parallel) come with the LM "
-            f"archs' distribution (ROADMAP 1.4)")
 
 
 def resolve_mesh(mesh, device=DEFAULT_DEVICE):
@@ -252,7 +252,8 @@ def train_lm(*, arch="whisper-base", optimizer="nghf", steps=10, batch=8,
              seq=128, cg_iters=8, ng_iters=4, lr=None, smoke=False,
              ckpt_dir=None, resume=False, warm_start=False,
              adapt_lam=False, preconditioner=None, curvature_sample=None,
-             cg_tol=None, cg_fused=False, device=DEFAULT_DEVICE, mesh=None):
+             cg_tol=None, cg_fused=False, device=DEFAULT_DEVICE, mesh=None,
+             num_layers=None, param_sharding=None, verbose=True):
     """LM training on ``lm_batch`` streams (the reference's ``main`` LM
     loop); returns ``(params, log)``.
 
@@ -264,10 +265,17 @@ def train_lm(*, arch="whisper-base", optimizer="nghf", steps=10, batch=8,
     (``cg_frac=4``).  ``ckpt_dir``: the train state is saved
     there every 10 steps and after the last; with ``resume`` and an
     existing ``ckpt_dir`` the run continues from the saved step.
-    ``mesh`` raises (``no_mesh``): the LM archs' distribution is ROADMAP
-    1.4's second part.
+    ``num_layers`` cuts the depth and ``param_sharding`` replaces the
+    config's regime (None: the config's).
+
+    ``mesh`` (``resolve_mesh``): every rank builds the parameters whole
+    from the seed and keeps its share by ``param_shardings``, its
+    optimiser state is its share too, every rank draws the same global
+    batches (an enc-dec arch's ``encoder_input`` whole), and each step
+    runs this rank's rows of them; the CG batch is at least the data
+    extent (``min_cg``), so that it splits.  Rank 0 alone prints; the
+    checkpoint gathers the split leaves and rank 0 writes it.
     """
-    no_mesh(mesh)
     if arch.startswith("lm-"):
         arch = arch[3:]                # 'lm-whisper-base' alias
     if arch not in LM_TRAIN_ARCHS:
@@ -277,13 +285,26 @@ def train_lm(*, arch="whisper-base", optimizer="nghf", steps=10, batch=8,
             f"{list(LM_TRAIN_ARCHS)} and the acoustic archs "
             f"{sorted(ASR_ARCHS)}")
     dev = resolve_device(device)
+    mesh = resolve_mesh(mesh, dev)
     cfg = arch_configs.get_config(arch)
     if smoke:
         cfg = cfg.smoke()
+    if num_layers is not None:
+        cfg = cfg.replace(num_layers=num_layers)
+    if param_sharding is not None:
+        cfg = cfg.replace(param_sharding=param_sharding)
     model = get_model(cfg)
     params = model.init(0, device=dev)
-    print(f"[train] arch={cfg.name} params={model.param_count() / 1e6:.1f}M "
-          f"optimizer={optimizer}")
+    pshard = None
+    if mesh is not None:
+        pshard = param_shardings(cfg, mesh, model.param_shapes())
+        params = {k: pshard[k].place(v) for k, v in params.items()}
+        verbose = verbose and mesh.rank == 0
+    say = print if verbose else (lambda *a, **k: None)
+    say(f"[train] arch={cfg.name} params={model.param_count() / 1e6:.1f}M "
+        f"optimizer={optimizer}"
+        + (f" mesh={'x'.join(map(str, mesh.shape.values()))} "
+           f"param_sharding={cfg.param_sharding}" if mesh else ""))
     ocfg = config_for(optimizer, cg_iters=cg_iters, ng_iters=ng_iters,
                       warm_start=warm_start, adapt_lam=adapt_lam,
                       preconditioner=preconditioner,
@@ -291,13 +312,21 @@ def train_lm(*, arch="whisper-base", optimizer="nghf", steps=10, batch=8,
                       cg_fused=cg_fused or None,
                       lr=lr if lr is not None
                       else LM_DEFAULT_LR.get(optimizer))
-    step, opt = S.build_step(cfg, ocfg, cg_frac=4)
-    opt_state = opt.init(params)
+    step, opt = S.build_step(cfg, ocfg, cg_frac=4,
+                             min_cg=1 if mesh is None else mesh.data_extent,
+                             mesh=mesh, state_sharding=pshard)
+    opt_state = opt.init(params, state_sharding=pshard)
+    sshard = None if mesh is None else opt.state_shardings(pshard)
     start = 0
     if resume and ckpt_dir and os.path.exists(ckpt_dir):
-        params, opt_state, start = load_train_state(ckpt_dir, params,
-                                                    opt_state)
-        print(f"[train] resumed from step {start}")
+        params, opt_state, start = load_train_state(
+            ckpt_dir, params, opt_state, shardings=pshard,
+            state_shardings=sshard)
+        say(f"[train] resumed from step {start}")
+
+    def save(at):
+        save_train_state(ckpt_dir, params, opt_state, step=at,
+                         shardings=pshard, state_shardings=sshard)
 
     log = []
     for i in range(start, steps):
@@ -313,12 +342,12 @@ def train_lm(*, arch="whisper-base", optimizer="nghf", steps=10, batch=8,
         metrics = {k: float(v) for k, v in metrics.items()}
         dt = time.perf_counter() - t0
         log.append(dict(step=i, time_s=dt, **metrics))
-        print(f"  step {i:4d} loss={metrics['ce']:.4f} "
-              f"acc={metrics['acc']:.3f} ({dt:.3f}s)")
+        say(f"  step {i:4d} loss={metrics['ce']:.4f} "
+            f"acc={metrics['acc']:.3f} ({dt:.3f}s)")
         if ckpt_dir and (i + 1) % 10 == 0:
-            save_train_state(ckpt_dir, params, opt_state, step=i + 1)
+            save(i + 1)
     if ckpt_dir:
-        save_train_state(ckpt_dir, params, opt_state, step=steps)
+        save(steps)
     return params, log
 
 
@@ -384,10 +413,18 @@ def main(argv=None):
                     help="reduced geometry for the CPU")
     ap.add_argument("--mesh", default="none",
                     help="'none', 'DxM' (D-way data x M-way model), "
-                    "'single-pod' or 'multi-pod': data-parallel sequence "
-                    "training of the *-asr archs, one process a rank "
-                    "(run under torchrun --nproc-per-node D*M); the LM "
-                    "archs refuse a mesh (ROADMAP 1.4)")
+                    "'single-pod' or 'multi-pod', one process a rank "
+                    "(run under torchrun --nproc-per-node D*M): "
+                    "data-parallel sequence training of the *-asr archs "
+                    "(replicated state); for the LM archs each rank "
+                    "stores its share of the parameters and θ-sized state "
+                    "by the config's param_sharding (a --smoke config's is "
+                    "'replicated') and gathers each layer where it is "
+                    "used")
+
+    ap.add_argument("--layers", type=int, default=None,
+                    help="LM archs: cut the depth to this many layers "
+                    "(default: the config's)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-json", default=None)
@@ -427,7 +464,8 @@ def _run(args) -> list:
             curvature_sample_schedule=args.curvature_sample_schedule,
             **common)
     else:
-        _, log = train_lm(arch=args.arch, seq=args.seq, **common)
+        _, log = train_lm(arch=args.arch, seq=args.seq,
+                          num_layers=args.layers, **common)
     if args.log_json and (not dist.is_initialized() or dist.get_rank() == 0):
         with open(args.log_json, "w") as f:
             json.dump(log, f, indent=1)

@@ -16,6 +16,13 @@ so the LM head stays inside the Gauss-Newton/Fisher Jacobian.  The
 factors take the primal ``(hidden, W)`` and the JVP's ``(u_h, u_W)``
 from ``core.curvature``'s product and return the cotangent pair for its
 VJP; the loss itself is never inside a ``torch.func`` transform.
+
+Under a mesh each rank holds a share of the batch: ``normalisers`` gives
+its token count, ``core.curvature.shard_for`` sums it over the data
+group and hands it back as ``batch["norms"]``, and the loss, ``acc`` and
+both factors then divide this rank's sums by the global count, so the
+group's sum is the reference's mean.  Without ``"norms"`` they divide by
+the batch's own B·T.
 """
 from __future__ import annotations
 
@@ -74,6 +81,14 @@ class _CECore(torch.autograd.Function):
         return cot_h, cot_W.to(W.dtype), None, None
 
 
+def _tokens(batch, hidden):
+    """The token count the means divide by: the global one under
+    ``batch["norms"]``, else the batch's own B·T."""
+    norms = batch.get("norms")
+    return hidden.shape[0] * hidden.shape[1] if norms is None \
+        else norms["tokens"]
+
+
 class ChunkedCELoss:
     """out = (hidden (B,T,d), head (d,V)); batch["labels"]: (B,T)."""
 
@@ -82,6 +97,13 @@ class ChunkedCELoss:
     def __init__(self, t_chunk: int = 256):
         self.t_chunk = t_chunk
 
+    def normalisers(self, batch) -> dict:
+        """The counts ``value`` and the factors divide by, over this
+        batch (a rank's share): its tokens."""
+        labels = batch["labels"]
+        return {"tokens": torch.tensor(float(labels.numel()),
+                                       device=labels.device)}
+
     # --- loss ---------------------------------------------------------------
     def value(self, out, batch, accumulators: str = "full"
               ) -> Tuple[torch.Tensor, dict]:
@@ -89,8 +111,8 @@ class ChunkedCELoss:
         the loss-spec interface (the lattice losses elide statistics in
         "loss_only" mode); CE is value-only already."""
         hidden, W = out
-        B, T, _ = hidden.shape
-        N = B * T
+        T = hidden.shape[1]
+        N = _tokens(batch, hidden)
         labels = batch["labels"]
         nll = _CECore.apply(hidden, W, labels, self.t_chunk)
         tc = _chunks(T, self.t_chunk)
@@ -107,8 +129,8 @@ class ChunkedCELoss:
     def _factor(self, out, batch, u, kind: str):
         hidden, W = out
         u_h, u_W = u
-        B, T, _ = hidden.shape
-        N = B * T
+        T = hidden.shape[1]
+        N = _tokens(batch, hidden)
         w = 1.0 / N
         tc = _chunks(T, self.t_chunk)
         labels = batch["labels"]

@@ -19,6 +19,11 @@ Parameters are a flat dict keyed by the reference's pytree path,
 so ``convert.lm_params_from_numpy`` carries a reference tree across.
 The decode cache is a flat dict too (``"enc_out"``, ``"layer0.k"``,
 ``"layer0.v"``, ...), and ``decode_step`` updates it in place.
+
+Under a mesh the train and prefill forwards gather each layer's leaves
+where they are used (``launch.fsdp``).  The reference leaves its 1d
+archs (whisper-base) to GSPMD's tensor parallelism; the port has no
+GSPMD, so it gathers here too.
 """
 from __future__ import annotations
 
@@ -27,8 +32,9 @@ import math
 import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.launch import fsdp
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import flatten, nest
+from repro_torch.models.transformer import flatten, gathered, nest
 
 DEC_POSITIONS = 1 << 16        # learned decoder positions (the reference's)
 
@@ -117,13 +123,13 @@ def encode(cfg, params, enc_input):
     x = enc_input.to(cfg.cdtype)
     x = x + _sinusoid(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
     for i in range(cfg.encoder_layers):
-        p = nest(params, f"encoder.layer{i}.")
+        p = gathered(cfg, params, f"encoder.layer{i}.")
         h = L.norm_apply(cfg, p["ln1"], x)
         q, k, v = L.qkv_project(cfg, p["attn"], h, None, apply_rope=False)
         x = x + L.out_project(cfg, p["attn"], L.cross_attention(q, k, v))
         h = L.norm_apply(cfg, p["ln2"], x)
         x = x + L.mlp_apply(cfg, p["mlp"], h)
-    return L.norm_apply(cfg, nest(params, "enc_ln_post."), x)
+    return L.norm_apply(cfg, gathered(cfg, params, "enc_ln_post."), x)
 
 
 def _cross(cfg, p, h, enc_out):
@@ -149,7 +155,7 @@ def _dec_layer_seq(cfg, p, x, enc_out):
 
 def head_matrix(cfg, params):
     """(d, V) LM head (untied: ``check_ported`` refuses tied embeddings)."""
-    return params["embed.lm_head"]
+    return gathered(cfg, params, "embed.")["lm_head"]
 
 
 def forward_hidden(cfg, params, batch):
@@ -158,18 +164,20 @@ def forward_hidden(cfg, params, batch):
     tokens = batch["tokens"]
     T = tokens.shape[1]
     enc_out = encode(cfg, params, batch["encoder_input"])
-    x = L.embed_apply(cfg, nest(params, "embed."), tokens)
-    x = x + params["dec_pos"][:T].to(x.dtype)[None]
+    x = L.embed_apply(cfg, gathered(cfg, params, "embed."), tokens)
+    dec_pos = fsdp.gather_for_compute({"dec_pos": params["dec_pos"]},
+                                      cfg.cdtype)["dec_pos"]
+    x = x + dec_pos[:T].to(x.dtype)[None]
     for i in range(cfg.num_layers):
-        x = _dec_layer_seq(cfg, nest(params, f"decoder.layer{i}."), x,
-                           enc_out)
-    return L.norm_apply(cfg, nest(params, "final_norm."), x), 0.0
+        x = _dec_layer_seq(cfg, gathered(cfg, params, f"decoder.layer{i}."),
+                           x, enc_out)
+    return L.norm_apply(cfg, gathered(cfg, params, "final_norm."), x), 0.0
 
 
 def forward(cfg, params, batch):
     """Returns (logits (B,T,V) f32, aux)."""
     x, aux = forward_hidden(cfg, params, batch)
-    logits = L.lm_head_apply(cfg, nest(params, "embed."), x)
+    logits = L.lm_head_apply(cfg, gathered(cfg, params, "embed."), x)
     return logits.float(), aux
 
 

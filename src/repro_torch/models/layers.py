@@ -11,7 +11,8 @@ embedding and the untied or tied LM head.  Parameters are dicts of
 tensors with the reference's leaf names and layouts (``x @ w``, ``w`` of
 shape (d_in, d_out)); a matrix is cast to the activations' dtype at each
 use, as the reference does (the MoE casts its expert matrices once a
-call).
+call).  On a share of a batch split over ranks (``launch.fsdp.
+batch_group``) the dense MoE's load-balance aux is the global batch's.
 
 ``windowed_attention`` goes through ``kernels.swa_attention``: on a CUDA
 tensor that is the hand-written kernel, on a CPU tensor its plain
@@ -28,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.swa_attention import swa_attention
+from repro_torch.launch import fsdp
 
 NEG = -1e30
 
@@ -398,9 +400,20 @@ def moe_apply(cfg, p, x, *, t_chunk: int = 2048):
                          for i in range(0, T, tc)], dim=1)
     else:
         out = expert_ffn(x, comb)
-    f = (comb > 0).float().mean((0, 1))
-    aux = E * torch.sum(f * probs.mean((0, 1)))
-    return out, aux
+    group = fsdp.batch_group()
+    if group is None:
+        f = (comb > 0).float().mean((0, 1))
+        aux = E * torch.sum(f * probs.mean((0, 1)))
+        return out, aux
+    # this rank's rows of a batch split over the data group: f and P are
+    # the reference's averages over the global batch, so f takes every
+    # rank's counts, and this rank's aux is its additive share of E·Σ f·P
+    # (the data group's sum of the losses counts the aux once)
+    counts = fsdp.all_reduce_counts(torch.cat([
+        (comb > 0).float().sum((0, 1)),
+        torch.full((1,), float(B * T), device=x.device)]), group)
+    f = counts[:E] / counts[E]
+    return out, E * torch.sum(f * probs.sum((0, 1)) / counts[E])
 
 
 def moe_apply_dispatch(cfg, p, x, *, capacity_factor: float = 1.25):
@@ -414,6 +427,12 @@ def moe_apply_dispatch(cfg, p, x, *, capacity_factor: float = 1.25):
     E·C, sliced off), so every kept slot is written once.  Returns (out,
     aux) as ``moe_apply``, but this f is the share of the S·k pairs each
     expert got (it sums to 1; the dense form's sums to k)."""
+    if fsdp.batch_group() is not None:
+        raise NotImplementedError(
+            "moe_apply_dispatch on a share of a batch split over ranks: its "
+            "capacity and drops are the global batch's in the reference; "
+            "expert-parallel dispatch is ROADMAP 1.4 part 2, step 3 (the "
+            "dense moe_impl runs on a mesh)")
     dt = x.dtype
     B, T, d = x.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok

@@ -4,8 +4,10 @@ Port of ``repro.models.transformer``.  Depth is ``block_pattern`` cycled
 over ``num_layers``: ``num_layers // len(pattern)`` *periods*, each slot's
 parameters stacked over periods (leading dimension), plus an unrolled
 remainder of ``rest`` layers.  The reference's ``lax.scan`` over periods
-is a Python loop here; its remat and FSDP gathers have nothing to do on
-one device (with no mesh they are identities in the reference too), so
+is a Python loop here, without its remat.  Its FSDP gathers are
+``launch.fsdp.gather_for_compute``'s, at the same points: the
+embeddings, each layer's leaves (a stacked leaf one period at a time),
+the final norm and the head.  With no mesh they are identities, so
 parameters stay in their stored dtype (f32) and a matrix is cast at each
 use, as the reference does.
 
@@ -30,6 +32,7 @@ import math
 import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.launch import fsdp
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 
@@ -130,17 +133,28 @@ def param_count(cfg) -> int:
     return sum(math.prod(shape) for shape, _ in param_shapes(cfg).values())
 
 
+def _layer_slots(cfg) -> list:
+    """[(kind, path prefix, period index or None)] in depth order."""
+    pattern, n_periods, rest = layer_plan(cfg)
+    out = [(kind, f"periods.slot{s}.", i) for i in range(n_periods)
+           for s, kind in enumerate(pattern)]
+    return out + [(kind, f"rest.rest{i}.", None)
+                  for i, kind in enumerate(rest)]
+
+
 def _layers(cfg, tree: dict) -> list:
     """[(kind, nested leaves of that layer)] in depth order, for the
     parameters or the decode cache."""
-    pattern, n_periods, rest = layer_plan(cfg)
-    out = []
-    for i in range(n_periods):
-        for s, kind in enumerate(pattern):
-            out.append((kind, nest(tree, f"periods.slot{s}.", i)))
-    for i, kind in enumerate(rest):
-        out.append((kind, nest(tree, f"rest.rest{i}.")))
-    return out
+    return [(kind, nest(tree, prefix, i))
+            for kind, prefix, i in _layer_slots(cfg)]
+
+
+def gathered(cfg, params: dict, prefix: str, index=None) -> dict:
+    """The leaves under ``prefix`` (of period ``index``) as a nested
+    dict, each gathered whole where a mesh splits it
+    (``launch.fsdp.gather_for_compute``; the identity without one)."""
+    return fsdp.gather_for_compute(nest(params, prefix, index), cfg.cdtype,
+                                   prefix)
 
 
 # ---------------------------------------------------------------------------
@@ -151,29 +165,31 @@ def head_matrix(cfg, params):
     """(d, V) LM head: the ``embed.lm_head`` leaf, or the table transposed
     (a view) when the embeddings are tied, so that a transform's tangent
     and cotangent of the head reach ``embed.table``."""
+    emb = gathered(cfg, params, "embed.")
     if cfg.tie_embeddings:
-        return params["embed.table"].T
-    return params["embed.lm_head"]
+        return emb["table"].T
+    return emb["lm_head"]
 
 
 def forward_hidden(cfg, params, batch):
     """As ``forward`` but stops before the LM head: (hidden (B,T,d), aux)."""
     tokens = batch["tokens"]
     T = tokens.shape[1]
-    x = L.embed_apply(cfg, nest(params, "embed."), tokens)
+    x = L.embed_apply(cfg, gathered(cfg, params, "embed."), tokens)
     positions = torch.arange(T, device=tokens.device)
     aux = 0.0
-    for kind, p in _layers(cfg, params):
-        x, a = B.block_apply(cfg, kind, p, x, positions)
+    for kind, prefix, i in _layer_slots(cfg):
+        x, a = B.block_apply(cfg, kind, gathered(cfg, params, prefix, i), x,
+                             positions)
         aux = aux + a
-    x = L.norm_apply(cfg, nest(params, "final_norm."), x)
+    x = L.norm_apply(cfg, gathered(cfg, params, "final_norm."), x)
     return x, aux
 
 
 def forward(cfg, params, batch):
     """batch["tokens"]: (B, T) integer.  Returns (logits (B,T,V) f32, aux)."""
     x, aux = forward_hidden(cfg, params, batch)
-    logits = L.lm_head_apply(cfg, nest(params, "embed."), x)
+    logits = L.lm_head_apply(cfg, gathered(cfg, params, "embed."), x)
     return logits.float(), aux
 
 

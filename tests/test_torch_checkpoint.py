@@ -135,9 +135,10 @@ def test_failed_save_leaves_no_partial_state(tmp_path, monkeypatch,
 def test_shardings_raise_not_implemented(tmp_path):
     """``shardings`` place each loaded leaf by its ``NamedSharding`` (a
     replicated one: the leaf as read, on the mesh's device); anything
-    else is refused with ``TypeError``.  (A split leaf's save, which
-    needs a gather, still raises ``NotImplementedError`` naming ROADMAP
-    1.4.)"""
+    else is refused with ``TypeError``.  A split leaf's save gathers it
+    over the mesh's process group (``tests/test_torch_fsdp.py`` holds
+    the gathered file against a one-process save); without a running
+    group it raises."""
     from types import SimpleNamespace
     from repro_torch.launch.sharding import P, NamedSharding
     ck = str(tmp_path / "ck")
@@ -158,7 +159,7 @@ def test_shardings_raise_not_implemented(tmp_path):
             if k in tree[part]:
                 _assert_same(got[part][k], tree[part][k])
     split = {"params": {"rec0.w": NamedSharding(mesh, P("data", None))}}
-    with pytest.raises(NotImplementedError, match="1.4"):
+    with pytest.raises(RuntimeError, match="process group"):
         tio.save_checkpoint(ck, tree, shardings=split)
 
 

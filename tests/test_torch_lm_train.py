@@ -160,10 +160,15 @@ def test_update_matches_the_reference(setup, case):
 
 
 def test_build_step_refuses_a_mesh_and_state_sharding():
+    """``build_step`` trains on a mesh since ROADMAP 1.4 part 2
+    (``tests/test_torch_mesh_lm.py``); it refuses a mesh without the
+    state's sharding on it, and a sharding that is not a dict of
+    ``NamedSharding``."""
     _, tcfg = _cfgs()
-    for kw in (dict(mesh=object()), dict(state_sharding=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP 1.4"):
-            build_step(tcfg, "nghf", **kw)
+    with pytest.raises(ValueError, match="sharding on it"):
+        build_step(tcfg, "nghf", mesh=object())
+    with pytest.raises(TypeError, match="state_sharding"):
+        build_step(tcfg, "nghf", state_sharding=object())
 
 
 def _state(ck, opt):

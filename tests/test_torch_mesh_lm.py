@@ -1,0 +1,264 @@
+"""Port parity: LM training across processes under FSDP storage
+(``launch.fsdp``, ``launch.steps.build_step(mesh=, state_sharding=)``,
+``launch.train.train_lm(mesh=)``).
+
+The reference's acceptance test, ``tests/test_sharding.py::
+test_lm_fsdp_nghf_step_matches_single_device``: the qwen2.5-3b smoke
+config in 2d storage at f32 compute, B 8 x T 16, one NGHF update (2 CG
+and 1 NG iterations, the ``fisher_diag`` preconditioner, ``warm_start``,
+``cg_frac=2``, ``min_cg=4``).  Here it runs on 2x2 and 4x1 gloo meshes
+(four CPU processes each, one thread a rank, ``tests/torch_mesh_lm_
+worker.py``), each rank holding its share of every parameter and
+θ-sized state leaf, against the reference's single-device jitted update
+from the same parameters (its zero biases and unit scales perturbed,
+``tests/torch_perturb.py``) and batch, with the reference test's
+tolerances: the same ``cg_best_iter``, loss within 1e-4, the parameters'
+relative L2 below 1e-4 and allclose at rtol 1e-3 / atol 3e-5.  Against
+the one-process port: Δθ within relative L2 1e-5, and so is the last CG
+iterate of the same update without candidate selection.  Every rank
+holds the same bits of every leaf it shares with another.  At least 10
+leaves of ``delta`` and of ``precond.d`` are split, each of its share's
+shape (the reference's fisher_diag check).
+
+Cases: the plain update; ``cg_fused=True`` (``cg_fused_update_tree`` on
+the shares); ``b6``, a gradient batch of 6, which 4 data ranks cannot
+split (kept whole on every rank: the gathers' backward then slices
+instead of summing) and 2 can; granite-moe-3b-a800m's smoke config (2x2:
+its experts split over "model", the load-balance aux over the global
+batch); whisper-base's in 1d storage (2x2: an enc-dec arch, one Adam
+step, held to the reference and to the one-process port by the same
+parameter tolerances, and its gradient, read off Adam's first moment,
+within relative L2 1e-5 of the one-process port's.  Adam's first step
+maps the near-zero gradients' last-bit differences to changes of order
+lr: its Δθ reads 2.1e-4 from the reference's for the one-process port
+itself at this batch, and 2.1e-5 between the mesh and one process).
+Also a ``train_lm`` run on a 2x1 mesh checkpointed
+after 2 updates and resumed to 3, bitwise equal to the uninterrupted
+run, its checkpoint holding whole leaves.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import torch_mesh_lm_worker as LW  # noqa: E402
+import torch_mesh_worker as W  # noqa: E402
+from repro.configs.base import get_config as jget  # noqa: E402
+from repro.core.optim import config_for  # noqa: E402
+from repro.data.synthetic import lm_batch as jbatch  # noqa: E402
+from repro.launch.steps import build_step as jbuild  # noqa: E402
+from repro.models.registry import get_model as jmodel  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from torch_perturb import perturb  # noqa: E402
+
+LOSS_ATOL = 1e-4
+PARAM_REL_L2 = 1e-4
+PARAM_RTOL, PARAM_ATOL = 1e-3, 3e-5
+DELTA_REL_L2 = 1e-5
+MESH_CASES = {"2x2": ["plain", "fused", "b6", "granite", "whisper_adam"],
+              "4x1": ["plain", "fused", "b6"]}
+NGHF_RUNS = [(mesh, case) for mesh, cases in MESH_CASES.items()
+             for case in cases if LW.LM_CASES[case]["optimizer"] == "nghf"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _jcfg(case):
+    kw = LW.LM_CASES[case]
+    return jget(kw["arch"]).smoke().replace(
+        compute_dtype="float32", param_sharding=kw["sharding"])
+
+
+@pytest.fixture(scope="module")
+def start(tmp_path_factory):
+    """(the reference's parameters by arch, the port's, the directory
+    holding the port's for the ranks)."""
+    tmp = tmp_path_factory.mktemp("mesh_lm_params")
+    jps, tps = {}, {}
+    for case in ("plain", "granite", "whisper_adam"):
+        arch = LW.LM_CASES[case]["arch"]
+        jps[arch] = perturb(jmodel(_jcfg(case)).init(jax.random.PRNGKey(0)),
+                            1)
+        tps[arch] = convert.lm_params_from_numpy(
+            jax.tree.map(np.asarray, jps[arch]), device="cpu")
+        np.savez(tmp / f"params_{arch}.npz",
+                 **{k: v.numpy() for k, v in tps[arch].items()})
+    return jps, tps, tmp
+
+
+def _reference(jp, case):
+    """The reference's single-device jitted update: (new params by the
+    port's keys, scalar metrics)."""
+    kw = LW.LM_CASES[case]
+    cfg = _jcfg(case)
+    ocfg = config_for(kw["optimizer"], **kw["opt"])
+    fn, opt = jbuild(cfg, ocfg, cg_frac=LW.CG_FRAC, min_cg=LW.MIN_CG)
+    batch = jbatch(0, batch=kw["batch"], seq_len=LW.SEQ,
+                   vocab=cfg.vocab_size)
+    if cfg.is_encoder_decoder:
+        batch["encoder_input"] = jnp.asarray(
+            LW.encoder_input(cfg, kw["batch"]))
+    new, _, m = jax.jit(fn)(jp, opt.init(jp), batch)
+    flat = convert.lm_params_from_numpy(jax.tree.map(np.asarray, new),
+                                        device="cpu")
+    return {k: v.numpy() for k, v in flat.items()}, \
+        {k: float(v) for k, v in m.items() if np.ndim(v) == 0}
+
+
+@pytest.fixture(scope="module")
+def runs(start, tmp_path_factory):
+    """(per case: the reference's update, the one-process port's and its
+    last CG iterate; per mesh: every rank's results; the 2-rank resume's
+    results).  The ranks run while this process computes the
+    references."""
+    jps, tps, params_dir = start
+    started = {}
+    for mesh, cases in MESH_CASES.items():
+        tmp = tmp_path_factory.mktemp(f"mesh_lm_{mesh}")
+        for f in params_dir.iterdir():
+            (tmp / f.name).write_bytes(f.read_bytes())
+        started[mesh] = W.start("torch_mesh_lm_worker:lm_updates", 4, tmp,
+                                mesh=mesh, cases=cases)
+    resume = W.start("torch_mesh_lm_worker:lm_resume", 2,
+                     tmp_path_factory.mktemp("mesh_lm_resume"), mesh="2x1")
+    refs = {}
+    for case, kw in LW.LM_CASES.items():
+        tp = tps[kw["arch"]]
+        last = (LW.lm_update(tp, None, kw, eval_candidates=False)
+                if kw["optimizer"] == "nghf" else None)
+        refs[case] = (_reference(jps[kw["arch"]], case),
+                      LW.lm_update(tp, None, kw), last)
+    return refs, {m: W.finish(h) for m, h in started.items()}, \
+        W.finish(resume)
+
+
+def _delta_rel_l2(got: dict, want: dict, base: dict) -> float:
+    num = sum(float(((got[k] - want[k]) ** 2).sum()) for k in base)
+    den = sum(float(((want[k] - base[k].numpy()) ** 2).sum()) for k in base)
+    return (num / max(den, 1e-30)) ** 0.5
+
+
+def _rank0(outs, case, tp, what="p"):
+    got = {k: outs[0][f"{case}/{what}.{k}"] for k in tp}
+    for o in outs[1:]:                  # the ranks never fork
+        for k in tp:
+            assert np.array_equal(o[f"{case}/{what}.{k}"], got[k]), k
+    return got
+
+
+@pytest.mark.parametrize("mesh,case", NGHF_RUNS)
+def test_mesh_lm_nghf_update_matches_reference(start, runs, mesh, case):
+    _, tps, _ = start
+    tp = tps[LW.LM_CASES[case]["arch"]]
+    (want_p, want_m), one, one_last = runs[0][case]
+    outs = runs[1][mesh]
+    d = int(mesh.split("x")[0])
+    assert sorted(int(o["data_index"]) for o in outs) == sorted(
+        list(range(d)) * (4 // d))
+    got = _rank0(outs, case, tp)
+    metric = {k[len(case) + 3:]: float(v) for k, v in outs[0].items()
+              if k.startswith(f"{case}/m.")}
+    # the reference test's own tolerances
+    assert metric["cg_best_iter"] == want_m["cg_best_iter"]
+    assert abs(metric["loss"] - want_m["loss"]) < LOSS_ATOL
+    a = np.concatenate([want_p[k].ravel().astype(np.float64) for k in tp])
+    c = np.concatenate([got[k].ravel().astype(np.float64) for k in tp])
+    assert np.linalg.norm(a - c) / np.linalg.norm(a) < PARAM_REL_L2
+    np.testing.assert_allclose(c, a, rtol=PARAM_RTOL, atol=PARAM_ATOL)
+    # against the one-process port
+    assert metric["cg_best_iter"] == float(one["m.cg_best_iter"])
+    assert metric["cg_accepted"] == float(one["m.cg_accepted"])
+    assert _delta_rel_l2(got, {k: one["p." + k] for k in tp}, tp) \
+        <= DELTA_REL_L2
+    last = _rank0(outs, case, tp, "last")
+    assert _delta_rel_l2(last, {k: one_last["p." + k] for k in tp}, tp) \
+        <= DELTA_REL_L2
+    # a replicated leaf: the same bits on every rank (a split one's
+    # pieces gathered whole are compared by _rank0)
+    for k in tp:
+        if outs[0][f"{case}/share.{k}"].shape == tuple(tp[k].shape):
+            assert all(np.array_equal(o[f"{case}/share.{k}"],
+                                      outs[0][f"{case}/share.{k}"])
+                       for o in outs), k
+
+
+@pytest.mark.parametrize("mesh", sorted(MESH_CASES))
+def test_mesh_lm_state_is_split(start, runs, mesh):
+    """The reference's fisher_diag check: θ-sized state keeps the 2d
+    storage leaf for leaf — every leaf of ``delta`` and ``precond.d`` of
+    its share's shape, and split wherever its parameter is; on 2x2, where
+    both axes split, at least 10 leaves each (the reference's bound on
+    4x2).  On 4x1 the vocab table and the q/k/v biases split over
+    "model" only, so the 7 layer matrices are split."""
+    _, tps, _ = start
+    tp = tps["qwen2.5-3b"]
+    for o in runs[1][mesh]:
+        for slot in ("delta", "d"):
+            split = 0
+            for k in tp:
+                shape = tuple(o[f"plain/shape.{slot}.{k}"])
+                assert shape == tuple(o[f"plain/want.{slot}.{k}"]), (slot, k)
+                assert shape == o[f"plain/share.{k}"].shape, (slot, k)
+                split += shape != tuple(tp[k].shape)
+            assert split >= (10 if mesh == "2x2" else 7), (slot, split)
+
+
+def test_mesh_lm_adam_step_of_an_encdec_arch(start, runs):
+    """whisper-base in 1d storage on 2x2: one Adam step, every rank the
+    same bits, the parameters within the reference test's tolerances of
+    the reference's and of the one-process port's, and the gradient
+    (Adam's first moment) within relative L2 1e-5 of the one-process
+    port's; Adam's moments split as the parameters."""
+    _, tps, _ = start
+    tp = tps["whisper-base"]
+    (want_p, want_m), one, _ = runs[0]["whisper_adam"]
+    outs = runs[1]["2x2"]
+    got = _rank0(outs, "whisper_adam", tp)
+    assert abs(float(outs[0]["whisper_adam/m.loss"]) - want_m["loss"]) \
+        < LOSS_ATOL
+    a = np.concatenate([want_p[k].ravel().astype(np.float64) for k in tp])
+    c = np.concatenate([got[k].ravel().astype(np.float64) for k in tp])
+    assert np.linalg.norm(a - c) / np.linalg.norm(a) < PARAM_REL_L2
+    np.testing.assert_allclose(c, a, rtol=PARAM_RTOL, atol=PARAM_ATOL)
+    # the distributed gradient, through Adam's first moment (1 - b1) g
+    m = {k: outs[0]["whisper_adam/adam_m." + k] for k in tp}
+    num = sum(float(((m[k] - one["adam_m." + k]) ** 2).sum()) for k in tp)
+    den = sum(float((one["adam_m." + k] ** 2).sum()) for k in tp)
+    assert (num / den) ** 0.5 <= DELTA_REL_L2
+    c1 = np.concatenate([one["p." + k].ravel().astype(np.float64)
+                         for k in tp])
+    np.testing.assert_allclose(c, c1, rtol=PARAM_RTOL, atol=PARAM_ATOL)
+    split = sum(tuple(outs[0][f"whisper_adam/shape.m.{k}"])
+                != tuple(tp[k].shape) for k in tp)
+    assert split >= 10
+    for k in tp:
+        assert tuple(outs[0][f"whisper_adam/shape.m.{k}"]) == tuple(
+            outs[0][f"whisper_adam/want.m.{k}"]), k
+
+
+def test_resumed_lm_mesh_run_equals_uninterrupted(start, runs):
+    _, tps, _ = start
+    tp = tps["qwen2.5-3b"]
+    outs = runs[2]
+    for o in outs:
+        assert list(o["resumed_steps"]) == [2]
+        keys = [k[5:] for k in o if k.startswith("full.")]
+        assert sorted(keys) == sorted(tp)
+        for k in keys:
+            assert np.array_equal(o["full." + k], o["resumed." + k]), k
+        # the checkpoint holds whole leaves
+        for k in tp:
+            key = "ckpt_shape.params/" + k.replace(".", "/")
+            assert tuple(o[key]) == tuple(tp[k].shape), k
+    # on 2x1 the 7 layer matrices are split over "data"
+    assert sum(tuple(outs[0]["full." + k].shape) != tuple(tp[k].shape)
+               for k in tp) == 7

@@ -21,8 +21,8 @@ reference's, ``cg_fused_update_tree``'s plain path against the
 reference's ``cg_fused_update_tree_ref`` (x, r within one rounding, rr
 rtol 1e-6: the port folds the partials in double), ``cg_solve``'s
 per-leaf fused path against its flat one (rtol 1e-5), and the refusals:
-a mesh larger than the run, a ``"cuda"`` mesh without a card, and the LM
-trainer's mesh (ROADMAP 1.4).
+a mesh larger than the run (the LM trainer's too, which trains on a mesh
+since ROADMAP 1.4 part 2) and a ``"cuda"`` mesh without a card.
 """
 from types import SimpleNamespace
 
@@ -307,8 +307,9 @@ def test_prefetcher_yields_batches_in_order():
 
 def test_meshes_refuse_what_the_run_cannot_hold():
     """No fallback: a mesh of more ranks than the run has raises, before
-    any process group starts; so does a card mesh without a card; and the
-    LM trainer refuses a mesh, naming ROADMAP 1.4."""
+    any process group starts, for the LM trainer too (it trains on a mesh
+    since ROADMAP 1.4 part 2: ``tests/test_torch_mesh_lm.py``); so does a
+    card mesh without a card."""
     import torch.distributed as dist
     from repro_torch.launch import mesh as M
     from repro_torch.launch.train import resolve_mesh, train_lm
@@ -321,9 +322,10 @@ def test_meshes_refuse_what_the_run_cannot_hold():
     assert not dist.is_initialized()
     with pytest.raises(ValueError, match="mesh="):
         resolve_mesh("four", "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.4"):
+    with pytest.raises(RuntimeError, match="needs 2 ranks"):
         train_lm(arch="qwen2.5-3b", smoke=True, steps=1, device="cpu",
                  mesh="2x1")
+    assert not dist.is_initialized()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="is_available"):
             M.make_debug_mesh(1, 1, device="cuda")

@@ -16,10 +16,9 @@ with the reference's ``train_sequence``, the CLI and the paper's example.
     logged losses within rtol 1e-5, NGHF's best iterate and acceptance
     exactly.
   * The CLI ``main([...])``: one step of each ``*-asr`` arch, checkpoint
-    then ``--resume``, ``--log-json``, the refusal of an LM arch's
-    ``--mesh`` (``NotImplementedError`` naming ROADMAP 1.4), and one step
-    of the
-    windowed LM archs, refused until ROADMAP 1.3.3.
+    then ``--resume``, ``--log-json``, an LM arch's ``--mesh`` of more
+    ranks than the run has (refused before a process group starts), and
+    one step of the windowed LM archs, refused until ROADMAP 1.3.3.
   * The example's pipeline (``repro_torch.examples.train_asr_mpe``) at
     its default config with one NGHF update prints the four-row table
     with finite values.
@@ -161,14 +160,15 @@ def test_cli_checkpoint_resume_and_log_json(tmp_path):
     (["--arch", "lm-mixtral-8x22b"], "ROADMAP 1.3"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, item):
-    """An LM arch's mesh is refused, naming ROADMAP 1.4 (the acoustic
-    archs train on a mesh since its first part: ``tests/test_torch_mesh_
-    train.py``).  The windowed archs were
+    """An LM arch's mesh (ROADMAP 1.4; its second part trains the LM
+    archs on a mesh, ``tests/test_torch_mesh_lm.py``) needs as many
+    ranks as the mesh has: a one-process run of a 4x2 mesh is refused
+    before any process group starts.  The windowed archs were
     refused, naming ROADMAP 1.3, until its item 1.3.3 gave their attention
     derivative kernels on the card: now the CLI trains them (one smoke
     step each)."""
     if item == "ROADMAP 1.4":
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(RuntimeError, match="needs 8 ranks"):
             ttrain.main(argv + CLI)
         return
     log = ttrain.main(argv + CLI + ["--steps", "1", "--seq", "16"])

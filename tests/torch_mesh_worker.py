@@ -9,6 +9,7 @@ thread; the process group meets at a ``FileStore`` in that directory.
 """
 from __future__ import annotations
 
+import importlib
 import os
 import traceback
 
@@ -23,7 +24,8 @@ TIMEOUT_S = 240
 
 def start(task: str, world: int, tmp, **kw):
     """Start ``TASKS[task](tmp=tmp, **kw)`` on ``world`` gloo ranks and
-    return at once (the caller may work meanwhile)."""
+    return at once (the caller may work meanwhile); ``task`` may also be
+    ``"module:function"``, a task of another module of this directory."""
     tmp = str(tmp)
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_entry, args=(rank, world, tmp, task, kw))
@@ -62,7 +64,7 @@ def _entry(rank: int, world: int, tmp: str, task: str, kw: dict) -> None:
         dist.init_process_group("gloo", store=store, rank=rank,
                                 world_size=world)
         try:
-            out = TASKS[task](tmp=tmp, **kw)
+            out = _task(task)(tmp=tmp, **kw)
             dist.barrier()
         finally:
             dist.destroy_process_group()
@@ -71,6 +73,13 @@ def _entry(rank: int, world: int, tmp: str, task: str, kw: dict) -> None:
         with open(os.path.join(tmp, f"err{rank}.txt"), "w") as f:
             f.write(f"rank {rank}:\n{traceback.format_exc()}")
         raise
+
+
+def _task(name: str):
+    if ":" in name:
+        module, fn = name.split(":")
+        return getattr(importlib.import_module(module), fn)
+    return TASKS[name]
 
 
 def load_params(tmp: str) -> dict:
