@@ -46,7 +46,10 @@ paths against its plain PyTorch version on the card:
     (``launch.fsdp``): qwen2.5-3b trained by NGHF through
     ``train_lm(mesh="1x1")`` on the same NCCL group, and on two gloo
     ranks of the card, each storing its share of every parameter and
-    θ-sized state leaf.
+    θ-sized state leaf; and tensor-parallel compute over "model"
+    (``launch.tensor_parallel``): qwen2.5-3b's NGHF update and
+    recurrentgemma-9b's gradient and SGD step on two gloo ranks of a
+    1x2 mesh, each computing its share of the heads, FFN and vocab.
 
 Phases:
 
@@ -315,7 +318,23 @@ Phases:
      within 2e-2 of the one-process update on the same CG batch, 42
      launches a rank, each rank's θ-sized bytes beside one process's,
      its peak memory and its update's seconds (``fsdp_*`` keys of
-     ``cg_fused_update``'s row).
+     ``cg_fused_update``'s row);
+ 16. tensor-parallel compute over "model" (run after phase 15, before
+     phase 7): two gloo processes on the card, a 1x2 mesh, each rank
+     computing its share of the heads, FFN columns and vocab.  (a)
+     qwen2.5-3b at phase 15(b)'s settings: the one-process decision (or
+     a tie), the last-iterate Δθ within 1e-2, replicated leaves bitwise
+     equal, each rank's θ-sized bytes (about half one process's), peak
+     memory and update time, the leaves used at their split shapes with
+     no gather over "model", 42 launches a rank, layer 0's forward split
+     against gathered whole (CUDA events); (b) recurrentgemma-9b at full
+     width and 3 layers, B 2 x T 4096: each rank's gradient against the
+     one-process plain path (rel-L2 2e-2) with the local layer's
+     forward, dq and dk/dv kernels launched on its 8 query heads and
+     the one kv head, then one SGD step timed; the windowed forward, dq,
+     dk/dv and jvp kernels at that local shape against their plain
+     versions (phase 2's and 13's tolerances), timed (``tp_*`` keys of
+     rows 7-11).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; without a card, or outside a checkout of the repo,
@@ -5031,6 +5050,556 @@ def phase_fsdp(dev, dense_path: dict, dense_log: list) -> dict:
     log(f"phase 15 (LM on a mesh) {time.perf_counter() - t_phase:.3f} s")
     return out
 
+# ---------------------------------------------------------------------------
+# phase 16: tensor-parallel compute over "model" (two gloo ranks, 1x2)
+# ---------------------------------------------------------------------------
+
+# (a) qwen2.5-3b at phase 15(b)'s settings (full width, 2 layers, 2d
+# storage, B 4 x T 512, 2 CG and 1 NG iterations, warm start, the Fisher
+# diagonal) on a (1, 2) mesh: each rank computes its 8 of the 16 query
+# heads (1 of the 2 kv heads), half the FFN's columns and half the vocab
+TP_RANKS = 2
+TP_DELTA_REL_L2 = 1e-2
+TP_LAYER_REPS = 5
+TP_TIMEOUT_S = 600
+# the row-parallel products of (a)'s rank (``layers.partial_matmul``, bf16
+# operands, an f32 result): against the f32 upcast's GEMM, the f32 result
+# within this share of its largest entry, the bf16 gradients within one
+# bf16 step (2^-7 of a value at most) of theirs
+TP_PM_F32_REL, TP_PM_BF16_REL = 1e-5, 2.0 ** -7
+# (b) recurrentgemma-9b at phase 13's full width, 3 layers (rglru, rglru,
+# local), B 2 x T 4096, one SGD step: the local layer's windowed kernels
+# on each rank's 8 query heads and the one kv head, G 8 (phase 13: 16, 1)
+TP_RG_BATCH = 2
+TP_RG_LOCAL = (TP_RG_BATCH, RG_TRAIN_SEQ, 16 // TP_RANKS, 1, 256, 2048)
+
+
+class watched_gathers:
+    """Within the block, the shapes each ``fsdp.gather_for_compute``
+    result's leaves were used at (``used[path]``, a stacked leaf's period
+    slice), the ``_Gather`` launches over the model group and over any
+    group (``used["model_gathers"]``, ``used["gathers"]``), and the q and
+    k shapes of each windowed attention call (``used["swa"]``)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def __enter__(self):
+        from repro_torch.launch import fsdp
+        from repro_torch.models import layers
+        from repro_torch.models.transformer import flatten
+        self.saved = (fsdp.gather_for_compute, fsdp._Gather.apply,
+                      layers.swa_attention)
+        gather, apply, swa = self.saved
+        model = fsdp._group_id(self.mesh.group("model"))
+        used = self.used = {"model_gathers": 0, "gathers": 0, "swa": []}
+
+        def watched(tree, compute_dtype=None, prefix=""):
+            got = gather(tree, compute_dtype, prefix)
+            used.update({k: list(v.shape)
+                         for k, v in flatten(got, prefix).items()})
+            return got
+
+        def counted(x, dim, gid, data):
+            used["gathers"] += 1
+            used["model_gathers"] += int(gid == model)
+            return apply(x, dim, gid, data)
+
+        def attention(q, k, v, window, **kw):
+            used["swa"].append([list(q.shape), list(k.shape)])
+            return swa(q, k, v, window, **kw)
+
+        fsdp.gather_for_compute, fsdp._Gather.apply = watched, counted
+        layers.swa_attention = attention
+        return used
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import fsdp
+        from repro_torch.models import layers
+        (fsdp.gather_for_compute, fsdp._Gather.apply,
+         layers.swa_attention) = self.saved
+
+
+def tp_layer_times(cfg, mesh, ss, params, batch) -> dict:
+    """Layer 0's forward under CUDA events, in turns (whole, split, split,
+    whole): gathered whole over "model" (phase 15's layer: storage only)
+    and on this rank's share of the heads and the FFN; the outputs' rel-L2
+    (bf16 sums in another order)."""
+    from repro_torch.launch import fsdp
+    from repro_torch.models import blocks as B
+    from repro_torch.models.transformer import gathered
+    specs = {k: s.spec for k, s in ss.items()}
+    gen = torch.Generator(device=mesh.device).manual_seed(SEED + 160)
+    T = batch["tokens"].shape[1]
+    x = torch.randn(batch["tokens"].shape[0], T, cfg.d_model, generator=gen,
+                    device=mesh.device).to(cfg.cdtype)
+    pos = torch.arange(T, device=mesh.device)
+
+    def layer(split: bool):
+        with torch.no_grad(), fsdp.compute_specs(mesh, specs, cast=True,
+                                                 cfg=cfg if split else None):
+            p = gathered(cfg, params, "periods.slot0.", 0)
+            return B.block_apply(cfg, "attn", p, x, pos)[0]
+
+    rel = rel_l2(layer(True), layer(False))
+    turns = {True: [], False: []}
+    for split in (False, True, True, False):
+        turns[split].append(cuda_time_ms(lambda: layer(split), TP_LAYER_REPS))
+    return {"split_ms": sum(turns[True]) / 2,
+            "whole_ms": sum(turns[False]) / 2, "rel": rel,
+            "turns": {"split": turns[True], "whole": turns[False]}}
+
+
+def tp_rank_qwen(mesh, dev, tmp: str, rank: int) -> dict:
+    """(a) on this rank: its shares placed from the whole draw, layer 0's
+    forward timed both ways, one NGHF update with candidates (counted,
+    watched, timed) and one without (the last iterate, saved)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.sharding import param_shardings
+    from repro_torch.models.registry import get_model
+    cfg = get_config(DENSE_ARCH).replace(num_layers=FSDP_RANK_LAYERS)
+    start = get_model(cfg).init(SEED, device=dev)
+    ss = param_shardings(cfg, mesh, start)
+    params = {k: ss[k].place(v) for k, v in start.items()}
+    del start
+    torch.cuda.empty_cache()
+    batch = fsdp_rank_batch(cfg, dev)
+    layer = tp_layer_times(cfg, mesh, ss, params, batch)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with watched_gathers(mesh) as used:
+        _, m, dt, nbytes = fsdp_one_update(cfg, params, batch, mesh, ss,
+                                           **FSDP_RANK_ITERS,
+                                           **FSDP_RANK_OPT)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    new, _, dt_last, _ = fsdp_one_update(cfg, params, batch, mesh, ss,
+                                         eval_candidates=False,
+                                         **FSDP_RANK_ITERS, **FSDP_RANK_OPT)
+    torch.save({k: v.cpu() for k, v in new.items()},
+               os.path.join(tmp, f"rank{rank}_a.pt"))
+    del params, new
+    torch.cuda.empty_cache()
+    return {"metrics": m, "launches": launches, "s": dt, "s_last": dt_last,
+            "theta_bytes": nbytes, "peak": peak, "used": used,
+            "layer": layer}
+
+
+def tp_rank_rg(mesh, dev, tmp: str, rank: int) -> dict:
+    """(b) on this rank: its shares placed from the whole draw; the
+    gradient on the tensor-parallel kernel path (watched and counted)
+    against the one-process plain path's (this rank's shares of the
+    memory-mapped ``rg_plain.<key>.npy``; a leaf both ranks hold whole
+    counted once); then one
+    SGD step through ``build_step`` on the mesh, counted and timed."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.curvature import grad_and_loss
+    from repro_torch.core.optim.base import data_splits
+    from repro_torch.launch import fsdp
+    from repro_torch.launch.sharding import param_shardings
+    from repro_torch.launch.steps import build_step, lm_forward
+    from repro_torch.losses.chunked_lm import ChunkedCELoss
+    from repro_torch.models.registry import get_model
+    cfg = get_config(LM_ARCH).replace(num_layers=RG_TRAIN_LAYERS)
+    model = get_model(cfg)
+    start = model.init(SEED, device=dev)
+    ss = param_shardings(cfg, mesh, start)
+    params = {k: ss[k].place(v) for k, v in start.items()}
+    del start
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    b = tp_rg_batch(cfg, dev)
+    reset_counts()
+    with watched_gathers(mesh) as used, fsdp.step_context(cfg, mesh, ss):
+        loss, _, g = grad_and_loss(lm_forward(cfg, model), ChunkedCELoss(),
+                                   params, b, mesh=mesh,
+                                   data_split=data_splits(ss))
+    grad_counts = bwd_counts()[:3]
+    grad_fwd = swa_counts()
+    sums = torch.zeros(2, dtype=torch.float64)
+    for k in g:
+        if ss[k].pieces() == 1 and rank:
+            continue
+        whole = np.load(os.path.join(tmp, f"rg_plain.{k}.npy"),
+                        mmap_mode="c")
+        p = ss[k].place(torch.from_numpy(whole)).float()
+        sums[0] += float(((g[k].float() - p) ** 2).sum())
+        sums[1] += float((p ** 2).sum())
+        del p, whole
+    del g
+    dist.all_reduce(sums)
+    step, opt = build_step(cfg, "sgd", lr=RG_TRAIN_LR, mesh=mesh,
+                           state_sharding=ss)
+    state = opt.init(params, state_sharding=ss)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, m = step(params, state, b)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    out = {"grad_rel": float((sums[0] / sums[1]) ** 0.5),
+           "loss": float(loss), "grad_launches": list(grad_counts),
+           "grad_forward": list(grad_fwd), "step_s": dt,
+           "step_launches": list(bwd_counts()[:3]),
+           "step_forward": list(swa_counts()),
+           "step_loss": float(m["loss"]), "peak": peak, "used": used}
+    del params, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(rank: int, world: int, tmp: str, device: str) -> None:
+    """One of the gloo ranks of phase 16 on the card, a (1, world) mesh:
+    (a) then (b); its records written to ``tmp``."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    try:
+        dev = torch.device(device)
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
+            rank=rank, world_size=world)
+        mesh = make_debug_mesh(1, world, device=dev, backend="gloo")
+        coord = dict(zip(mesh.axis_names,
+                         mesh.device_mesh.get_coordinate()))
+        rec = {"model_index": coord["model"],
+               "a": tp_rank_qwen(mesh, dev, tmp, rank),
+               "b": tp_rank_rg(mesh, dev, tmp, rank)}
+        dist.barrier()
+        dist.destroy_process_group()
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    except BaseException:
+        import traceback
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def tp_rg_batch(cfg, dev) -> dict:
+    from repro_torch.data.synthetic import lm_batch
+    b = lm_batch(RG_TRAIN_STEPS, batch=TP_RG_BATCH, seq_len=RG_TRAIN_SEQ,
+                 vocab=cfg.vocab_size, device=dev)
+    return dict(b, labels=b["tokens"])
+
+
+def tp_one_process(dev, tmp: str) -> dict:
+    """The one-process references: (a) qwen2.5-3b's update with
+    candidates and without (the last iterate), on the card; (b)
+    recurrentgemma-9b's gradient on the plain path (attention's plain
+    version), saved to ``tmp`` for the ranks."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.curvature import grad_and_loss
+    from repro_torch.launch.steps import lm_forward
+    from repro_torch.losses.chunked_lm import ChunkedCELoss
+    from repro_torch.models.registry import get_model
+    cfg = get_config(DENSE_ARCH).replace(num_layers=FSDP_RANK_LAYERS)
+    start = get_model(cfg).init(SEED, device=dev)
+    batch = fsdp_rank_batch(cfg, dev)
+    torch.cuda.reset_peak_memory_stats()
+    _, m_one, t_one, bytes_one = fsdp_one_update(
+        cfg, start, batch, **FSDP_RANK_ITERS, **FSDP_RANK_OPT)
+    peak_one = torch.cuda.max_memory_allocated()
+    last_one, _, _, _ = fsdp_one_update(
+        cfg, start, batch, eval_candidates=False, **FSDP_RANK_ITERS,
+        **FSDP_RANK_OPT)
+    out = {"a": {"start": {k: v.cpu() for k, v in start.items()},
+                 "last": {k: v.cpu() for k, v in last_one.items()},
+                 "metrics": m_one, "s": t_one, "theta_bytes": bytes_one,
+                 "peak": peak_one}}
+    del start, last_one
+    torch.cuda.empty_cache()
+    cfg = get_config(LM_ARCH).replace(num_layers=RG_TRAIN_LAYERS)
+    model = get_model(cfg)
+    params = model.init(SEED, device=dev)
+    b = tp_rg_batch(cfg, dev)
+    with plain_attention():
+        n = bwd_counts()
+        loss, _, g = grad_and_loss(lm_forward(cfg, model), ChunkedCELoss(),
+                                   params, b)
+        check(bwd_counts() == n, "phase 16: the plain path launched a "
+              "derivative kernel")
+    del params
+    # one raw .npy file a leaf: torch.save's zip checksums the 11 GB
+    t0 = time.perf_counter()
+    for k, v in g.items():
+        np.save(os.path.join(tmp, f"rg_plain.{k}.npy"), v.cpu().numpy())
+    out["b"] = {"loss": float(loss), "save_s": time.perf_counter() - t0,
+                "n_leaves": len(g)}
+    del g
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_local_kernels(dev, errs: dict) -> dict:
+    """The windowed forward, dq, dk/dv and jvp kernels at (b)'s local
+    shape against their plain versions on the same tensors (phase 2's and
+    phase 13's tolerances), then timed beside the plain versions (CUDA
+    events; the comparison launches are not counted)."""
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import swa_attention as SWA
+    shape, dt = TP_RG_LOCAL, torch.bfloat16
+    tag = "x".join(map(str, shape)) + "_bfloat16"
+    x = check_bwd_case(dev, shape, dt, SEED + 161, errs)
+    q, k, v, w = x["q"], x["k"], x["v"], shape[-1]
+    n, nb = swa_counts(), bwd_counts()
+    got = SWA.swa_attention(q, k, v, w)
+    err = compare_swa(tag, got, R.swa_attention_ref(q, k, v, w), dt, errs)
+    check(swa_counts()[0] == n[0] + 1, "phase 16: the local-shape forward "
+          "did not launch the tensor-core kernel")
+    _, lse, dd = SWA.launch_dq(q, k, v, x["g"], w)
+    fns = {"swa_attention": lambda: SWA.swa_attention(q, k, v, w),
+           BWD_KERNELS[0]: lambda: SWA.launch_dq(q, k, v, x["g"], w),
+           BWD_KERNELS[1]: lambda: SWA.launch_dkdv(q, k, v, x["g"], lse, dd,
+                                                   w),
+           BWD_KERNELS[2]: lambda: SWA.swa_attention_jvp(
+               q, k, v, x["tq"], x["tk"], x["tv"], w),
+           "plain_forward": lambda: R.swa_attention_ref(q, k, v, w),
+           "plain_vjp": lambda: R.swa_attention_vjp_ref(q, k, v, x["g"], w),
+           "plain_jvp": lambda: R.swa_attention_jvp_ref(
+               q, k, v, x["tq"], x["tk"], x["tv"], w)}
+    times = {name: cuda_time_ms(fn, 1 if name.startswith("plain") else 5)
+             for name, fn in fns.items()}
+    SWA.swa_attention.launches, SWA.swa_attention.cuda_core_launches = n
+    set_bwd_counts(nb)
+    work = dict(bwd_work(shape, dt), swa_attention=swa_work(shape, dt))
+    out = {}
+    for name, (byt, flops) in work.items():
+        b_ms, b_by = swa_bound(byt, flops)
+        out[name] = {"ms": times[name], "bound_ms": b_ms, "bound_by": b_by}
+    log(f"phase 16 local shape (B,T,H,K,hd,window)={shape} bf16 (G "
+        f"{shape[2] // shape[3]}): forward == plain, max |d| {err:.3g}; "
+        + "; ".join(f"{k} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f} ms by "
+                    f"{v['bound_by']})" for k, v in out.items())
+        + f"; plain forward {times['plain_forward']:.4f} ms, plain vjp "
+        f"{times['plain_vjp']:.4f} ms, plain jvp {times['plain_jvp']:.4f} ms")
+    del x, q, k, v, got, lse, dd
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_row_products(dev) -> dict:
+    """(a)'s row-parallel products on one rank, ``wo``'s (B·T, H·hd/2) x
+    (H·hd/2, d) and ``w_out``'s (B·T, d_ff/2) x (d_ff/2, d): the bf16
+    GEMM with an f32 result (``layers.partial_matmul``) against the f32
+    upcast's GEMM on the same inputs (forward and both gradients), then
+    both timed, forward and forward + backward (CUDA events)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.layers import partial_matmul
+    cfg = get_config(DENSE_ARCH)
+    B, T, d = FSDP_RANK_BATCH, DENSE_TRAIN_SEQ, cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(SEED + 162)
+    out = {}
+    for name, k in (("wo", cfg.num_heads * cfg.resolved_head_dim // TP_RANKS),
+                    ("w_out", cfg.d_ff // TP_RANKS)):
+        x, w, ct = (torch.randn(s, generator=gen, device=dev).to(
+            torch.bfloat16) for s in ((B, T, k), (k, d), (B, T, d)))
+        ct = ct.float()
+
+        def upcast(a, b):
+            return a.float() @ b.float()
+
+        def both(f):
+            a, b = (t.detach().requires_grad_(True) for t in (x, w))
+            y = f(a, b)
+            return (y,) + torch.autograd.grad(y, (a, b), ct)
+
+        got, want = both(partial_matmul), both(upcast)
+        check(got[0].dtype == torch.float32
+              and got[1].dtype == got[2].dtype == torch.bfloat16,
+              f"phase 16 {name} product: dtypes "
+              f"{[t.dtype for t in got]}")
+        errs = [float((g.detach().float() - v.detach().float()).abs().max()
+                      / v.detach().float().abs().max())
+                for g, v in zip(got, want)]
+        check(errs[0] <= TP_PM_F32_REL and max(errs[1:]) <= TP_PM_BF16_REL,
+              f"phase 16 {name} product vs the f32 upcast: rel max {errs}")
+        rec = {"errs": errs, "shape": [B * T, k, d]}
+        for form, f in (("bf16_f32", partial_matmul), ("f32", upcast)):
+            rec[form + "_fwd_ms"] = cuda_time_ms(lambda: f(x, w), 20)
+            rec[form + "_fwd_bwd_ms"] = cuda_time_ms(lambda: both(f), 20)
+        out[name] = rec
+    log("phase 16 row-parallel products (bf16 operands, f32 result) vs the "
+        "f32 upcast's GEMM (TF32 off): " + "; ".join(
+            f"{n} (M,K,N)={tuple(r['shape'])}: rel max y, dx, dw "
+            + ", ".join(f"{e:.3g}" for e in r["errs"])
+            + f" (limits {TP_PM_F32_REL}, {TP_PM_BF16_REL:.4g}); forward "
+            f"{r['bf16_f32_fwd_ms']:.4f} vs {r['f32_fwd_ms']:.4f} ms, "
+            f"forward + backward {r['bf16_f32_fwd_bwd_ms']:.4f} vs "
+            f"{r['f32_fwd_bwd_ms']:.4f} ms" for n, r in out.items()))
+    return out
+
+
+def tp_put_together(cfg, shares: list, order: list, shapes: dict,
+                    tag: str) -> dict:
+    """The whole leaves from the ranks' shares (in "model" order) of a
+    (1, TP_RANKS) mesh; a leaf no dim of which "model" splits is bitwise
+    the same on every rank."""
+    from types import SimpleNamespace
+    from repro_torch.launch.sharding import param_shardings
+    mesh = SimpleNamespace(axis_names=("data", "model"),
+                           shape={"data": 1, "model": TP_RANKS})
+    specs = {k: s.spec for k, s in param_shardings(cfg, mesh,
+                                                    shapes).items()}
+    whole = {}
+    for k in shapes:
+        dims = [d for d, e in enumerate(specs[k]) if e == "model"]
+        if dims:
+            whole[k] = torch.cat([shares[r][k] for r in order], dims[0])
+        else:
+            check(all(torch.equal(sh[k], shares[0][k]) for sh in shares),
+                  f"{tag}: ranks differ on {k}")
+            whole[k] = shares[0][k]
+        check(tuple(whole[k].shape) == shapes[k][0],
+              f"{tag}: {k} put together as {tuple(whole[k].shape)}")
+    return whole
+
+
+def phase_tp(dev, errs: dict) -> dict:
+    """Phase 16: tensor-parallel compute over "model" on two gloo ranks
+    of the card, a (1, 2) mesh: (a) qwen2.5-3b's NGHF update against one
+    process's, (b) recurrentgemma-9b's gradient against one process's
+    plain path and one SGD step, the windowed kernels at its local
+    shape."""
+    import tempfile
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.registry import get_model
+    t_phase = time.perf_counter()
+    cfg = get_config(DENSE_ARCH).replace(num_layers=FSDP_RANK_LAYERS)
+    model = get_model(cfg)
+    shapes = model.param_shapes()
+    per = fsdp_launches(len(shapes), **FSDP_RANK_ITERS)
+    local = tp_local_kernels(dev, errs)
+    rows = tp_row_products(dev)
+    t_kern = time.perf_counter() - t_phase
+    with tempfile.TemporaryDirectory() as tmp:
+        one = tp_one_process(dev, tmp)
+        t_one = time.perf_counter() - t_phase - t_kern
+        spawn_ranks(tp_rank, TP_RANKS, dev, TP_TIMEOUT_S, tmp)
+        recs = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                for r in range(TP_RANKS)]
+        shares = [torch.load(Path(tmp, f"rank{r}_a.pt"))
+                  for r in range(TP_RANKS)]
+    order = sorted(range(TP_RANKS), key=lambda r: recs[r]["model_index"])
+    tag = f"gloo 1x2 {DENSE_ARCH}"
+    # (a) the decision, the last iterate, the split, the launches
+    a1, a = one["a"], [rec["a"] for rec in recs]
+    text = same_choice(f"{tag} vs one process", a[0]["metrics"],
+                       a1["metrics"])
+    whole = tp_put_together(cfg, shares, order, shapes, tag)
+    rel = delta_rel_l2(whole, a1["last"], a1["start"])
+    check(rel <= TP_DELTA_REL_L2, f"{tag}: last-iterate Δθ vs one process "
+          f"rel-L2 {rel:.3g}")
+    H, hd, d = cfg.num_heads, cfg.resolved_head_dim, cfg.d_model
+    want = {"periods.slot0.attn.wq": [d, H * hd // TP_RANKS],
+            "periods.slot0.mlp.w_in": [d, cfg.d_ff // TP_RANKS],
+            "periods.slot0.mlp.w_out": [cfg.d_ff // TP_RANKS, d],
+            "embed.table": [cfg.vocab_size // TP_RANKS, d]}
+    for r, rec in enumerate(a):
+        check(all(rec["used"][k] == v for k, v in want.items())
+              and rec["used"]["model_gathers"] == 0,
+              f"{tag} rank {r}: leaves used at "
+              f"{ {k: rec['used'][k] for k in want} }, "
+              f"{rec['used']['model_gathers']} gathers over 'model'")
+        launches = {k: 0 for k in rec["launches"]}
+        launches["cg_fused_update"] = per
+        check(rec["launches"] == launches,
+              f"{tag} rank {r}: launches {rec['launches']}, want {launches}")
+    ratio = [rec["theta_bytes"] / a1["theta_bytes"] for rec in a]
+    lay = [rec["layer"] for rec in a]
+    log(f"{tag} on one card, tensor-parallel compute (each rank "
+        f"{H // TP_RANKS} of {H} query heads, {cfg.num_kv_heads // TP_RANKS} "
+        f"of {cfg.num_kv_heads} kv heads, half the FFN columns and half the "
+        f"tied vocab; leaves used at "
+        + ", ".join(f"{k.split('.')[-1]} {tuple(v)}" for k, v in want.items())
+        + ", no gather over 'model'), full width, "
+        f"{FSDP_RANK_LAYERS} layers, B={FSDP_RANK_BATCH}, T="
+        f"{DENSE_TRAIN_SEQ}, NGHF ({FSDP_RANK_ITERS['cg_iters']} CG, "
+        f"{FSDP_RANK_ITERS['ng_iters']} NG iterations), warm start, Fisher "
+        f"diagonal: vs one process {text}; last-iterate Δθ rel-L2 {rel:.4g} "
+        f"(limit {TP_DELTA_REL_L2}); ranks equal on every replicated leaf; "
+        f"θ-sized bytes a rank " + ", ".join(str(r["theta_bytes"]) for r in a)
+        + f" against one process's {a1['theta_bytes']} (ratio "
+        + ", ".join(f"{x:.4f}" for x in ratio) + "); peak device memory a "
+        "rank " + ", ".join(f"{r['peak'] / 1e9:.3f}" for r in a)
+        + f" GB (one process {a1['peak'] / 1e9:.3f} GB); update with "
+        "candidates " + ", ".join(f"{r['s']:.3f}" for r in a)
+        + " s a rank, without " + ", ".join(f"{r['s_last']:.3f}" for r in a)
+        + f" s (one process {a1['s']:.3f} s); {per} cg_fused_update "
+        "launches a rank; layer 0's forward split "
+        + ", ".join(f"{x['split_ms']:.3f}" for x in lay) + " ms vs gathered "
+        "whole (phase 15's layer) " + ", ".join(f"{x['whole_ms']:.3f}"
+                                                 for x in lay)
+        + " ms a rank (turns "
+        + "; ".join(str({k: [round(t, 3) for t in v]
+                         for k, v in x["turns"].items()}) for x in lay)
+        + "), outputs rel-L2 " + ", ".join(f"{x['rel']:.3g}" for x in lay))
+    # (b) the gradient, the local kernels on the main path, the step
+    b1, b = one["b"], [rec["b"] for rec in recs]
+    grad_rel = b[0]["grad_rel"]
+    check(all(x["grad_rel"] == grad_rel for x in b)
+          and grad_rel <= RG_GRAD_REL_L2,
+          f"gloo 1x2 {LM_ARCH}: gradient vs the one-process plain path "
+          f"rel-L2 {[x['grad_rel'] for x in b]} (limit {RG_GRAD_REL_L2})")
+    geometry = [[list(TP_RG_LOCAL[:3]) + [TP_RG_LOCAL[4]],
+                 list(TP_RG_LOCAL[:2]) + [1, TP_RG_LOCAL[4]]]]
+    for r, rec in enumerate(b):
+        check(rec["grad_forward"] == [1, 0] and rec["grad_launches"]
+              == [1, 1, 0] and rec["step_forward"] == [1, 0]
+              and rec["step_launches"] == [1, 1, 0]
+              and rec["used"]["swa"] == geometry,
+              f"gloo 1x2 {LM_ARCH} rank {r}: windowed launches (forward "
+              f"tensor-core, CUDA-core) {rec['grad_forward']}, (dq, dk/dv, "
+              f"jvp) {rec['grad_launches']} for the gradient, "
+              f"{rec['step_forward']} / {rec['step_launches']} for the "
+              f"step; q, k shapes {rec['used']['swa']}, want {geometry}")
+        check(np.isfinite(rec["step_loss"]), f"gloo 1x2 {LM_ARCH} rank {r}: "
+              f"step loss {rec['step_loss']}")
+    log(f"gloo 1x2 {LM_ARCH} on one card, full width, {RG_TRAIN_LAYERS} "
+        f"layers, B {TP_RG_BATCH} x T {RG_TRAIN_SEQ}: the local layer's "
+        f"attention on each rank's {TP_RG_LOCAL[2]} query heads and "
+        f"{TP_RG_LOCAL[3]} kv head (forward, dq and dk/dv once a gradient, "
+        f"tensor-core), the RG-LRU blocks gathered whole "
+        f"({b[0]['used']['model_gathers']} gathers over 'model' a "
+        f"gradient); gradient vs the one-process plain path rel-L2 "
+        f"{grad_rel:.4g} (limit {RG_GRAD_REL_L2}), loss "
+        + ", ".join(f"{x['loss']:.6f}" for x in b)
+        + f" vs {b1['loss']:.6f}; SGD step " + ", ".join(
+            f"{x['step_s'] * 1e3:.3f}" for x in b) + " ms a rank (phase "
+        f"13's one process at B 2: about 790 ms), peak device memory a "
+        f"rank " + ", ".join(f"{x['peak'] / 1e9:.3f}" for x in b)
+        + f" GB; the plain gradient ({b1['n_leaves']} leaves) saved for "
+        f"the ranks in {b1['save_s']:.3f} s")
+    dt = time.perf_counter() - t_phase
+    log(f"phase 16 (tensor-parallel compute) {dt:.3f} s (local kernels and "
+        f"row products {t_kern:.3f}, one process {t_one:.3f}, ranks "
+        f"{dt - t_kern - t_one:.3f})")
+    tp_launches = {"dq": b[0]["grad_launches"][0] + b[0]["step_launches"][0],
+                   "dkdv": b[0]["grad_launches"][1]
+                   + b[0]["step_launches"][1],
+                   "jvp": b[0]["grad_launches"][2]
+                   + b[0]["step_launches"][2],
+                   "forward": b[0]["grad_forward"][0]
+                   + b[0]["step_forward"][0]}
+    return {"cg": {"tp_gloo_update_s": [x["s"] for x in a],
+                   "tp_gloo_theta_ratio": ratio,
+                   "tp_gloo_peak_gb": [x["peak"] / 1e9 for x in a],
+                   "tp_gloo_delta_rel_l2": rel,
+                   "tp_gloo_launches_per": per},
+            "local": local, "launches": tp_launches, "rows": rows,
+            "grad_rel": grad_rel}
+
+
+def tp_keys(row: dict, tp: dict, name: str, key: str) -> None:
+    """Phase 16's keys of a windowed kernel's row: launches a rank on (b)'s
+    main path, time and bound at the local shape."""
+    t = tp["local"][name]
+    row.update({"tp_launches": tp["launches"][key], "tp_ms": t["ms"],
+                "tp_bound_ms": t["bound_ms"], "tp_bound_by": t["bound_by"],
+                "tp_shape": f"B,T,H,K,hd,window={list(TP_RG_LOCAL)} bf16"})
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -5111,6 +5680,9 @@ def main() -> int:
     cg_row.update(phase_mesh(dev, errs, kernel_path))
     cg_row.update(phase_fsdp(dev, dense_path, dense_log))
     del dense_path
+    torch.cuda.empty_cache()
+    tp = phase_tp(dev, errs)
+    cg_row.update(tp["cg"])
     cg_row["max_abs_err"] = max(v for k, v in errs.items()
                                 if k.startswith("cg_fused_update["))
     torch.cuda.empty_cache()
@@ -5118,6 +5690,9 @@ def main() -> int:
     kernels.append(swa_times(lm, errs, dev))
     kernels[-1].update(swa_moe)
     kernels += bwd_entries(rg, errs)
+    tp_keys(kernels[-4], tp, "swa_attention", "forward")
+    for row, key in zip(kernels[-3:], ("dq", "dkdv", "jvp")):
+        tp_keys(row, tp, row["name"], key)
     check(len(kernels) == len(TPU_KERNELS) + len(BWD_KERNELS),
           "a kernel has no entry")
     log(f"total {time.perf_counter() - t_start:.3f} s")

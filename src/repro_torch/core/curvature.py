@@ -41,6 +41,13 @@ data axes its stored spec splits}) leaves it out of the data-group sum,
 or it would count D times.  Every forward runs inside ``fsdp.
 batch_rows``, which tells the gathers (and the MoE aux) whether its rows
 are a split share.
+
+Under tensor-parallel compute (``launch.tensor_parallel``) nothing here
+sums over "model": a leaf a split unit uses as its share gets its share
+of the gradient, a leaf it uses whole gets the model group's sum from
+``copy_to_model``'s backward, and every other leaf is used whole on
+every rank, so each holds the same whole gradient.  The data-group sums
+are as above.
 """
 from __future__ import annotations
 

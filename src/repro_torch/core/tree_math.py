@@ -14,7 +14,10 @@ of theta-sized dicts are then the whole vectors': each split leaf's
 partial sum is divided by the number of ranks that hold the same piece,
 the split leaves' partials are summed over the world by one
 ``all_reduce``, and the replicated leaves' sums are added on each rank
-(they are the same everywhere), so every rank reads the same bits.
+(they are the same everywhere), so every rank reads the same bits.  A
+leaf split over "model" and one split over data axes each count once:
+the pieces are summed over the world and divided by the ranks holding
+each piece.
 """
 from __future__ import annotations
 

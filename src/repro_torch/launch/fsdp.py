@@ -7,12 +7,32 @@ when stacked, the vocab table ``P("model", None)``, MoE experts split
 over "model" when E divides.  The reference lets GSPMD all-gather a
 2d-stored leaf to its 1d compute spec where the model uses it; here the
 model calls ``gather_for_compute`` on each layer's leaves just before
-the layer runs, and every split dim is all-gathered whole over its
-axis's group (tensor-parallel compute over "model" is ROADMAP 1.4 part
-2, step 3: until then "model" is a storage axis only).  A float matrix
-(ndim >= 2) is cast to the compute dtype before the gather under 2d
-storage, as the reference does, so the gather moves bf16; vectors stay
-f32.  A stacked leaf is gathered one period at a time (``leaf[i]``).
+the layer runs, and each leaf is gathered to its compute spec
+(``launch.sharding.compute_pspec``):
+
+  * a leaf of a unit that tensor-parallel compute splits
+    (``launch.sharding.tp_unit``: an attention-family block's ``attn``,
+    ``mlp`` and ``moe`` leaves, the embedding's ``table`` and
+    ``lm_head``) is gathered over its data axes only and keeps its
+    "model" split: each rank computes its share of the heads, FFN
+    columns, experts or vocabulary (``launch.tensor_parallel``).  Such a
+    leaf the unit uses whole on every rank (kv projections whose heads
+    "model" does not divide, the q/k norms) then passes through
+    Megatron's f (``_CopyToModel``), so its gradient sums the ranks'
+    partial ones; the MoE router does not (its combine weights do).
+    Which units are split is decided once a step, from the stored
+    layout (``compute_specs``), and the unit's leaves reach the model as
+    a ``SplitUnit``, which carries the decision (``Split``): the model
+    reads it there;
+  * every other leaf (the RG-LRU and xLSTM blocks', an encoder-decoder
+    arch's, the norms, a unit "model" does not divide) is gathered
+    whole, every split dim over its axis's group, and the ranks along
+    "model" compute the same thing with it.
+
+A float matrix (ndim >= 2) is cast to the compute dtype before the
+gather under 2d storage, as the reference does, so the gather moves
+bf16; vectors stay f32.  A stacked leaf is gathered one period at a
+time (``leaf[i]``).
 
 The gather is an ``autograd.Function`` (``_Gather``) with a jvp, so
 ``torch.autograd``, ``torch.func.vjp``, ``jvp`` and ``linearize`` (the
@@ -27,18 +47,26 @@ curvature products) all run through it:
     left out of the gradient's data-group ``all_reduce``
     (``core.curvature``);
   * backward over the data axes of a batch kept whole on every rank (it
-    does not divide the data extent), and over "model": this rank's
-    slice.  Every rank computed the same whole cotangent from the same
-    rows, so a sum would count it once per rank.
+    does not divide the data extent), and over "model" (a leaf gathered
+    whole): this rank's slice.  Every rank computed the same whole
+    cotangent from the same rows, so a sum would count it once per rank.
+
+f and g (``_CopyToModel``, ``_ReduceFromModel``) are autograd
+Functions with jvps over the custom-op ``all_reduce`` in the same way;
+``launch.tensor_parallel`` puts them at a split unit's edges.
 
 ``step_context(cfg, mesh, shardings)`` registers the stored shardings
 for one step (``launch.steps.build_step``); with no mesh, and outside
 it, every call here is the identity, so one-device numbers do not move.
+With a "model" extent of 1 nothing is split over "model", and every
+leaf is gathered as before tensor-parallel compute.
 
-The reference's ``constrain_activations``, ``unshard_seq`` and
-``constrain_vocab_matrix`` are GSPMD placement hints for a sequence- and
-vocab-split layout; with each rank holding whole activations they have
-nothing to do, and are not ported (ROADMAP 1.4, "Not to port").
+The reference's ``constrain_activations`` and ``unshard_seq`` are GSPMD
+placement hints for sequence-split activations; each rank holds whole
+activations between the split units until the sequence-parallel half of
+ROADMAP 1.4 part 2, step 3, so they have nothing to do yet.  Its
+``constrain_vocab_matrix`` pins the head's vocab split, which the split
+head here is (ROADMAP 1.4, "Not to port").
 """
 from __future__ import annotations
 
@@ -53,6 +81,7 @@ from repro_torch.core.functorch_levels import (first_order_only,
                                                outside_transforms, rewrap,
                                                unwrap_one_level)
 from repro_torch.launch.mesh import DATA_AXES
+from repro_torch.launch.sharding import TP_UNITS, compute_pspec, tp_unit
 
 # the names of newer PyTorch releases, where the old ones are deprecated
 _all_gather = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
@@ -60,10 +89,35 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single",
                           dist.reduce_scatter_tensor)
 
 
+class Split(NamedTuple):
+    """How tensor-parallel compute splits a unit over the mesh's
+    "model" axis: ``by`` "heads", "columns" (of the FFN, or of every
+    expert), "experts" or "vocab"; the model ``group``, this rank's
+    coordinate ``index`` on it, and its ``extent``."""
+    by: str
+    group: object
+    index: int
+    extent: int
+
+
+class SplitUnit(dict):
+    """A split unit's leaves as ``gather_for_compute`` hands them to
+    the model: ``split`` (its ``Split``) and ``whole`` (the names of the
+    leaves it uses whole on every rank)."""
+
+    def __init__(self, leaves: dict, split: Split, whole: frozenset):
+        super().__init__(leaves)
+        self.split, self.whole = split, whole
+
+
 class _Registry(NamedTuple):
     mesh: object
     specs: dict          # {parameter path: stored spec}
     cast: bool           # cast matrices to the compute dtype first (2d)
+    cfg: object          # the arch config under tensor-parallel compute
+                         # over "model", or None (every leaf whole)
+    units: dict          # {unit path: Split} of the units split over
+                         # "model" (``_split_units``)
 
 
 _REGISTRY: contextvars.ContextVar[Optional[_Registry]] = \
@@ -86,10 +140,13 @@ def _group_id(group) -> int:
 
 
 @contextlib.contextmanager
-def compute_specs(mesh, specs: dict, cast: bool):
+def compute_specs(mesh, specs: dict, cast: bool, cfg=None):
     """Register ``specs`` ({path: stored spec}) on ``mesh``; ``cast``:
-    cast float matrices to the compute dtype before gathering."""
-    token = _REGISTRY.set(_Registry(mesh, specs, cast))
+    cast float matrices to the compute dtype before gathering; ``cfg``:
+    the arch config, which turns on tensor-parallel compute over "model"
+    (None: every leaf is gathered whole)."""
+    token = _REGISTRY.set(_Registry(mesh, specs, cast, cfg,
+                                    _split_units(cfg, mesh, specs)))
     try:
         yield
     finally:
@@ -100,14 +157,47 @@ def step_context(cfg, mesh, shardings: Optional[dict]):
     """The gather context of one step: ``shardings`` ({path:
     ``NamedSharding``}, the stored layout) registered, with the cast
     before the gather under ``cfg.param_sharding == "2d"`` (the
-    reference's 1d archs run without it).  With ``mesh=None`` it is an
-    empty stack (identity)."""
+    reference's 1d archs run without it), and tensor-parallel compute
+    over "model" where its extent is above 1.  With ``mesh=None`` it is
+    an empty stack (identity)."""
     stack = contextlib.ExitStack()
     if mesh is not None:
+        tp = "model" in mesh.axis_names and mesh.extent("model") > 1
         stack.enter_context(compute_specs(
             mesh, {k: s.spec for k, s in shardings.items()},
-            cast=cfg.param_sharding == "2d"))
+            cast=cfg.param_sharding == "2d", cfg=cfg if tp else None))
     return stack
+
+
+def _split_units(cfg, mesh, specs: dict) -> dict:
+    """{unit path: ``Split``} of the units tensor-parallel compute
+    splits (none without ``cfg``): each unit of ``launch.sharding.
+    tp_unit`` whose deciding leaf (``TP_UNITS``) the stored layout splits
+    over "model".  A MoE unit is split "by" its experts where their dim
+    is, else by every expert's columns."""
+    if cfg is None:
+        return {}
+    coord = dict(zip(mesh.axis_names, mesh.device_mesh.get_coordinate()))
+    out = {}
+    for path, spec in specs.items():
+        keys = path.split(".")
+        unit = tp_unit(cfg, keys)
+        if not unit or keys[-1] != TP_UNITS[unit][0] \
+                or not _model_split(mesh, spec):
+            continue
+        by = TP_UNITS[unit][1]
+        if by == "experts" and not _model_split(mesh, _entries(spec, 3)[:1]):
+            by = "columns"
+        out[".".join(keys[:-1])] = Split(by, mesh.group("model"),
+                                         coord["model"], mesh.extent("model"))
+    return out
+
+
+def unit_split(path: str) -> Optional[Split]:
+    """The running step's ``Split`` of the unit at ``path`` (``"embed"``,
+    ``"periods.slot0.attn"``), or None where it is whole."""
+    reg = _REGISTRY.get()
+    return None if reg is None else reg.units.get(path)
 
 
 @contextlib.contextmanager
@@ -208,6 +298,56 @@ class _Gather(torch.autograd.Function):
         return rewrap(out, level)
 
 
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's f over ``_GROUPS[gid]``: the identity forward and
+    jvp, the backward's sum."""
+
+    @staticmethod
+    def forward(x, gid: int):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.gid = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        (g,), level = unwrap_one_level((g,))
+        first_order_only((g,), 0, "model-group copy")
+        with outside_transforms():
+            out = _all_reduce_op(g, ctx.gid)
+        return rewrap(out, level), None
+
+    @staticmethod
+    def jvp(ctx, t, _):
+        return t.view_as(t)
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's g over ``_GROUPS[gid]``: the sum forward and jvp,
+    the identity backward."""
+
+    @staticmethod
+    def forward(x, gid: int):
+        return _all_reduce_op(x, gid)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.gid = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+    @staticmethod
+    def jvp(ctx, t, _):
+        (t,), level = unwrap_one_level((t,))
+        first_order_only((t,), 0, "model-group sum")
+        with outside_transforms():
+            out = _all_reduce_op(t, ctx.gid)
+        return rewrap(out, level)
+
+
 def _entries(spec, ndim: int) -> list:
     """The spec's entries for a leaf of ``ndim`` dims: a period slice of
     a stacked leaf drops the leading (None) entry; a short spec is
@@ -223,7 +363,8 @@ def _entries(spec, ndim: int) -> list:
 
 
 def _split_dims(mesh, spec, ndim: int):
-    """(dim, group, over data axes) of each entry that cuts the leaf."""
+    """(dim, entry, group, over data axes) of each entry that cuts the
+    leaf."""
     for d, e in enumerate(_entries(spec, ndim)):
         if e is None or mesh.extent(e) == 1:
             continue
@@ -233,31 +374,70 @@ def _split_dims(mesh, spec, ndim: int):
             raise NotImplementedError(
                 f"a dim split over data and model axes together ({e}): "
                 f"no sharding rule gives one")
-        yield d, mesh.group(e), data
+        yield d, e, mesh.group(e), data
+
+
+def _model_split(mesh, spec) -> bool:
+    """Whether ``spec`` cuts a dim over "model" into more than one
+    piece."""
+    return any(e is not None and "model" in ((e,) if isinstance(e, str)
+                                             else e)
+               and mesh.extent(e) > 1 for e in spec or ())
+
+
+def _compute_entries(reg: _Registry, keys: list, x, spec) -> list:
+    """The compute spec's entries of a split unit's leaf at ``keys``
+    (``x`` this rank's stored share of it, or of its period)."""
+    stored = _entries(spec or (), x.dim())
+    whole = [n * (1 if e is None else reg.mesh.extent(e))
+             for n, e in zip(x.shape, stored)]
+    return _entries(compute_pspec(reg.cfg, reg.mesh, keys, whole), x.dim())
 
 
 def gather_for_compute(tree, compute_dtype=None, prefix: str = ""):
     """Every registered split leaf of ``tree`` (a layer's nested dict;
     ``prefix`` + its dotted path is the leaf's parameter path) gathered
-    to its whole shape; a float matrix is cast to ``compute_dtype``
-    first under 2d storage.  The identity with nothing registered."""
+    to its compute spec: in a unit tensor-parallel compute splits, over
+    the data axes only, keeping its "model" split (the unit comes back
+    as a ``SplitUnit``; a leaf it uses whole passes through f), and
+    whole otherwise; a float matrix is cast to ``compute_dtype`` first
+    under 2d storage.  The identity with nothing registered."""
     reg = _REGISTRY.get()
     if reg is None:
         return tree
 
-    def walk(node, path):
-        if isinstance(node, dict):
-            return {k: walk(v, f"{path}{k}.") for k, v in node.items()}
-        x = node
+    def leaf(x, path: str, split: Optional[Split]):
         if (reg.cast and compute_dtype is not None and x.dim() >= 2
                 and x.is_floating_point()):
             x = x.to(compute_dtype)
-        spec = reg.specs.get(path[:-1])
-        if spec is None:
-            return x
-        for d, group, data in _split_dims(reg.mesh, spec, x.dim()):
+        spec = reg.specs.get(path)
+        target = (None if split is None
+                  else _compute_entries(reg, path.split("."), x, spec))
+        for d, e, group, data in _split_dims(reg.mesh, spec or (),
+                                             x.dim()):
+            if target is not None and target[d] == e:
+                continue                    # this rank's share computes
+            if target is not None and target[d] is not None:
+                raise ValueError(f"{path}: stored over {e} on dim {d}, "
+                                 f"computed over {target[d]}")
             x = _Gather.apply(x, d, _group_id(group), data)
-        return x
+        return x, target is not None and _model_split(reg.mesh, target)
+
+    def walk(node, path):
+        split = reg.units.get(path[:-1])
+        if split is not None:
+            leaves, whole = {}, set()
+            for k, x in node.items():
+                x, shared = leaf(x, path + k, split)
+                if not shared:
+                    whole.add(k)
+                    if k != "router":       # used whole inside the unit
+                        x = _CopyToModel.apply(x, _group_id(split.group))
+                leaves[k] = x
+            return SplitUnit(leaves, split, frozenset(whole))
+        if isinstance(node, dict):
+            return {k: walk(v, f"{path}{k}.") for k, v in node.items()}
+        return leaf(node, path[:-1], None)[0]
 
     return walk(tree, prefix)
 
@@ -267,8 +447,8 @@ def gather_whole(t: torch.Tensor, sharding) -> torch.Tensor:
     ``sharding`` (a ``NamedSharding``), without autograd; every rank of
     the mesh must call it (a checkpoint save)."""
     with torch.no_grad():
-        for d, group, _ in _split_dims(sharding.mesh, sharding.spec,
-                                       t.dim()):
+        for d, _, group, _ in _split_dims(sharding.mesh, sharding.spec,
+                                          t.dim()):
             t = _gather_op(t, d, _group_id(group))
     return t
 

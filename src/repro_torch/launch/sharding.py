@@ -23,7 +23,11 @@ The sequence trainer uses the batch and lattice rules (``shard_batch``
 in ``data.pipeline``) and replicated state (``NamedSharding(mesh, P())``
 on every leaf).  The LM trainer stores each parameter and θ-sized state
 leaf as this rank's share by ``param_shardings`` (``NamedSharding.
-place``) and gathers it where it is used (``launch.fsdp``).
+place``) and gathers it where it is used (``launch.fsdp``) to its
+``compute_pspec``: over the data axes only for a leaf of a unit
+``tp_unit`` names that the layout splits over "model", which each rank
+then uses as its share of the heads, FFN columns, experts or
+vocabulary (``launch.tensor_parallel``), and whole for any other.
 ``input_shardings`` is held against the reference's by the tests;
 placing the serving caches by it is ROADMAP 1.4 part 2, step 5.
 ``placements`` maps a spec to ``torch.distributed.tensor`` placements.
@@ -160,6 +164,59 @@ def param_pspec(cfg, mesh, path_keys, shape, *, stacked: bool = True) -> P:
 
     # norms, biases, gains
     return P()
+
+
+def compute_pspec(cfg, mesh, path_keys, shape) -> P:
+    """Spec of an un-stacked leaf (a period's slice of a stacked one)
+    where the model computes with it: the reference's ``launch.fsdp.
+    make_spec_fn``, the 1d spec, to which GSPMD gathers a 2d-stored
+    leaf.  Its "model" entries are those of the stored spec; a
+    replicated config computes on whole leaves."""
+    if cfg.param_sharding == "replicated":
+        return P()
+    return param_pspec(cfg.replace(param_sharding="1d"), mesh, path_keys,
+                       shape, stacked=False)
+
+
+ATTENTION_KINDS = ("attn", "swa", "local", "moe", "swamoe")
+# the units tensor-parallel compute splits: (the leaf whose stored spec
+# decides whether the unit is split, what it is split by; a MoE whose
+# experts "model" does not divide is split by their columns)
+TP_UNITS = {"attn": ("wq", "heads"), "mlp": ("w_in", "columns"),
+            "moe": ("w_in", "experts"), "embed": ("table", "vocab")}
+
+
+def block_kind(cfg, path_keys) -> str:
+    """The ``block_pattern`` kind of the layer a leaf path lies in
+    (``periods.slot<s>...`` or ``rest.rest<i>...``), or "" for a leaf of
+    no layer (the embeddings, the final norm)."""
+    if len(path_keys) > 1 and path_keys[0] == "periods":
+        return cfg.block_pattern[int(path_keys[1][len("slot"):])]
+    if len(path_keys) > 1 and path_keys[0] == "rest":
+        return cfg.block_pattern[int(path_keys[1][len("rest"):])]
+    return ""
+
+
+def tp_unit(cfg, path_keys) -> str:
+    """The unit of ``TP_UNITS`` whose tensor-parallel compute consumes
+    the leaf at ``path_keys``, or "": an attention-family block's
+    ``attn``, ``mlp`` and ``moe`` leaves and the embedding's ``table``
+    and ``lm_head`` of a decoder-only arch.  The RG-LRU and xLSTM blocks'
+    leaves and an encoder-decoder arch's run whole on every rank (ROADMAP
+    1.4 part 2, step 3, second half)."""
+    if cfg.is_encoder_decoder:
+        return ""
+    if path_keys[0] == "embed":
+        return "embed" if path_keys[-1] in ("table", "lm_head") else ""
+    if len(path_keys) >= 2 and path_keys[-2] in ("attn", "mlp", "moe") \
+            and block_kind(cfg, path_keys) in ATTENTION_KINDS:
+        return path_keys[-2]
+    return ""
+
+
+def tp_leaf(cfg, path_keys) -> bool:
+    """Whether tensor-parallel compute consumes the leaf (``tp_unit``)."""
+    return bool(tp_unit(cfg, path_keys))
 
 
 @dataclass(frozen=True)

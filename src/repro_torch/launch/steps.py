@@ -31,7 +31,9 @@ mesh's data axes (``core.optim.second_order``).  So does the LM path:
 ``build_step(cfg, opt, mesh=, state_sharding=)`` with the state stored
 as each rank's share by ``launch.sharding.param_shardings``, the step
 run inside ``launch.fsdp.step_context``, which gathers each layer's
-leaves where the model uses them.
+leaves where the model uses them: where the mesh's "model" extent is
+above 1, to each rank's share of the heads, FFN columns, experts and
+vocabulary (``launch.tensor_parallel``).
 
 LM serving: ``build_prefill_step(cfg)`` runs a prompt batch through the
 backbone and returns the last position's logits (the prefill_32k step;

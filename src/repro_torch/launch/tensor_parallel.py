@@ -1,0 +1,149 @@
+"""Tensor-parallel compute over the mesh's "model" axis.
+
+Port of what GSPMD does with the reference's 1d compute specs
+(``repro.launch.fsdp.make_spec_fn``): under a mesh whose "model" extent
+m is above 1, ``launch.fsdp.gather_for_compute`` hands the model an
+attention-family block's ``attn``, ``mlp`` and ``moe`` leaves and the
+embedding's vocab leaves still split over "model", and each rank
+computes its share of the unit, as Megatron-LM does:
+
+  * attention: H/m query heads and the kv heads they read (the rank's
+    own kv share when m divides K; else the matching heads of the whole
+    kv projection, ``local_kv``), then its rows of ``wo``;
+  * the MLP: its d_ff/m columns of ``w_in``/``w_gate`` and rows of
+    ``w_out``;
+  * the MoE: its E/m experts, or d_ff/m columns of every expert when m
+    does not divide E (``launch.sharding.param_pspec``'s rule);
+  * the embedding: the V/m rows of the table it holds (``vocab_embed``),
+    and the head: V/m logit columns, which the chunked CE
+    (``losses.chunked_lm``) normalises over the group (``vocab_shard``).
+
+Between the units the activations, the norms and the residual are whole
+on every rank (tensor parallelism without sequence parallelism).  The
+two conjugate operators at a unit's edges:
+
+  * ``copy_to_model`` (Megatron's f): the identity forward and jvp; the
+    backward sums the cotangent over the model group, since each rank's
+    share of the unit gave a partial one;
+  * ``reduce_from_model`` (g): sums the ranks' partial outputs over the
+    model group, forward and jvp; the identity backward.
+
+Both are ``launch.fsdp``'s ``autograd.Function``s (``_CopyToModel``,
+``_ReduceFromModel``), whose collective is its ``torch.library``
+all-reduce, launched outside the ``torch.func`` levels
+(``core.functorch_levels``), as ``launch.fsdp._Gather``'s: autograd,
+``torch.func.vjp``, ``jvp`` and ``linearize`` (the curvature products)
+run through them.  A leaf a split unit uses whole on every rank passes
+through f on its way in (``gather_for_compute``), so its gradient is the
+sum of the ranks' partial ones; the MoE router's does not, since the
+load-balance aux reads its probabilities whole on every rank: f sits on
+the combine weights instead (``models.layers.moe_apply``).
+
+Whether a unit is split is decided once a step, by the step's registry
+(``launch.fsdp.compute_specs``), and travels with the unit's leaves
+(``launch.fsdp.SplitUnit``): the model reads it with ``split_of``, the
+chunked CE with ``vocab_shard``.  Outside a step with tensor-parallel
+compute every unit is whole, and nothing here runs.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+from repro_torch.launch import fsdp
+
+
+def split_of(p) -> Optional[fsdp.Split]:
+    """The ``Split`` of a unit's leaves ``p`` (a ``SplitUnit``), or None
+    where the unit is whole."""
+    return getattr(p, "split", None)
+
+
+def copy_to_model(x: torch.Tensor, split: fsdp.Split) -> torch.Tensor:
+    """f: ``x`` entering a split unit (its gradient summed over the model
+    group)."""
+    return fsdp._CopyToModel.apply(x, fsdp._group_id(split.group))
+
+
+def reduce_from_model(x: torch.Tensor, split: fsdp.Split) -> torch.Tensor:
+    """g: the sum over the model group of the ranks' partial ``x``."""
+    return fsdp._ReduceFromModel.apply(x, fsdp._group_id(split.group))
+
+
+# ---------------------------------------------------------------------------
+# attention heads
+# ---------------------------------------------------------------------------
+
+def local_kv(k: torch.Tensor, v: torch.Tensor, split: fsdp.Split,
+             heads: int):
+    """The kv heads this rank's query heads (``heads`` / m of them)
+    read, from the whole ``k``/``v`` (B, T, K, hd): a query head h reads
+    kv head h // (heads // K).  When the rank's heads hold whole groups,
+    those groups' kv heads; when they lie in one group, its kv head;
+    else one kv head a query head (G = 1).  Contiguous, as the attention
+    kernels take them."""
+    K = k.shape[2]
+    G = heads // K
+    h_local = heads // split.extent
+    first = split.index * h_local
+    if h_local % G == 0:
+        sel = slice(first // G, first // G + h_local // G)
+    elif G % h_local == 0:
+        sel = slice(first // G, first // G + 1)
+    else:
+        sel = torch.arange(first, first + h_local, device=k.device) // G
+    return k[:, :, sel].contiguous(), v[:, :, sel].contiguous()
+
+
+# ---------------------------------------------------------------------------
+# the vocabulary
+# ---------------------------------------------------------------------------
+
+class VocabShard(NamedTuple):
+    """This rank's slice of the vocabulary: ids [start, start + size)
+    over ``group``."""
+    group: object
+    start: int
+    size: int
+
+
+def vocab_shard(size: int) -> Optional[VocabShard]:
+    """The running step's vocab slice for a head of ``size`` local
+    columns, or None when the embedding unit is whole."""
+    split = fsdp.unit_split("embed")
+    if split is None:
+        return None
+    return VocabShard(split.group, split.index * size, size)
+
+
+def vocab_embed(tokens: torch.Tensor, table: torch.Tensor, dtype,
+                split: fsdp.Split):
+    """The embedding of ``tokens`` from this rank's rows of the table
+    (zero for a token another rank holds) in ``dtype``, summed over the
+    model group: each token's row comes from the one rank that holds it,
+    so the sum has its bits."""
+    size = table.shape[0]
+    local = tokens - split.index * size
+    inside = (local >= 0) & (local < size)
+    rows = F.embedding(local.clamp(0, size - 1), table).to(dtype)
+    rows = torch.where(inside[..., None], rows, rows.new_zeros(()))
+    return reduce_from_model(rows, split)
+
+
+def gather_vocab(logits: torch.Tensor, split: fsdp.Split) -> torch.Tensor:
+    """The whole vocab's logits from each rank's columns (the last dim);
+    the backward takes this rank's columns of the cotangent, which every
+    rank holds whole."""
+    return fsdp._Gather.apply(logits, logits.dim() - 1,
+                              fsdp._group_id(split.group), False)
+
+
+def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM):
+    """``op`` over ``group`` of ``x``, a tensor no derivative flows
+    through (the chunked CE's softmax statistics), as a new tensor."""
+    out = x.detach().clone()
+    dist.all_reduce(out, op=op, group=group)
+    return out

@@ -49,7 +49,9 @@ each rank stores its share of every parameter and θ-sized state leaf,
 cut by ``launch.sharding.param_shardings`` in the config's regime
 (``train_lm(param_sharding=)`` replaces it; a smoke config's is
 "replicated"), gathers each layer where it is used (``launch.fsdp``),
-and runs its share of the global batch:
+computes its share of the attention archs' heads, FFN columns, experts
+and vocabulary where "model" spans more than one rank
+(``launch.tensor_parallel``), and runs its share of the global batch:
 
     PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
         -m repro_torch.launch.train --arch qwen2.5-3b --smoke --device cpu \
@@ -420,7 +422,8 @@ def main(argv=None):
                     "stores its share of the parameters and θ-sized state "
                     "by the config's param_sharding (a --smoke config's is "
                     "'replicated') and gathers each layer where it is "
-                    "used")
+                    "used, computing its share of the attention archs' "
+                    "heads, FFN and vocab where M > 1")
 
     ap.add_argument("--layers", type=int, default=None,
                     help="LM archs: cut the depth to this many layers "

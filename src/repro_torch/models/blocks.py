@@ -25,6 +25,13 @@ cfg.long_context_window)``.  Unlike the reference, whose arrays are
 immutable, ``block_decode`` writes the new token's cache entries into
 the given cache tensors in place and returns them: a step then never
 copies a cache.
+
+Under tensor-parallel compute (``launch.tensor_parallel``) an attention
+block's attention and FFN or MoE run on this rank's share of their
+leaves: f at their entry and g at their exit (in ``models.layers``'
+projections, MLP and MoE), the norms and the residual whole on every
+rank; a windowed kind's attention runs on the rank's query heads and
+the kv heads they read, whose counts the kernels read off the shapes.
 """
 from __future__ import annotations
 

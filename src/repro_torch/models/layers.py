@@ -14,6 +14,20 @@ use, as the reference does (the MoE casts its expert matrices once a
 call).  On a share of a batch split over ranks (``launch.fsdp.
 batch_group``) the dense MoE's load-balance aux is the global batch's.
 
+Under tensor-parallel compute (``launch.tensor_parallel``) the attention
+projections, the MLP, the dense MoE, the embedding and the head get
+this rank's share of their leaves and compute its share of the heads,
+FFN columns, experts or vocabulary: each reads whether its unit is
+split off the unit's leaves (``tensor_parallel.split_of``: the step
+decided it), and puts ``copy_to_model`` at its entry and
+``reduce_from_model`` at its exit.  Head counts come from the
+projections' shapes, so a share's heads are counted as they are.  A
+rank's partial output (``wo``'s and ``w_out``'s rows, its experts'
+share of the combine) is summed in f32 and rounded to the compute dtype
+once, after the sum, as one device's GEMM rounds its f32 accumulation
+once (``partial_matmul``: on the card a GEMM of the compute dtype's
+operands with an f32 result).
+
 ``windowed_attention`` goes through ``kernels.swa_attention``: on a CUDA
 tensor that is the hand-written kernel, on a CPU tensor its plain
 version.  ``causal_attention``, ``cross_attention``,
@@ -30,6 +44,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.swa_attention import swa_attention
 from repro_torch.launch import fsdp
+from repro_torch.launch import tensor_parallel as tp
 
 NEG = -1e30
 
@@ -152,9 +167,15 @@ def init_attention(cfg, init: Init, *, lead=()):
 def qkv_project(cfg, p, x, positions, *, apply_rope=True):
     """x: (B, T, d) -> q (B,T,H,hd), k/v (B,T,K,hd): the biases added
     after each matmul and the q/k norms applied per head when ``p`` has
-    them, then RoPE on q and k unless ``apply_rope`` is False."""
+    them, then RoPE on q and k unless ``apply_rope`` is False.  H and K
+    are the projections' head counts; on a share of the query heads x
+    enters through ``copy_to_model``, and k/v are the kv heads those
+    queries read (``tensor_parallel.local_kv``)."""
     B, T, _ = x.shape
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    hd = cfg.resolved_head_dim
+    split = tp.split_of(p)
+    if split:
+        x = tp.copy_to_model(x, split)
     dt = x.dtype
     q = x @ p["wq"].to(dt)
     k = x @ p["wk"].to(dt)
@@ -163,9 +184,12 @@ def qkv_project(cfg, p, x, positions, *, apply_rope=True):
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
+    H, K = q.shape[-1] // hd, k.shape[-1] // hd
     q = q.reshape(B, T, H, hd)
     k = k.reshape(B, T, K, hd)
     v = v.reshape(B, T, K, hd)
+    if split and "wk" in p.whole:
+        k, v = tp.local_kv(k, v, split, cfg.num_heads)
     if "q_norm" in p:
         q = _rms(q) * p["q_norm"].to(dt)
         k = _rms(k) * p["k_norm"].to(dt)
@@ -175,9 +199,78 @@ def qkv_project(cfg, p, x, positions, *, apply_rope=True):
     return q, k, v
 
 
+def _mm_f32(a, b):
+    """a @ b of two operands of one dtype, a (..., k) and b (k, n), or
+    a (E, M, k) and b (E, k, n), accumulated and returned in f32: on a
+    CUDA tensor one GEMM of the operands' dtype with an f32 result
+    (``torch.mm``/``bmm``'s ``out_dtype``, so bf16 runs on the tensor
+    cores), else the f32 upcast's GEMM, which forms the same products
+    and sums."""
+    if not a.is_cuda:
+        return a.float() @ b.float()
+    if b.dim() == 3:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+    return out.reshape(*a.shape[:-1], b.shape[-1])
+
+
+class _PartialMatmul(torch.autograd.Function):
+    """``_mm_f32`` under autograd and ``torch.func``: the cotangent, the
+    upcast of compute-dtype values (the sum is rounded to that dtype
+    right after), is taken in the operands' dtype, and each gradient is
+    rounded to it once, as the upcast's chain would; the jvp sums both
+    products in f32."""
+
+    @staticmethod
+    def forward(x, w):
+        return _mm_f32(x, w)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+        ctx.save_for_forward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        gx = _mm_f32(g, w.transpose(-1, -2)).to(x.dtype)
+        if w.dim() == 3:
+            gw = _mm_f32(x.transpose(-1, -2), g)
+        else:
+            gw = _mm_f32(x.reshape(-1, x.shape[-1]).T,
+                         g.reshape(-1, g.shape[-1]))
+        return gx, gw.to(w.dtype)
+
+    @staticmethod
+    def jvp(ctx, tx, tw):
+        x, w = ctx.saved_tensors
+        out = _mm_f32(tx, w) if tx is not None else 0.0
+        return out + _mm_f32(x, tw) if tw is not None else out
+
+
+def partial_matmul(x, w):
+    """x @ w of a rank's share of the contracted dim, the product of the
+    compute dtype's values accumulated and returned in f32: the ranks'
+    partial sums are added before the one rounding to the compute
+    dtype.  ``w`` (k, n), or (E, k, n) against x (E, M, k)."""
+    w = w.to(x.dtype)
+    if x.dtype == torch.float32:
+        return x @ w
+    return _PartialMatmul.apply(x, w)
+
+
 def out_project(cfg, p, ctx):
+    """ctx (B, T, H, hd) @ wo; on a share of the heads (its rows of
+    ``wo``) the ranks' partial outputs summed in f32
+    (``reduce_from_model``), then rounded to ctx's dtype."""
     B, T, H, hd = ctx.shape
-    return ctx.reshape(B, T, H * hd) @ p["wo"].to(ctx.dtype)
+    x = ctx.reshape(B, T, H * hd)
+    split = tp.split_of(p)
+    if split:
+        return tp.reduce_from_model(partial_matmul(x, p["wo"]),
+                                    split).to(x.dtype)
+    return x @ p["wo"].to(ctx.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -320,13 +413,22 @@ def init_mlp(cfg, init: Init, d_ff: Optional[int] = None, *, lead=()):
 
 
 def mlp_apply(cfg, p, x):
-    """Gated: act(x w_gate) * (x w_in); plain: act(x w_in); then w_out."""
+    """Gated: act(x w_gate) * (x w_in); plain: act(x w_in); then w_out.
+    On a share of the columns of ``w_in`` (and the rows of ``w_out``)
+    between ``copy_to_model`` and ``reduce_from_model``, the partial
+    outputs summed in f32."""
+    split = tp.split_of(p)
+    if split:
+        x = tp.copy_to_model(x, split)
     dt = x.dtype
     h = x @ p["w_in"].to(dt)
     if "w_gate" in p:
         h = _act(cfg.activation, x @ p["w_gate"].to(dt)) * h
     else:
         h = _act(cfg.activation, h)
+    if split:
+        return tp.reduce_from_model(partial_matmul(h, p["w_out"]),
+                                    split).to(dt)
     return h @ p["w_out"].to(dt)
 
 
@@ -374,13 +476,28 @@ def moe_apply(cfg, p, x, *, t_chunk: int = 2048):
     T runs in chunks of the largest divisor of T up to ``t_chunk``, so the
     (B, tc, E, ff) transients stay bounded at prefill_32k.  The reference
     remats each chunk (``jax.checkpoint``); the port just loops, so under
-    autograd it holds every chunk's residuals (one chunk at T <= 2048)."""
+    autograd it holds every chunk's residuals (one chunk at T <= 2048).
+
+    On a share of the experts (or of their columns) the router, the
+    combine weights and the aux are whole on every rank; x and the
+    combine weights enter the experts through ``copy_to_model`` (the
+    router's leaf does not: the aux's gradient is whole on every rank),
+    the rank's experts take their columns of the combine weights, and the
+    ranks' partial outputs are summed in f32 (each expert's output too,
+    when the rank holds a share of its columns)."""
     dt = x.dtype
     B, T, d = x.shape
     E = cfg.num_experts
     probs, top_w, top_ix = _route(cfg, p, x)
     comb = torch.zeros_like(probs).scatter_add(-1, top_ix, top_w)
     w = _expert_matrices(p, dt)
+    split = tp.split_of(p)
+    xe, ce = x, comb
+    if split:
+        xe, ce = tp.copy_to_model(x, split), tp.copy_to_model(comb, split)
+        if split.by == "experts":
+            n = E // split.extent
+            ce = ce[..., split.index * n:(split.index + 1) * n]
 
     def expert_ffn(xc, cc):
         h = torch.einsum("btd,edf->btef", xc, w["w_in"])
@@ -389,17 +506,27 @@ def moe_apply(cfg, p, x, *, t_chunk: int = 2048):
             h = _act(cfg.activation, g) * h
         else:
             h = _act(cfg.activation, h)
-        y = torch.einsum("btef,efd->bted", h, w["w_out"])
-        return torch.einsum("bted,bte->btd", y, cc.to(dt))
+        if not split:
+            y = torch.einsum("btef,efd->bted", h, w["w_out"])
+            return torch.einsum("bted,bte->btd", y, cc.to(dt))
+        if split.by == "columns":               # every expert's partial
+            b, t, e, f = h.shape
+            y = partial_matmul(h.permute(2, 0, 1, 3).reshape(e, b * t, f),
+                               w["w_out"]).reshape(e, b, t, -1)
+            return torch.einsum("ebtd,bte->btd", y, cc.to(dt).float())
+        y = torch.einsum("btef,efd->bted", h, w["w_out"]).float()
+        return torch.einsum("bted,bte->btd", y, cc.to(dt).float())
 
     tc = min(t_chunk, T)
     while T % tc:
         tc -= 1
     if tc < T:
-        out = torch.cat([expert_ffn(x[:, i:i + tc], comb[:, i:i + tc])
+        out = torch.cat([expert_ffn(xe[:, i:i + tc], ce[:, i:i + tc])
                          for i in range(0, T, tc)], dim=1)
     else:
-        out = expert_ffn(x, comb)
+        out = expert_ffn(xe, ce)
+    if split:
+        out = tp.reduce_from_model(out, split).to(dt)
     group = fsdp.batch_group()
     if group is None:
         f = (comb > 0).float().mean((0, 1))
@@ -427,12 +554,13 @@ def moe_apply_dispatch(cfg, p, x, *, capacity_factor: float = 1.25):
     E·C, sliced off), so every kept slot is written once.  Returns (out,
     aux) as ``moe_apply``, but this f is the share of the S·k pairs each
     expert got (it sums to 1; the dense form's sums to k)."""
-    if fsdp.batch_group() is not None:
+    if fsdp.batch_group() is not None or tp.split_of(p):
         raise NotImplementedError(
-            "moe_apply_dispatch on a share of a batch split over ranks: its "
-            "capacity and drops are the global batch's in the reference; "
-            "expert-parallel dispatch is ROADMAP 1.4 part 2, step 3 (the "
-            "dense moe_impl runs on a mesh)")
+            "moe_apply_dispatch on a share of a batch split over ranks, or "
+            "of the experts: its capacity and drops are the global batch's "
+            "in the reference; expert-parallel dispatch is the second half "
+            "of ROADMAP 1.4 part 2, step 3 (the dense moe_impl runs on a "
+            "mesh)")
     dt = x.dtype
     B, T, d = x.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
@@ -498,12 +626,24 @@ def embed_apply(cfg, p, tokens):
     gives the same numbers without a copy of the table.  ``F.embedding``
     rather than indexing: its backward sums a row's contributions in a
     fixed order on the CPU (the indexing backward's accumulation is not
-    bitwise repeatable there)."""
+    bitwise repeatable there).  On a share of the vocabulary each rank
+    looks up the rows it holds and the ranks' rows are summed
+    (``tensor_parallel.vocab_embed``), the same bits."""
+    split = tp.split_of(p)
+    if split:
+        return tp.vocab_embed(tokens, p["table"], cfg.cdtype, split)
     return F.embedding(tokens, p["table"]).to(cfg.cdtype)
 
 
+def head_matrix_of(cfg, p):
+    """The (d, V) head of the ``embed`` dict: ``lm_head``, or the table
+    transposed (a view) when the embeddings are tied; this rank's V/m
+    columns on a share of the vocabulary."""
+    return p["table"].T if cfg.tie_embeddings else p["lm_head"]
+
+
 def lm_head_apply(cfg, p, x):
-    """x @ lm_head, or x @ tableᵀ when the embeddings are tied."""
-    if cfg.tie_embeddings:
-        return x @ p["table"].to(x.dtype).T
-    return x @ p["lm_head"].to(x.dtype)
+    """x @ lm_head, or x @ tableᵀ when the embeddings are tied: this
+    rank's logit columns on a share of the vocabulary (the backbone's
+    ``forward_hidden`` hands such a head x through ``copy_to_model``)."""
+    return x @ head_matrix_of(cfg, p).to(x.dtype)

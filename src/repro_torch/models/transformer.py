@@ -9,7 +9,12 @@ is a Python loop here, without its remat.  Its FSDP gathers are
 embeddings, each layer's leaves (a stacked leaf one period at a time),
 the final norm and the head.  With no mesh they are identities, so
 parameters stay in their stored dtype (f32) and a matrix is cast at each
-use, as the reference does.
+use, as the reference does.  Under tensor-parallel compute
+(``launch.tensor_parallel``) the embedding, the attention-family blocks'
+attention and FFN, and the head run on this rank's share of their
+leaves: ``forward_hidden`` hands a split head its hidden state through
+``copy_to_model``, ``head_matrix`` is this rank's (d, V/m) columns, and
+``forward`` gathers the logits' vocab whole.
 
 Parameters are a flat dict keyed by the reference's pytree path, leaves
 stacked over periods as in the reference:
@@ -33,6 +38,7 @@ import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.launch import fsdp
+from repro_torch.launch import tensor_parallel as tp
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 
@@ -164,18 +170,20 @@ def gathered(cfg, params: dict, prefix: str, index=None) -> dict:
 def head_matrix(cfg, params):
     """(d, V) LM head: the ``embed.lm_head`` leaf, or the table transposed
     (a view) when the embeddings are tied, so that a transform's tangent
-    and cotangent of the head reach ``embed.table``."""
-    emb = gathered(cfg, params, "embed.")
-    if cfg.tie_embeddings:
-        return emb["table"].T
-    return emb["lm_head"]
+    and cotangent of the head reach ``embed.table``; this rank's (d, V/m)
+    columns on a share of the vocabulary."""
+    return L.head_matrix_of(cfg, gathered(cfg, params, "embed."))
 
 
 def forward_hidden(cfg, params, batch):
-    """As ``forward`` but stops before the LM head: (hidden (B,T,d), aux)."""
+    """As ``forward`` but stops before the LM head: (hidden (B,T,d), aux).
+    For a head split over the vocabulary the hidden state leaves through
+    ``copy_to_model``: its cotangent from the head is the sum of the
+    ranks' partial ones."""
     tokens = batch["tokens"]
     T = tokens.shape[1]
-    x = L.embed_apply(cfg, gathered(cfg, params, "embed."), tokens)
+    emb = gathered(cfg, params, "embed.")
+    x = L.embed_apply(cfg, emb, tokens)
     positions = torch.arange(T, device=tokens.device)
     aux = 0.0
     for kind, prefix, i in _layer_slots(cfg):
@@ -183,13 +191,21 @@ def forward_hidden(cfg, params, batch):
                              positions)
         aux = aux + a
     x = L.norm_apply(cfg, gathered(cfg, params, "final_norm."), x)
+    split = tp.split_of(emb)
+    if split:
+        x = tp.copy_to_model(x, split)
     return x, aux
 
 
 def forward(cfg, params, batch):
-    """batch["tokens"]: (B, T) integer.  Returns (logits (B,T,V) f32, aux)."""
+    """batch["tokens"]: (B, T) integer.  Returns (logits (B,T,V) f32, aux);
+    a head split over the vocabulary gives its columns, gathered whole."""
     x, aux = forward_hidden(cfg, params, batch)
-    logits = L.lm_head_apply(cfg, gathered(cfg, params, "embed."), x)
+    emb = gathered(cfg, params, "embed.")
+    logits = L.lm_head_apply(cfg, emb, x)
+    split = tp.split_of(emb)
+    if split:
+        logits = tp.gather_vocab(logits, split)
     return logits.float(), aux
 
 

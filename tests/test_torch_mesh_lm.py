@@ -1,15 +1,20 @@
-"""Port parity: LM training across processes under FSDP storage
-(``launch.fsdp``, ``launch.steps.build_step(mesh=, state_sharding=)``,
-``launch.train.train_lm(mesh=)``).
+"""Port parity: LM training across processes under FSDP storage and
+tensor-parallel compute over "model" (``launch.fsdp``,
+``launch.tensor_parallel``, ``launch.steps.build_step(mesh=,
+state_sharding=)``, ``launch.train.train_lm(mesh=)``).
 
 The reference's acceptance test, ``tests/test_sharding.py::
 test_lm_fsdp_nghf_step_matches_single_device``: the qwen2.5-3b smoke
 config in 2d storage at f32 compute, B 8 x T 16, one NGHF update (2 CG
 and 1 NG iterations, the ``fisher_diag`` preconditioner, ``warm_start``,
-``cg_frac=2``, ``min_cg=4``).  Here it runs on 2x2 and 4x1 gloo meshes
-(four CPU processes each, one thread a rank, ``tests/torch_mesh_lm_
-worker.py``), each rank holding its share of every parameter and
-θ-sized state leaf, against the reference's single-device jitted update
+``cg_frac=2``, ``min_cg=4``).  Here it runs on 2x2, 4x1, 1x2 and 1x4
+gloo meshes (a CPU process a rank, one thread each, ``tests/torch_mesh_
+lm_worker.py``), each rank holding its share of every parameter and
+θ-sized state leaf and, where "model" has more than one rank, computing
+its share of the heads, FFN columns, experts and vocabulary (on 1x4 the
+qwen smoke's 2 kv heads are whole on every rank, each of its 4 ranks
+reading the one its query head reads), against the reference's
+single-device jitted update
 from the same parameters (its zero biases and unit scales perturbed,
 ``tests/torch_perturb.py``) and batch, with the reference test's
 tolerances: the same ``cg_best_iter``, loss within 1e-4, the parameters'
@@ -24,17 +29,23 @@ Cases: the plain update; ``cg_fused=True`` (``cg_fused_update_tree`` on
 the shares); ``b6``, a gradient batch of 6, which 4 data ranks cannot
 split (kept whole on every rank: the gathers' backward then slices
 instead of summing) and 2 can; granite-moe-3b-a800m's smoke config (2x2:
-its experts split over "model", the load-balance aux over the global
-batch); whisper-base's in 1d storage (2x2: an enc-dec arch, one Adam
+each rank computing its 2 of the 4 experts, the load-balance aux over
+the global batch); mixtral-8x22b's and recurrentgemma-9b's (1x2: the
+windowed attention on each rank's heads; recurrentgemma's RG-LRU blocks
+gathered whole); whisper-base's in 1d storage (2x2: an enc-dec arch,
+computed whole on every rank, one Adam
 step, held to the reference and to the one-process port by the same
 parameter tolerances, and its gradient, read off Adam's first moment,
 within relative L2 1e-5 of the one-process port's.  Adam's first step
 maps the near-zero gradients' last-bit differences to changes of order
 lr: its Δθ reads 2.1e-4 from the reference's for the one-process port
 itself at this batch, and 2.1e-5 between the mesh and one process).
-Also a ``train_lm`` run on a 2x1 mesh checkpointed
-after 2 updates and resumed to 3, bitwise equal to the uninterrupted
-run, its checkpoint holding whole leaves.
+Also a ``train_lm`` run on a 2x1 mesh and on a 1x2 one (tensor-parallel
+compute) checkpointed after 2 updates and resumed to 3, bitwise equal to
+the uninterrupted run, its checkpoint holding whole leaves; and on 1x2,
+the shapes the model used its leaves at (``wq``, ``w_in``, ``w_out``,
+the experts and the vocab table at their split shapes) with no
+``_Gather`` over "model" but of the RG-LRU blocks' leaves.
 """
 import numpy as np
 import pytest
@@ -59,7 +70,10 @@ PARAM_REL_L2 = 1e-4
 PARAM_RTOL, PARAM_ATOL = 1e-3, 3e-5
 DELTA_REL_L2 = 1e-5
 MESH_CASES = {"2x2": ["plain", "fused", "b6", "granite", "whisper_adam"],
-              "4x1": ["plain", "fused", "b6"]}
+              "4x1": ["plain", "fused", "b6"],
+              "1x2": ["plain", "mixtral", "rg"], "1x4": ["plain"]}
+# a train_lm run checkpointed and resumed, by mesh: its split leaves
+RESUME_SPLIT = {"2x1": 7, "1x2": 11}
 NGHF_RUNS = [(mesh, case) for mesh, cases in MESH_CASES.items()
              for case in cases if LW.LM_CASES[case]["optimizer"] == "nghf"]
 
@@ -84,7 +98,7 @@ def start(tmp_path_factory):
     holding the port's for the ranks)."""
     tmp = tmp_path_factory.mktemp("mesh_lm_params")
     jps, tps = {}, {}
-    for case in ("plain", "granite", "whisper_adam"):
+    for case in ("plain", "granite", "whisper_adam", "mixtral", "rg"):
         arch = LW.LM_CASES[case]["arch"]
         jps[arch] = perturb(jmodel(_jcfg(case)).init(jax.random.PRNGKey(0)),
                             1)
@@ -126,10 +140,12 @@ def runs(start, tmp_path_factory):
         tmp = tmp_path_factory.mktemp(f"mesh_lm_{mesh}")
         for f in params_dir.iterdir():
             (tmp / f.name).write_bytes(f.read_bytes())
-        started[mesh] = W.start("torch_mesh_lm_worker:lm_updates", 4, tmp,
-                                mesh=mesh, cases=cases)
-    resume = W.start("torch_mesh_lm_worker:lm_resume", 2,
-                     tmp_path_factory.mktemp("mesh_lm_resume"), mesh="2x1")
+        d, m = (int(n) for n in mesh.split("x"))
+        started[mesh] = W.start("torch_mesh_lm_worker:lm_updates", d * m,
+                                tmp, mesh=mesh, cases=cases)
+    resume = {mesh: W.start("torch_mesh_lm_worker:lm_resume", 2,
+                            tmp_path_factory.mktemp(f"mesh_lm_resume_{mesh}"),
+                            mesh=mesh) for mesh in RESUME_SPLIT}
     refs = {}
     for case, kw in LW.LM_CASES.items():
         tp = tps[kw["arch"]]
@@ -138,7 +154,7 @@ def runs(start, tmp_path_factory):
         refs[case] = (_reference(jps[kw["arch"]], case),
                       LW.lm_update(tp, None, kw), last)
     return refs, {m: W.finish(h) for m, h in started.items()}, \
-        W.finish(resume)
+        {m: W.finish(h) for m, h in resume.items()}
 
 
 def _delta_rel_l2(got: dict, want: dict, base: dict) -> float:
@@ -163,7 +179,7 @@ def test_mesh_lm_nghf_update_matches_reference(start, runs, mesh, case):
     outs = runs[1][mesh]
     d = int(mesh.split("x")[0])
     assert sorted(int(o["data_index"]) for o in outs) == sorted(
-        list(range(d)) * (4 // d))
+        list(range(d)) * (len(outs) // d))
     got = _rank0(outs, case, tp)
     metric = {k[len(case) + 3:]: float(v) for k, v in outs[0].items()
               if k.startswith(f"{case}/m.")}
@@ -198,7 +214,9 @@ def test_mesh_lm_state_is_split(start, runs, mesh):
     its share's shape, and split wherever its parameter is; on 2x2, where
     both axes split, at least 10 leaves each (the reference's bound on
     4x2).  On 4x1 the vocab table and the q/k/v biases split over
-    "model" only, so the 7 layer matrices are split."""
+    "model" only, so the 7 layer matrices are split; on 1x4 the 4
+    query-side and FFN matrices, ``bq`` and the table (the 2 kv heads do
+    not split 4 ways), and on 1x2 those and the 4 kv leaves."""
     _, tps, _ = start
     tp = tps["qwen2.5-3b"]
     for o in runs[1][mesh]:
@@ -210,6 +228,46 @@ def test_mesh_lm_state_is_split(start, runs, mesh):
                 assert shape == o[f"plain/share.{k}"].shape, (slot, k)
                 split += shape != tuple(tp[k].shape)
             assert split >= (10 if mesh == "2x2" else 7), (slot, split)
+
+
+# (case, the leaves used at a split shape, the leaves used whole) on 1x2
+TP_USED = {
+    "plain": (("periods.slot0.attn.wq", 1), ("periods.slot0.attn.wk", 1),
+              ("periods.slot0.mlp.w_in", 1), ("periods.slot0.mlp.w_out", 0),
+              ("periods.slot0.attn.wo", 0), ("embed.table", 0)),
+    "mixtral": (("periods.slot0.attn.wq", 1), ("periods.slot0.moe.w_in", 0),
+                ("periods.slot0.moe.w_out", 0), ("embed.lm_head", 1),
+                ("embed.table", 0)),
+    "rg": (("periods.slot2.attn.wq", 1), ("periods.slot2.mlp.w_in", 1),
+           ("embed.table", 0)),
+}
+TP_WHOLE = {"plain": ("periods.slot0.ln1.scale",),
+            "mixtral": ("periods.slot0.moe.router",),
+            "rg": ("periods.slot0.w_x", "periods.slot0.mlp.w_in",
+                   "periods.slot2.attn.wk")}
+
+
+@pytest.mark.parametrize("case", sorted(TP_USED))
+def test_tp_leaves_are_used_split_without_a_model_gather(start, runs, case):
+    """On 1x2 each rank uses its half of ``wq`` (its query heads), of the
+    FFN's columns, of the experts and of the vocab table, as it stores
+    them: no ``_Gather`` over "model" for them (none at all for qwen and
+    mixtral); recurrentgemma's RG-LRU blocks (their MLP included) are
+    gathered whole, and its one kv head is whole on both ranks."""
+    _, tps, _ = start
+    tp = tps[LW.LM_CASES[case]["arch"]]
+    for o in runs[1]["1x2"]:
+        for key, dim in TP_USED[case]:
+            want = list(tp[key].shape[1:] if key.startswith("periods")
+                        else tp[key].shape)
+            want[dim] //= 2
+            assert list(o[f"{case}/used.{key}"]) == want, key
+        for key in TP_WHOLE[case]:
+            assert tuple(o[f"{case}/used.{key}"]) == tuple(
+                tp[key].shape[1:]), key
+        n = int(o[f"{case}/model_gathers"])
+        assert (n > 0) if case == "rg" else (n == 0), n
+        assert int(o[f"{case}/gathers"]) == n     # data extent 1
 
 
 def test_mesh_lm_adam_step_of_an_encdec_arch(start, runs):
@@ -245,10 +303,7 @@ def test_mesh_lm_adam_step_of_an_encdec_arch(start, runs):
             outs[0][f"whisper_adam/want.m.{k}"]), k
 
 
-def test_resumed_lm_mesh_run_equals_uninterrupted(start, runs):
-    _, tps, _ = start
-    tp = tps["qwen2.5-3b"]
-    outs = runs[2]
+def _resumed_equals_uninterrupted(tp: dict, outs: list, n_split: int):
     for o in outs:
         assert list(o["resumed_steps"]) == [2]
         keys = [k[5:] for k in o if k.startswith("full.")]
@@ -259,6 +314,21 @@ def test_resumed_lm_mesh_run_equals_uninterrupted(start, runs):
         for k in tp:
             key = "ckpt_shape.params/" + k.replace(".", "/")
             assert tuple(o[key]) == tuple(tp[k].shape), k
-    # on 2x1 the 7 layer matrices are split over "data"
     assert sum(tuple(outs[0]["full." + k].shape) != tuple(tp[k].shape)
-               for k in tp) == 7
+               for k in tp) == n_split
+
+
+def test_resumed_lm_mesh_run_equals_uninterrupted(start, runs):
+    """2x1: the 7 layer matrices split over "data"."""
+    _, tps, _ = start
+    _resumed_equals_uninterrupted(tps["qwen2.5-3b"], runs[2]["2x1"],
+                                  RESUME_SPLIT["2x1"])
+
+
+def test_resumed_lm_tp_run_equals_uninterrupted(start, runs):
+    """1x2, tensor-parallel compute: those 7, the q/k/v biases and the
+    table split over "model"; the checkpoint's leaves whole, as on one
+    device."""
+    _, tps, _ = start
+    _resumed_equals_uninterrupted(tps["qwen2.5-3b"], runs[2]["1x2"],
+                                  RESUME_SPLIT["1x2"])

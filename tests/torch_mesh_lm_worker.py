@@ -37,6 +37,11 @@ LM_CASES = {
                     optimizer="nghf", opt=NGHF),
     "whisper_adam": dict(arch="whisper-base", sharding="1d", batch=8,
                          optimizer="adam", opt=dict(lr=3e-4)),
+    # windowed attention (window 16 at T 16) on each rank's heads
+    "mixtral": dict(arch="mixtral-8x22b", sharding="2d", batch=8,
+                    optimizer="nghf", opt=NGHF),
+    "rg": dict(arch="recurrentgemma-9b", sharding="2d", batch=8,
+               optimizer="nghf", opt=NGHF),
 }
 ENC_SEED = 5
 
@@ -74,6 +79,40 @@ def share_shape(sharding, shape) -> tuple:
                  for n, e in zip(shape, spec))
 
 
+class _Watch:
+    """Within the block, every ``fsdp.gather_for_compute`` result's leaf
+    shapes by parameter path ("used.<path>", a stacked leaf's period
+    slice) and the count of ``_Gather`` launches over the model group
+    ("model_gathers") and over any group ("gathers")."""
+
+    def __init__(self, mesh):
+        self.mesh, self.out = mesh, {"model_gathers": 0, "gathers": 0}
+
+    def __enter__(self):
+        from repro_torch.launch import fsdp
+        from repro_torch.models.transformer import flatten
+        self.gather, self.apply = fsdp.gather_for_compute, fsdp._Gather.apply
+        model = fsdp._group_id(self.mesh.group("model"))
+
+        def gather(tree, compute_dtype=None, prefix=""):
+            got = self.gather(tree, compute_dtype, prefix)
+            for k, v in flatten(got, prefix).items():
+                self.out["used." + k] = np.asarray(v.shape)
+            return got
+
+        def apply(x, dim, gid, data):
+            self.out["gathers"] += 1
+            self.out["model_gathers"] += gid == model
+            return self.apply(x, dim, gid, data)
+
+        fsdp.gather_for_compute, fsdp._Gather.apply = gather, apply
+        return self.out
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import fsdp
+        fsdp.gather_for_compute, fsdp._Gather.apply = self.gather, self.apply
+
+
 def lm_update(params: dict, mesh, case: dict, **overrides) -> dict:
     """One update of ``case`` from the whole ``params`` through
     ``build_step`` on ``mesh`` (None: one process): the whole new
@@ -81,7 +120,9 @@ def lm_update(params: dict, mesh, case: dict, **overrides) -> dict:
     them ("share.<key>"), the scalar metrics ("m.<name>"), Adam's first
     moment whole ("adam_m.<key>", the gradient scaled) and, for each
     θ-sized state slot, its leaves' shapes on this rank ("shape.<slot>.
-    <key>") beside the share its sharding gives ("want.<slot>.<key>")."""
+    <key>") beside the share its sharding gives ("want.<slot>.<key>");
+    on a mesh, the shapes the model used each leaf at and the gathers
+    (``_Watch``)."""
     from repro_torch.launch import fsdp
     from repro_torch.launch.sharding import param_shardings
     from repro_torch.launch.steps import build_step
@@ -92,9 +133,15 @@ def lm_update(params: dict, mesh, case: dict, **overrides) -> dict:
     step, opt = build_step(cfg, case["optimizer"], cg_frac=CG_FRAC,
                            min_cg=MIN_CG, mesh=mesh, state_sharding=ss,
                            **dict(case["opt"], **overrides))
-    new, state, m = step(mine, opt.init(mine, state_sharding=ss),
-                         lm_batch(case))
-    out = {"m." + k: np.asarray(float(v)) for k, v in m.items()}
+    state = opt.init(mine, state_sharding=ss)
+    watch = {}
+    if mesh is None:
+        new, state, m = step(mine, state, lm_batch(case))
+    else:
+        with _Watch(mesh) as watch:
+            new, state, m = step(mine, state, lm_batch(case))
+    out = {k: np.asarray(v) for k, v in watch.items()}
+    out.update({"m." + k: np.asarray(float(v)) for k, v in m.items()})
     for k, v in new.items():
         out["share." + k] = v.numpy()
         out["p." + k] = (v if mesh is None
@@ -326,4 +373,205 @@ def _members(ckpt_dir: str) -> dict:
     with open(os.path.join(ckpt_dir, "arrays.npz"), "rb") as f:
         with zipfile.ZipFile(io.BytesIO(f.read())) as z:
             out.update({n: z.read(n) for n in z.namelist()})
+    return out
+
+
+# --- tensor-parallel compute on its own -------------------------------------
+
+# the replicated-inside-TP gradients: qwen2.5-3b's smoke with its q/k
+# norms on (2 kv heads: whole on every rank of a 4-way "model"), granite's
+# (4 experts, one a rank on 1x4) and granite's with 2 experts (4 ranks
+# then split every expert's columns)
+TP_GRAD_CASES = {
+    "qwen_qk": dict(arch="qwen2.5-3b", over=dict(qk_norm=True)),
+    "granite": dict(arch="granite-moe-3b-a800m", over={}),
+    "granite_e2": dict(arch="granite-moe-3b-a800m",
+                       over=dict(num_experts=2)),
+}
+TP_BATCH = 4
+
+
+def tp_grad_cfg(name: str):
+    from repro_torch.configs.base import get_config
+    kw = TP_GRAD_CASES[name]
+    return get_config(kw["arch"]).smoke().replace(
+        compute_dtype="float32", param_sharding="2d", **kw["over"])
+
+
+def _toy_tp(p: dict, split):
+    """y = g(tanh((f(x) * f(u)) @ w1) @ w2): w1 column-parallel, w2
+    row-parallel, u a leaf used whole inside the split region (``split``
+    the toy's ``fsdp.Split``, or None: the whole toy)."""
+    from repro_torch.launch import tensor_parallel as tp
+    x, u = p["x"], p["u"]
+    if split:
+        x, u = tp.copy_to_model(x, split), tp.copy_to_model(u, split)
+    y = torch.tanh((x * u) @ p["w1"]) @ p["w2"]
+    return tp.reduce_from_model(y, split) if split else y
+
+
+def tp_units(*, tmp: str, mesh: str) -> dict:
+    """On a ``mesh`` of this run's ranks, with tensor-parallel compute
+    registered: f and g on a toy under the forward, ``torch.func.jvp``,
+    ``linearize``, ``vjp`` and autograd against the whole toy; the
+    vocab-parallel embedding and the chunked CE (loss, acc, gradient, GN
+    and Fisher factors) on ``ce_inputs.npz`` against the whole vocab's
+    (whose results go back for the reference); each ``TP_GRAD_CASES``
+    gradient through ``core.curvature.grad_and_loss`` and a GN product in
+    both curvature modes, whole, beside one process's, and its forward's
+    logits (the vocab gathered whole) against one process's."""
+    import torch.nn.functional as F
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import tree_math as tm
+    from repro_torch.core.curvature import grad_and_loss, make_curvature_ops
+    from repro_torch.core.optim.base import (data_splits, split_groups,
+                                             split_replicas)
+    from repro_torch.data.synthetic import lm_batch as draw
+    from repro_torch.launch import fsdp
+    from repro_torch.launch import tensor_parallel as tp
+    from repro_torch.launch.sharding import P, param_shardings
+    from repro_torch.launch.steps import lm_forward
+    from repro_torch.losses.chunked_lm import ChunkedCELoss
+    from repro_torch.models.registry import get_model
+    mesh = _mesh(mesh)
+    m = mesh.shape["model"]
+    r = dict(zip(mesh.axis_names, mesh.device_mesh.get_coordinate()))["model"]
+    out = {"model_index": np.asarray(r)}
+
+    # f and g on the toy
+    gen = torch.Generator().manual_seed(11)
+    shapes = {"x": (4, 6), "u": (6,), "w1": (6, 8), "w2": (8, 6)}
+    whole = {k: torch.randn(s, generator=gen) for k, s in shapes.items()}
+    tan = {k: torch.randn(s, generator=gen) for k, s in shapes.items()}
+    ct = torch.randn(4, 6, generator=gen)
+    n = 8 // m
+
+    def share(t):
+        t = dict(t)
+        t["w1"] = t["w1"][:, r * n:(r + 1) * n].contiguous()
+        t["w2"] = t["w2"][r * n:(r + 1) * n].contiguous()
+        return t
+
+    ce_cfg = get_config("qwen2.5-3b").smoke()
+    with np.load(os.path.join(tmp, "ce_inputs.npz")) as f:
+        ce = {k: torch.from_numpy(f[k].copy()) for k in f.files}
+    ce_cfg = ce_cfg.replace(vocab_size=ce["W"].shape[1])
+    def reg():
+        return fsdp.compute_specs(mesh, {"embed.table": P("model", None)},
+                                  cast=False, cfg=ce_cfg)
+    toy = fsdp.Split("columns", mesh.group("model"), r, m)
+
+    want_y = _toy_tp(whole, None)
+    want_j = torch.func.jvp(lambda p: _toy_tp(p, None), (whole,), (tan,))[1]
+    _, pull = torch.func.vjp(lambda p: _toy_tp(p, None), whole)
+    want_g = share(pull(ct)[0])
+    mine, tmine = share(whole), share(tan)
+    def rel(got, want) -> float:
+        return float((got - want).abs().max() / want.abs().max())
+
+    def rel_tree(got, want) -> float:
+        return max(rel(got[k], want[k]) for k in want)
+
+    with reg():
+        out["toy_forward"] = np.asarray(rel(_toy_tp(mine, toy), want_y))
+        j = torch.func.jvp(lambda p: _toy_tp(p, toy), (mine,), (tmine,))[1]
+        out["toy_jvp"] = np.asarray(rel(j, want_j))
+        lin_y, lin = torch.func.linearize(lambda p: _toy_tp(p, toy), mine)
+        out["toy_linearize"] = np.asarray(max(
+            rel(lin(tmine), want_j),
+            rel(lin({k: 2 * v for k, v in tmine.items()}), 2 * want_j),
+            rel(lin_y, want_y)))
+        _, pull = torch.func.vjp(lambda p: _toy_tp(p, toy), mine)
+        out["toy_vjp"] = np.asarray(rel_tree(pull(ct)[0], want_g))
+        leaves = {k: v.clone().requires_grad_(True) for k, v in mine.items()}
+        (_toy_tp(leaves, toy) * ct).sum().backward()
+        out["toy_autograd"] = np.asarray(rel_tree(
+            {k: v.grad for k, v in leaves.items()}, want_g))
+
+    # the vocab-parallel embedding and chunked CE
+    V = ce["W"].shape[1]
+    nv = V // m
+    cols = slice(r * nv, (r + 1) * nv)
+    loss = ChunkedCELoss(t_chunk=int(ce["t_chunk"]))
+    batch = {"labels": ce["y"]}
+
+    def run_ce(W, uW, split: bool):
+        res = {}
+        table = ce["table"][cols] if split else ce["table"]
+        table = table.clone().requires_grad_(True)
+        vocab = fsdp.unit_split("embed")
+        emb = (tp.vocab_embed(ce["tokens"], table, torch.float32, vocab)
+               if split else F.embedding(ce["tokens"], table))
+        (emb * ce["ct_e"]).sum().backward()
+        res["emb"], res["emb_grad"] = emb.detach(), table.grad
+        h = ce["h"].clone().requires_grad_(True)
+        Wg = W.clone().requires_grad_(True)
+        hidden = tp.copy_to_model(h, vocab) if split else h
+        val, met = loss.value((hidden, Wg), batch)
+        val.backward()
+        res.update(loss=val.detach(), acc=met["acc"], grad_h=h.grad,
+                   grad_W=Wg.grad)
+        for kind in ("gn_vp", "fisher_vp"):
+            ch, cw = getattr(loss, kind)((ce["h"], W), batch, (ce["uh"], uW))
+            if split:       # the backbone's copy_to_model sums it
+                ch = tp.all_reduce(ch, mesh.group("model"))
+            res[kind + "_h"], res[kind + "_W"] = ch, cw
+        return res
+
+    whole_ce = run_ce(ce["W"], ce["uW"], False)
+    with reg():
+        split_ce = run_ce(ce["W"][:, cols].contiguous(),
+                          ce["uW"][:, cols].contiguous(), True)
+    for k, v in whole_ce.items():
+        out["ce_whole." + k] = v.numpy()
+        out["ce_split." + k] = split_ce[k].numpy()
+    out["ce_cols"] = np.asarray([cols.start, cols.stop])
+
+    # gradients and GN products of whole models, against one process
+    for name in TP_GRAD_CASES:
+        cfg = tp_grad_cfg(name)
+        model = get_model(cfg)
+        params = model.init(0, device="cpu")
+        b = draw(0, batch=TP_BATCH, seq_len=SEQ, vocab=cfg.vocab_size,
+                 device="cpu")
+        b["labels"] = b["tokens"]
+        fwd, spec = lm_forward(cfg, model), ChunkedCELoss()
+        gen = torch.Generator().manual_seed(3)
+        v = {k: torch.randn(p.shape, generator=gen) * 1e-2
+             for k, p in params.items()}
+        _, _, g_one = grad_and_loss(fwd, spec, params, b)
+        gv_one = {mode: make_curvature_ops(fwd, spec, params, b,
+                                           mode=mode).gnvp(v)
+                  for mode in ("rematvp", "linearize")}
+        ss = param_shardings(cfg, mesh, params)
+        mine = {k: ss[k].place(p) for k, p in params.items()}
+        vmine = {k: ss[k].place(t) for k, t in v.items()}
+        split = data_splits(ss)
+        layout = tm.Layout({k: tuple(p.shape) for k, p in mine.items()},
+                           split_groups(ss), split_replicas(ss))
+        with fsdp.step_context(cfg, mesh, ss), tm.reducing(layout):
+            _, _, g = grad_and_loss(fwd, spec, mine, b, mesh=mesh,
+                                    data_split=split)
+            gv = {mode: make_curvature_ops(fwd, spec, mine, b, mode=mode,
+                                           mesh=mesh, data_split=split
+                                           ).gnvp(vmine)
+                  for mode in ("rematvp", "linearize")}
+            dots = torch.stack([tm.vdot(g, vmine), tm.norm(g)])
+            with torch.no_grad():
+                logits = model.forward(mine, b)[0]
+        out[f"{name}/dots"] = dots.numpy()
+        with torch.no_grad():
+            out[f"{name}/logits_rel"] = np.asarray(float(
+                (logits - model.forward(params, b)[0]).abs().max()
+                / logits.abs().max()))
+        out[f"{name}/dots_one"] = torch.stack(
+            [tm.vdot(g_one, v), tm.norm(g_one)]).numpy()
+        for k in params:
+            out[f"{name}/g.{k}"] = fsdp.gather_whole(g[k], ss[k]).numpy()
+            out[f"{name}/g_one.{k}"] = g_one[k].numpy()
+            out[f"{name}/share.{k}"] = np.asarray(g[k].shape)
+            for mode in gv:
+                out[f"{name}/gv_{mode}.{k}"] = fsdp.gather_whole(
+                    gv[mode][k], ss[k]).numpy()
+                out[f"{name}/gv_one_{mode}.{k}"] = gv_one[mode][k].numpy()
     return out
