@@ -5069,9 +5069,24 @@ TP_TIMEOUT_S = 600
 TP_PM_F32_REL, TP_PM_BF16_REL = 1e-5, 2.0 ** -7
 # (b) recurrentgemma-9b at phase 13's full width, 3 layers (rglru, rglru,
 # local), B 2 x T 4096, one SGD step: the local layer's windowed kernels
-# on each rank's 8 query heads and the one kv head, G 8 (phase 13: 16, 1)
+# on each rank's 8 query heads and the one kv head, G 8 (phase 13: 16, 1);
+# the RG-LRU blocks on each rank's 2048 of the 4096 channels, their MLPs
+# on half the columns
 TP_RG_BATCH = 2
 TP_RG_LOCAL = (TP_RG_BATCH, RG_TRAIN_SEQ, 16 // TP_RANKS, 1, 256, 2048)
+# (c) xlstm-125m at full width (d 768, 4 heads), 4 layers (one period: 3
+# mLSTM, 1 sLSTM, as phase 12's training), B 8 x T 512, one NGHF update at
+# (a)'s settings: each rank computes 2 of the 4 heads of every block and
+# half the vocab
+TP_XL_BATCH, TP_XL_SEQ = 8, 512
+# (d) whisper-base at full size (phase 9's B 16 x T 448): its gradient on
+# the 1x2 mesh against one process's (the same bf16 arithmetic, the
+# row-parallel sums in another order: phase 13's limit), and one Adam
+# step; each rank computes 4 of the 8 heads of every attention, half of
+# every MLP's columns and half of ``dec_pos``'s rows; the vocab (51865)
+# does not divide, so its unit runs whole
+TP_WH_GRAD_REL_L2 = RG_GRAD_REL_L2
+TP_WH_ADAM_LR = 3e-4
 
 
 class watched_gathers:
@@ -5120,11 +5135,13 @@ class watched_gathers:
          layers.swa_attention) = self.saved
 
 
-def tp_layer_times(cfg, mesh, ss, params, batch) -> dict:
-    """Layer 0's forward under CUDA events, in turns (whole, split, split,
-    whole): gathered whole over "model" (phase 15's layer: storage only)
-    and on this rank's share of the heads and the FFN; the outputs' rel-L2
-    (bf16 sums in another order)."""
+def tp_layer_times(cfg, mesh, ss, params, batch, prefix="periods.slot0.",
+                   kind="attn") -> dict:
+    """A layer's forward (period 0 of the ``kind`` block at ``prefix``)
+    under CUDA events, in turns (whole, split, split, whole): gathered
+    whole over "model" (phase 15's layer: storage only) and on this
+    rank's share of its unit; the outputs' rel-L2 (bf16 sums in another
+    order)."""
     from repro_torch.launch import fsdp
     from repro_torch.models import blocks as B
     from repro_torch.models.transformer import gathered
@@ -5138,8 +5155,8 @@ def tp_layer_times(cfg, mesh, ss, params, batch) -> dict:
     def layer(split: bool):
         with torch.no_grad(), fsdp.compute_specs(mesh, specs, cast=True,
                                                  cfg=cfg if split else None):
-            p = gathered(cfg, params, "periods.slot0.", 0)
-            return B.block_apply(cfg, "attn", p, x, pos)[0]
+            p = gathered(cfg, params, prefix, 0)
+            return B.block_apply(cfg, kind, p, x, pos)[0]
 
     rel = rel_l2(layer(True), layer(False))
     turns = {True: [], False: []}
@@ -5186,13 +5203,11 @@ def tp_rank_qwen(mesh, dev, tmp: str, rank: int) -> dict:
 
 
 def tp_rank_rg(mesh, dev, tmp: str, rank: int) -> dict:
-    """(b) on this rank: its shares placed from the whole draw; the
-    gradient on the tensor-parallel kernel path (watched and counted)
-    against the one-process plain path's (this rank's shares of the
-    memory-mapped ``rg_plain.<key>.npy``; a leaf both ranks hold whole
-    counted once); then one
+    """(b) on this rank: its shares placed from the whole draw; RG-LRU
+    block 0's forward timed both ways; the gradient on the
+    tensor-parallel kernel path (watched and counted) against the
+    one-process plain path's (``tp_grad_rel`` on ``rg_plain``); then one
     SGD step through ``build_step`` on the mesh, counted and timed."""
-    import torch.distributed as dist
     from repro_torch.configs.base import get_config
     from repro_torch.core.curvature import grad_and_loss
     from repro_torch.core.optim.base import data_splits
@@ -5210,6 +5225,9 @@ def tp_rank_rg(mesh, dev, tmp: str, rank: int) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     b = tp_rg_batch(cfg, dev)
+    layer = tp_layer_times(cfg, mesh, ss, params, b, "periods.slot0.",
+                           "rglru")
+    torch.cuda.reset_peak_memory_stats()
     reset_counts()
     with watched_gathers(mesh) as used, fsdp.step_context(cfg, mesh, ss):
         loss, _, g = grad_and_loss(lm_forward(cfg, model), ChunkedCELoss(),
@@ -5217,18 +5235,8 @@ def tp_rank_rg(mesh, dev, tmp: str, rank: int) -> dict:
                                    data_split=data_splits(ss))
     grad_counts = bwd_counts()[:3]
     grad_fwd = swa_counts()
-    sums = torch.zeros(2, dtype=torch.float64)
-    for k in g:
-        if ss[k].pieces() == 1 and rank:
-            continue
-        whole = np.load(os.path.join(tmp, f"rg_plain.{k}.npy"),
-                        mmap_mode="c")
-        p = ss[k].place(torch.from_numpy(whole)).float()
-        sums[0] += float(((g[k].float() - p) ** 2).sum())
-        sums[1] += float((p ** 2).sum())
-        del p, whole
+    grad_rel = tp_grad_rel(g, ss, tmp, "rg_plain", rank)
     del g
-    dist.all_reduce(sums)
     step, opt = build_step(cfg, "sgd", lr=RG_TRAIN_LR, mesh=mesh,
                            state_sharding=ss)
     state = opt.init(params, state_sharding=ss)
@@ -5239,12 +5247,135 @@ def tp_rank_rg(mesh, dev, tmp: str, rank: int) -> dict:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    out = {"grad_rel": float((sums[0] / sums[1]) ** 0.5),
+    out = {"grad_rel": grad_rel,
            "loss": float(loss), "grad_launches": list(grad_counts),
            "grad_forward": list(grad_fwd), "step_s": dt,
            "step_launches": list(bwd_counts()[:3]),
            "step_forward": list(swa_counts()),
-           "step_loss": float(m["loss"]), "peak": peak, "used": used}
+           "step_loss": float(m["loss"]), "peak": peak, "used": used,
+           "layer": layer}
+    del params, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_grad_rel(g: dict, ss: dict, tmp: str, stem: str, rank: int) -> float:
+    """The relative L2 over every leaf of the gradient whose shares this
+    rank holds (``g``) against one process's whole gradient, saved as
+    ``<stem>.<key>.npy`` (memory-mapped, this rank's share placed from
+    it); a leaf every rank holds whole counted once.  All ranks call
+    it."""
+    import torch.distributed as dist
+    sums = torch.zeros(2, dtype=torch.float64)
+    for k in g:
+        if ss[k].pieces() == 1 and rank:
+            continue
+        whole = np.load(os.path.join(tmp, f"{stem}.{k}.npy"), mmap_mode="c")
+        p = ss[k].place(torch.from_numpy(whole)).float()
+        sums[0] += float(((g[k].float() - p) ** 2).sum())
+        sums[1] += float((p ** 2).sum())
+        del p, whole
+    dist.all_reduce(sums)
+    return float((sums[0] / sums[1]) ** 0.5)
+
+
+def tp_xlstm_cfg():
+    from repro_torch.configs.base import get_config
+    return get_config(XLSTM_ARCH).replace(num_layers=XLSTM_TRAIN_LAYERS)
+
+
+def tp_xlstm_batch(cfg, dev) -> dict:
+    from repro_torch.data.synthetic import lm_batch
+    return lm_batch(0, batch=TP_XL_BATCH, seq_len=TP_XL_SEQ,
+                    vocab=cfg.vocab_size, device=dev)
+
+
+def tp_rank_xlstm(mesh, dev, tmp: str, rank: int) -> dict:
+    """(c) on this rank: its shares placed from the whole draw, an mLSTM
+    layer's and the sLSTM layer's forward timed both ways, one NGHF update
+    with candidates (counted, watched, timed) and one without (the last
+    iterate, saved)."""
+    from repro_torch.launch.sharding import param_shardings
+    from repro_torch.models.registry import get_model
+    cfg = tp_xlstm_cfg()
+    start = get_model(cfg).init(SEED, device=dev)
+    ss = param_shardings(cfg, mesh, start)
+    params = {k: ss[k].place(v) for k, v in start.items()}
+    del start
+    torch.cuda.empty_cache()
+    batch = tp_xlstm_batch(cfg, dev)
+    slot = {kind: f"periods.slot{cfg.block_pattern.index(kind)}."
+            for kind in ("mlstm", "slstm")}
+    layers = {kind: tp_layer_times(cfg, mesh, ss, params, batch, prefix,
+                                   kind) for kind, prefix in slot.items()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with watched_gathers(mesh) as used:
+        _, m, dt, nbytes = fsdp_one_update(cfg, params, batch, mesh, ss,
+                                           **FSDP_RANK_ITERS,
+                                           **FSDP_RANK_OPT)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    new, _, dt_last, _ = fsdp_one_update(cfg, params, batch, mesh, ss,
+                                         eval_candidates=False,
+                                         **FSDP_RANK_ITERS, **FSDP_RANK_OPT)
+    torch.save({k: v.cpu() for k, v in new.items()},
+               os.path.join(tmp, f"rank{rank}_c.pt"))
+    del params, new
+    torch.cuda.empty_cache()
+    return {"metrics": m, "launches": launches, "s": dt, "s_last": dt_last,
+            "theta_bytes": nbytes, "peak": peak, "used": used,
+            "layers": layers}
+
+
+def tp_whisper_batch(cfg, dev) -> dict:
+    """Phase 9's batch 0 (B 16 x T 448 with its frame embeddings)."""
+    return lm_train_batch(cfg, 0, dev)
+
+
+def tp_rank_whisper(mesh, dev, tmp: str, rank: int) -> dict:
+    """(d) on this rank: its shares placed from the whole draw; the
+    gradient (watched, timed) against one process's (this rank's shares
+    of the memory-mapped ``wh_one.<key>.npy``); then one Adam step
+    through ``build_step`` on the mesh, timed."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.curvature import grad_and_loss
+    from repro_torch.core.optim.base import data_splits
+    from repro_torch.launch import fsdp
+    from repro_torch.launch.sharding import param_shardings
+    from repro_torch.launch.steps import build_step, lm_forward
+    from repro_torch.losses.chunked_lm import ChunkedCELoss
+    from repro_torch.models.registry import get_model
+    cfg = get_config(LM_TRAIN_ARCH)
+    model = get_model(cfg)
+    start = model.init(SEED, device=dev)
+    ss = param_shardings(cfg, mesh, start)
+    params = {k: ss[k].place(v) for k, v in start.items()}
+    del start
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    b = tp_whisper_batch(cfg, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with watched_gathers(mesh) as used, fsdp.step_context(cfg, mesh, ss):
+        loss, _, g = grad_and_loss(lm_forward(cfg, model), ChunkedCELoss(),
+                                   params, b, mesh=mesh,
+                                   data_split=data_splits(ss))
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    grad_rel = tp_grad_rel(g, ss, tmp, "wh_one", rank)
+    del g
+    step, opt = build_step(cfg, "adam", lr=TP_WH_ADAM_LR, mesh=mesh,
+                           state_sharding=ss)
+    state = opt.init(params, state_sharding=ss)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, m = step(params, state, b)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out = {"grad_rel": grad_rel, "loss": float(loss), "grad_s": grad_s,
+           "step_s": dt, "step_loss": float(m["loss"]),
+           "peak": torch.cuda.max_memory_allocated(), "used": used}
     del params, state
     torch.cuda.empty_cache()
     return out
@@ -5252,7 +5383,7 @@ def tp_rank_rg(mesh, dev, tmp: str, rank: int) -> dict:
 
 def tp_rank(rank: int, world: int, tmp: str, device: str) -> None:
     """One of the gloo ranks of phase 16 on the card, a (1, world) mesh:
-    (a) then (b); its records written to ``tmp``."""
+    (a) to (d); its records written to ``tmp``."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_debug_mesh
     try:
@@ -5266,7 +5397,9 @@ def tp_rank(rank: int, world: int, tmp: str, device: str) -> None:
                          mesh.device_mesh.get_coordinate()))
         rec = {"model_index": coord["model"],
                "a": tp_rank_qwen(mesh, dev, tmp, rank),
-               "b": tp_rank_rg(mesh, dev, tmp, rank)}
+               "b": tp_rank_rg(mesh, dev, tmp, rank),
+               "c": tp_rank_xlstm(mesh, dev, tmp, rank),
+               "d": tp_rank_whisper(mesh, dev, tmp, rank)}
         dist.barrier()
         dist.destroy_process_group()
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
@@ -5289,7 +5422,8 @@ def tp_one_process(dev, tmp: str) -> dict:
     """The one-process references: (a) qwen2.5-3b's update with
     candidates and without (the last iterate), on the card; (b)
     recurrentgemma-9b's gradient on the plain path (attention's plain
-    version), saved to ``tmp`` for the ranks."""
+    version), saved to ``tmp`` for the ranks; (c) xlstm-125m's update as
+    (a)'s; (d) whisper-base's gradient, saved for the ranks."""
     from repro_torch.configs.base import get_config
     from repro_torch.core.curvature import grad_and_loss
     from repro_torch.launch.steps import lm_forward
@@ -5328,6 +5462,39 @@ def tp_one_process(dev, tmp: str) -> dict:
         np.save(os.path.join(tmp, f"rg_plain.{k}.npy"), v.cpu().numpy())
     out["b"] = {"loss": float(loss), "save_s": time.perf_counter() - t0,
                 "n_leaves": len(g)}
+    del g
+    torch.cuda.empty_cache()
+    cfg = tp_xlstm_cfg()
+    start = get_model(cfg).init(SEED, device=dev)
+    batch = tp_xlstm_batch(cfg, dev)
+    torch.cuda.reset_peak_memory_stats()
+    _, m_one, t_one, bytes_one = fsdp_one_update(
+        cfg, start, batch, **FSDP_RANK_ITERS, **FSDP_RANK_OPT)
+    peak_one = torch.cuda.max_memory_allocated()
+    last_one, _, _, _ = fsdp_one_update(
+        cfg, start, batch, eval_candidates=False, **FSDP_RANK_ITERS,
+        **FSDP_RANK_OPT)
+    out["c"] = {"start": {k: v.cpu() for k, v in start.items()},
+                "last": {k: v.cpu() for k, v in last_one.items()},
+                "metrics": m_one, "s": t_one, "theta_bytes": bytes_one,
+                "peak": peak_one}
+    del start, last_one
+    torch.cuda.empty_cache()
+    cfg = get_config(LM_TRAIN_ARCH)
+    model = get_model(cfg)
+    params = model.init(SEED, device=dev)
+    b = tp_whisper_batch(cfg, dev)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _, g = grad_and_loss(lm_forward(cfg, model), ChunkedCELoss(),
+                               params, b)
+    torch.cuda.synchronize()
+    out["d"] = {"loss": float(loss), "grad_s": time.perf_counter() - t0,
+                "peak": torch.cuda.max_memory_allocated()}
+    del params
+    for k, v in g.items():
+        np.save(os.path.join(tmp, f"wh_one.{k}.npy"), v.cpu().numpy())
     del g
     torch.cuda.empty_cache()
     return out
@@ -5462,7 +5629,8 @@ def phase_tp(dev, errs: dict) -> dict:
     of the card, a (1, 2) mesh: (a) qwen2.5-3b's NGHF update against one
     process's, (b) recurrentgemma-9b's gradient against one process's
     plain path and one SGD step, the windowed kernels at its local
-    shape."""
+    shape, (c) xlstm-125m's NGHF update against one process's, (d)
+    whisper-base's gradient against one process's and one Adam step."""
     import tempfile
     from repro_torch.configs.base import get_config
     from repro_torch.models.registry import get_model
@@ -5482,6 +5650,8 @@ def phase_tp(dev, errs: dict) -> dict:
                 for r in range(TP_RANKS)]
         shares = [torch.load(Path(tmp, f"rank{r}_a.pt"))
                   for r in range(TP_RANKS)]
+        shares_c = [torch.load(Path(tmp, f"rank{r}_c.pt"))
+                    for r in range(TP_RANKS)]
     order = sorted(range(TP_RANKS), key=lambda r: recs[r]["model_index"])
     tag = f"gloo 1x2 {DENSE_ARCH}"
     # (a) the decision, the last iterate, the split, the launches
@@ -5545,7 +5715,20 @@ def phase_tp(dev, errs: dict) -> dict:
           f"rel-L2 {[x['grad_rel'] for x in b]} (limit {RG_GRAD_REL_L2})")
     geometry = [[list(TP_RG_LOCAL[:3]) + [TP_RG_LOCAL[4]],
                  list(TP_RG_LOCAL[:2]) + [1, TP_RG_LOCAL[4]]]]
+    rg_cfg = get_config(LM_ARCH)
+    rg_dim = rg_cfg.rglru_dim or rg_cfg.d_model
+    want_b = {"periods.slot0.w_x": [rg_cfg.d_model, rg_dim // TP_RANKS],
+              "periods.slot0.w_rec_gate": [rg_dim, rg_dim // TP_RANKS],
+              "periods.slot0.w_out": [rg_dim // TP_RANKS, rg_cfg.d_model],
+              "periods.slot0.mlp.w_in": [rg_cfg.d_model,
+                                         rg_cfg.d_ff // TP_RANKS],
+              "periods.slot0.conv_b": [rg_dim]}
     for r, rec in enumerate(b):
+        check(all(rec["used"][k] == v for k, v in want_b.items())
+              and rec["used"]["model_gathers"] == 0,
+              f"gloo 1x2 {LM_ARCH} rank {r}: leaves used at "
+              f"{ {k: rec['used'][k] for k in want_b} }, "
+              f"{rec['used']['model_gathers']} gathers over 'model'")
         check(rec["grad_forward"] == [1, 0] and rec["grad_launches"]
               == [1, 1, 0] and rec["step_forward"] == [1, 0]
               and rec["step_launches"] == [1, 1, 0]
@@ -5561,8 +5744,12 @@ def phase_tp(dev, errs: dict) -> dict:
         f"layers, B {TP_RG_BATCH} x T {RG_TRAIN_SEQ}: the local layer's "
         f"attention on each rank's {TP_RG_LOCAL[2]} query heads and "
         f"{TP_RG_LOCAL[3]} kv head (forward, dq and dk/dv once a gradient, "
-        f"tensor-core), the RG-LRU blocks gathered whole "
-        f"({b[0]['used']['model_gathers']} gathers over 'model' a "
+        f"tensor-core), the RG-LRU blocks on each rank's "
+        f"{rg_dim // TP_RANKS} of {rg_dim} channels and their MLPs on half "
+        f"the columns (leaves used at "
+        + ", ".join(f"{k.split('.', 2)[-1]} {tuple(v)}"
+                    for k, v in want_b.items())
+        + f", {b[0]['used']['model_gathers']} gathers over 'model' a "
         f"gradient); gradient vs the one-process plain path rel-L2 "
         f"{grad_rel:.4g} (limit {RG_GRAD_REL_L2}), loss "
         + ", ".join(f"{x['loss']:.6f}" for x in b)
@@ -5571,9 +5758,21 @@ def phase_tp(dev, errs: dict) -> dict:
         f"13's one process at B 2: about 790 ms), peak device memory a "
         f"rank " + ", ".join(f"{x['peak'] / 1e9:.3f}" for x in b)
         + f" GB; the plain gradient ({b1['n_leaves']} leaves) saved for "
-        f"the ranks in {b1['save_s']:.3f} s")
+        f"the ranks in {b1['save_s']:.3f} s; RG-LRU block 0's forward "
+        "split " + ", ".join(f"{x['layer']['split_ms']:.3f}" for x in b)
+        + " ms vs gathered whole " + ", ".join(
+            f"{x['layer']['whole_ms']:.3f}" for x in b)
+        + " ms a rank (turns " + "; ".join(
+            str({k: [round(t, 3) for t in v]
+                 for k, v in x["layer"]["turns"].items()}) for x in b)
+        + "), outputs rel-L2 " + ", ".join(f"{x['layer']['rel']:.3g}"
+                                           for x in b))
+    xl = tp_check_xlstm(one["c"], [rec["c"] for rec in recs], shares_c,
+                        order)
+    wh = tp_check_whisper(one["d"], [rec["d"] for rec in recs])
     dt = time.perf_counter() - t_phase
-    log(f"phase 16 (tensor-parallel compute) {dt:.3f} s (local kernels and "
+    log(f"phase 16 (tensor-parallel compute, (a) to (d)) {dt:.3f} s (local "
+        f"kernels and "
         f"row products {t_kern:.3f}, one process {t_one:.3f}, ranks "
         f"{dt - t_kern - t_one:.3f})")
     tp_launches = {"dq": b[0]["grad_launches"][0] + b[0]["step_launches"][0],
@@ -5587,9 +5786,139 @@ def phase_tp(dev, errs: dict) -> dict:
                    "tp_gloo_theta_ratio": ratio,
                    "tp_gloo_peak_gb": [x["peak"] / 1e9 for x in a],
                    "tp_gloo_delta_rel_l2": rel,
-                   "tp_gloo_launches_per": per},
+                   "tp_gloo_launches_per": per, **xl},
             "local": local, "launches": tp_launches, "rows": rows,
-            "grad_rel": grad_rel}
+            "grad_rel": grad_rel, "whisper": wh}
+
+
+def tp_check_xlstm(one: dict, c: list, shares: list, order: list) -> dict:
+    """(c)'s checks against one process: the decision, the last-iterate
+    Δθ, replicated leaves bitwise equal across ranks, the leaves used at
+    their split shapes with no gather over "model", the CG launches; the
+    log line; the ``cg_fused_update`` row's ``tp_xlstm_*`` keys."""
+    from repro_torch.models.registry import get_model
+    cfg = tp_xlstm_cfg()
+    shapes = get_model(cfg).param_shapes()
+    per = fsdp_launches(len(shapes), **FSDP_RANK_ITERS)
+    tag = f"gloo 1x2 {XLSTM_ARCH}"
+    text = same_choice(f"{tag} vs one process", c[0]["metrics"],
+                       one["metrics"])
+    whole = tp_put_together(cfg, shares, order, shapes, tag)
+    rel = delta_rel_l2(whole, one["last"], one["start"])
+    check(rel <= TP_DELTA_REL_L2, f"{tag}: last-iterate Δθ vs one process "
+          f"rel-L2 {rel:.3g}")
+    d, H = cfg.d_model, cfg.num_heads
+    inner = int(cfg.proj_factor * d)
+    s = cfg.block_pattern.index("slstm")
+    want = {"periods.slot0.w_q": [inner, inner // TP_RANKS],
+            "periods.slot0.w_up": [d, inner // TP_RANKS],
+            "periods.slot0.w_if": [inner // TP_RANKS, 2 * H],
+            "periods.slot0.w_down": [inner // TP_RANKS, d],
+            f"periods.slot{s}.w_zifo": [d, 4 * d // TP_RANKS],
+            f"periods.slot{s}.r_zifo": [4, H // TP_RANKS, d // H, d // H],
+            f"periods.slot{s}.w_up": [d, inner // TP_RANKS],
+            "embed.table": [cfg.vocab_size // TP_RANKS, d]}
+    for r, rec in enumerate(c):
+        check(all(rec["used"][k] == v for k, v in want.items())
+              and rec["used"]["model_gathers"] == 0,
+              f"{tag} rank {r}: leaves used at "
+              f"{ {k: rec['used'][k] for k in want} }, "
+              f"{rec['used']['model_gathers']} gathers over 'model'")
+        launches = {k: 0 for k in rec["launches"]}
+        launches["cg_fused_update"] = per
+        check(rec["launches"] == launches,
+              f"{tag} rank {r}: launches {rec['launches']}, want {launches}")
+    ratio = [rec["theta_bytes"] / one["theta_bytes"] for rec in c]
+    lay = {kind: [rec["layers"][kind] for rec in c]
+           for kind in ("mlstm", "slstm")}
+    log(f"{tag} on one card, tensor-parallel compute (each rank "
+        f"{H // TP_RANKS} of {H} heads of every mLSTM and sLSTM block, half "
+        f"the tied vocab; "
+        f"leaves used at "
+        + ", ".join(f"{k.split('.', 2)[-1]} {tuple(v)}"
+                    for k, v in want.items())
+        + ", no gather over 'model'), full width, "
+        f"{XLSTM_TRAIN_LAYERS} layers, B={TP_XL_BATCH}, T={TP_XL_SEQ}, NGHF "
+        f"({FSDP_RANK_ITERS['cg_iters']} CG, {FSDP_RANK_ITERS['ng_iters']} NG "
+        f"iterations), warm start, Fisher diagonal: vs one process {text}; "
+        f"last-iterate Δθ rel-L2 {rel:.4g} (limit {TP_DELTA_REL_L2}); ranks "
+        f"equal on every replicated leaf; θ-sized bytes a rank "
+        + ", ".join(str(r["theta_bytes"]) for r in c)
+        + f" against one process's {one['theta_bytes']} (ratio "
+        + ", ".join(f"{x:.4f}" for x in ratio) + "); peak device memory a "
+        "rank " + ", ".join(f"{r['peak'] / 1e9:.3f}" for r in c)
+        + f" GB (one process {one['peak'] / 1e9:.3f} GB); update with "
+        "candidates " + ", ".join(f"{r['s']:.3f}" for r in c)
+        + " s a rank, without " + ", ".join(f"{r['s_last']:.3f}" for r in c)
+        + f" s (one process {one['s']:.3f} s); {per} cg_fused_update "
+        "launches a rank; " + "; ".join(
+            f"{kind} layer's forward split "
+            + ", ".join(f"{x['split_ms']:.3f}" for x in v)
+            + " ms vs gathered whole " + ", ".join(f"{x['whole_ms']:.3f}"
+                                                   for x in v)
+            + " ms a rank (turns " + "; ".join(
+                str({k: [round(t, 3) for t in tt]
+                     for k, tt in x["turns"].items()}) for x in v)
+            + "), outputs rel-L2 " + ", ".join(f"{x['rel']:.3g}" for x in v)
+            for kind, v in lay.items()))
+    return {"tp_xlstm_gloo_update_s": [x["s"] for x in c],
+            "tp_xlstm_gloo_theta_ratio": ratio,
+            "tp_xlstm_gloo_peak_gb": [x["peak"] / 1e9 for x in c],
+            "tp_xlstm_gloo_delta_rel_l2": rel,
+            "tp_xlstm_gloo_launches_per": per}
+
+
+def tp_check_whisper(one: dict, d_: list) -> dict:
+    """(d)'s checks: the gradient against one process's, the leaves used
+    at their split shapes (the vocab whole) with no gather over "model",
+    a finite Adam step; the log line."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.encdec import DEC_POSITIONS
+    cfg = get_config(LM_TRAIN_ARCH)
+    tag = f"gloo 1x2 {LM_TRAIN_ARCH}"
+    d, hq = cfg.d_model, cfg.num_heads * cfg.resolved_head_dim
+    want = {"encoder.layer0.attn.wq": [d, hq // TP_RANKS],
+            "decoder.layer0.self_attn.wo": [hq // TP_RANKS, d],
+            "decoder.layer0.cross_attn.wq": [d, hq // TP_RANKS],
+            "decoder.layer0.cross_attn.wk": [d, hq // TP_RANKS],
+            "encoder.layer0.mlp.w_in": [d, cfg.d_ff // TP_RANKS],
+            "dec_pos": [DEC_POSITIONS // TP_RANKS, d],
+            "embed.lm_head": [d, cfg.vocab_size // TP_RANKS
+                              if cfg.vocab_size % TP_RANKS == 0
+                              else cfg.vocab_size]}
+    rel = d_[0]["grad_rel"]
+    check(all(x["grad_rel"] == rel for x in d_) and rel <= TP_WH_GRAD_REL_L2,
+          f"{tag}: gradient vs one process rel-L2 "
+          f"{[x['grad_rel'] for x in d_]} (limit {TP_WH_GRAD_REL_L2})")
+    for r, rec in enumerate(d_):
+        check(all(rec["used"][k] == v for k, v in want.items())
+              and rec["used"]["model_gathers"] == 0,
+              f"{tag} rank {r}: leaves used at "
+              f"{ {k: rec['used'][k] for k in want} }, "
+              f"{rec['used']['model_gathers']} gathers over 'model'")
+        check(np.isfinite(rec["step_loss"]), f"{tag} rank {r}: Adam step "
+              f"loss {rec['step_loss']}")
+    log(f"{tag} on one card, tensor-parallel compute (each rank "
+        f"{cfg.num_heads // TP_RANKS} of {cfg.num_heads} heads of every "
+        f"attention, the cross attention's included, half of every MLP's "
+        f"columns and of dec_pos's rows; the {cfg.vocab_size}-token vocab "
+        + ("split" if cfg.vocab_size % TP_RANKS == 0 else "whole")
+        + "; leaves used at "
+        + ", ".join(f"{k} {tuple(v)}" for k, v in want.items())
+        + ", no gather over 'model'), full size, B "
+        f"{LM_TRAIN_BATCH} x T {LM_TRAIN_SEQ}: gradient vs one process "
+        f"rel-L2 {rel:.4g} (limit {TP_WH_GRAD_REL_L2}), loss "
+        + ", ".join(f"{x['loss']:.6f}" for x in d_)
+        + f" vs {one['loss']:.6f}; gradient " + ", ".join(
+            f"{x['grad_s'] * 1e3:.3f}" for x in d_)
+        + f" ms a rank (one process {one['grad_s'] * 1e3:.3f} ms); Adam "
+        "step " + ", ".join(f"{x['step_s'] * 1e3:.3f}" for x in d_)
+        + " ms a rank, loss " + ", ".join(f"{x['step_loss']:.6f}" for x in d_)
+        + "; peak device memory a rank " + ", ".join(
+            f"{x['peak'] / 1e9:.3f}" for x in d_)
+        + f" GB (one process's gradient {one['peak'] / 1e9:.3f} GB)")
+    return {"grad_rel": rel, "grad_s": [x["grad_s"] for x in d_],
+            "step_s": [x["step_s"] for x in d_]}
 
 
 def tp_keys(row: dict, tp: dict, name: str, key: str) -> None:

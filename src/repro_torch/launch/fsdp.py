@@ -12,22 +12,31 @@ the layer runs, and each leaf is gathered to its compute spec
 
   * a leaf of a unit that tensor-parallel compute splits
     (``launch.sharding.tp_unit``: an attention-family block's ``attn``,
-    ``mlp`` and ``moe`` leaves, the embedding's ``table`` and
-    ``lm_head``) is gathered over its data axes only and keeps its
-    "model" split: each rank computes its share of the heads, FFN
-    columns, experts or vocabulary (``launch.tensor_parallel``).  Such a
-    leaf the unit uses whole on every rank (kv projections whose heads
-    "model" does not divide, the q/k norms) then passes through
-    Megatron's f (``_CopyToModel``), so its gradient sums the ranks'
-    partial ones; the MoE router does not (its combine weights do).
-    Which units are split is decided once a step, from the stored
-    layout (``compute_specs``), and the unit's leaves reach the model as
-    a ``SplitUnit``, which carries the decision (``Split``): the model
+    ``mlp`` and ``moe`` leaves, an RG-LRU, mLSTM or sLSTM block's
+    temporal leaves and an RG-LRU block's ``mlp``, every attention and
+    MLP of an encoder-decoder arch and its ``dec_pos``, the embedding's
+    ``table`` and ``lm_head``) is gathered over its data axes only and
+    keeps its "model" split: each rank computes its share of the heads,
+    channels, FFN columns, experts, positions or vocabulary
+    (``launch.tensor_parallel``).  Such a leaf the unit uses whole on
+    every rank (kv projections whose heads "model" does not divide, the
+    q/k norms, a vector the unit reads in part: ``conv_b``,
+    ``log_lambda``, ``b_if``, ``b_zifo``) then passes through Megatron's
+    f (``_CopyToModel``), so its gradient sums the ranks' partial ones;
+    the MoE router does not (its combine weights do).  A recurrent
+    block's unit is the block's own dict, with an explicit leaf set
+    (``sharding.TP_UNIT_LEAVES``): its norms and its MLP sit beside
+    those leaves, and are gathered as any other leaf and as a unit of
+    their own.  Which units are split is decided once a step, from the
+    stored layout and whether the unit's heads divide
+    (``compute_specs``), and the unit's leaves reach the model as a
+    ``SplitUnit``, which carries the decision (``Split``): the model
     reads it there;
-  * every other leaf (the RG-LRU and xLSTM blocks', an encoder-decoder
-    arch's, the norms, a unit "model" does not divide) is gathered
-    whole, every split dim over its axis's group, and the ranks along
-    "model" compute the same thing with it.
+  * every other leaf (the norms, a unit "model" does not divide: an
+    xLSTM block whose heads it does not divide, a vocabulary such as
+    whisper-base's 51865) is gathered whole, every split dim over its
+    axis's group, and the ranks along "model" compute the same thing
+    with it.
 
 A float matrix (ndim >= 2) is cast to the compute dtype before the
 gather under 2d storage, as the reference does, so the gather moves
@@ -53,7 +62,10 @@ curvature products) all run through it:
 
 f and g (``_CopyToModel``, ``_ReduceFromModel``) are autograd
 Functions with jvps over the custom-op ``all_reduce`` in the same way;
-``launch.tensor_parallel`` puts them at a split unit's edges.
+``launch.tensor_parallel`` puts them at a split unit's edges.  So is
+the activation gather inside a split unit (``_GatherFromModel``: the
+custom-op all-gather forward and jvp, a reduce-scatter backward, since
+each rank reads the gathered tensor with its own columns).
 
 ``step_context(cfg, mesh, shardings)`` registers the stored shardings
 for one step (``launch.steps.build_step``); with no mesh, and outside
@@ -81,7 +93,8 @@ from repro_torch.core.functorch_levels import (first_order_only,
                                                outside_transforms, rewrap,
                                                unwrap_one_level)
 from repro_torch.launch.mesh import DATA_AXES
-from repro_torch.launch.sharding import TP_UNITS, compute_pspec, tp_unit
+from repro_torch.launch.sharding import (TP_UNITS, compute_pspec,
+                                         tp_divides, tp_unit)
 
 # the names of newer PyTorch releases, where the old ones are deprecated
 _all_gather = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
@@ -92,7 +105,8 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single",
 class Split(NamedTuple):
     """How tensor-parallel compute splits a unit over the mesh's
     "model" axis: ``by`` "heads", "columns" (of the FFN, or of every
-    expert), "experts" or "vocab"; the model ``group``, this rank's
+    expert), "experts", "vocab", "channels" (an RG-LRU block's) or
+    "positions" (``dec_pos``'s rows); the model ``group``, this rank's
     coordinate ``index`` on it, and its ``extent``."""
     by: str
     group: object
@@ -103,7 +117,9 @@ class Split(NamedTuple):
 class SplitUnit(dict):
     """A split unit's leaves as ``gather_for_compute`` hands them to
     the model: ``split`` (its ``Split``) and ``whole`` (the names of the
-    leaves it uses whole on every rank)."""
+    leaves it uses whole on every rank).  A recurrent block's unit also
+    holds the block's entries outside it (its norms, and its MLP, a unit
+    of its own), gathered as any other leaf."""
 
     def __init__(self, leaves: dict, split: Split, whole: frozenset):
         super().__init__(leaves)
@@ -173,7 +189,10 @@ def _split_units(cfg, mesh, specs: dict) -> dict:
     """{unit path: ``Split``} of the units tensor-parallel compute
     splits (none without ``cfg``): each unit of ``launch.sharding.
     tp_unit`` whose deciding leaf (``TP_UNITS``) the stored layout splits
-    over "model".  A MoE unit is split "by" its experts where their dim
+    over "model" and whose own computation divides
+    (``sharding.tp_divides``).  A unit's path is its deciding leaf's
+    parent: the ``attn`` dict's, a recurrent block's own, "" for
+    ``dec_pos``.  A MoE unit is split "by" its experts where their dim
     is, else by every expert's columns."""
     if cfg is None:
         return {}
@@ -183,7 +202,8 @@ def _split_units(cfg, mesh, specs: dict) -> dict:
         keys = path.split(".")
         unit = tp_unit(cfg, keys)
         if not unit or keys[-1] != TP_UNITS[unit][0] \
-                or not _model_split(mesh, spec):
+                or not _model_split(mesh, spec) \
+                or not tp_divides(cfg, unit, mesh.extent("model")):
             continue
         by = TP_UNITS[unit][1]
         if by == "experts" and not _model_split(mesh, _entries(spec, 3)[:1]):
@@ -348,6 +368,39 @@ class _ReduceFromModel(torch.autograd.Function):
         return rewrap(out, level)
 
 
+class _GatherFromModel(torch.autograd.Function):
+    """An activation's last dim gathered over ``_GROUPS[gid]`` (the
+    model group), forward and jvp; the backward sums the ranks'
+    cotangents of the whole tensor and keeps this rank's slice
+    (reduce-scatter), since each rank uses the gathered tensor in its own
+    way (its heads, its columns).  ``_Gather``'s "model" slice is for a
+    leaf every rank uses the same way."""
+
+    @staticmethod
+    def forward(x, gid: int):
+        return _gather_op(x, x.dim() - 1, gid)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.gid = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        (g,), level = unwrap_one_level((g,))
+        first_order_only((g,), 0, "model-group gather")
+        with outside_transforms():
+            out = _scatter_sum(g, g.dim() - 1, _GROUPS[ctx.gid])
+        return rewrap(out, level), None
+
+    @staticmethod
+    def jvp(ctx, t, _):
+        (t,), level = unwrap_one_level((t,))
+        first_order_only((t,), 0, "model-group gather")
+        with outside_transforms():
+            out = _gather_op(t, t.dim() - 1, ctx.gid)
+        return rewrap(out, level)
+
+
 def _entries(spec, ndim: int) -> list:
     """The spec's entries for a leaf of ``ndim`` dims: a period slice of
     a stacked leaf drops the leading (None) entry; a short spec is
@@ -428,6 +481,12 @@ def gather_for_compute(tree, compute_dtype=None, prefix: str = ""):
         if split is not None:
             leaves, whole = {}, set()
             for k, x in node.items():
+                if isinstance(x, dict):     # a block's norm, its MLP
+                    leaves[k] = walk(x, f"{path}{k}.")
+                    continue
+                if not tp_unit(reg.cfg, (path + k).split(".")):
+                    leaves[k] = leaf(x, path + k, None)[0]
+                    continue
                 x, shared = leaf(x, path + k, split)
                 if not shared:
                     whole.add(k)

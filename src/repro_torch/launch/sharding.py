@@ -25,9 +25,12 @@ on every leaf).  The LM trainer stores each parameter and θ-sized state
 leaf as this rank's share by ``param_shardings`` (``NamedSharding.
 place``) and gathers it where it is used (``launch.fsdp``) to its
 ``compute_pspec``: over the data axes only for a leaf of a unit
-``tp_unit`` names that the layout splits over "model", which each rank
-then uses as its share of the heads, FFN columns, experts or
-vocabulary (``launch.tensor_parallel``), and whole for any other.
+``tp_unit`` names that the layout splits over "model" and whose heads
+divide (``tp_divides``), which each rank then uses as its share of the
+heads, channels, FFN columns, experts, positions or vocabulary
+(``launch.tensor_parallel``): the attention-family blocks, the RG-LRU,
+mLSTM and sLSTM blocks, an encoder-decoder arch's layers and
+``dec_pos``, the embedding; and whole for any other leaf.
 ``input_shardings`` is held against the reference's by the tests;
 placing the serving caches by it is ROADMAP 1.4 part 2, step 5.
 ``placements`` maps a spec to ``torch.distributed.tensor`` placements.
@@ -179,17 +182,34 @@ def compute_pspec(cfg, mesh, path_keys, shape) -> P:
 
 
 ATTENTION_KINDS = ("attn", "swa", "local", "moe", "swamoe")
+RECURRENT_KINDS = ("rglru", "mlstm", "slstm")
 # the units tensor-parallel compute splits: (the leaf whose stored spec
 # decides whether the unit is split, what it is split by; a MoE whose
 # experts "model" does not divide is split by their columns)
 TP_UNITS = {"attn": ("wq", "heads"), "mlp": ("w_in", "columns"),
-            "moe": ("w_in", "experts"), "embed": ("table", "vocab")}
+            "moe": ("w_in", "experts"), "embed": ("table", "vocab"),
+            "rglru": ("w_x", "channels"), "mlstm": ("w_q", "heads"),
+            "slstm": ("r_zifo", "heads"), "positions": ("dec_pos",
+                                                        "positions")}
+# the leaves of a recurrent block's temporal unit: the block's norms and
+# its MLP (a unit of its own) sit beside them in the block's dict
+TP_UNIT_LEAVES = {
+    "rglru": ("w_x", "w_y", "conv_w", "conv_b", "w_input_gate",
+              "w_rec_gate", "log_lambda", "w_out"),
+    "mlstm": ("w_up", "w_gate", "conv_w", "conv_b", "w_q", "w_k", "w_v",
+              "w_if", "b_if", "w_down"),
+    "slstm": ("w_zifo", "b_zifo", "r_zifo", "w_up", "w_down"),
+}
+_ENCDEC_ATTENTION = ("attn", "self_attn", "cross_attn")
 
 
 def block_kind(cfg, path_keys) -> str:
     """The ``block_pattern`` kind of the layer a leaf path lies in
-    (``periods.slot<s>...`` or ``rest.rest<i>...``), or "" for a leaf of
-    no layer (the embeddings, the final norm)."""
+    (``periods.slot<s>...`` or ``rest.rest<i>...`` of a decoder-only
+    arch), or "" for a leaf of no such layer (the embeddings, the final
+    norm, an encoder-decoder arch's layers)."""
+    if cfg.is_encoder_decoder:
+        return ""
     if len(path_keys) > 1 and path_keys[0] == "periods":
         return cfg.block_pattern[int(path_keys[1][len("slot"):])]
     if len(path_keys) > 1 and path_keys[0] == "rest":
@@ -199,19 +219,55 @@ def block_kind(cfg, path_keys) -> str:
 
 def tp_unit(cfg, path_keys) -> str:
     """The unit of ``TP_UNITS`` whose tensor-parallel compute consumes
-    the leaf at ``path_keys``, or "": an attention-family block's
-    ``attn``, ``mlp`` and ``moe`` leaves and the embedding's ``table``
-    and ``lm_head`` of a decoder-only arch.  The RG-LRU and xLSTM blocks'
-    leaves and an encoder-decoder arch's run whole on every rank (ROADMAP
-    1.4 part 2, step 3, second half)."""
-    if cfg.is_encoder_decoder:
-        return ""
+    the leaf at ``path_keys``, or "":
+
+      * the embedding's ``table`` and ``lm_head`` ("embed");
+      * an attention-family block's ``attn``, ``mlp`` and ``moe`` leaves;
+      * a recurrent block's temporal leaves (``TP_UNIT_LEAVES``: "rglru",
+        "mlstm", "slstm", the unit at the block's own path) and an
+        RG-LRU block's ``mlp``; its norms are in no unit;
+      * an encoder-decoder arch's ``attn``, ``self_attn`` and
+        ``cross_attn`` ("attn"), its ``mlp``s and ``dec_pos``
+        ("positions", the unit at the root path "").
+
+    Whether a unit is split on a mesh is ``tp_divides``' and the stored
+    layout's call (``launch.fsdp.compute_specs``)."""
     if path_keys[0] == "embed":
         return "embed" if path_keys[-1] in ("table", "lm_head") else ""
-    if len(path_keys) >= 2 and path_keys[-2] in ("attn", "mlp", "moe") \
-            and block_kind(cfg, path_keys) in ATTENTION_KINDS:
+    if cfg.is_encoder_decoder:
+        if list(path_keys) == ["dec_pos"]:
+            return "positions"
+        if len(path_keys) >= 2 and path_keys[0] in ("encoder", "decoder"):
+            if path_keys[-2] in _ENCDEC_ATTENTION:
+                return "attn"
+            if path_keys[-2] == "mlp":
+                return "mlp"
+        return ""
+    kind = block_kind(cfg, path_keys)
+    if len(path_keys) < 3:
+        return ""
+    if kind in ATTENTION_KINDS and path_keys[-2] in ("attn", "mlp", "moe"):
         return path_keys[-2]
+    if kind == "rglru" and path_keys[-2] == "mlp":
+        return "mlp"
+    if kind in RECURRENT_KINDS and len(path_keys) == 3 \
+            and path_keys[-1] in TP_UNIT_LEAVES[kind]:
+        return kind
     return ""
+
+
+def tp_divides(cfg, unit: str, extent: int) -> bool:
+    """Whether a unit's own computation divides over ``extent`` ranks of
+    "model" where its deciding leaf's spec splits (its guard checks only
+    that leaf's dim): attention, the mLSTM and the sLSTM split by whole
+    heads (m | H; the guard on xlstm's 1536-wide ``w_q`` alone would cut
+    a 384-wide head 8 ways), and the sLSTM's up-projection by its
+    columns too."""
+    if unit in ("attn", "mlstm", "slstm") and cfg.num_heads % extent:
+        return False
+    if unit == "slstm":
+        return int(cfg.proj_factor * cfg.d_model) % extent == 0
+    return True
 
 
 def tp_leaf(cfg, path_keys) -> bool:

@@ -2,10 +2,10 @@
 
 Port of what GSPMD does with the reference's 1d compute specs
 (``repro.launch.fsdp.make_spec_fn``): under a mesh whose "model" extent
-m is above 1, ``launch.fsdp.gather_for_compute`` hands the model an
-attention-family block's ``attn``, ``mlp`` and ``moe`` leaves and the
-embedding's vocab leaves still split over "model", and each rank
-computes its share of the unit, as Megatron-LM does:
+m is above 1, ``launch.fsdp.gather_for_compute`` hands the model the
+leaves of every unit ``launch.sharding.tp_unit`` names still split over
+"model", and each rank computes its share of the unit, as Megatron-LM
+does:
 
   * attention: H/m query heads and the kv heads they read (the rank's
     own kv share when m divides K; else the matching heads of the whole
@@ -16,7 +16,15 @@ computes its share of the unit, as Megatron-LM does:
     does not divide E (``launch.sharding.param_pspec``'s rule);
   * the embedding: the V/m rows of the table it holds (``vocab_embed``),
     and the head: V/m logit columns, which the chunked CE
-    (``losses.chunked_lm``) normalises over the group (``vocab_shard``).
+    (``losses.chunked_lm``) normalises over the group (``vocab_shard``);
+  * an RG-LRU block: its rg/m channels (``models.blocks``), the gate
+    products reading the whole conv output (``gather_from_model``);
+  * an mLSTM or sLSTM block: its H/m heads, where m divides H
+    (``launch.sharding.tp_divides``; else the block runs whole);
+  * an encoder-decoder arch: the attention family's rules for its
+    encoder and decoder attention, cross attention (``models.encdec.
+    _cross``) and MLPs, and its learned positions from the P/m rows of
+    ``dec_pos`` it holds (``position_embed``).
 
 Between the units the activations, the norms and the residual are whole
 on every rank (tensor parallelism without sequence parallelism).  The
@@ -28,14 +36,26 @@ two conjugate operators at a unit's edges:
   * ``reduce_from_model`` (g): sums the ranks' partial outputs over the
     model group, forward and jvp; the identity backward.
 
-Both are ``launch.fsdp``'s ``autograd.Function``s (``_CopyToModel``,
-``_ReduceFromModel``), whose collective is its ``torch.library``
+Inside a unit, where one product's column split does not line up with
+what the rank computes next (the RG-LRU's (rg, rg) gate matrices, the
+mLSTM's q/k/v, the sLSTM's gate-major ``w_zifo`` and its ``w_up``), the
+activation moves, never the weight: ``gather_from_model`` all-gathers
+its last dim forward and jvp, and its backward reduce-scatters the
+ranks' partial cotangents.  A tensor every rank reads a different part
+of after a g (the mLSTM's gate pre-activations) passes through f after
+it.
+
+All three are ``launch.fsdp``'s ``autograd.Function``s (``_CopyToModel``,
+``_ReduceFromModel``, ``_GatherFromModel``), whose collectives are its
+``torch.library``
 all-reduce, launched outside the ``torch.func`` levels
 (``core.functorch_levels``), as ``launch.fsdp._Gather``'s: autograd,
 ``torch.func.vjp``, ``jvp`` and ``linearize`` (the curvature products)
 run through them.  A leaf a split unit uses whole on every rank passes
 through f on its way in (``gather_for_compute``), so its gradient is the
-sum of the ranks' partial ones; the MoE router's does not, since the
+sum of the ranks' partial ones (a vector it reads in part, as the
+RG-LRU's ``conv_b``, is then cut by ``shard``); the MoE router's does
+not, since the
 load-balance aux reads its probabilities whole on every rank: f sits on
 the combine weights instead (``models.layers.moe_apply``).
 
@@ -71,6 +91,22 @@ def copy_to_model(x: torch.Tensor, split: fsdp.Split) -> torch.Tensor:
 def reduce_from_model(x: torch.Tensor, split: fsdp.Split) -> torch.Tensor:
     """g: the sum over the model group of the ranks' partial ``x``."""
     return fsdp._ReduceFromModel.apply(x, fsdp._group_id(split.group))
+
+
+def gather_from_model(x: torch.Tensor, split: fsdp.Split) -> torch.Tensor:
+    """The whole of an activation whose last dim each rank holds its
+    share of (in model order), for a product that reads all of it but
+    computes the rank's own columns or heads: all-gathered forward and
+    jvp; the backward sums the ranks' partial cotangents and keeps this
+    rank's share (reduce-scatter)."""
+    return fsdp._GatherFromModel.apply(x, fsdp._group_id(split.group))
+
+
+def shard(x: torch.Tensor, split: fsdp.Split, dim: int = -1) -> torch.Tensor:
+    """This rank's 1/m of ``x`` along ``dim`` (its channels of a vector
+    the unit holds whole, its heads of a whole activation), a view."""
+    n = x.shape[dim] // split.extent
+    return x.narrow(dim, split.index * n, n)
 
 
 # ---------------------------------------------------------------------------
@@ -131,6 +167,15 @@ def vocab_embed(tokens: torch.Tensor, table: torch.Tensor, dtype,
     rows = F.embedding(local.clamp(0, size - 1), table).to(dtype)
     rows = torch.where(inside[..., None], rows, rows.new_zeros(()))
     return reduce_from_model(rows, split)
+
+
+def position_embed(T: int, table: torch.Tensor, dtype,
+                   split: fsdp.Split):
+    """Learned positions 0..T-1 (T, d) from this rank's rows of the
+    positions table, summed over the model group (``vocab_embed`` of the
+    positions): the same bits as the whole table's first T rows."""
+    return vocab_embed(torch.arange(T, device=table.device), table, dtype,
+                       split)
 
 
 def gather_vocab(logits: torch.Tensor, split: fsdp.Split) -> torch.Tensor:

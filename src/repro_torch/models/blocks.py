@@ -26,12 +26,35 @@ immutable, ``block_decode`` writes the new token's cache entries into
 the given cache tensors in place and returns them: a step then never
 copies a cache.
 
-Under tensor-parallel compute (``launch.tensor_parallel``) an attention
-block's attention and FFN or MoE run on this rank's share of their
-leaves: f at their entry and g at their exit (in ``models.layers``'
-projections, MLP and MoE), the norms and the residual whole on every
-rank; a windowed kind's attention runs on the rank's query heads and
-the kv heads they read, whose counts the kernels read off the shapes.
+Under tensor-parallel compute (``launch.tensor_parallel``) every kind's
+sequence forward runs on this rank's share of its unit's leaves, f
+(``copy_to_model``) at the unit's entry and g (``reduce_from_model``)
+after its row-parallel product (``layers.row_parallel``), the norms
+and the residual whole on every rank:
+
+  * an attention block's attention and FFN or MoE (in ``models.layers``'
+    projections, MLP and MoE); a windowed kind's attention runs on the
+    rank's query heads and the kv heads they read, whose counts the
+    kernels read off the shapes;
+  * an RG-LRU block on its rg/m channels: ``w_x``/``w_y`` columns, the
+    conv and the scan on those channels, the gate products (whose
+    (rg, rg) matrices are split by columns) reading the whole u through
+    ``gather_from_model``, ``w_out``'s rows; then its MLP as its own
+    split unit;
+  * an mLSTM block on its H/m heads: ``w_up``/``w_gate`` columns and the
+    conv on the heads' channels, q/k/v from the whole u
+    (``gather_from_model``), the gates from ``w_if``'s rows summed by g
+    (then f, since each rank reads its heads' gates of the sum), the
+    chunkwise recurrence on the rank's heads, ``w_down``'s rows;
+  * an sLSTM block on its H/m heads: ``w_zifo``'s columns (gate-major)
+    gathered whole and the rank's heads taken, the time loop on those
+    heads with no collective inside it, then ``w_up`` on the whole h
+    (``gather_from_model``) and ``w_down``'s rows.
+
+A vector the unit holds whole but reads in part (``conv_b``,
+``log_lambda``, ``b_if``, ``b_zifo``) passes through f on its way in
+(``launch.fsdp.gather_for_compute``) and is cut to the rank's channels
+here (``tensor_parallel.shard``).  Decode never runs split.
 """
 from __future__ import annotations
 
@@ -44,6 +67,7 @@ import torch.nn.functional as F
 from repro_torch.core.functorch_levels import (first_order_only,
                                                outside_transforms, rewrap,
                                                unwrap_one_level, wrapped)
+from repro_torch.launch import tensor_parallel as tp
 from repro_torch.models import layers as L
 
 # ---------------------------------------------------------------------------
@@ -201,14 +225,19 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def _rglru_gates(p, u):
+def _rglru_gates(p, u, split=None):
     """u: (..., rg) post-conv input.  Returns (log_a, gated_input) in f32.
     The gate products are f32 matmuls on f32 weights, as the reference's
-    (``device.set_numerics`` keeps TF32 off on the card)."""
+    (``device.set_numerics`` keeps TF32 off on the card).  On a share of
+    the channels (``split``; u the rank's rg/m) they read the whole u,
+    gathered in f32, and give the rank's columns."""
     uf = u.float()
-    rg = torch.sigmoid(uf @ p["w_rec_gate"].float())
-    ig = torch.sigmoid(uf @ p["w_input_gate"].float())
-    log_a = -_RG_C * rg * _softplus(p["log_lambda"].float())
+    uw = uf if split is None else tp.gather_from_model(uf, split)
+    lam = p["log_lambda"] if split is None else tp.shard(p["log_lambda"],
+                                                         split)
+    rg = torch.sigmoid(uw @ p["w_rec_gate"].float())
+    ig = torch.sigmoid(uw @ p["w_input_gate"].float())
+    log_a = -_RG_C * rg * _softplus(lam.float())
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6))
     return log_a, beta * ig * uf
 
@@ -286,25 +315,36 @@ class _LinearScan(torch.autograd.Function):
         return rewrap(d_a, level), rewrap(lam, level)
 
 
-def rglru_scan(p, u):
-    """RG-LRU over time, h_t = a_t h_{t-1} + x_t, u: (B,T,rg).
+def rglru_scan(p, u, split=None):
+    """RG-LRU over time, h_t = a_t h_{t-1} + x_t, u: (B,T,rg) (the rank's
+    channels on a share, ``split``; the scan needs no collective).
 
     The reference's ``jax.lax.associative_scan`` becomes a log-depth
     doubling scan in f32 (``_LinearScan``, differentiated by hand).  It
     combines the same pairs in another tree than XLA's, so it agrees with
     the reference to f32 rounding, not bitwise.  The gates stay plain
     PyTorch under autograd."""
-    log_a, x = _rglru_gates(p, u)
+    log_a, x = _rglru_gates(p, u, split)
     return _LinearScan.apply(torch.exp(log_a), x).to(u.dtype)
+
+
+def _unit_input(h, p, split):
+    """(h through f on a share, the unit's ``conv_b`` or the rank's
+    channels of it)."""
+    if split is None:
+        return h, p["conv_b"]
+    return tp.copy_to_model(h, split), tp.shard(p["conv_b"], split)
 
 
 def rglru_block_apply(cfg, p, x, positions):
     h = L.norm_apply(cfg, p["ln1"], x)
+    split = tp.split_of(p)
+    h, conv_b = _unit_input(h, p, split)
     u = h @ p["w_x"].to(h.dtype)
     y = h @ p["w_y"].to(h.dtype)
-    u = causal_conv1d(u, p["conv_w"], p["conv_b"])
-    r = rglru_scan(p, u)
-    out = (r * F.gelu(y, approximate="tanh")) @ p["w_out"].to(h.dtype)
+    u = causal_conv1d(u, p["conv_w"], conv_b)
+    r = rglru_scan(p, u, split)
+    out = L.row_parallel(r * F.gelu(y, approximate="tanh"), p["w_out"], split)
     x = x + out
     h = L.norm_apply(cfg, p["ln2"], x)
     return x + L.mlp_apply(cfg, p["mlp"], h), 0.0
@@ -370,17 +410,28 @@ def init_mlstm_block(cfg, init, *, lead=()):
     }
 
 
-def _mlstm_qkvif(cfg, p, u):
+def _mlstm_qkvif(cfg, p, u, split=None):
     """u: (B,T,inner) conv output -> q,k,v (B,T,H,hd) in u's dtype,
-    log_i/log_f (B,T,H) f32."""
+    log_i/log_f (B,T,H) f32.  On a share of the heads (``split``; u the
+    rank's inner/m channels) q, k and v are the rank's H/m heads of the
+    whole u's projections, and the gates those heads' of the ranks'
+    partial products summed (g), then entering the rank's heads through
+    f (each rank reads another part of the sum)."""
     inner, H, hd = _mlstm_dims(cfg)
     B, T, _ = u.shape
     dt = u.dtype
-    q = (u @ p["w_q"].to(dt)).reshape(B, T, H, hd)
-    k = (u @ p["w_k"].to(dt)).reshape(B, T, H, hd) / math.sqrt(hd)
-    v = (u @ p["w_v"].to(dt)).reshape(B, T, H, hd)
-    gif = (u @ p["w_if"].to(dt) + p["b_if"].to(dt)).float()
-    return q, k, v, gif[..., :H], F.logsigmoid(gif[..., H:])
+    uw = u if split is None else tp.gather_from_model(u, split)
+    q = (uw @ p["w_q"].to(dt)).reshape(B, T, -1, hd)
+    k = (uw @ p["w_k"].to(dt)).reshape(B, T, -1, hd) / math.sqrt(hd)
+    v = (uw @ p["w_v"].to(dt)).reshape(B, T, -1, hd)
+    if split is None:
+        gif = (u @ p["w_if"].to(dt) + p["b_if"].to(dt)).float()
+        return q, k, v, gif[..., :H], F.logsigmoid(gif[..., H:])
+    gif = tp.copy_to_model(tp.reduce_from_model(
+        L.partial_matmul(u, p["w_if"]), split), split)
+    gif = (gif.to(dt) + p["b_if"].to(dt)).float()
+    log_i, log_f = (tp.shard(t, split) for t in (gif[..., :H], gif[..., H:]))
+    return q, k, v, log_i, F.logsigmoid(log_f)
 
 
 def _mlstm_step(carry, inp):
@@ -459,17 +510,17 @@ def mlstm_block_apply(cfg, p, x, positions, *, time_chunk: int = 64):
     """mLSTM over a sequence through ``mlstm_chunkwise`` (the reference
     runs ``_mlstm_step`` as a scan in rematted time chunks; the function
     is the same, ``time_chunk`` sets only the memory)."""
-    inner, H, hd = _mlstm_dims(cfg)
     B, T, _ = x.shape
     h0 = L.norm_apply(cfg, p["ln"], x)
+    split = tp.split_of(p)
+    h0, conv_b = _unit_input(h0, p, split)
     u = h0 @ p["w_up"].to(h0.dtype)
     g = h0 @ p["w_gate"].to(h0.dtype)
-    u = F.silu(causal_conv1d(u, p["conv_w"], p["conv_b"]))
-    q, k, v, log_i, log_f = _mlstm_qkvif(cfg, p, u)
+    u = F.silu(causal_conv1d(u, p["conv_w"], conv_b))
+    q, k, v, log_i, log_f = _mlstm_qkvif(cfg, p, u, split)
     hs = mlstm_chunkwise(q, k, v, log_i, log_f, time_chunk)
-    hs = hs.reshape(B, T, inner).to(x.dtype)
-    out = (hs * F.silu(g)) @ p["w_down"].to(x.dtype)
-    return x + out, 0.0
+    hs = hs.reshape(B, T, -1).to(x.dtype)
+    return x + L.row_parallel(hs * F.silu(g), p["w_down"], split), 0.0
 
 
 def init_mlstm_cache(cfg, batch, *, lead=(), device=None):
@@ -795,21 +846,35 @@ def _slstm_reverse_step(consts, carry, xs):
     return (gc, gn, gm, f, g_pre), (g_pre,)
 
 
-def _slstm_inputs(cfg, p, x):
+def _slstm_inputs(cfg, p, x, split=None):
     """The input pre-activations (z, i, f, o) of x (B,T,d) in f32, laid
-    out head-major for ``_slstm_step``: (T,H,B,4*hd)."""
+    out head-major for ``_slstm_step``: (T,H,B,4*hd).  On a share of the
+    heads (``split``) the rank's columns of ``w_zifo`` (gate-major: z, i,
+    f, o of every head) are gathered whole and its H/m heads taken:
+    (T,H/m,B,4*hd)."""
     B, T, d = x.shape
     H = cfg.num_heads
     h0 = L.norm_apply(cfg, p["ln"], x)
-    wx = h0 @ p["w_zifo"].to(h0.dtype) + p["b_zifo"].to(h0.dtype)
-    return wx.float().reshape(B, T, 4, H, d // H).permute(
-        1, 3, 0, 2, 4).reshape(T, H, B, 4 * (d // H))
+    b = p["b_zifo"]
+    if split is not None:
+        h0, b = tp.copy_to_model(h0, split), tp.shard(b, split)
+    wx = h0 @ p["w_zifo"].to(h0.dtype) + b.to(h0.dtype)
+    if split is not None:
+        wx = tp.gather_from_model(wx, split)
+    wx = wx.float().reshape(B, T, 4, H, d // H)
+    if split is not None:
+        wx = tp.shard(wx, split, dim=3)
+    return wx.permute(1, 3, 0, 2, 4).reshape(T, wx.shape[3], B, 4 * (d // H))
 
 
-def _slstm_out(p, hs, x):
-    """hs (B,T,d) in x's dtype -> the block's output x + MLP(hs)."""
+def _slstm_out(p, hs, x, split=None):
+    """hs (B,T,d) in x's dtype (the rank's heads' channels on a share,
+    ``split``, gathered whole for ``w_up``'s columns) -> the block's
+    output x + MLP(hs)."""
+    if split is not None:
+        hs = tp.gather_from_model(hs, split)
     up = F.gelu(hs @ p["w_up"].to(x.dtype), approximate="tanh")
-    return x + up @ p["w_down"].to(x.dtype)
+    return x + L.row_parallel(up, p["w_down"], split)
 
 
 def slstm_block_apply(cfg, p, x, positions):
@@ -820,14 +885,15 @@ def slstm_block_apply(cfg, p, x, positions):
     pre-activations (no recompute) and differentiates by hand; without
     it, a plain loop that keeps only h."""
     B, T, d = x.shape
-    wx = _slstm_inputs(cfg, p, x)
+    split = tp.split_of(p)
+    wx = _slstm_inputs(cfg, p, x, split)
     R = _slstm_recurrent(p["r_zifo"])
     if torch.is_grad_enabled():
         hs = _SLSTMScan.apply(wx, R)[0]
     else:
         hs = _scan(_slstm_h_step, (R,), _slstm_zero(wx), (wx,), 1)[1][0]
-    hs = hs.permute(2, 0, 1, 3).reshape(B, T, d)
-    return _slstm_out(p, hs.to(x.dtype), x), 0.0
+    hs = hs.permute(2, 0, 1, 3).reshape(B, T, -1)
+    return _slstm_out(p, hs.to(x.dtype), x, split), 0.0
 
 
 def init_slstm_cache(cfg, batch, *, lead=(), device=None):

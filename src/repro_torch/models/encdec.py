@@ -22,8 +22,15 @@ The decode cache is a flat dict too (``"enc_out"``, ``"layer0.k"``,
 
 Under a mesh the train and prefill forwards gather each layer's leaves
 where they are used (``launch.fsdp``).  The reference leaves its 1d
-archs (whisper-base) to GSPMD's tensor parallelism; the port has no
-GSPMD, so it gathers here too.
+archs (whisper-base) to GSPMD's tensor parallelism; here, where the
+mesh's "model" extent is above 1, each rank computes its share
+(``launch.tensor_parallel``), as the decoder-only archs' attention
+blocks do: the heads of the encoder's and the decoder's attention and
+of the cross attention (``_cross``: the decoder states and the encoder
+output both enter through f, so the encoder's gradient is the group's
+sum), the MLPs' columns, the vocabulary where "model" divides it, and
+``dec_pos``'s rows (``tensor_parallel.position_embed``).  Decode runs
+whole.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ import torch
 
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.launch import fsdp
+from repro_torch.launch import tensor_parallel as tp
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import flatten, gathered, nest
 
@@ -133,13 +141,21 @@ def encode(cfg, params, enc_input):
 
 
 def _cross(cfg, p, h, enc_out):
-    """Cross attention of the decoder states ``h`` over ``enc_out``."""
+    """Cross attention of the decoder states ``h`` over ``enc_out``; on a
+    share of the heads both enter through ``copy_to_model``, and the
+    memory's kv heads are those the rank's query heads read."""
     B, T = h.shape[:2]
-    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    hd = cfg.resolved_head_dim
+    split = tp.split_of(p)
+    if split:
+        h, enc_out = tp.copy_to_model(h, split), tp.copy_to_model(enc_out,
+                                                                  split)
     dt = h.dtype
-    q = (h @ p["wq"].to(dt)).reshape(B, T, H, hd)
-    mk = (enc_out @ p["wk"].to(dt)).reshape(B, -1, K, hd)
-    mv = (enc_out @ p["wv"].to(dt)).reshape(B, -1, K, hd)
+    q = (h @ p["wq"].to(dt)).reshape(B, T, -1, hd)
+    mk = (enc_out @ p["wk"].to(dt)).reshape(B, enc_out.shape[1], -1, hd)
+    mv = (enc_out @ p["wv"].to(dt)).reshape(B, enc_out.shape[1], -1, hd)
+    if split and "wk" in p.whole:
+        mk, mv = tp.local_kv(mk, mv, split, cfg.num_heads)
     return L.out_project(cfg, p, L.cross_attention(q, mk, mv))
 
 
@@ -160,24 +176,41 @@ def head_matrix(cfg, params):
 
 def forward_hidden(cfg, params, batch):
     """Pre-LM-head forward: (hidden (B,T,d), aux).  batch: {"tokens":
-    (B,T) integer, "encoder_input": (B,F,d)}."""
+    (B,T) integer, "encoder_input": (B,F,d)}.  The learned positions
+    come from each rank's rows of ``dec_pos`` summed over the model
+    group where "model" splits it; for a head split over the vocabulary
+    the hidden state leaves through ``copy_to_model``."""
     tokens = batch["tokens"]
     T = tokens.shape[1]
     enc_out = encode(cfg, params, batch["encoder_input"])
-    x = L.embed_apply(cfg, gathered(cfg, params, "embed."), tokens)
-    dec_pos = fsdp.gather_for_compute({"dec_pos": params["dec_pos"]},
-                                      cfg.cdtype)["dec_pos"]
-    x = x + dec_pos[:T].to(x.dtype)[None]
+    emb = gathered(cfg, params, "embed.")
+    x = L.embed_apply(cfg, emb, tokens)
+    pos = fsdp.gather_for_compute({"dec_pos": params["dec_pos"]},
+                                  cfg.cdtype)
+    split = tp.split_of(pos)
+    if split:
+        x = x + tp.position_embed(T, pos["dec_pos"], x.dtype, split)[None]
+    else:
+        x = x + pos["dec_pos"][:T].to(x.dtype)[None]
     for i in range(cfg.num_layers):
         x = _dec_layer_seq(cfg, gathered(cfg, params, f"decoder.layer{i}."),
                            x, enc_out)
-    return L.norm_apply(cfg, gathered(cfg, params, "final_norm."), x), 0.0
+    x = L.norm_apply(cfg, gathered(cfg, params, "final_norm."), x)
+    split = tp.split_of(emb)
+    if split:
+        x = tp.copy_to_model(x, split)
+    return x, 0.0
 
 
 def forward(cfg, params, batch):
-    """Returns (logits (B,T,V) f32, aux)."""
+    """Returns (logits (B,T,V) f32, aux); a head split over the
+    vocabulary gives its columns, gathered whole."""
     x, aux = forward_hidden(cfg, params, batch)
-    logits = L.lm_head_apply(cfg, gathered(cfg, params, "embed."), x)
+    emb = gathered(cfg, params, "embed.")
+    logits = L.lm_head_apply(cfg, emb, x)
+    split = tp.split_of(emb)
+    if split:
+        logits = tp.gather_vocab(logits, split)
     return logits.float(), aux
 
 

@@ -260,17 +260,20 @@ def partial_matmul(x, w):
     return _PartialMatmul.apply(x, w)
 
 
+def row_parallel(x, w, split):
+    """x @ w; on a share of the rows of ``w`` (``split``, a
+    ``launch.fsdp.Split``, or None) the ranks' partial products summed
+    in f32 (``reduce_from_model``), then rounded to x's dtype once."""
+    if not split:
+        return x @ w.to(x.dtype)
+    return tp.reduce_from_model(partial_matmul(x, w), split).to(x.dtype)
+
+
 def out_project(cfg, p, ctx):
-    """ctx (B, T, H, hd) @ wo; on a share of the heads (its rows of
-    ``wo``) the ranks' partial outputs summed in f32
-    (``reduce_from_model``), then rounded to ctx's dtype."""
+    """ctx (B, T, H, hd) @ wo; on a share of the heads, its rows of
+    ``wo`` (``row_parallel``)."""
     B, T, H, hd = ctx.shape
-    x = ctx.reshape(B, T, H * hd)
-    split = tp.split_of(p)
-    if split:
-        return tp.reduce_from_model(partial_matmul(x, p["wo"]),
-                                    split).to(x.dtype)
-    return x @ p["wo"].to(ctx.dtype)
+    return row_parallel(ctx.reshape(B, T, H * hd), p["wo"], tp.split_of(p))
 
 
 # ---------------------------------------------------------------------------
@@ -426,10 +429,7 @@ def mlp_apply(cfg, p, x):
         h = _act(cfg.activation, x @ p["w_gate"].to(dt)) * h
     else:
         h = _act(cfg.activation, h)
-    if split:
-        return tp.reduce_from_model(partial_matmul(h, p["w_out"]),
-                                    split).to(dt)
-    return h @ p["w_out"].to(dt)
+    return row_parallel(h, p["w_out"], split)
 
 
 # ---------------------------------------------------------------------------

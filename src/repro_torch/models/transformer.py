@@ -10,9 +10,10 @@ embeddings, each layer's leaves (a stacked leaf one period at a time),
 the final norm and the head.  With no mesh they are identities, so
 parameters stay in their stored dtype (f32) and a matrix is cast at each
 use, as the reference does.  Under tensor-parallel compute
-(``launch.tensor_parallel``) the embedding, the attention-family blocks'
-attention and FFN, and the head run on this rank's share of their
-leaves: ``forward_hidden`` hands a split head its hidden state through
+(``launch.tensor_parallel``) the embedding, every block's unit (the
+attention-family blocks' attention and FFN, the RG-LRU, mLSTM and sLSTM
+blocks, ``models.blocks``) and the head run on this rank's share of
+their leaves: ``forward_hidden`` hands a split head its hidden state through
 ``copy_to_model``, ``head_matrix`` is this rank's (d, V/m) columns, and
 ``forward`` gathers the logits' vocab whole.
 

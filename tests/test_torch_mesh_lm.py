@@ -32,8 +32,10 @@ instead of summing) and 2 can; granite-moe-3b-a800m's smoke config (2x2:
 each rank computing its 2 of the 4 experts, the load-balance aux over
 the global batch); mixtral-8x22b's and recurrentgemma-9b's (1x2: the
 windowed attention on each rank's heads; recurrentgemma's RG-LRU blocks
-gathered whole); whisper-base's in 1d storage (2x2: an enc-dec arch,
-computed whole on every rank, one Adam
+on each rank's channels, their MLPs on its columns); xlstm-125m's in 1d
+storage (1x2: the mLSTM and sLSTM blocks on each rank's heads);
+whisper-base's in 1d storage (2x2: an enc-dec arch, each rank computing
+its heads, MLP columns, vocab and ``dec_pos`` rows, one Adam
 step, held to the reference and to the one-process port by the same
 parameter tolerances, and its gradient, read off Adam's first moment,
 within relative L2 1e-5 of the one-process port's.  Adam's first step
@@ -42,10 +44,12 @@ lr: its Δθ reads 2.1e-4 from the reference's for the one-process port
 itself at this batch, and 2.1e-5 between the mesh and one process).
 Also a ``train_lm`` run on a 2x1 mesh and on a 1x2 one (tensor-parallel
 compute) checkpointed after 2 updates and resumed to 3, bitwise equal to
-the uninterrupted run, its checkpoint holding whole leaves; and on 1x2,
-the shapes the model used its leaves at (``wq``, ``w_in``, ``w_out``,
-the experts and the vocab table at their split shapes) with no
-``_Gather`` over "model" but of the RG-LRU blocks' leaves.
+the uninterrupted run, its checkpoint holding whole leaves; and on 1x2
+(whisper's on 2x2), the shapes the model used its leaves at (``wq``,
+``w_in``, ``w_out``, the experts, the vocab table, the RG-LRU blocks'
+``w_x``, the xLSTM blocks' ``w_q``, ``w_zifo`` and ``r_zifo``, whisper's
+cross attention and ``dec_pos`` at their split shapes) with no
+``_Gather`` over "model".
 """
 import numpy as np
 import pytest
@@ -71,7 +75,7 @@ PARAM_RTOL, PARAM_ATOL = 1e-3, 3e-5
 DELTA_REL_L2 = 1e-5
 MESH_CASES = {"2x2": ["plain", "fused", "b6", "granite", "whisper_adam"],
               "4x1": ["plain", "fused", "b6"],
-              "1x2": ["plain", "mixtral", "rg"], "1x4": ["plain"]}
+              "1x2": ["plain", "mixtral", "rg", "xlstm"], "1x4": ["plain"]}
 # a train_lm run checkpointed and resumed, by mesh: its split leaves
 RESUME_SPLIT = {"2x1": 7, "1x2": 11}
 NGHF_RUNS = [(mesh, case) for mesh, cases in MESH_CASES.items()
@@ -98,7 +102,8 @@ def start(tmp_path_factory):
     holding the port's for the ranks)."""
     tmp = tmp_path_factory.mktemp("mesh_lm_params")
     jps, tps = {}, {}
-    for case in ("plain", "granite", "whisper_adam", "mixtral", "rg"):
+    for case in ("plain", "granite", "whisper_adam", "mixtral", "rg",
+                 "xlstm"):
         arch = LW.LM_CASES[case]["arch"]
         jps[arch] = perturb(jmodel(_jcfg(case)).init(jax.random.PRNGKey(0)),
                             1)
@@ -230,7 +235,8 @@ def test_mesh_lm_state_is_split(start, runs, mesh):
             assert split >= (10 if mesh == "2x2" else 7), (slot, split)
 
 
-# (case, the leaves used at a split shape, the leaves used whole) on 1x2
+# (case, the leaves used at a split shape, the leaves used whole) on 1x2,
+# whisper's on 2x2 (its "model" extent 2 too)
 TP_USED = {
     "plain": (("periods.slot0.attn.wq", 1), ("periods.slot0.attn.wk", 1),
               ("periods.slot0.mlp.w_in", 1), ("periods.slot0.mlp.w_out", 0),
@@ -239,35 +245,59 @@ TP_USED = {
                 ("periods.slot0.moe.w_out", 0), ("embed.lm_head", 1),
                 ("embed.table", 0)),
     "rg": (("periods.slot2.attn.wq", 1), ("periods.slot2.mlp.w_in", 1),
-           ("embed.table", 0)),
+           ("embed.table", 0), ("periods.slot0.w_x", 1),
+           ("periods.slot0.mlp.w_in", 1), ("periods.slot1.conv_w", 1),
+           ("periods.slot1.w_input_gate", 1), ("periods.slot0.w_out", 0)),
+    "xlstm": (("periods.slot0.w_q", 1), ("periods.slot1.w_up", 1),
+              ("periods.slot2.w_if", 0), ("periods.slot0.w_down", 0),
+              ("periods.slot3.w_zifo", 1), ("periods.slot3.r_zifo", 1),
+              ("periods.slot3.w_up", 1), ("embed.table", 0)),
+    "whisper_adam": (("encoder.layer0.attn.wq", 1),
+                     ("decoder.layer0.self_attn.wq", 1),
+                     ("decoder.layer1.cross_attn.wq", 1),
+                     ("decoder.layer1.cross_attn.wk", 1),
+                     ("encoder.layer1.mlp.w_out", 0), ("dec_pos", 0),
+                     ("embed.lm_head", 1)),
 }
 TP_WHOLE = {"plain": ("periods.slot0.ln1.scale",),
             "mixtral": ("periods.slot0.moe.router",),
-            "rg": ("periods.slot0.w_x", "periods.slot0.mlp.w_in",
-                   "periods.slot2.attn.wk")}
+            "rg": ("periods.slot2.attn.wk", "periods.slot0.conv_b",
+                   "periods.slot1.log_lambda", "periods.slot0.ln1.scale"),
+            "xlstm": ("periods.slot0.conv_b", "periods.slot2.b_if",
+                      "periods.slot3.b_zifo", "periods.slot3.ln.scale"),
+            "whisper_adam": ("decoder.layer0.ln_x.scale",
+                             "encoder.layer1.ln2.bias")}
+# the mesh each case's shapes are read on
+TP_MESH = {"whisper_adam": "2x2"}
 
 
 @pytest.mark.parametrize("case", sorted(TP_USED))
 def test_tp_leaves_are_used_split_without_a_model_gather(start, runs, case):
-    """On 1x2 each rank uses its half of ``wq`` (its query heads), of the
-    FFN's columns, of the experts and of the vocab table, as it stores
-    them: no ``_Gather`` over "model" for them (none at all for qwen and
-    mixtral); recurrentgemma's RG-LRU blocks (their MLP included) are
-    gathered whole, and its one kv head is whole on both ranks."""
+    """On 1x2 (whisper on 2x2) each rank uses its half of ``wq`` (its
+    query heads), of the FFN's columns, of the experts, of the vocab
+    table, of recurrentgemma's RG-LRU channels (``w_x``, the conv, the
+    gate matrices' columns, ``w_out``'s rows) and of xlstm's mLSTM and
+    sLSTM heads, of whisper's cross attention and ``dec_pos``, as it
+    stores them: no ``_Gather`` over "model" at all.  A vector the unit
+    reads in part (``conv_b``, ``log_lambda``, ``b_if``, ``b_zifo``), the
+    norms and recurrentgemma's one kv head are whole on each rank."""
     _, tps, _ = start
     tp = tps[LW.LM_CASES[case]["arch"]]
-    for o in runs[1]["1x2"]:
+    def used_whole(key) -> list:
+        return list(tp[key].shape[1:] if key.startswith("periods")
+                    else tp[key].shape)
+
+    for o in runs[1][TP_MESH.get(case, "1x2")]:
         for key, dim in TP_USED[case]:
-            want = list(tp[key].shape[1:] if key.startswith("periods")
-                        else tp[key].shape)
+            want = used_whole(key)
             want[dim] //= 2
             assert list(o[f"{case}/used.{key}"]) == want, key
         for key in TP_WHOLE[case]:
-            assert tuple(o[f"{case}/used.{key}"]) == tuple(
-                tp[key].shape[1:]), key
+            assert list(o[f"{case}/used.{key}"]) == used_whole(key), key
         n = int(o[f"{case}/model_gathers"])
-        assert (n > 0) if case == "rg" else (n == 0), n
-        assert int(o[f"{case}/gathers"]) == n     # data extent 1
+        assert n == 0, n
+        # no data axis splits these leaves (1d storage, or data extent 1)
+        assert int(o[f"{case}/gathers"]) == n
 
 
 def test_mesh_lm_adam_step_of_an_encdec_arch(start, runs):

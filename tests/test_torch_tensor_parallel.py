@@ -10,7 +10,9 @@ one thread each, ``tests/torch_mesh_lm_worker.py::tp_units``):
     used whole inside the split region: the forward, ``torch.func.jvp``
     and ``linearize`` within 1e-6 of the whole toy's and ``torch.func.
     vjp`` and autograd giving each rank its share of the whole gradient
-    within 1e-6 (the largest difference over the largest entry);
+    within 1e-6 (the largest difference over the largest entry); the
+    same of ``gather_from_model`` between two column-parallel matrices,
+    the second reading all of the first's output;
   * the vocab-parallel embedding: the whole table's rows and their
     gradient's share, the same bits;
   * the chunked CE on each rank's vocab columns (T in two chunks, some
@@ -19,15 +21,26 @@ one thread each, ``tests/torch_mesh_lm_worker.py::tp_units``):
     and of the reference's ``repro.losses.chunked_lm``, ``acc`` equal
     (the tie goes to the lowest index, as ``jnp.argmax``);
   * the gradients of the qwen2.5-3b smoke model with q/k norms (its 2 kv
-    heads whole on each rank of 1x4), granite-moe-3b-a800m's (4 experts)
-    and granite's with 2 experts (each expert's columns split 4 ways):
-    every leaf, the replicated-inside-TP ones (``wk``/``wv``/``bk``/
-    ``bv``, ``q_norm``/``k_norm``, ``router``) among them, within 1e-5 of
-    one process's, relative to the leaf's largest entry, and a GN
-    product in both curvature modes (rematvp, linearize) within relative
-    L2 1e-5; ``vdot``/``norm`` of the split gradient within rtol 1e-5;
-    the model's ``forward`` (its split head's logits gathered whole)
-    within 1e-6 of one process's, relative to the largest logit.
+    heads whole on each rank of 1x4), granite-moe-3b-a800m's (4 experts),
+    granite's with 2 experts (each expert's columns split 4 ways),
+    recurrentgemma-9b's (its RG-LRU blocks by channels, their MLPs by
+    columns), xlstm-125m's (the mLSTM and sLSTM blocks by heads),
+    whisper-base's (every attention, MLP, the vocab and ``dec_pos``) and
+    xlstm's with 2 heads (its mLSTM and sLSTM units whole on 1x4): every
+    leaf, the replicated-inside-TP ones (``wk``/``wv``/``bk``/``bv``,
+    ``q_norm``/``k_norm``, ``router``, ``conv_b``, ``log_lambda``,
+    ``b_if``, ``b_zifo``) among them, within 1e-5 of one process's,
+    relative to the leaf's largest entry, and a GN product in both
+    curvature modes (rematvp, linearize) within relative L2 1e-5;
+    ``vdot``/``norm`` of the split gradient within rtol 1e-5; the
+    model's ``forward`` (its split head's logits gathered whole) within
+    1e-6 of one process's, relative to the largest logit, for the
+    attention archs, and within 1e-5 for the recurrent and enc-dec ones,
+    whose forwards sum up to six row-parallel products (each adds
+    3-5e-7 of f32 rounding: recurrentgemma's read 1.1-1.3e-6); the units
+    split where "model" divides the heads (xlstm's with 2 heads whole on
+    1x4).  One process's results come from this process
+    (``tp_one_process``).
 
 Without processes: ``models.layers.partial_matmul`` (a row-parallel
 product of bf16 operands with an f32 result) against the f32 upcast's
@@ -38,8 +51,9 @@ one bf16 step, 2^-8, of it); ``compute_pspec`` against the reference's 1d
 ``param_pspec`` (its ``make_spec_fn``) for every leaf of every LM arch
 at full size, by shape, on 1x2, 2x2 and 1x4, its "model" entries those
 of the stored spec; ``tp_leaf``: the ``attn``, ``mlp`` and ``moe``
-leaves of the attention-family blocks and the vocab leaves, of the
-decoder-only archs only.
+leaves of the attention-family blocks, the recurrent blocks' temporal
+leaves and RG-LRU MLPs, every attention and MLP leaf of an enc-dec arch,
+its ``dec_pos``, and the vocab leaves; never a norm.
 """
 from types import SimpleNamespace
 
@@ -117,6 +131,13 @@ def units(tmp_path_factory):
         started[mesh] = W.start("torch_mesh_lm_worker:tp_units", n, tmp,
                                 mesh=mesh)
     ref = _reference(x)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        ref["one"] = {name: LW.tp_one_process(name)
+                      for name in LW.TP_GRAD_CASES}
+    finally:
+        torch.set_num_threads(n)
     return {m: W.finish(h) for m, h in started.items()}, ref
 
 
@@ -132,6 +153,16 @@ def outs(request, units):
 def test_f_and_g_match_one_process(outs, what):
     for o in outs:
         assert float(o["toy_" + what]) <= TOY_REL, (what, o["toy_" + what])
+
+
+@pytest.mark.parametrize("what", ["forward", "jvp", "linearize", "vjp",
+                                  "autograd"])
+def test_gather_from_model_matches_one_process(outs, what):
+    """An activation gathered whole over "model" and read by each rank's
+    columns: the whole toy's forward and tangents, and each rank its
+    share of the gradient (the backward's reduce-scatter)."""
+    for o in outs:
+        assert float(o["gtoy_" + what]) <= TOY_REL, (what, o["gtoy_" + what])
 
 
 def test_vocab_parallel_embedding_is_the_whole_tables(outs):
@@ -174,18 +205,24 @@ def _leaf_rel(got, want) -> float:
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
 
 
+# the leaves a split unit may use whole on every rank (f on their way in)
+INSIDE = ("wk", "wv", "bk", "bv", "q_norm", "k_norm", "router", "conv_b",
+          "log_lambda", "b_if", "b_zifo")
+
+
 @pytest.mark.parametrize("name", sorted(LW.TP_GRAD_CASES))
-def test_gradients_match_one_process(outs, name):
+def test_gradients_match_one_process(units, outs, name):
     """Every leaf's gradient, the replicated-inside-TP ones among them,
-    as one process's; on 1x4 qwen's kv leaves are whole on every rank."""
+    as one process's; on 1x4 qwen's kv leaves are whole on every rank.
+    whisper-base's smoke has none (its kv heads divide "model")."""
     cfg = LW.tp_grad_cfg(name)
     shapes = get_model(cfg).param_shapes()
-    inside = [k for k in shapes if k.split(".")[-1] in (
-        "wk", "wv", "bk", "bv", "q_norm", "k_norm", "router")]
-    assert inside
+    one = units[1]["one"][name]
+    inside = [k for k in shapes if k.split(".")[-1] in INSIDE]
+    assert inside or cfg.is_encoder_decoder
     for o in outs:
         for k in shapes:
-            assert _leaf_rel(o[f"{name}/g.{k}"], o[f"{name}/g_one.{k}"]) \
+            assert _leaf_rel(o[f"{name}/g.{k}"], one[f"g_one.{k}"]) \
                 <= GRAD_REL, k
     # the kv heads (2) whole on every rank where "model" is 4 ranks
     if name == "qwen_qk" and max(int(o["model_index"]) for o in outs) == 3:
@@ -196,39 +233,97 @@ def test_gradients_match_one_process(outs, name):
 
 @pytest.mark.parametrize("name", sorted(LW.TP_GRAD_CASES))
 @pytest.mark.parametrize("mode", ["rematvp", "linearize"])
-def test_gn_products_match_one_process(outs, name, mode):
+def test_gn_products_match_one_process(units, outs, name, mode):
     cfg = LW.tp_grad_cfg(name)
     keys = list(get_model(cfg).param_shapes())
+    one = units[1]["one"][name]
     for o in outs:
         a = np.concatenate([o[f"{name}/gv_{mode}.{k}"].ravel() for k in keys])
-        b = np.concatenate([o[f"{name}/gv_one_{mode}.{k}"].ravel()
-                            for k in keys])
+        b = np.concatenate([one[f"gv_one_{mode}.{k}"].ravel() for k in keys])
         assert np.linalg.norm(a - b) / np.linalg.norm(b) <= GRAD_REL
-        np.testing.assert_allclose(o[f"{name}/dots"], o[f"{name}/dots_one"],
+        np.testing.assert_allclose(o[f"{name}/dots"], one["dots_one"],
                                    rtol=GRAD_REL)
 
 
-def test_forward_gathers_the_split_vocab(outs):
+def _logits_rel(o, one, name) -> float:
+    got = o[f"{name}/logits"]
+    return float(np.abs(got - one[name]["logits_one"]).max()
+                 / np.abs(got).max())
+
+
+# the attention archs' cases, whose forwards hold one process's to 1e-6
+ATTENTION_CASES = ("qwen_qk", "granite", "granite_e2")
+
+
+def test_forward_gathers_the_split_vocab(units, outs):
     for o in outs:
-        for name in LW.TP_GRAD_CASES:
-            assert float(o[f"{name}/logits_rel"]) <= 1e-6, name
+        for name in ATTENTION_CASES:
+            assert _logits_rel(o, units[1]["one"], name) <= 1e-6, name
+
+
+@pytest.mark.parametrize("name", sorted(set(LW.TP_GRAD_CASES)
+                                        - set(ATTENTION_CASES)))
+def test_split_blocks_forward_matches_one_process(units, outs, name):
+    """The recurrent and enc-dec archs' logits, their vocab gathered
+    whole, within 1e-5 of one process's relative to the largest logit:
+    their forwards hold up to six row-parallel products, each rounding
+    its partial sums in another order than one process's GEMM."""
+    for o in outs:
+        assert _logits_rel(o, units[1]["one"], name) <= GRAD_REL, name
+
+
+# (case, a unit path) the step splits on a mesh whose "model" extent
+# divides the case's heads (and channels), and leaves whole otherwise
+UNIT_PATHS = {"rg": ("periods.slot0", "periods.slot0.mlp"),
+              "xlstm": ("periods.slot0", "periods.slot3"),
+              "xlstm_h2": ("periods.slot0", "periods.slot3"),
+              "whisper": ("", "encoder.layer0.attn",
+                          "decoder.layer1.cross_attn", "decoder.layer0.mlp",
+                          "embed")}
+
+
+def test_recurrent_units_split_where_the_heads_divide(outs):
+    """The RG-LRU block and its MLP, the mLSTM and sLSTM blocks and every
+    whisper unit (``dec_pos`` at the root path "") are split on every
+    mesh; xlstm's with 2 heads only where "model" is 2 ranks."""
+    for o in outs:
+        m = max(int(x["model_index"]) for x in outs) + 1
+        for name, paths in UNIT_PATHS.items():
+            units = set(o[f"{name}/units"].tolist())
+            split = not (name == "xlstm_h2" and m == 4)
+            for path in paths:
+                assert (path in units) == split, (name, path, m)
 
 
 @pytest.mark.parametrize("arch,n", [("qwen2.5-3b", 11),
-                                   ("recurrentgemma-9b", 9),
+                                   ("recurrentgemma-9b", 53),
                                    ("granite-moe-3b-a800m", 9),
-                                   ("xlstm-125m", 1), ("whisper-base", 0)])
+                                   ("xlstm-125m", 36), ("whisper-base", 99)])
 def test_tp_leaves_are_the_attention_blocks_and_the_vocab(arch, n):
     """qwen: 7 attn leaves (q/k/v with biases), 3 mlp ones and the tied
     table; recurrentgemma: its local block's 4 attn and 3 mlp leaves, the
-    table and the head (its RG-LRU blocks' none); granite: 4 attn, 4 moe
-    and the table; xlstm: the table; whisper-base (enc-dec): none."""
+    table and the head, and each of its 4 RG-LRU leaves (two of each
+    period and the two unrolled ones) 8 temporal leaves and 3 mlp ones;
+    granite: 4 attn, 4 moe and the table; xlstm: 10 leaves of each of 3
+    mLSTM blocks, 5 of its sLSTM block, and the table; whisper-base
+    (enc-dec): each encoder layer's 4 attn and 2 mlp leaves, each decoder
+    layer's 4 self_attn, 4 cross_attn and 2 mlp ones, the table, the
+    head and ``dec_pos``.  No norm."""
     cfg = get_config(arch)
     keys = [k.split(".") for k in get_model(cfg).param_shapes()]
     got = [k for k in keys if TS.tp_leaf(cfg, k)]
     assert len(got) == n, [".".join(k) for k in got]
     for k in got:
-        assert k[0] == "embed" or TS.block_kind(cfg, k) in TS.ATTENTION_KINDS
+        kind = TS.block_kind(cfg, k)
+        if k[0] == "embed" or k == ["dec_pos"]:
+            continue
+        if cfg.is_encoder_decoder:
+            assert k[-2] in ("attn", "self_attn", "cross_attn", "mlp"), k
+        elif kind in TS.RECURRENT_KINDS and len(k) == 3:
+            assert k[-1] in TS.TP_UNIT_LEAVES[kind], k
+        else:
+            assert kind in TS.ATTENTION_KINDS or k[-2] == "mlp", k
+        assert not k[-2].startswith("ln"), k
 
 
 def _mesh(**shape):

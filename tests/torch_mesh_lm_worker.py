@@ -42,6 +42,9 @@ LM_CASES = {
                     optimizer="nghf", opt=NGHF),
     "rg": dict(arch="recurrentgemma-9b", sharding="2d", batch=8,
                optimizer="nghf", opt=NGHF),
+    # the mLSTM and sLSTM blocks on each rank's heads (1d, as xlstm-125m)
+    "xlstm": dict(arch="xlstm-125m", sharding="1d", batch=8,
+                  optimizer="nghf", opt=NGHF),
 }
 ENC_SEED = 5
 
@@ -381,12 +384,20 @@ def _members(ckpt_dir: str) -> dict:
 # the replicated-inside-TP gradients: qwen2.5-3b's smoke with its q/k
 # norms on (2 kv heads: whole on every rank of a 4-way "model"), granite's
 # (4 experts, one a rank on 1x4) and granite's with 2 experts (4 ranks
-# then split every expert's columns)
+# then split every expert's columns); recurrentgemma's (the RG-LRU blocks
+# by channels, their MLPs by columns, the local block's one kv head whole
+# on every rank), xlstm's (the mLSTM and sLSTM blocks by heads), whisper's
+# (an enc-dec arch: every attention, MLP, the vocab and ``dec_pos``), and
+# xlstm's with 2 heads (whole mLSTM and sLSTM units on a 4-way "model")
 TP_GRAD_CASES = {
     "qwen_qk": dict(arch="qwen2.5-3b", over=dict(qk_norm=True)),
     "granite": dict(arch="granite-moe-3b-a800m", over={}),
     "granite_e2": dict(arch="granite-moe-3b-a800m",
                        over=dict(num_experts=2)),
+    "rg": dict(arch="recurrentgemma-9b", over={}),
+    "xlstm": dict(arch="xlstm-125m", over={}),
+    "whisper": dict(arch="whisper-base", over={}),
+    "xlstm_h2": dict(arch="xlstm-125m", over=dict(num_heads=2)),
 }
 TP_BATCH = 4
 
@@ -410,29 +421,42 @@ def _toy_tp(p: dict, split):
     return tp.reduce_from_model(y, split) if split else y
 
 
+def _toy_gather(p: dict, split):
+    """y = g(tanh(tanh(gather(f(x) @ w1) @ w2) @ w3)): w1 and w2
+    column-parallel, w2 reading all of w1's output (``gather_from_model``),
+    w3 row-parallel (``split`` the toy's ``fsdp.Split``, or None: the
+    whole toy)."""
+    from repro_torch.launch import tensor_parallel as tp
+    x = tp.copy_to_model(p["x"], split) if split else p["x"]
+    a = torch.tanh(x @ p["w1"])
+    if split:
+        a = tp.gather_from_model(a, split)
+    y = torch.tanh(a @ p["w2"]) @ p["w3"]
+    return tp.reduce_from_model(y, split) if split else y
+
+
 def tp_units(*, tmp: str, mesh: str) -> dict:
     """On a ``mesh`` of this run's ranks, with tensor-parallel compute
     registered: f and g on a toy under the forward, ``torch.func.jvp``,
     ``linearize``, ``vjp`` and autograd against the whole toy; the
     vocab-parallel embedding and the chunked CE (loss, acc, gradient, GN
     and Fisher factors) on ``ce_inputs.npz`` against the whole vocab's
-    (whose results go back for the reference); each ``TP_GRAD_CASES``
+    (whose results go back for the reference); ``gather_from_model`` on a
+    second toy likewise; each ``TP_GRAD_CASES``
     gradient through ``core.curvature.grad_and_loss`` and a GN product in
-    both curvature modes, whole, beside one process's, and its forward's
-    logits (the vocab gathered whole) against one process's."""
+    both curvature modes, whole, its forward's logits (the vocab gathered
+    whole) and the paths of the units it split; the test process holds
+    them against one process's (``tp_one_process``)."""
     import torch.nn.functional as F
     from repro_torch.configs.base import get_config
     from repro_torch.core import tree_math as tm
     from repro_torch.core.curvature import grad_and_loss, make_curvature_ops
     from repro_torch.core.optim.base import (data_splits, split_groups,
                                              split_replicas)
-    from repro_torch.data.synthetic import lm_batch as draw
     from repro_torch.launch import fsdp
     from repro_torch.launch import tensor_parallel as tp
     from repro_torch.launch.sharding import P, param_shardings
-    from repro_torch.launch.steps import lm_forward
     from repro_torch.losses.chunked_lm import ChunkedCELoss
-    from repro_torch.models.registry import get_model
     mesh = _mesh(mesh)
     m = mesh.shape["model"]
     r = dict(zip(mesh.axis_names, mesh.device_mesh.get_coordinate()))["model"]
@@ -488,6 +512,41 @@ def tp_units(*, tmp: str, mesh: str) -> dict:
         out["toy_autograd"] = np.asarray(rel_tree(
             {k: v.grad for k, v in leaves.items()}, want_g))
 
+    # gather_from_model on its toy: w1, w2 by columns, w3 by rows
+    gshapes = {"x": (4, 6), "w1": (6, 8), "w2": (8, 8), "w3": (8, 6)}
+    gwhole = {k: torch.randn(s, generator=gen) for k, s in gshapes.items()}
+    gtan = {k: torch.randn(s, generator=gen) for k, s in gshapes.items()}
+
+    def gshare(t):
+        t = dict(t)
+        for k in ("w1", "w2"):
+            t[k] = t[k][:, r * n:(r + 1) * n].contiguous()
+        t["w3"] = t["w3"][r * n:(r + 1) * n].contiguous()
+        return t
+
+    want_y = _toy_gather(gwhole, None)
+    want_j = torch.func.jvp(lambda p: _toy_gather(p, None), (gwhole,),
+                            (gtan,))[1]
+    _, pull = torch.func.vjp(lambda p: _toy_gather(p, None), gwhole)
+    want_g = gshare(pull(ct)[0])
+    mine, tmine = gshare(gwhole), gshare(gtan)
+    with reg():
+        out["gtoy_forward"] = np.asarray(rel(_toy_gather(mine, toy), want_y))
+        j = torch.func.jvp(lambda p: _toy_gather(p, toy), (mine,),
+                           (tmine,))[1]
+        out["gtoy_jvp"] = np.asarray(rel(j, want_j))
+        lin_y, lin = torch.func.linearize(lambda p: _toy_gather(p, toy), mine)
+        out["gtoy_linearize"] = np.asarray(max(
+            rel(lin(tmine), want_j),
+            rel(lin({k: 2 * v for k, v in tmine.items()}), 2 * want_j),
+            rel(lin_y, want_y)))
+        _, pull = torch.func.vjp(lambda p: _toy_gather(p, toy), mine)
+        out["gtoy_vjp"] = np.asarray(rel_tree(pull(ct)[0], want_g))
+        leaves = {k: v.clone().requires_grad_(True) for k, v in mine.items()}
+        (_toy_gather(leaves, toy) * ct).sum().backward()
+        out["gtoy_autograd"] = np.asarray(rel_tree(
+            {k: v.grad for k, v in leaves.items()}, want_g))
+
     # the vocab-parallel embedding and chunked CE
     V = ce["W"].shape[1]
     nv = V // m
@@ -527,22 +586,10 @@ def tp_units(*, tmp: str, mesh: str) -> dict:
         out["ce_split." + k] = split_ce[k].numpy()
     out["ce_cols"] = np.asarray([cols.start, cols.stop])
 
-    # gradients and GN products of whole models, against one process
+    # gradients and GN products of whole models (the test process holds
+    # them against one process's, ``tp_one_process``)
     for name in TP_GRAD_CASES:
-        cfg = tp_grad_cfg(name)
-        model = get_model(cfg)
-        params = model.init(0, device="cpu")
-        b = draw(0, batch=TP_BATCH, seq_len=SEQ, vocab=cfg.vocab_size,
-                 device="cpu")
-        b["labels"] = b["tokens"]
-        fwd, spec = lm_forward(cfg, model), ChunkedCELoss()
-        gen = torch.Generator().manual_seed(3)
-        v = {k: torch.randn(p.shape, generator=gen) * 1e-2
-             for k, p in params.items()}
-        _, _, g_one = grad_and_loss(fwd, spec, params, b)
-        gv_one = {mode: make_curvature_ops(fwd, spec, params, b,
-                                           mode=mode).gnvp(v)
-                  for mode in ("rematvp", "linearize")}
+        cfg, model, params, b, fwd, spec, v = _tp_case(name)
         ss = param_shardings(cfg, mesh, params)
         mine = {k: ss[k].place(p) for k, p in params.items()}
         vmine = {k: ss[k].place(t) for k, t in v.items()}
@@ -550,6 +597,8 @@ def tp_units(*, tmp: str, mesh: str) -> dict:
         layout = tm.Layout({k: tuple(p.shape) for k, p in mine.items()},
                            split_groups(ss), split_replicas(ss))
         with fsdp.step_context(cfg, mesh, ss), tm.reducing(layout):
+            out[f"{name}/units"] = np.asarray(
+                sorted(fsdp._REGISTRY.get().units), dtype=str)
             _, _, g = grad_and_loss(fwd, spec, mine, b, mesh=mesh,
                                     data_split=split)
             gv = {mode: make_curvature_ops(fwd, spec, mine, b, mode=mode,
@@ -558,20 +607,54 @@ def tp_units(*, tmp: str, mesh: str) -> dict:
                   for mode in ("rematvp", "linearize")}
             dots = torch.stack([tm.vdot(g, vmine), tm.norm(g)])
             with torch.no_grad():
-                logits = model.forward(mine, b)[0]
+                out[f"{name}/logits"] = model.forward(mine, b)[0].numpy()
         out[f"{name}/dots"] = dots.numpy()
-        with torch.no_grad():
-            out[f"{name}/logits_rel"] = np.asarray(float(
-                (logits - model.forward(params, b)[0]).abs().max()
-                / logits.abs().max()))
-        out[f"{name}/dots_one"] = torch.stack(
-            [tm.vdot(g_one, v), tm.norm(g_one)]).numpy()
         for k in params:
             out[f"{name}/g.{k}"] = fsdp.gather_whole(g[k], ss[k]).numpy()
-            out[f"{name}/g_one.{k}"] = g_one[k].numpy()
             out[f"{name}/share.{k}"] = np.asarray(g[k].shape)
             for mode in gv:
                 out[f"{name}/gv_{mode}.{k}"] = fsdp.gather_whole(
                     gv[mode][k], ss[k]).numpy()
-                out[f"{name}/gv_one_{mode}.{k}"] = gv_one[mode][k].numpy()
+    return out
+
+
+def _tp_case(name: str):
+    """(cfg, model, whole parameters, batch, forward, loss, tangent) of a
+    ``TP_GRAD_CASES`` case, the same on every rank and in the test
+    process."""
+    from repro_torch.data.synthetic import lm_batch as draw
+    from repro_torch.launch.steps import lm_forward
+    from repro_torch.losses.chunked_lm import ChunkedCELoss
+    from repro_torch.models.registry import get_model
+    cfg = tp_grad_cfg(name)
+    model = get_model(cfg)
+    params = model.init(0, device="cpu")
+    b = draw(0, batch=TP_BATCH, seq_len=SEQ, vocab=cfg.vocab_size,
+             device="cpu")
+    b["labels"] = b["tokens"]
+    if cfg.is_encoder_decoder:
+        b["encoder_input"] = torch.from_numpy(encoder_input(cfg, TP_BATCH))
+    gen = torch.Generator().manual_seed(3)
+    v = {k: torch.randn(p.shape, generator=gen) * 1e-2
+         for k, p in params.items()}
+    return (cfg, model, params, b, lm_forward(cfg, model), ChunkedCELoss(),
+            v)
+
+
+def tp_one_process(name: str) -> dict:
+    """One process's gradient ("g_one.<key>"), GN products in both
+    curvature modes ("gv_one_<mode>.<key>"), ``vdot``/``norm``
+    ("dots_one") and logits ("logits_one") of ``tp_units``' case
+    ``name``."""
+    from repro_torch.core import tree_math as tm
+    from repro_torch.core.curvature import grad_and_loss, make_curvature_ops
+    cfg, model, params, b, fwd, spec, v = _tp_case(name)
+    _, _, g = grad_and_loss(fwd, spec, params, b)
+    out = {"dots_one": torch.stack([tm.vdot(g, v), tm.norm(g)]).numpy()}
+    for mode in ("rematvp", "linearize"):
+        gv = make_curvature_ops(fwd, spec, params, b, mode=mode).gnvp(v)
+        out.update({f"gv_one_{mode}.{k}": t.numpy() for k, t in gv.items()})
+    out.update({f"g_one.{k}": t.numpy() for k, t in g.items()})
+    with torch.no_grad():
+        out["logits_one"] = model.forward(params, b)[0].numpy()
     return out
