@@ -334,7 +334,19 @@ Phases:
      the one kv head, then one SGD step timed; the windowed forward, dq,
      dk/dv and jvp kernels at that local shape against their plain
      versions (phase 2's and 13's tolerances), timed (``tp_*`` keys of
-     rows 7-11).
+     rows 7-11); (c) xlstm-125m at 4 layers, B 8 x T 512, an NGHF update
+     against one process's as (a)'s; (d) whisper-base at full size, its
+     gradient against one process's (2e-2) and one Adam step; (e)
+     granite-moe-3b-a800m at full width and 2 layers, the dispatch MoE
+     at f32, its gradient against one process's (2e-2) and the pairs each
+     layer drops the same.  The decoder-only cases run with the residual
+     stream split over T between the units (sequence-parallel
+     activations; whisper-base keeps it whole): each case prints whether
+     it did, the stream's shape, the count and bytes of the all-gathers,
+     reduce-scatters and all-reduces over "model", each rank's peak
+     memory, a layer's forward whole, split and split with the stream
+     split over T, and for (b) one gradient with the stream whole beside
+     one with it split, beside what PERF.md records from before it.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; without a card, or outside a checkout of the repo,
@@ -5087,27 +5099,79 @@ TP_XL_BATCH, TP_XL_SEQ = 8, 512
 # does not divide, so its unit runs whole
 TP_WH_GRAD_REL_L2 = RG_GRAD_REL_L2
 TP_WH_ADAM_LR = 3e-4
+# (e) granite-moe-3b-a800m at full width, 2 of its 32 layers, the
+# capacity dispatch MoE (``moe_impl="dispatch"``), B 2 x T 64 at f32
+# compute: each rank computes 20 of the 40 experts' buckets on the whole
+# T, 12 of the 24 query heads, the 49155-token vocabulary whole (it does
+# not divide), the stream split over T between the units; its gradient
+# against one process's (phase 13's limit), and the pairs each layer
+# drops past its capacity the same (f32, so that no near-tie of the
+# router's top 8 falls another way; at S = 128 tokens an expert's bucket
+# holds 32 of its about 26 pairs, so some overflow)
+TP_GD_LAYERS = 2
+TP_GD_BATCH, TP_GD_SEQ = 2, 64
+TP_GD_GRAD_REL_L2 = RG_GRAD_REL_L2
+# (a) to (d) under sequence-parallel activations: the decoder-only
+# archs' residual stream holds T/2 a rank between the units; whisper-base
+# (encoder-decoder) keeps it whole.  Beside each reading, what this phase
+# showed on the card before the stream was split (PERF.md §5-6, NVIDIA
+# H100 80GB HBM3, 700.00 W)
+TP_BEFORE = {
+    "a": "update 3.402-4.631 s a rank, peak 17.441 GB, layer 0 34.3-45.7 "
+         "ms split",
+    "b": "SGD step 3.396 / 4.511 s a rank, RG-LRU block 0 forward 380.8 / "
+         "686.1 ms split vs 435.0 / 647.3 whole",
+    "c": "update 4.567 / 5.999 s a rank, peak 3.314 GB, mLSTM layer 30.7 "
+         "/ 51.7 ms split vs 32.4 / 55.4 whole, sLSTM 63.9 / 69.9 vs 42.7 "
+         "/ 43.3",
+    "d": "gradient 1.959-2.721 s a rank, Adam step 1.637-2.219 s",
+}
+
+
+def model_collectives(counts: dict, mesh) -> dict:
+    """{kind: {"calls", "bytes", "ring_bytes"}} of ``fsdp.collective_log``
+    counts over the model group: the whole tensors' bytes, and what a
+    rank sends on a ring ((m - 1) / m of them for an all-gather or a
+    reduce-scatter, twice that for an all-reduce)."""
+    from repro_torch.launch import fsdp
+    model = fsdp._group_id(mesh.group("model"))
+    m = mesh.extent("model")
+    out = {}
+    for (kind, gid, shape, size), n in counts.items():
+        if gid != model:
+            continue
+        c = out.setdefault(kind, {"calls": 0, "bytes": 0, "ring_bytes": 0})
+        whole = math.prod(shape) * size * n
+        c["calls"] += n
+        c["bytes"] += whole
+        c["ring_bytes"] += whole * (m - 1) // m * (
+            2 if kind == "all_reduce" else 1)
+    return out
 
 
 class watched_gathers:
     """Within the block, the shapes each ``fsdp.gather_for_compute``
     result's leaves were used at (``used[path]``, a stacked leaf's period
     slice), the ``_Gather`` launches over the model group and over any
-    group (``used["model_gathers"]``, ``used["gathers"]``), and the q and
-    k shapes of each windowed attention call (``used["swa"]``)."""
+    group (``used["model_gathers"]``, ``used["gathers"]``), the q and
+    k shapes of each windowed attention call (``used["swa"]``), the
+    residual stream's shapes at the block boundaries (``used["stream"]``)
+    and the collectives over the model group (``used["coll"]``,
+    ``model_collectives``)."""
 
     def __init__(self, mesh):
         self.mesh = mesh
 
     def __enter__(self):
         from repro_torch.launch import fsdp
-        from repro_torch.models import layers
+        from repro_torch.models import blocks, layers
         from repro_torch.models.transformer import flatten
         self.saved = (fsdp.gather_for_compute, fsdp._Gather.apply,
-                      layers.swa_attention)
-        gather, apply, swa = self.saved
+                      layers.swa_attention, blocks.block_apply)
+        gather, apply, swa, block = self.saved
         model = fsdp._group_id(self.mesh.group("model"))
-        used = self.used = {"model_gathers": 0, "gathers": 0, "swa": []}
+        used = self.used = {"model_gathers": 0, "gathers": 0, "swa": [],
+                            "stream": []}
 
         def watched(tree, compute_dtype=None, prefix=""):
             got = gather(tree, compute_dtype, prefix)
@@ -5124,24 +5188,40 @@ class watched_gathers:
             used["swa"].append([list(q.shape), list(k.shape)])
             return swa(q, k, v, window, **kw)
 
+        def block_apply(cfg, kind, p, x, positions):
+            y, aux = block(cfg, kind, p, x, positions)
+            for shape in (list(x.shape), list(y.shape)):
+                if shape not in used["stream"]:
+                    used["stream"].append(shape)
+            return y, aux
+
         fsdp.gather_for_compute, fsdp._Gather.apply = watched, counted
         layers.swa_attention = attention
+        blocks.block_apply = block_apply
+        self.log = fsdp.collective_log()
+        self.counts = self.log.__enter__()
         return used
 
     def __exit__(self, *exc):
         from repro_torch.launch import fsdp
-        from repro_torch.models import layers
+        from repro_torch.models import blocks, layers
         (fsdp.gather_for_compute, fsdp._Gather.apply,
-         layers.swa_attention) = self.saved
+         layers.swa_attention, blocks.block_apply) = self.saved
+        self.log.__exit__(*exc)
+        self.used["coll"] = model_collectives(self.counts, self.mesh)
 
 
 def tp_layer_times(cfg, mesh, ss, params, batch, prefix="periods.slot0.",
                    kind="attn") -> dict:
     """A layer's forward (period 0 of the ``kind`` block at ``prefix``)
-    under CUDA events, in turns (whole, split, split, whole): gathered
-    whole over "model" (phase 15's layer: storage only) and on this
-    rank's share of its unit; the outputs' rel-L2 (bf16 sums in another
-    order)."""
+    under CUDA events, in turns (whole, split, sp, sp, split, whole):
+    gathered whole over "model" (phase 15's layer: storage only), on this
+    rank's share of its unit with the whole stream (the layer before the
+    stream was split), and so with the stream split over T ("sp": this
+    rank's T/m rows in and out, the entry's all-gather and the exit's
+    reduce-scatter); the
+    outputs' rel-L2 (bf16 sums in another order), the sp layer's against
+    its rows of the split one's."""
     from repro_torch.launch import fsdp
     from repro_torch.models import blocks as B
     from repro_torch.models.transformer import gathered
@@ -5151,20 +5231,35 @@ def tp_layer_times(cfg, mesh, ss, params, batch, prefix="periods.slot0.",
     x = torch.randn(batch["tokens"].shape[0], T, cfg.d_model, generator=gen,
                     device=mesh.device).to(cfg.cdtype)
     pos = torch.arange(T, device=mesh.device)
+    m = mesh.extent("model")
+    r = dict(zip(mesh.axis_names, mesh.device_mesh.get_coordinate()))["model"]
+    rows = slice(r * T // m, (r + 1) * T // m)
+    x_rows = x[:, rows].contiguous()
 
-    def layer(split: bool):
-        with torch.no_grad(), fsdp.compute_specs(mesh, specs, cast=True,
-                                                 cfg=cfg if split else None):
-            p = gathered(cfg, params, prefix, 0)
-            return B.block_apply(cfg, kind, p, x, pos)[0]
+    def layer(mode: str):
+        with torch.no_grad(), fsdp.compute_specs(
+                mesh, specs, cast=True, cfg=None if mode == "whole" else cfg):
+            seq = fsdp.sequence_split(T) if mode == "sp" else None
+            with fsdp.sequence_rows(seq):
+                p = gathered(cfg, params, prefix, 0)
+                return B.block_apply(cfg, kind, p,
+                                     x_rows if seq else x, pos)[0]
 
-    rel = rel_l2(layer(True), layer(False))
-    turns = {True: [], False: []}
-    for split in (False, True, True, False):
-        turns[split].append(cuda_time_ms(lambda: layer(split), TP_LAYER_REPS))
-    return {"split_ms": sum(turns[True]) / 2,
-            "whole_ms": sum(turns[False]) / 2, "rel": rel,
-            "turns": {"split": turns[True], "whole": turns[False]}}
+    split = layer("split")
+    rel = rel_l2(split, layer("whole"))
+    sp = layer("sp")
+    check(tuple(sp.shape) == tuple(x_rows.shape),
+          f"phase 16 {kind} layer: the sequence-parallel layer gave "
+          f"{tuple(sp.shape)}, want {tuple(x_rows.shape)}")
+    sp_rel = rel_l2(sp, split[:, rows])
+    del split, sp
+    turns = {"whole": [], "split": [], "sp": []}
+    for mode in ("whole", "split", "sp", "sp", "split", "whole"):
+        turns[mode].append(cuda_time_ms(lambda: layer(mode), TP_LAYER_REPS))
+    return {"split_ms": sum(turns["split"]) / 2,
+            "whole_ms": sum(turns["whole"]) / 2,
+            "sp_ms": sum(turns["sp"]) / 2, "rel": rel, "sp_rel": sp_rel,
+            "turns": turns}
 
 
 def tp_rank_qwen(mesh, dev, tmp: str, rank: int) -> dict:
@@ -5237,17 +5332,20 @@ def tp_rank_rg(mesh, dev, tmp: str, rank: int) -> dict:
     grad_fwd = swa_counts()
     grad_rel = tp_grad_rel(g, ss, tmp, "rg_plain", rank)
     del g
+    ab = tp_stream_ab(cfg, model, params, b, mesh, ss)
     step, opt = build_step(cfg, "sgd", lr=RG_TRAIN_LR, mesh=mesh,
                            state_sharding=ss)
     state = opt.init(params, state_sharding=ss)
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    params, state, m = step(params, state, b)
+    with fsdp.collective_log() as coll:
+        params, state, m = step(params, state, b)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    out = {"grad_rel": grad_rel,
+    out = {"grad_rel": grad_rel, "step_coll": model_collectives(coll, mesh),
+           "ab": ab,
            "loss": float(loss), "grad_launches": list(grad_counts),
            "grad_forward": list(grad_fwd), "step_s": dt,
            "step_launches": list(bwd_counts()[:3]),
@@ -5256,6 +5354,50 @@ def tp_rank_rg(mesh, dev, tmp: str, rank: int) -> dict:
            "layer": layer}
     del params, state
     torch.cuda.empty_cache()
+    return out
+
+
+class whole_stream:
+    """Within the block every forward keeps its residual stream whole on
+    each rank (``fsdp.sequence_split`` gives None): the path before the
+    stream was split, for a comparison in the same call only."""
+
+    def __enter__(self):
+        from repro_torch.launch import fsdp
+        self.saved = fsdp.sequence_split
+        fsdp.sequence_split = lambda T: None
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import fsdp
+        fsdp.sequence_split = self.saved
+
+
+def tp_stream_ab(cfg, model, params, b, mesh, ss) -> dict:
+    """One gradient with the residual stream whole, then one with it split
+    over T (both after a first gradient, so both warm): the seconds, the
+    peak device memory and the collectives over "model" of each."""
+    import contextlib
+    from repro_torch.core.curvature import grad_and_loss
+    from repro_torch.core.optim.base import data_splits
+    from repro_torch.launch import fsdp
+    from repro_torch.launch.steps import lm_forward
+    from repro_torch.losses.chunked_lm import ChunkedCELoss
+    out = {}
+    for mode in ("whole", "split"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (whole_stream() if mode == "whole" else contextlib.nullcontext()), \
+                fsdp.step_context(cfg, mesh, ss), \
+                fsdp.collective_log() as coll:
+            g = grad_and_loss(lm_forward(cfg, model), ChunkedCELoss(), params,
+                              b, mesh=mesh, data_split=data_splits(ss))[2]
+        torch.cuda.synchronize()
+        out[mode] = {"s": time.perf_counter() - t0,
+                     "peak": torch.cuda.max_memory_allocated(),
+                     "coll": model_collectives(coll, mesh)}
+        del g
     return out
 
 
@@ -5370,10 +5512,12 @@ def tp_rank_whisper(mesh, dev, tmp: str, rank: int) -> dict:
     state = opt.init(params, state_sharding=ss)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    params, state, m = step(params, state, b)
+    with fsdp.collective_log() as coll:
+        params, state, m = step(params, state, b)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    out = {"grad_rel": grad_rel, "loss": float(loss), "grad_s": grad_s,
+    out = {"step_coll": model_collectives(coll, mesh),
+           "grad_rel": grad_rel, "loss": float(loss), "grad_s": grad_s,
            "step_s": dt, "step_loss": float(m["loss"]),
            "peak": torch.cuda.max_memory_allocated(), "used": used}
     del params, state
@@ -5381,9 +5525,63 @@ def tp_rank_whisper(mesh, dev, tmp: str, rank: int) -> dict:
     return out
 
 
+def tp_granite_cfg():
+    from repro_torch.configs.base import get_config
+    return get_config(MOE_ARCH).replace(num_layers=TP_GD_LAYERS,
+                                        moe_impl="dispatch",
+                                        compute_dtype="float32")
+
+
+def tp_granite_batch(cfg, dev) -> dict:
+    from repro_torch.data.synthetic import lm_batch
+    b = lm_batch(0, batch=TP_GD_BATCH, seq_len=TP_GD_SEQ,
+                 vocab=cfg.vocab_size, device=dev)
+    return dict(b, labels=b["tokens"])
+
+
+def tp_rank_granite(mesh, dev, tmp: str, rank: int) -> dict:
+    """(e) on this rank: its shares placed from the whole draw; the
+    gradient (watched, timed, the dropped pairs of each dispatch layer
+    counted) against one process's (this rank's shares of the
+    memory-mapped ``gd_one.<key>.npy``)."""
+    from repro_torch.core.curvature import grad_and_loss
+    from repro_torch.core.optim.base import data_splits
+    from repro_torch.launch import fsdp
+    from repro_torch.launch.sharding import param_shardings
+    from repro_torch.launch.steps import lm_forward
+    from repro_torch.losses.chunked_lm import ChunkedCELoss
+    from repro_torch.models import layers
+    from repro_torch.models.registry import get_model
+    cfg = tp_granite_cfg()
+    model = get_model(cfg)
+    start = model.init(SEED, device=dev)
+    ss = param_shardings(cfg, mesh, start)
+    params = {k: ss[k].place(v) for k, v in start.items()}
+    del start
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    b = tp_granite_batch(cfg, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with watched_gathers(mesh) as used, fsdp.step_context(cfg, mesh, ss), \
+            layers.dispatch_drops() as drops:
+        loss, _, g = grad_and_loss(lm_forward(cfg, model), ChunkedCELoss(),
+                                   params, b, mesh=mesh,
+                                   data_split=data_splits(ss))
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    out = {"grad_rel": tp_grad_rel(g, ss, tmp, "gd_one", rank),
+           "loss": float(loss), "grad_s": grad_s,
+           "drops": [int(n) for n in drops],
+           "peak": torch.cuda.max_memory_allocated(), "used": used}
+    del params, g
+    torch.cuda.empty_cache()
+    return out
+
+
 def tp_rank(rank: int, world: int, tmp: str, device: str) -> None:
     """One of the gloo ranks of phase 16 on the card, a (1, world) mesh:
-    (a) to (d); its records written to ``tmp``."""
+    (a) to (e); its records written to ``tmp``."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_debug_mesh
     try:
@@ -5399,7 +5597,8 @@ def tp_rank(rank: int, world: int, tmp: str, device: str) -> None:
                "a": tp_rank_qwen(mesh, dev, tmp, rank),
                "b": tp_rank_rg(mesh, dev, tmp, rank),
                "c": tp_rank_xlstm(mesh, dev, tmp, rank),
-               "d": tp_rank_whisper(mesh, dev, tmp, rank)}
+               "d": tp_rank_whisper(mesh, dev, tmp, rank),
+               "e": tp_rank_granite(mesh, dev, tmp, rank)}
         dist.barrier()
         dist.destroy_process_group()
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
@@ -5495,6 +5694,37 @@ def tp_one_process(dev, tmp: str) -> dict:
     del params
     for k, v in g.items():
         np.save(os.path.join(tmp, f"wh_one.{k}.npy"), v.cpu().numpy())
+    del g
+    torch.cuda.empty_cache()
+    out["e"] = tp_granite_one(dev, tmp)
+    return out
+
+
+def tp_granite_one(dev, tmp: str) -> dict:
+    """(e)'s one-process gradient, saved for the ranks, and the pairs
+    each dispatch layer dropped."""
+    from repro_torch.core.curvature import grad_and_loss
+    from repro_torch.launch.steps import lm_forward
+    from repro_torch.losses.chunked_lm import ChunkedCELoss
+    from repro_torch.models import layers
+    from repro_torch.models.registry import get_model
+    cfg = tp_granite_cfg()
+    model = get_model(cfg)
+    params = model.init(SEED, device=dev)
+    b = tp_granite_batch(cfg, dev)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with layers.dispatch_drops() as drops:
+        loss, _, g = grad_and_loss(lm_forward(cfg, model), ChunkedCELoss(),
+                                   params, b)
+    torch.cuda.synchronize()
+    out = {"loss": float(loss), "grad_s": time.perf_counter() - t0,
+           "drops": [int(n) for n in drops],
+           "peak": torch.cuda.max_memory_allocated()}
+    del params
+    for k, v in g.items():
+        np.save(os.path.join(tmp, f"gd_one.{k}.npy"), v.cpu().numpy())
     del g
     torch.cuda.empty_cache()
     return out
@@ -5770,8 +6000,18 @@ def phase_tp(dev, errs: dict) -> dict:
     xl = tp_check_xlstm(one["c"], [rec["c"] for rec in recs], shares_c,
                         order)
     wh = tp_check_whisper(one["d"], [rec["d"] for rec in recs])
+    tp_check_granite(one["e"], [rec["e"] for rec in recs])
+    card = card_line()
+    for key, case, T, want_sp in (
+            ("a", f"(a) {DENSE_ARCH}", DENSE_TRAIN_SEQ, True),
+            ("b", f"(b) {LM_ARCH}", RG_TRAIN_SEQ, True),
+            ("c", f"(c) {XLSTM_ARCH}", TP_XL_SEQ, True),
+            ("d", f"(d) {LM_TRAIN_ARCH}", LM_TRAIN_SEQ, False),
+            ("e", f"(e) {MOE_ARCH} dispatch", TP_GD_SEQ, True)):
+        tp_sp_log(case, [rec[key] for rec in recs], T, want_sp, card,
+                  TP_BEFORE.get(key))
     dt = time.perf_counter() - t_phase
-    log(f"phase 16 (tensor-parallel compute, (a) to (d)) {dt:.3f} s (local "
+    log(f"phase 16 (tensor-parallel compute, (a) to (e)) {dt:.3f} s (local "
         f"kernels and "
         f"row products {t_kern:.3f}, one process {t_one:.3f}, ranks "
         f"{dt - t_kern - t_one:.3f})")
@@ -5789,6 +6029,102 @@ def phase_tp(dev, errs: dict) -> dict:
                    "tp_gloo_launches_per": per, **xl},
             "local": local, "launches": tp_launches, "rows": rows,
             "grad_rel": grad_rel, "whisper": wh}
+
+
+def coll_text(coll: dict) -> str:
+    """``model_collectives``' counts as a phrase."""
+    return ", ".join(
+        f"{kind} {c['calls']} calls {c['bytes'] / 1e6:.3f} MB (a rank sends "
+        f"{c['ring_bytes'] / 1e6:.3f} MB)"
+        for kind, c in sorted(coll.items())) or "none"
+
+
+def tp_sp_log(case: str, recs: list, T: int, want_sp: bool, card: str,
+              before) -> None:
+    """A phase 16 case's sequence-parallel reading: whether the stream was
+    split over T between the blocks (checked against ``want_sp``), its
+    shapes, the collectives over "model" of the watched update or
+    gradient (and of the step, where there is one), each rank's peak, the
+    layer's forward three ways, beside the figures from before the stream
+    was split."""
+    streams = [rec["used"]["stream"] for rec in recs]
+    ran = bool(streams[0]) and all(
+        all(shape[1] == T // TP_RANKS for shape in st) for st in streams)
+    check(ran == want_sp, f"phase 16 {case}: residual stream shapes "
+          f"{streams} at T {T}: sequence parallelism "
+          f"{'ran' if ran else 'did not run'}")
+    text = (f"phase 16 SP {case} on {card}: sequence-parallel activations "
+            f"{'ran' if ran else 'did not run'}; residual stream "
+            f"{streams[0] or 'not in blocks (encoder-decoder)'} a rank; "
+            "over 'model', the watched update or gradient: "
+            + "; ".join(f"rank {r}: {coll_text(rec['used']['coll'])}"
+                        for r, rec in enumerate(recs)))
+    if "step_coll" in recs[0]:
+        text += "; the step: " + coll_text(recs[0]["step_coll"])
+    if "ab" in recs[0]:
+        text += "; a gradient with the stream whole, then split, a rank: " \
+            + "; ".join(
+                f"{mode} " + ", ".join(f"{rec['ab'][mode]['s']:.3f}"
+                                       for rec in recs)
+                + " s, peak " + ", ".join(
+                    f"{rec['ab'][mode]['peak'] / 1e9:.3f}" for rec in recs)
+                + f" GB, {coll_text(recs[0]['ab'][mode]['coll'])}"
+                for mode in ("whole", "split"))
+    text += "; peak a rank " + ", ".join(f"{rec['peak'] / 1e9:.3f}"
+                                         for rec in recs) + " GB"
+    lays = [rec["layer"] for rec in recs if "layer" in rec] + [
+        lay for rec in recs for lay in rec.get("layers", {}).values()]
+    if lays:
+        text += "; layer forward whole / split / split with the stream " \
+            "split (ms) " + ", ".join(
+                f"{x['whole_ms']:.3f} / {x['split_ms']:.3f} / "
+                f"{x['sp_ms']:.3f} (rel-L2 {x['sp_rel']:.3g})" for x in lays)
+    if before:
+        text += f"; before the stream was split, {before}"
+    log(text)
+
+
+def tp_check_granite(one: dict, e: list) -> None:
+    """(e)'s checks: the gradient against one process's, every dispatch
+    layer's dropped pairs the same, the experts used at their split
+    shapes (20 of 40 a rank), the router and the odd vocabulary whole, no
+    gather over "model"; the log line."""
+    cfg = tp_granite_cfg()
+    tag = f"gloo 1x2 {MOE_ARCH} (dispatch)"
+    rel = e[0]["grad_rel"]
+    check(all(x["grad_rel"] == rel for x in e) and rel <= TP_GD_GRAD_REL_L2,
+          f"{tag}: gradient vs one process rel-L2 "
+          f"{[x['grad_rel'] for x in e]} (limit {TP_GD_GRAD_REL_L2})")
+    check(all(x["drops"] == one["drops"] for x in e)
+          and len(one["drops"]) == TP_GD_LAYERS,
+          f"{tag}: dropped pairs a layer {[x['drops'] for x in e]}, one "
+          f"process {one['drops']}")
+    d, E, ff = cfg.d_model, cfg.num_experts, cfg.d_ff
+    hq = cfg.num_heads * cfg.resolved_head_dim
+    want = {"periods.slot0.moe.w_in": [E // TP_RANKS, d, ff],
+            "periods.slot0.moe.w_out": [E // TP_RANKS, ff, d],
+            "periods.slot0.moe.router": [d, E],
+            "periods.slot0.attn.wq": [d, hq // TP_RANKS],
+            "embed.table": [cfg.vocab_size, d]}
+    for r, rec in enumerate(e):
+        check(all(rec["used"][k] == v for k, v in want.items())
+              and rec["used"]["model_gathers"] == 0,
+              f"{tag} rank {r}: leaves used at "
+              f"{ {k: rec['used'][k] for k in want} }, "
+              f"{rec['used']['model_gathers']} gathers over 'model'")
+    log(f"{tag} on one card, full width, {TP_GD_LAYERS} layers, B "
+        f"{TP_GD_BATCH} x T {TP_GD_SEQ}, f32: each rank {E // TP_RANKS} of "
+        f"{E} experts' buckets, {cfg.num_heads // TP_RANKS} of "
+        f"{cfg.num_heads} query heads, the {cfg.vocab_size}-token vocab "
+        f"whole; gradient vs one process rel-L2 {rel:.4g} (limit "
+        f"{TP_GD_GRAD_REL_L2}), loss " + ", ".join(
+            f"{x['loss']:.6f}" for x in e) + f" vs {one['loss']:.6f}; "
+        f"dropped pairs a layer {e[0]['drops']} (one process "
+        f"{one['drops']}); gradient " + ", ".join(
+            f"{x['grad_s'] * 1e3:.3f}" for x in e)
+        + f" ms a rank (one process {one['grad_s'] * 1e3:.3f} ms); peak "
+        "a rank " + ", ".join(f"{x['peak'] / 1e9:.3f}" for x in e)
+        + f" GB (one process {one['peak'] / 1e9:.3f} GB)")
 
 
 def tp_check_xlstm(one: dict, c: list, shares: list, order: list) -> dict:

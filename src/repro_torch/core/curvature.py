@@ -44,7 +44,8 @@ are a split share.
 
 Under tensor-parallel compute (``launch.tensor_parallel``) nothing here
 sums over "model": a leaf a split unit uses as its share gets its share
-of the gradient, a leaf it uses whole gets the model group's sum from
+of the gradient, a leaf it uses whole, or uses on this rank's T slice of
+a sequence-parallel stream (a norm's), gets the model group's sum from
 ``copy_to_model``'s backward, and every other leaf is used whole on
 every rank, so each holds the same whole gradient.  The data-group sums
 are as above.

@@ -67,18 +67,36 @@ the activation gather inside a split unit (``_GatherFromModel``: the
 custom-op all-gather forward and jvp, a reduce-scatter backward, since
 each rank reads the gathered tensor with its own columns).
 
+Sequence-parallel activations (the reference's ``constrain_activations``
+and ``unshard_seq``, Megatron-SP): where tensor-parallel compute is on,
+the arch is decoder-only and not "replicated" (``_Registry.seq``), and
+the running forward's T divides over "model" and its batch rows are
+split over the data group or the data extent is 1 (``sequence_split``),
+each "model" rank holds its contiguous T/m of the (B, T, d) residual
+stream between the units, and the norms and residual adds run on that
+slice.  A unit's edges are then autograd Functions with jvps over
+custom-op collectives along T (``launch.tensor_parallel.enter`` and
+``leave``): a split unit's entry is ``_GatherFromModel`` along T
+(all-gather forward, reduce-scatter backward) and its exit
+``_ScatterFromModel`` (reduce-scatter forward of the f32 partials, then
+one rounding; all-gather backward, in the compute dtype); a unit
+computed whole on every rank enters through ``_GatherFromModel`` along
+T with ``same`` (all-gather forward, this rank's slice backward) and
+leaves through ``_SliceOfModel`` (the slice forward, all-gather
+backward).  A leaf used on the T slice (a norm's: no unit's) passes
+through f, as a unit's whole leaves do, so its gradient sums the ranks'
+partial ones.  The reference's ``constrain_vocab_matrix`` pins the
+head's vocab split, which the split head here is (ROADMAP 1.4, "Not to
+port").
+
 ``step_context(cfg, mesh, shardings)`` registers the stored shardings
 for one step (``launch.steps.build_step``); with no mesh, and outside
 it, every call here is the identity, so one-device numbers do not move.
 With a "model" extent of 1 nothing is split over "model", and every
 leaf is gathered as before tensor-parallel compute.
 
-The reference's ``constrain_activations`` and ``unshard_seq`` are GSPMD
-placement hints for sequence-split activations; each rank holds whole
-activations between the split units until the sequence-parallel half of
-ROADMAP 1.4 part 2, step 3, so they have nothing to do yet.  Its
-``constrain_vocab_matrix`` pins the head's vocab split, which the split
-head here is (ROADMAP 1.4, "Not to port").
+``collective_log`` counts the collectives of this module's custom ops
+(and ``tensor_parallel.all_reduce``'s) by kind, group and shape.
 """
 from __future__ import annotations
 
@@ -105,8 +123,9 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single",
 class Split(NamedTuple):
     """How tensor-parallel compute splits a unit over the mesh's
     "model" axis: ``by`` "heads", "columns" (of the FFN, or of every
-    expert), "experts", "vocab", "channels" (an RG-LRU block's) or
-    "positions" (``dec_pos``'s rows); the model ``group``, this rank's
+    expert), "experts", "vocab", "channels" (an RG-LRU block's),
+    "positions" (``dec_pos``'s rows) or "sequence" (the residual
+    stream's T, ``sequence_split``); the model ``group``, this rank's
     coordinate ``index`` on it, and its ``extent``."""
     by: str
     group: object
@@ -134,6 +153,9 @@ class _Registry(NamedTuple):
                          # over "model", or None (every leaf whole)
     units: dict          # {unit path: Split} of the units split over
                          # "model" (``_split_units``)
+    seq: Optional[Split]  # the residual stream's split over "model"
+                          # where the arch takes sequence-parallel
+                          # activations (``_sequence``), or None
 
 
 _REGISTRY: contextvars.ContextVar[Optional[_Registry]] = \
@@ -142,6 +164,12 @@ _REGISTRY: contextvars.ContextVar[Optional[_Registry]] = \
 # or None (one device, or a batch kept whole on every rank)
 _BATCH: contextvars.ContextVar = contextvars.ContextVar("fsdp_batch_rows",
                                                         default=None)
+# the running forward's split of the residual stream over T, or None
+_SEQ: contextvars.ContextVar = contextvars.ContextVar("fsdp_sequence",
+                                                      default=None)
+# the collectives counted by ``collective_log`` (a plain global: a
+# backward may run on the autograd engine's own thread), or None
+_LOG: Optional[dict] = None
 
 # process groups by small integer id: a custom op takes no group object
 _GROUPS: list = []
@@ -162,7 +190,8 @@ def compute_specs(mesh, specs: dict, cast: bool, cfg=None):
     the arch config, which turns on tensor-parallel compute over "model"
     (None: every leaf is gathered whole)."""
     token = _REGISTRY.set(_Registry(mesh, specs, cast, cfg,
-                                    _split_units(cfg, mesh, specs)))
+                                    _split_units(cfg, mesh, specs),
+                                    _sequence(cfg, mesh)))
     try:
         yield
     finally:
@@ -213,6 +242,54 @@ def _split_units(cfg, mesh, specs: dict) -> dict:
     return out
 
 
+def _sequence(cfg, mesh) -> Optional[Split]:
+    """The residual stream's split over "model" (by "sequence") under
+    the reference's conditions for sequence-parallel activations
+    (``repro.launch.fsdp.step_context`` and ``constrain_activations``):
+    tensor-parallel compute on (``cfg``, a "model" extent above 1), a
+    stored layout other than "replicated", a decoder-only arch (the
+    reference's encoder-decoder model calls neither function).  Whether
+    a forward's shapes allow it is ``sequence_split``'s call."""
+    if (cfg is None or cfg.param_sharding == "replicated"
+            or cfg.is_encoder_decoder or mesh.extent("model") == 1):
+        return None
+    coord = dict(zip(mesh.axis_names, mesh.device_mesh.get_coordinate()))
+    return Split("sequence", mesh.group("model"), coord["model"],
+                 mesh.extent("model"))
+
+
+def sequence_split(T: int) -> Optional[Split]:
+    """The running step's split of a forward's (B, T, d) residual stream
+    over "model": the registry's (``_sequence``) where "model" divides T
+    and the batch rows are this rank's share of a batch split over the
+    data group, or the data extent is 1 (a batch kept whole on every data
+    rank keeps T whole too, as the reference's ``constrain_activations``
+    does); else None."""
+    reg = _REGISTRY.get()
+    if reg is None or reg.seq is None or T % reg.seq.extent:
+        return None
+    if reg.mesh.data_extent > 1 and _BATCH.get() is None:
+        return None
+    return reg.seq
+
+
+@contextlib.contextmanager
+def sequence_rows(split: Optional[Split]):
+    """Within the block, the forward holds its residual stream split
+    over T by ``split`` (``sequence_split``'s), or whole (None)."""
+    token = _SEQ.set(split)
+    try:
+        yield
+    finally:
+        _SEQ.reset(token)
+
+
+def seq_split() -> Optional[Split]:
+    """The running forward's split of the residual stream over T, or
+    None."""
+    return _SEQ.get()
+
+
 def unit_split(path: str) -> Optional[Split]:
     """The running step's ``Split`` of the unit at ``path`` (``"embed"``,
     ``"periods.slot0.attn"``), or None where it is whole."""
@@ -241,6 +318,29 @@ def batch_group():
 # the collectives, as custom ops (``linearize``'s trace records them)
 # ---------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def collective_log():
+    """Within the block, every collective this module launches (and
+    ``tensor_parallel.all_reduce``) counted: {(kind, group id, shape of
+    the whole tensor, bytes an element): calls}, kind "all_gather",
+    "reduce_scatter" or "all_reduce", the whole tensor being the
+    gather's output, the reduce-scatter's input, the all-reduce's
+    operand (``_group_id`` names the group)."""
+    global _LOG
+    saved, _LOG = _LOG, {}
+    try:
+        yield _LOG
+    finally:
+        _LOG = saved
+
+
+def log_collective(kind: str, gid: int, whole: torch.Tensor) -> None:
+    """Count one collective in the running ``collective_log``, if any."""
+    if _LOG is not None:
+        key = (kind, gid, tuple(whole.shape), whole.element_size())
+        _LOG[key] = _LOG.get(key, 0) + 1
+
+
 @torch.library.custom_op("repro_torch::fsdp_all_gather", mutates_args=())
 def _gather_op(x: torch.Tensor, dim: int, gid: int) -> torch.Tensor:
     group = _GROUPS[gid]
@@ -248,7 +348,9 @@ def _gather_op(x: torch.Tensor, dim: int, gid: int) -> torch.Tensor:
     xm = x.movedim(dim, 0).contiguous()
     out = xm.new_empty((n * xm.shape[0], *xm.shape[1:]))
     _all_gather(out, xm, group=group)
-    return out.movedim(0, dim).contiguous()
+    out = out.movedim(0, dim)
+    log_collective("all_gather", gid, out)
+    return out.contiguous()
 
 
 @_gather_op.register_fake
@@ -262,6 +364,7 @@ def _(x, dim, gid):
 def _all_reduce_op(x: torch.Tensor, gid: int) -> torch.Tensor:
     out = x.clone()
     dist.all_reduce(out, group=_GROUPS[gid])
+    log_collective("all_reduce", gid, out)
     return out
 
 
@@ -270,19 +373,43 @@ def _(x, gid):
     return torch.empty_like(x)
 
 
+@torch.library.custom_op("repro_torch::fsdp_reduce_scatter", mutates_args=())
+def _reduce_scatter_op(x: torch.Tensor, dim: int, gid: int) -> torch.Tensor:
+    """This rank's piece along ``dim`` of the sum over ``_GROUPS[gid]``
+    of the whole ``x``."""
+    group = _GROUPS[gid]
+    xm = x.movedim(dim, 0).contiguous()
+    out = xm.new_empty((xm.shape[0] // dist.get_world_size(group),
+                        *xm.shape[1:]))
+    _reduce_scatter(out, xm, group=group)
+    log_collective("reduce_scatter", gid, x)
+    return out.movedim(0, dim).contiguous()
+
+
+@_reduce_scatter_op.register_fake
+def _(x, dim, gid):
+    shape = list(x.shape)
+    shape[dim] //= dist.get_world_size(_GROUPS[gid])
+    return x.new_empty(shape)
+
+
 def _slice(g, dim: int, group):
     """This rank's piece of the whole ``g`` along ``dim``."""
     n = g.shape[dim] // dist.get_world_size(group)
     return g.narrow(dim, dist.get_rank(group) * n, n).contiguous()
 
 
+def _piece(x, dim: int, group):
+    """This rank's piece of the whole ``x`` along ``dim``, a new tensor
+    (never a view of ``x``)."""
+    n = x.shape[dim] // dist.get_world_size(group)
+    return x.narrow(dim, dist.get_rank(group) * n, n).clone(
+        memory_format=torch.contiguous_format)
+
+
 def _scatter_sum(g, dim: int, group):
     """This rank's piece of the sum over ``group`` of the whole ``g``."""
-    gm = g.movedim(dim, 0).contiguous()
-    out = gm.new_empty((gm.shape[0] // dist.get_world_size(group),
-                        *gm.shape[1:]))
-    _reduce_scatter(out, gm, group=group)
-    return out.movedim(0, dim).contiguous()
+    return _reduce_scatter_op(g, dim, _group_id(group))
 
 
 class _Gather(torch.autograd.Function):
@@ -369,36 +496,105 @@ class _ReduceFromModel(torch.autograd.Function):
 
 
 class _GatherFromModel(torch.autograd.Function):
-    """An activation's last dim gathered over ``_GROUPS[gid]`` (the
-    model group), forward and jvp; the backward sums the ranks'
+    """An activation's dim ``dim`` gathered over ``_GROUPS[gid]`` (the
+    model group), forward and jvp.  The backward sums the ranks'
     cotangents of the whole tensor and keeps this rank's slice
     (reduce-scatter), since each rank uses the gathered tensor in its own
-    way (its heads, its columns).  ``_Gather``'s "model" slice is for a
-    leaf every rank uses the same way."""
+    way (its heads, its columns); with ``same`` every rank uses it the
+    same way (a unit computed whole on every rank), and the backward
+    keeps this rank's slice of its own cotangent.  Along the last dim
+    inside a split unit; along T at a unit's entry under sequence
+    parallelism (Megatron-SP's all-gather).  A leaf's gather is
+    ``_Gather``."""
 
     @staticmethod
-    def forward(x, gid: int):
-        return _gather_op(x, x.dim() - 1, gid)
+    def forward(x, gid: int, dim: int, same: bool):
+        return _gather_op(x, dim, gid)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.gid = inputs[1]
+        _, ctx.gid, ctx.dim, ctx.same = inputs
 
     @staticmethod
     def backward(ctx, g):
         (g,), level = unwrap_one_level((g,))
         first_order_only((g,), 0, "model-group gather")
         with outside_transforms():
-            out = _scatter_sum(g, g.dim() - 1, _GROUPS[ctx.gid])
-        return rewrap(out, level), None
+            out = (_slice(g, ctx.dim, _GROUPS[ctx.gid]) if ctx.same
+                   else _reduce_scatter_op(g, ctx.dim, ctx.gid))
+        return rewrap(out, level), None, None, None
 
     @staticmethod
-    def jvp(ctx, t, _):
+    def jvp(ctx, t, *_):
         (t,), level = unwrap_one_level((t,))
         first_order_only((t,), 0, "model-group gather")
         with outside_transforms():
-            out = _gather_op(t, t.dim() - 1, ctx.gid)
+            out = _gather_op(t, ctx.dim, ctx.gid)
         return rewrap(out, level)
+
+
+class _ScatterFromModel(torch.autograd.Function):
+    """A split unit's exit under sequence parallelism (Megatron-SP's
+    reduce-scatter): the sum over ``_GROUPS[gid]`` of the ranks' partial
+    outputs (f32 where the compute dtype is narrower), of which this rank
+    keeps its piece along ``dim``, rounded to ``dtype`` once, forward and
+    jvp; the backward all-gathers the pieces' cotangents in ``dtype`` (the
+    rounded output's, so the gather moves no more bytes than the stream
+    holds) and hands each rank's partial output the whole one, upcast
+    (exactly)."""
+
+    @staticmethod
+    def forward(x, gid: int, dim: int, dtype):
+        return _reduce_scatter_op(x, dim, gid).to(dtype)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, ctx.gid, ctx.dim, ctx.out = inputs
+        ctx.partial = x.dtype
+
+    @staticmethod
+    def backward(ctx, g):
+        (g,), level = unwrap_one_level((g,))
+        first_order_only((g,), 0, "model-group reduce-scatter")
+        with outside_transforms():
+            out = _gather_op(g.to(ctx.out), ctx.dim, ctx.gid).to(ctx.partial)
+        return rewrap(out, level), None, None, None
+
+    @staticmethod
+    def jvp(ctx, t, *_):
+        (t,), level = unwrap_one_level((t,))
+        first_order_only((t,), 0, "model-group reduce-scatter")
+        with outside_transforms():
+            out = _reduce_scatter_op(t, ctx.dim, ctx.gid).to(ctx.out)
+        return rewrap(out, level)
+
+
+class _SliceOfModel(torch.autograd.Function):
+    """The exit of a unit computed whole on every rank under sequence
+    parallelism: this rank's piece along ``dim`` of the whole output,
+    forward and jvp (no collective); the backward all-gathers the
+    pieces' cotangents, since every rank's whole output is the same one
+    and takes the whole cotangent."""
+
+    @staticmethod
+    def forward(x, gid: int, dim: int):
+        return _piece(x, dim, _GROUPS[gid])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.gid, ctx.dim = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, g):
+        (g,), level = unwrap_one_level((g,))
+        first_order_only((g,), 0, "model-group slice")
+        with outside_transforms():
+            out = _gather_op(g, ctx.dim, ctx.gid)
+        return rewrap(out, level), None, None
+
+    @staticmethod
+    def jvp(ctx, t, *_):
+        return _piece(t, ctx.dim, _GROUPS[ctx.gid])
 
 
 def _entries(spec, ndim: int) -> list:
@@ -476,6 +672,8 @@ def gather_for_compute(tree, compute_dtype=None, prefix: str = ""):
             x = _Gather.apply(x, d, _group_id(group), data)
         return x, target is not None and _model_split(reg.mesh, target)
 
+    seq = _SEQ.get()
+
     def walk(node, path):
         split = reg.units.get(path[:-1])
         if split is not None:
@@ -496,7 +694,12 @@ def gather_for_compute(tree, compute_dtype=None, prefix: str = ""):
             return SplitUnit(leaves, split, frozenset(whole))
         if isinstance(node, dict):
             return {k: walk(v, f"{path}{k}.") for k, v in node.items()}
-        return leaf(node, path[:-1], None)[0]
+        x = leaf(node, path[:-1], None)[0]
+        if seq is not None and not tp_unit(reg.cfg, path[:-1].split(".")):
+            # used on this rank's slice of T (a norm): its gradient is
+            # the sum of the ranks' partial ones
+            x = _CopyToModel.apply(x, _group_id(seq.group))
+        return x
 
     return walk(tree, prefix)
 
@@ -512,11 +715,26 @@ def gather_whole(t: torch.Tensor, sharding) -> torch.Tensor:
     return t
 
 
+def plain(x: torch.Tensor) -> torch.Tensor:
+    """``x`` outside every ``torch.func`` level it is wrapped at,
+    detached: a constant to them (counts, normalisers)."""
+    while x is not None and torch._C._functorch.is_functorch_wrapped_tensor(x):
+        x = torch._C._functorch.get_unwrapped(x)
+    return x.detach()
+
+
 def all_reduce_counts(x: torch.Tensor, group) -> torch.Tensor:
     """The sum over ``group`` of ``x``, a tensor no derivative flows
     through (counts, normalisers): it leaves every ``torch.func`` level
     it is wrapped at, and its result is a constant to them."""
-    while x is not None and torch._C._functorch.is_functorch_wrapped_tensor(x):
-        x = torch._C._functorch.get_unwrapped(x)
     with outside_transforms():
-        return _all_reduce_op(x.detach(), _group_id(group))
+        return _all_reduce_op(plain(x), _group_id(group))
+
+
+def all_gather_counts(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` over ``group``, stacked in the group's rank
+    order (the data group's: ``Mesh.data_index``, the order
+    ``data.pipeline.shard_batch`` cuts the rows in), of a tensor no
+    derivative flows through, as ``all_reduce_counts``."""
+    with outside_transforms():
+        return _gather_op(plain(x)[None], 0, _group_id(group))

@@ -33,7 +33,9 @@ as each rank's share by ``launch.sharding.param_shardings``, the step
 run inside ``launch.fsdp.step_context``, which gathers each layer's
 leaves where the model uses them: where the mesh's "model" extent is
 above 1, to each rank's share of the heads, FFN columns, experts and
-vocabulary (``launch.tensor_parallel``).
+vocabulary (``launch.tensor_parallel``), a decoder-only arch's residual
+stream split over T between the units (sequence-parallel activations,
+``launch.fsdp.sequence_split``).
 
 LM serving: ``build_prefill_step(cfg)`` runs a prompt batch through the
 backbone and returns the last position's logits (the prefill_32k step;
@@ -95,7 +97,10 @@ def lm_forward(cfg, model) -> Callable:
     """forward for ``ChunkedCELoss``: (params, batch) -> ((hidden, head
     matrix), router_aux_coef * aux).  The head matrix is the parameter
     leaf itself, so the curvature products' tangents and cotangents reach
-    it."""
+    it.  The hidden state holds the whole T: with sequence-parallel
+    activations the backbone gathers it once before the head
+    (``models.transformer.forward_hidden``; the reference's
+    ``unshard_seq`` here), so the chunked CE slices T chunks of it."""
     def fwd(params, batch):
         hidden, aux = model.forward_hidden(params, batch)
         return (hidden, model.head_matrix(params)), cfg.router_aux_coef * aux

@@ -26,15 +26,38 @@ does:
     _cross``) and MLPs, and its learned positions from the P/m rows of
     ``dec_pos`` it holds (``position_embed``).
 
-Between the units the activations, the norms and the residual are whole
-on every rank (tensor parallelism without sequence parallelism).  The
-two conjugate operators at a unit's edges:
+Between the units each rank holds its contiguous T/m of the (B, T, d)
+residual stream where the step takes sequence-parallel activations
+(``launch.fsdp.sequence_split``: a decoder-only arch not "replicated",
+m dividing T, the batch rows split over the data group or a data extent
+of 1), and runs the norms and the residual adds on that slice; else the
+stream, the norms and the residual are whole on every rank.  A unit's
+edges are ``enter`` and ``leave``:
 
-  * ``copy_to_model`` (Megatron's f): the identity forward and jvp; the
-    backward sums the cotangent over the model group, since each rank's
-    share of the unit gave a partial one;
-  * ``reduce_from_model`` (g): sums the ranks' partial outputs over the
-    model group, forward and jvp; the identity backward.
+  * a split unit with a whole stream: ``copy_to_model`` (Megatron's f:
+    the identity forward and jvp; the backward sums the cotangent over
+    the model group, since each rank's share of the unit gave a partial
+    one) at its entry, ``reduce_from_model`` (g: the sum of the ranks'
+    partial outputs, forward and jvp; the identity backward) at its exit;
+  * a split unit with the stream split over T (Megatron-SP): an
+    all-gather over T at its entry (a reduce-scatter backward) and a
+    reduce-scatter over T of the f32 partials at its exit, then one
+    rounding to the compute dtype (an all-gather of the compute dtype's
+    cotangent backward);
+  * a unit computed whole on every rank with the stream split over T (an
+    xLSTM block whose heads "model" does not divide, a vocabulary it
+    does not divide): an all-gather at its entry (this rank's slice of
+    the cotangent backward), and this rank's slice of its output at its
+    exit (an all-gather backward).
+
+The head and the chunked CE read the whole T (``models.transformer.
+forward_hidden`` enters them as a unit), and so does everything inside a
+unit.  A leaf used on the T slice (a norm's) passes through f
+(``launch.fsdp.gather_for_compute``): each rank's gradient of it is a
+partial one.  The MoE's router reads the unit's input whole on every
+rank, and the aux its probabilities: its entry is the whole unit's (a
+slice backward), and f sits on the experts' input and the combine
+weights (``models.layers.moe_apply``).
 
 Inside a unit, where one product's column split does not line up with
 what the rank computes next (the RG-LRU's (rg, rg) gate matrices, the
@@ -45,24 +68,25 @@ ranks' partial cotangents.  A tensor every rank reads a different part
 of after a g (the mLSTM's gate pre-activations) passes through f after
 it.
 
-All three are ``launch.fsdp``'s ``autograd.Function``s (``_CopyToModel``,
-``_ReduceFromModel``, ``_GatherFromModel``), whose collectives are its
-``torch.library``
-all-reduce, launched outside the ``torch.func`` levels
-(``core.functorch_levels``), as ``launch.fsdp._Gather``'s: autograd,
-``torch.func.vjp``, ``jvp`` and ``linearize`` (the curvature products)
-run through them.  A leaf a split unit uses whole on every rank passes
-through f on its way in (``gather_for_compute``), so its gradient is the
-sum of the ranks' partial ones (a vector it reads in part, as the
-RG-LRU's ``conv_b``, is then cut by ``shard``); the MoE router's does
-not, since the
+Every one of these is a ``launch.fsdp`` ``autograd.Function``
+(``_CopyToModel``, ``_ReduceFromModel``, ``_GatherFromModel``,
+``_ScatterFromModel``, ``_SliceOfModel``) whose collectives
+are its ``torch.library`` ops, launched outside the ``torch.func``
+levels (``core.functorch_levels``): autograd, ``torch.func.vjp``,
+``jvp`` and ``linearize`` (the curvature products) run through them.  A
+leaf a split unit uses whole on every rank passes through f on its way
+in (``gather_for_compute``), so its gradient is the sum of the ranks'
+partial ones (a vector it reads in part, as the RG-LRU's ``conv_b``, is
+then cut by ``shard``); the MoE router's does not, since the
 load-balance aux reads its probabilities whole on every rank: f sits on
 the combine weights instead (``models.layers.moe_apply``).
 
 Whether a unit is split is decided once a step, by the step's registry
 (``launch.fsdp.compute_specs``), and travels with the unit's leaves
 (``launch.fsdp.SplitUnit``): the model reads it with ``split_of``, the
-chunked CE with ``vocab_shard``.  Outside a step with tensor-parallel
+chunked CE with ``vocab_shard``.  Whether the arch takes
+sequence-parallel activations is decided there too; a forward's shapes
+settle it (``models.transformer.forward_hidden``).  Outside a step with tensor-parallel
 compute every unit is whole, and nothing here runs.
 """
 from __future__ import annotations
@@ -99,7 +123,41 @@ def gather_from_model(x: torch.Tensor, split: fsdp.Split) -> torch.Tensor:
     computes the rank's own columns or heads: all-gathered forward and
     jvp; the backward sums the ranks' partial cotangents and keeps this
     rank's share (reduce-scatter)."""
-    return fsdp._GatherFromModel.apply(x, fsdp._group_id(split.group))
+    return fsdp._GatherFromModel.apply(x, fsdp._group_id(split.group),
+                                       x.dim() - 1, False)
+
+
+def enter(x: torch.Tensor, split: Optional[fsdp.Split]) -> torch.Tensor:
+    """``x`` (B, T, ...) entering a unit (``split``: its ``Split``, or
+    None where it runs whole): f on a split unit, nothing on a whole
+    one, with the stream whole; with it split over T
+    (``fsdp.seq_split``), the whole T all-gathered, its backward a
+    reduce-scatter on a split unit and this rank's slice on a whole
+    one."""
+    seq = fsdp.seq_split()
+    if seq is None:
+        return copy_to_model(x, split) if split else x
+    return fsdp._GatherFromModel.apply(x, fsdp._group_id(seq.group), 1,
+                                       not split)
+
+
+def leave(y: torch.Tensor, split: Optional[fsdp.Split], dtype
+          ) -> torch.Tensor:
+    """A unit's output (B, T, ...) in ``dtype``: on a split unit ``y`` is
+    the rank's partial one (f32 where the compute dtype is narrower),
+    summed over the model group (g), or with the stream split over T
+    reduce-scattered over T; on a whole unit ``y`` is the whole output,
+    of which this rank keeps its T slice with the stream split.  Rounded
+    to ``dtype`` after the sum."""
+    seq = fsdp.seq_split()
+    if split and seq is not None:
+        return fsdp._ScatterFromModel.apply(y, fsdp._group_id(seq.group), 1,
+                                            dtype)
+    if split:
+        y = reduce_from_model(y, split)
+    elif seq is not None:
+        y = fsdp._SliceOfModel.apply(y, fsdp._group_id(seq.group), 1)
+    return y.to(dtype)
 
 
 def shard(x: torch.Tensor, split: fsdp.Split, dim: int = -1) -> torch.Tensor:
@@ -159,14 +217,15 @@ def vocab_embed(tokens: torch.Tensor, table: torch.Tensor, dtype,
                 split: fsdp.Split):
     """The embedding of ``tokens`` from this rank's rows of the table
     (zero for a token another rank holds) in ``dtype``, summed over the
-    model group: each token's row comes from the one rank that holds it,
-    so the sum has its bits."""
+    model group (``leave``: reduce-scattered over T with the stream
+    split): each token's row comes from the one rank that holds it, so
+    the sum has its bits."""
     size = table.shape[0]
     local = tokens - split.index * size
     inside = (local >= 0) & (local < size)
     rows = F.embedding(local.clamp(0, size - 1), table).to(dtype)
     rows = torch.where(inside[..., None], rows, rows.new_zeros(()))
-    return reduce_from_model(rows, split)
+    return leave(rows, split, dtype)
 
 
 def position_embed(T: int, table: torch.Tensor, dtype,
@@ -191,4 +250,5 @@ def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM):
     through (the chunked CE's softmax statistics), as a new tensor."""
     out = x.detach().clone()
     dist.all_reduce(out, op=op, group=group)
+    fsdp.log_collective("all_reduce", fsdp._group_id(group), out)
     return out

@@ -22,7 +22,12 @@ its token count, ``core.curvature.shard_for`` sums it over the data
 group and hands it back as ``batch["norms"]``, and the loss, ``acc`` and
 both factors then divide this rank's sums by the global count, so the
 group's sum is the reference's mean.  Without ``"norms"`` they divide by
-the batch's own B·T.
+the batch's own B·T.  With sequence-parallel activations the backbone
+gathers the whole T before the head (``models.transformer.
+forward_hidden``, the reference's ``unshard_seq`` in its ``steps.py``),
+so the loss runs on every "model" rank over the whole T of its rows, as
+in the reference, and its token counts are summed over the data group
+only, never over "model".
 
 Under tensor-parallel compute the head is this rank's V/m columns
 (``launch.tensor_parallel.vocab_shard``) and a = h W_local its logits.
@@ -34,9 +39,12 @@ label; ``acc``'s argmax is the global one, ties to the lowest index as
 are those sums over the whole vocabulary, ĝ = w (p − y) subtracts y on
 the label's owner only, and each rank's cotangents are its share: hᵀĥa
 for its columns, and ĥa W_localᵀ, a partial one of the hidden state,
-which the backbone's ``copy_to_model`` sums over the group.  A head the
-model group does not split (a vocabulary it does not divide) runs
-whole on every rank, as on one device.
+which the backbone's entry to the head (``tensor_parallel.enter``: f,
+or with the stream split over T the all-gather's reduce-scatter) sums
+over the group.  A head the model group does not split (a vocabulary it
+does not divide) runs whole on every rank, as on one device; with the
+stream split its entry's backward keeps this rank's T slice of the
+cotangent.
 """
 from __future__ import annotations
 

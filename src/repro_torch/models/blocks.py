@@ -27,10 +27,15 @@ the given cache tensors in place and returns them: a step then never
 copies a cache.
 
 Under tensor-parallel compute (``launch.tensor_parallel``) every kind's
-sequence forward runs on this rank's share of its unit's leaves, f
-(``copy_to_model``) at the unit's entry and g (``reduce_from_model``)
-after its row-parallel product (``layers.row_parallel``), the norms
-and the residual whole on every rank:
+sequence forward runs on this rank's share of its unit's leaves, the
+unit entered by ``tensor_parallel.enter`` and left by ``leave`` after
+its row-parallel product (``layers.row_parallel``).  The norms and the
+residual adds run on what the rank holds of the stream between the
+units: its T/m rows under sequence-parallel activations
+(``launch.fsdp.sequence_split``: the entry all-gathers T, the exit
+reduce-scatters it; a unit the mesh leaves whole gathers T at its entry
+and keeps this rank's slice at its exit), else the whole stream, with f
+at the entry and g at the exit.  Inside a unit, T is whole:
 
   * an attention block's attention and FFN or MoE (in ``models.layers``'
     projections, MLP and MoE); a windowed kind's attention runs on the
@@ -329,11 +334,10 @@ def rglru_scan(p, u, split=None):
 
 
 def _unit_input(h, p, split):
-    """(h through f on a share, the unit's ``conv_b`` or the rank's
-    channels of it)."""
-    if split is None:
-        return h, p["conv_b"]
-    return tp.copy_to_model(h, split), tp.shard(p["conv_b"], split)
+    """(h entering the unit, ``tensor_parallel.enter``; the unit's
+    ``conv_b``, or the rank's channels of it on a share)."""
+    b = p["conv_b"] if split is None else tp.shard(p["conv_b"], split)
+    return tp.enter(h, split), b
 
 
 def rglru_block_apply(cfg, p, x, positions):
@@ -510,10 +514,10 @@ def mlstm_block_apply(cfg, p, x, positions, *, time_chunk: int = 64):
     """mLSTM over a sequence through ``mlstm_chunkwise`` (the reference
     runs ``_mlstm_step`` as a scan in rematted time chunks; the function
     is the same, ``time_chunk`` sets only the memory)."""
-    B, T, _ = x.shape
     h0 = L.norm_apply(cfg, p["ln"], x)
     split = tp.split_of(p)
     h0, conv_b = _unit_input(h0, p, split)
+    B, T, _ = h0.shape
     u = h0 @ p["w_up"].to(h0.dtype)
     g = h0 @ p["w_gate"].to(h0.dtype)
     u = F.silu(causal_conv1d(u, p["conv_w"], conv_b))
@@ -851,13 +855,12 @@ def _slstm_inputs(cfg, p, x, split=None):
     out head-major for ``_slstm_step``: (T,H,B,4*hd).  On a share of the
     heads (``split``) the rank's columns of ``w_zifo`` (gate-major: z, i,
     f, o of every head) are gathered whole and its H/m heads taken:
-    (T,H/m,B,4*hd)."""
-    B, T, d = x.shape
+    (T,H/m,B,4*hd).  The normed x enters the unit (``tensor_parallel.
+    enter``), so T is whole."""
     H = cfg.num_heads
-    h0 = L.norm_apply(cfg, p["ln"], x)
-    b = p["b_zifo"]
-    if split is not None:
-        h0, b = tp.copy_to_model(h0, split), tp.shard(b, split)
+    h0 = tp.enter(L.norm_apply(cfg, p["ln"], x), split)
+    B, T, d = h0.shape
+    b = p["b_zifo"] if split is None else tp.shard(p["b_zifo"], split)
     wx = h0 @ p["w_zifo"].to(h0.dtype) + b.to(h0.dtype)
     if split is not None:
         wx = tp.gather_from_model(wx, split)
@@ -884,9 +887,9 @@ def slstm_block_apply(cfg, p, x, positions):
     in ``_SLSTMScan``, which saves (T,H,B,·)-sized states and
     pre-activations (no recompute) and differentiates by hand; without
     it, a plain loop that keeps only h."""
-    B, T, d = x.shape
     split = tp.split_of(p)
     wx = _slstm_inputs(cfg, p, x, split)
+    T, _, B, _ = wx.shape
     R = _slstm_recurrent(p["r_zifo"])
     if torch.is_grad_enabled():
         hs = _SLSTMScan.apply(wx, R)[0]

@@ -12,15 +12,18 @@ tensors with the reference's leaf names and layouts (``x @ w``, ``w`` of
 shape (d_in, d_out)); a matrix is cast to the activations' dtype at each
 use, as the reference does (the MoE casts its expert matrices once a
 call).  On a share of a batch split over ranks (``launch.fsdp.
-batch_group``) the dense MoE's load-balance aux is the global batch's.
+batch_group``) both MoE forms' load-balance aux, and the dispatch's
+capacity and drops, are the global batch's.
 
 Under tensor-parallel compute (``launch.tensor_parallel``) the attention
-projections, the MLP, the dense MoE, the embedding and the head get
+projections, the MLP, both MoE forms, the embedding and the head get
 this rank's share of their leaves and compute its share of the heads,
 FFN columns, experts or vocabulary: each reads whether its unit is
 split off the unit's leaves (``tensor_parallel.split_of``: the step
-decided it), and puts ``copy_to_model`` at its entry and
-``reduce_from_model`` at its exit.  Head counts come from the
+decided it), and puts ``tensor_parallel.enter`` at its entry and
+``leave`` at its exit (f and g; with sequence-parallel activations the
+all-gather and the reduce-scatter over T, or on a unit computed whole
+the all-gather and this rank's slice).  Head counts come from the
 projections' shapes, so a share's heads are counted as they are.  A
 rank's partial output (``wo``'s and ``w_out``'s rows, its experts'
 share of the combine) is summed in f32 and rounded to the compute dtype
@@ -36,10 +39,12 @@ reference's are jnp (the reference has no Pallas kernel for them).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.kernels.swa_attention import swa_attention
@@ -168,14 +173,14 @@ def qkv_project(cfg, p, x, positions, *, apply_rope=True):
     """x: (B, T, d) -> q (B,T,H,hd), k/v (B,T,K,hd): the biases added
     after each matmul and the q/k norms applied per head when ``p`` has
     them, then RoPE on q and k unless ``apply_rope`` is False.  H and K
-    are the projections' head counts; on a share of the query heads x
-    enters through ``copy_to_model``, and k/v are the kv heads those
-    queries read (``tensor_parallel.local_kv``)."""
-    B, T, _ = x.shape
+    are the projections' head counts; x enters the unit
+    (``tensor_parallel.enter``: on a share of the query heads through f,
+    and with the stream split over T gathered whole), and on a share k/v
+    are the kv heads those queries read (``tensor_parallel.local_kv``)."""
     hd = cfg.resolved_head_dim
     split = tp.split_of(p)
-    if split:
-        x = tp.copy_to_model(x, split)
+    x = tp.enter(x, split)
+    B, T, _ = x.shape
     dt = x.dtype
     q = x @ p["wq"].to(dt)
     k = x @ p["wk"].to(dt)
@@ -261,12 +266,13 @@ def partial_matmul(x, w):
 
 
 def row_parallel(x, w, split):
-    """x @ w; on a share of the rows of ``w`` (``split``, a
+    """x @ w, a unit's last product, leaving it (``tensor_parallel.
+    leave``); on a share of the rows of ``w`` (``split``, a
     ``launch.fsdp.Split``, or None) the ranks' partial products summed
-    in f32 (``reduce_from_model``), then rounded to x's dtype once."""
+    in f32, then rounded to x's dtype once."""
     if not split:
-        return x @ w.to(x.dtype)
-    return tp.reduce_from_model(partial_matmul(x, w), split).to(x.dtype)
+        return tp.leave(x @ w.to(x.dtype), None, x.dtype)
+    return tp.leave(partial_matmul(x, w), split, x.dtype)
 
 
 def out_project(cfg, p, ctx):
@@ -418,11 +424,10 @@ def init_mlp(cfg, init: Init, d_ff: Optional[int] = None, *, lead=()):
 def mlp_apply(cfg, p, x):
     """Gated: act(x w_gate) * (x w_in); plain: act(x w_in); then w_out.
     On a share of the columns of ``w_in`` (and the rows of ``w_out``)
-    between ``copy_to_model`` and ``reduce_from_model``, the partial
-    outputs summed in f32."""
+    between ``tensor_parallel.enter`` and ``leave``, the partial outputs
+    summed in f32."""
     split = tp.split_of(p)
-    if split:
-        x = tp.copy_to_model(x, split)
+    x = tp.enter(x, split)
     dt = x.dtype
     h = x @ p["w_in"].to(dt)
     if "w_gate" in p:
@@ -484,7 +489,11 @@ def moe_apply(cfg, p, x, *, t_chunk: int = 2048):
     router's leaf does not: the aux's gradient is whole on every rank),
     the rank's experts take their columns of the combine weights, and the
     ranks' partial outputs are summed in f32 (each expert's output too,
-    when the rank holds a share of its columns)."""
+    when the rank holds a share of its columns).  With the stream split
+    over T, x enters as a whole unit's input (``tensor_parallel.enter``
+    without a split: the router path's cotangent is the same on every
+    rank, so its backward slices), before those f."""
+    x = tp.enter(x, None)
     dt = x.dtype
     B, T, d = x.shape
     E = cfg.num_experts
@@ -525,8 +534,7 @@ def moe_apply(cfg, p, x, *, t_chunk: int = 2048):
                          for i in range(0, T, tc)], dim=1)
     else:
         out = expert_ffn(xe, ce)
-    if split:
-        out = tp.reduce_from_model(out, split).to(dt)
+    out = tp.leave(out, split, dt)
     group = fsdp.batch_group()
     if group is None:
         f = (comb > 0).float().mean((0, 1))
@@ -553,58 +561,128 @@ def moe_apply_dispatch(cfg, p, x, *, capacity_factor: float = 1.25):
     router weights.  A pair past its expert's C goes to a drop bin (slot
     E·C, sliced off), so every kept slot is written once.  Returns (out,
     aux) as ``moe_apply``, but this f is the share of the S·k pairs each
-    expert got (it sums to 1; the dense form's sums to k)."""
-    if fsdp.batch_group() is not None or tp.split_of(p):
-        raise NotImplementedError(
-            "moe_apply_dispatch on a share of a batch split over ranks, or "
-            "of the experts: its capacity and drops are the global batch's "
-            "in the reference; expert-parallel dispatch is the second half "
-            "of ROADMAP 1.4 part 2, step 3 (the dense moe_impl runs on a "
-            "mesh)")
+    expert got (it sums to 1; the dense form's sums to k).
+
+    On this rank's rows of a batch split over the data group
+    (``launch.fsdp.batch_group``) it computes the reference's function of
+    the global batch: S is the global B·T, and a pair's place in its
+    expert's bucket is its place among this rank's pairs of that expert
+    plus the number the data ranks before this one routed there (one
+    all-gather of the E counts, ``fsdp.all_gather_counts``, in the order
+    ``data.pipeline.shard_batch`` cuts the rows), so the same pairs are
+    dropped; the aux's f and P are the global batch's, this rank's
+    additive share of E·Σ f·P.  Its buckets hold min(C, local B·T) slots
+    an expert, which every kept pair of its rows fits.  On a share of the
+    experts (``tensor_parallel.split_of``) the rank fills and runs its
+    E/m experts' buckets, or every expert's d_ff/m columns when m does
+    not divide E; x and the router weights enter the experts through f
+    (the router and the aux read them whole on every rank, as in
+    ``moe_apply``) and the ranks' partial outputs, added up in f32, leave
+    through ``tensor_parallel.leave``.  ``dispatch_drops`` counts the
+    pairs each call drops."""
+    x = tp.enter(x, None)
     dt = x.dtype
     B, T, d = x.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
-    S = B * T
-    xf = x.reshape(S, d)
+    S_local = B * T
+    xf = x.reshape(S_local, d)
     probs, top_w, top_ix = _route(cfg, p, xf)
 
-    C = int(math.ceil(S * k / E * capacity_factor))
     flat_e = top_ix.reshape(-1)
-    flat_tok = torch.arange(S, device=x.device).repeat_interleave(k)
-    flat_w = top_w.reshape(-1)
+    counts = torch.bincount(flat_e, minlength=E)
+    group = fsdp.batch_group()
+    split = tp.split_of(p)
+    if group is None:
+        S, every = S_local, None
+    else:
+        S = S_local * dist.get_world_size(group)
+        every = fsdp.all_gather_counts(counts, group)        # (n, E)
+    C = int(math.ceil(S * k / E * capacity_factor))
+    Cl = min(C, S_local)
+    flat_tok = torch.arange(S_local, device=x.device).repeat_interleave(k)
     order = torch.argsort(flat_e, stable=True)               # group by expert
     e_sorted = flat_e[order]
     tok_sorted = flat_tok[order]
-    w_sorted = flat_w[order]
-    pos = torch.arange(S * k, device=x.device) - torch.searchsorted(
+    pos = torch.arange(S_local * k, device=x.device) - torch.searchsorted(
         e_sorted, e_sorted, side="left")                     # within bucket
-    keep = pos < C
-    slot = torch.where(keep, e_sorted * C + pos, E * C)      # E*C: drop bin
+    if every is not None:                   # the pairs of earlier rows
+        before = every[:dist.get_rank(group)].sum(0)
+        keep = pos + before[e_sorted] < C
+    else:
+        keep = pos < C
+    if _DROPS is not None:
+        _DROPS.append(fsdp.plain((~keep).sum()))
+    El, e0 = E, 0
+    if split and split.by == "experts":
+        El = E // split.extent
+        e0 = split.index * El
+        mine = keep & (e_sorted >= e0) & (e_sorted < e0 + El)
+    else:
+        mine = keep
+    slot = torch.where(mine, (e_sorted - e0) * Cl + pos, El * Cl)  # drop bin
+
+    src, weights = xf, top_w
+    if split:                               # the experts' inputs: f
+        src, weights = tp.copy_to_model(xf, split), tp.copy_to_model(top_w,
+                                                                     split)
+    w_sorted = weights.reshape(-1)[order]
 
     def bucket(values, dtype):
-        return torch.zeros(E * C + 1, dtype=dtype, device=x.device).index_put(
-            (slot,), values)[:E * C]
+        return torch.zeros(El * Cl + 1, dtype=dtype,
+                           device=x.device).index_put((slot,),
+                                                      values)[:El * Cl]
 
     bucket_tok = bucket(tok_sorted, torch.int64)
-    bucket_w = bucket(torch.where(keep, w_sorted, 0.0), torch.float32)
-    bucket_valid = bucket(keep.float(), torch.float32)
+    bucket_w = bucket(torch.where(mine, w_sorted, 0.0), torch.float32)
+    bucket_valid = bucket(mine.float(), torch.float32)
 
     w = _expert_matrices(p, dt)
-    xe = xf[bucket_tok].reshape(E, C, d) * bucket_valid.reshape(
-        E, C, 1).to(dt)
+    xe = src[bucket_tok].reshape(El, Cl, d) * bucket_valid.reshape(
+        El, Cl, 1).to(dt)
     h = torch.bmm(xe, w["w_in"])
     if "w_gate" in w:
         h = _act(cfg.activation, torch.bmm(xe, w["w_gate"])) * h
     else:
         h = _act(cfg.activation, h)
-    ye = torch.bmm(h, w["w_out"]).reshape(E * C, d) \
-        * bucket_w.reshape(-1, 1).to(dt)
-    out = torch.zeros(S, d, dtype=dt, device=x.device).index_add(
-        0, bucket_tok, ye).reshape(B, T, d)
+    if split:                               # partial outputs, in f32
+        ye = (partial_matmul(h, w["w_out"]) if split.by == "columns"
+              else torch.bmm(h, w["w_out"]).float()).reshape(El * Cl, d)
+        ye = ye * bucket_w.reshape(-1, 1).to(dt).float()
+        out = torch.zeros(S_local, d, dtype=torch.float32,
+                          device=x.device).index_add(0, bucket_tok, ye)
+    else:
+        ye = torch.bmm(h, w["w_out"]).reshape(El * Cl, d) \
+            * bucket_w.reshape(-1, 1).to(dt)
+        out = torch.zeros(S_local, d, dtype=dt, device=x.device).index_add(
+            0, bucket_tok, ye)
+    out = tp.leave(out.reshape(B, T, d), split, dt)
 
-    f = torch.bincount(flat_e, minlength=E).float() / (S * k)
-    aux = E * torch.sum(f * probs.mean(0))
-    return out, aux
+    if every is None:
+        f = counts.float() / (S * k)
+        return out, E * torch.sum(f * probs.mean(0))
+    # f and P of the global batch; this rank's additive share of E·Σ f·P
+    # (the data group's sum of the losses counts the aux once)
+    f = every.sum(0).float() / (S * k)
+    return out, E * torch.sum(f * probs.sum(0) / S)
+
+
+# the dropped pairs of each ``moe_apply_dispatch`` call while
+# ``dispatch_drops`` runs (a plain global, as ``fsdp.collective_log``'s)
+_DROPS: Optional[list] = None
+
+
+@contextlib.contextmanager
+def dispatch_drops():
+    """Within the block, a list of the (token, expert) pairs each
+    ``moe_apply_dispatch`` call drops past its expert's capacity, among
+    this rank's rows (0-d integer tensors, in call order); on a split
+    expert set every "model" rank counts the same pairs."""
+    global _DROPS
+    saved, _DROPS = _DROPS, []
+    try:
+        yield _DROPS
+    finally:
+        _DROPS = saved
 
 
 # ---------------------------------------------------------------------------
@@ -628,11 +706,14 @@ def embed_apply(cfg, p, tokens):
     fixed order on the CPU (the indexing backward's accumulation is not
     bitwise repeatable there).  On a share of the vocabulary each rank
     looks up the rows it holds and the ranks' rows are summed
-    (``tensor_parallel.vocab_embed``), the same bits."""
+    (``tensor_parallel.vocab_embed``), the same bits.  With the stream
+    split over T the embedding leaves as a unit (``tensor_parallel.
+    leave``): this rank's T slice."""
     split = tp.split_of(p)
     if split:
         return tp.vocab_embed(tokens, p["table"], cfg.cdtype, split)
-    return F.embedding(tokens, p["table"]).to(cfg.cdtype)
+    return tp.leave(F.embedding(tokens, p["table"]).to(cfg.cdtype), None,
+                    cfg.cdtype)
 
 
 def head_matrix_of(cfg, p):
@@ -645,5 +726,6 @@ def head_matrix_of(cfg, p):
 def lm_head_apply(cfg, p, x):
     """x @ lm_head, or x @ tableᵀ when the embeddings are tied: this
     rank's logit columns on a share of the vocabulary (the backbone's
-    ``forward_hidden`` hands such a head x through ``copy_to_model``)."""
+    ``forward_hidden`` hands the head x through ``tensor_parallel.
+    enter``)."""
     return x @ head_matrix_of(cfg, p).to(x.dtype)

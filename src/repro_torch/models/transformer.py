@@ -13,9 +13,14 @@ use, as the reference does.  Under tensor-parallel compute
 (``launch.tensor_parallel``) the embedding, every block's unit (the
 attention-family blocks' attention and FFN, the RG-LRU, mLSTM and sLSTM
 blocks, ``models.blocks``) and the head run on this rank's share of
-their leaves: ``forward_hidden`` hands a split head its hidden state through
-``copy_to_model``, ``head_matrix`` is this rank's (d, V/m) columns, and
-``forward`` gathers the logits' vocab whole.
+their leaves: ``forward_hidden`` hands the head its hidden state through
+``tensor_parallel.enter``, ``head_matrix`` is this rank's (d, V/m)
+columns, and ``forward`` gathers the logits' vocab whole.  With
+sequence-parallel activations (``launch.fsdp.sequence_split``, decided
+by ``forward_hidden`` from the step's registry and the batch's shape)
+each rank holds its T/m rows of the residual stream from the embedding
+to the final norm, and the whole T is gathered once, before the head
+(the reference's ``steps.py`` ``unshard_seq``).
 
 Parameters are a flat dict keyed by the reference's pytree path, leaves
 stacked over periods as in the reference:
@@ -178,24 +183,24 @@ def head_matrix(cfg, params):
 
 def forward_hidden(cfg, params, batch):
     """As ``forward`` but stops before the LM head: (hidden (B,T,d), aux).
-    For a head split over the vocabulary the hidden state leaves through
-    ``copy_to_model``: its cotangent from the head is the sum of the
-    ranks' partial ones."""
+    The hidden state enters the head as a unit (``tensor_parallel.
+    enter``): for a head split over the vocabulary its cotangent from the
+    head is the sum of the ranks' partial ones; with sequence-parallel
+    activations, which the blocks run on this rank's T/m rows, the whole
+    T is gathered here."""
     tokens = batch["tokens"]
     T = tokens.shape[1]
-    emb = gathered(cfg, params, "embed.")
-    x = L.embed_apply(cfg, emb, tokens)
-    positions = torch.arange(T, device=tokens.device)
-    aux = 0.0
-    for kind, prefix, i in _layer_slots(cfg):
-        x, a = B.block_apply(cfg, kind, gathered(cfg, params, prefix, i), x,
-                             positions)
-        aux = aux + a
-    x = L.norm_apply(cfg, gathered(cfg, params, "final_norm."), x)
-    split = tp.split_of(emb)
-    if split:
-        x = tp.copy_to_model(x, split)
-    return x, aux
+    with fsdp.sequence_rows(fsdp.sequence_split(T)):
+        emb = gathered(cfg, params, "embed.")
+        x = L.embed_apply(cfg, emb, tokens)
+        positions = torch.arange(T, device=tokens.device)
+        aux = 0.0
+        for kind, prefix, i in _layer_slots(cfg):
+            x, a = B.block_apply(cfg, kind, gathered(cfg, params, prefix, i),
+                                 x, positions)
+            aux = aux + a
+        x = L.norm_apply(cfg, gathered(cfg, params, "final_norm."), x)
+        return tp.enter(x, tp.split_of(emb)), aux
 
 
 def forward(cfg, params, batch):

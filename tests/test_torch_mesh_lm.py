@@ -11,11 +11,11 @@ and 1 NG iterations, the ``fisher_diag`` preconditioner, ``warm_start``,
 gloo meshes (a CPU process a rank, one thread each, ``tests/torch_mesh_
 lm_worker.py``), each rank holding its share of every parameter and
 θ-sized state leaf and, where "model" has more than one rank, computing
-its share of the heads, FFN columns, experts and vocabulary (on 1x4 the
-qwen smoke's 2 kv heads are whole on every rank, each of its 4 ranks
-reading the one its query head reads), against the reference's
-single-device jitted update
-from the same parameters (its zero biases and unit scales perturbed,
+its share of the heads, FFN columns, experts and vocabulary, with a
+decoder-only arch's residual stream split over T between the units (on
+1x4 the qwen smoke's 2 kv heads are whole on every rank, each of its 4
+ranks reading the one its query head reads), against the reference's
+single-device jitted update from the same parameters (its zero biases and unit scales perturbed,
 ``tests/torch_perturb.py``) and batch, with the reference test's
 tolerances: the same ``cg_best_iter``, loss within 1e-4, the parameters'
 relative L2 below 1e-4 and allclose at rtol 1e-3 / atol 3e-5.  Against
@@ -32,7 +32,8 @@ instead of summing) and 2 can; granite-moe-3b-a800m's smoke config (2x2:
 each rank computing its 2 of the 4 experts, the load-balance aux over
 the global batch); mixtral-8x22b's and recurrentgemma-9b's (1x2: the
 windowed attention on each rank's heads; recurrentgemma's RG-LRU blocks
-on each rank's channels, their MLPs on its columns); xlstm-125m's in 1d
+on each rank's channels, their MLPs on its columns; recurrentgemma's on
+2x2 too, its rows split and its stream split over T); xlstm-125m's in 1d
 storage (1x2: the mLSTM and sLSTM blocks on each rank's heads);
 whisper-base's in 1d storage (2x2: an enc-dec arch, each rank computing
 its heads, MLP columns, vocab and ``dec_pos`` rows, one Adam
@@ -73,7 +74,8 @@ LOSS_ATOL = 1e-4
 PARAM_REL_L2 = 1e-4
 PARAM_RTOL, PARAM_ATOL = 1e-3, 3e-5
 DELTA_REL_L2 = 1e-5
-MESH_CASES = {"2x2": ["plain", "fused", "b6", "granite", "whisper_adam"],
+MESH_CASES = {"2x2": ["plain", "fused", "b6", "granite", "whisper_adam",
+                       "rg"],
               "4x1": ["plain", "fused", "b6"],
               "1x2": ["plain", "mixtral", "rg", "xlstm"], "1x4": ["plain"]}
 # a train_lm run checkpointed and resumed, by mesh: its split leaves
@@ -93,7 +95,8 @@ def one_thread():
 def _jcfg(case):
     kw = LW.LM_CASES[case]
     return jget(kw["arch"]).smoke().replace(
-        compute_dtype="float32", param_sharding=kw["sharding"])
+        compute_dtype="float32", param_sharding=kw["sharding"],
+        **kw.get("over", {}))
 
 
 @pytest.fixture(scope="module")
@@ -152,7 +155,8 @@ def runs(start, tmp_path_factory):
                             tmp_path_factory.mktemp(f"mesh_lm_resume_{mesh}"),
                             mesh=mesh) for mesh in RESUME_SPLIT}
     refs = {}
-    for case, kw in LW.LM_CASES.items():
+    for case in sorted({c for cases in MESH_CASES.values() for c in cases}):
+        kw = LW.LM_CASES[case]
         tp = tps[kw["arch"]]
         last = (LW.lm_update(tp, None, kw, eval_candidates=False)
                 if kw["optimizer"] == "nghf" else None)

@@ -40,7 +40,12 @@ one thread each, ``tests/torch_mesh_lm_worker.py::tp_units``):
     3-5e-7 of f32 rounding: recurrentgemma's read 1.1-1.3e-6); the units
     split where "model" divides the heads (xlstm's with 2 heads whole on
     1x4).  One process's results come from this process
-    (``tp_one_process``).
+    (``tp_one_process``).  The cases' norm scales and biases and q/k/v
+    biases are perturbed off the reference's draw, and every
+    decoder-only case runs with sequence-parallel activations (its
+    residual stream split over T between the units;
+    ``tests/test_torch_sequence_parallel.py`` holds that part on its
+    own).
 
 Without processes: ``models.layers.partial_matmul`` (a row-parallel
 product of bf16 operands with an f32 result) against the f32 upcast's

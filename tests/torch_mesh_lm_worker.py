@@ -45,6 +45,10 @@ LM_CASES = {
     # the mLSTM and sLSTM blocks on each rank's heads (1d, as xlstm-125m)
     "xlstm": dict(arch="xlstm-125m", sharding="1d", batch=8,
                   optimizer="nghf", opt=NGHF),
+    # the capacity dispatch MoE on split rows and a split expert set
+    "granite_dispatch": dict(arch="granite-moe-3b-a800m", sharding="2d",
+                             batch=8, optimizer="nghf", opt=NGHF,
+                             over=dict(moe_impl="dispatch")),
 }
 ENC_SEED = 5
 
@@ -53,7 +57,8 @@ def lm_cfg(case: dict):
     """The case's smoke config at f32 compute in its storage regime."""
     from repro_torch.configs.base import get_config
     return get_config(case["arch"]).smoke().replace(
-        compute_dtype="float32", param_sharding=case["sharding"])
+        compute_dtype="float32", param_sharding=case["sharding"],
+        **case.get("over", {}))
 
 
 def encoder_input(cfg, n: int) -> np.ndarray:
@@ -179,11 +184,12 @@ def _load(tmp: str, name: str) -> dict:
 # tasks: each runs on every rank and returns a dict of numpy arrays
 # ---------------------------------------------------------------------------
 
-def lm_updates(*, tmp: str, mesh: str, cases: list) -> dict:
+def lm_updates(*, tmp: str, mesh: str, cases: list, last: bool = True
+               ) -> dict:
     """One update per case of ``LM_CASES`` on a ``mesh`` ("DxM") of this
     run's ranks, from the whole parameters of ``params_<arch>.npz``, keys
-    "<case>/<name>"; an NGHF case's last CG iterate too (no candidate
-    selection), "<case>/last.<key>"."""
+    "<case>/<name>"; with ``last`` an NGHF case's last CG iterate too (no
+    candidate selection), "<case>/last.<key>"."""
     mesh = _mesh(mesh)
     out = {"data_index": np.asarray(mesh.data_index)}
     for case in cases:
@@ -191,9 +197,9 @@ def lm_updates(*, tmp: str, mesh: str, cases: list) -> dict:
         params = _load(tmp, f"params_{kw['arch']}.npz")
         for k, v in lm_update(params, mesh, kw).items():
             out[f"{case}/{k}"] = v
-        if kw["optimizer"] == "nghf":
-            last = lm_update(params, mesh, kw, eval_candidates=False)
-            out.update({f"{case}/last.{k[2:]}": v for k, v in last.items()
+        if last and kw["optimizer"] == "nghf":
+            it = lm_update(params, mesh, kw, eval_candidates=False)
+            out.update({f"{case}/last.{k[2:]}": v for k, v in it.items()
                         if k.startswith("p.")})
     return out
 
@@ -388,7 +394,9 @@ def _members(ckpt_dir: str) -> dict:
 # by channels, their MLPs by columns, the local block's one kv head whole
 # on every rank), xlstm's (the mLSTM and sLSTM blocks by heads), whisper's
 # (an enc-dec arch: every attention, MLP, the vocab and ``dec_pos``), and
-# xlstm's with 2 heads (whole mLSTM and sLSTM units on a 4-way "model")
+# xlstm's with 2 heads (whole mLSTM and sLSTM units on a 4-way "model").
+# Every decoder-only case runs with sequence-parallel activations on a
+# "model" extent above 1 (T 16, its batch of 4 split over the data ranks).
 TP_GRAD_CASES = {
     "qwen_qk": dict(arch="qwen2.5-3b", over=dict(qk_norm=True)),
     "granite": dict(arch="granite-moe-3b-a800m", over={}),
@@ -399,12 +407,39 @@ TP_GRAD_CASES = {
     "whisper": dict(arch="whisper-base", over={}),
     "xlstm_h2": dict(arch="xlstm-125m", over=dict(num_heads=2)),
 }
+# the cases of ``tests/test_torch_sequence_parallel.py``: where sequence
+# parallelism runs (qwen with its 2 kv heads whole on 1x4, recurrentgemma,
+# granite's MoE router) and where it falls back or runs a unit whole: T
+# 15, which "model" does not divide; a batch of 3, which 2 data ranks do
+# not split (kept whole on every rank, as ``b6`` on 4 data ranks); xlstm
+# with 2 heads (its units whole on 1x4, the stream split); granite with an
+# odd vocabulary (its embedding and head whole on every rank, as
+# granite-moe-3b-a800m's 49155) and with the dispatch MoE
+SP_CASES = {
+    "qwen_qk": TP_GRAD_CASES["qwen_qk"],
+    "rg": TP_GRAD_CASES["rg"],
+    "xlstm_h2": TP_GRAD_CASES["xlstm_h2"],
+    "qwen_t15": dict(arch="qwen2.5-3b", over={}, seq=15),
+    "qwen_b3": dict(arch="qwen2.5-3b", over={}, batch=3),
+    "granite_v511": dict(arch="granite-moe-3b-a800m",
+                         over=dict(vocab_size=511)),
+    "granite_dispatch": dict(arch="granite-moe-3b-a800m",
+                             over=dict(moe_impl="dispatch")),
+}
 TP_BATCH = 4
+# the vector leaves the reference draws as zeros and ones, moved off them
+# (``tests/torch_perturb.py``'s names): a gradient of a norm's leaves that
+# misses another rank's T rows shows
+PERTURBED = ("bq", "bk", "bv", "q_norm", "k_norm", "scale", "bias")
+
+
+def tp_case(name: str) -> dict:
+    return {**SP_CASES, **TP_GRAD_CASES}[name]
 
 
 def tp_grad_cfg(name: str):
     from repro_torch.configs.base import get_config
-    kw = TP_GRAD_CASES[name]
+    kw = tp_case(name)
     return get_config(kw["arch"]).smoke().replace(
         compute_dtype="float32", param_sharding="2d", **kw["over"])
 
@@ -435,18 +470,220 @@ def _toy_gather(p: dict, split):
     return tp.reduce_from_model(y, split) if split else y
 
 
-def tp_units(*, tmp: str, mesh: str) -> dict:
+def _toy_sp(p: dict, seq):
+    """With the stream split over T by ``seq`` (a ``fsdp.Split``; None:
+    the whole toy), y = x + leave(tanh(enter(x * f(u)) @ w1) @ w2) and
+    z = y + leave(tanh(enter(y) @ w3)): u a leaf used on the T slice, w1
+    column-parallel and w2 row-parallel (a split unit), w3 whole on every
+    rank (a whole unit).  ``x`` is the rank's T slice under ``seq``."""
+    from repro_torch.launch import fsdp
+    from repro_torch.launch import tensor_parallel as tp
+    split = seq and fsdp.Split("columns", seq.group, seq.index, seq.extent)
+    u = tp.copy_to_model(p["u"], seq) if seq else p["u"]
+    with fsdp.sequence_rows(seq):
+        a = torch.tanh(tp.enter(p["x"] * u, split) @ p["w1"])
+        y = p["x"] + tp.leave(a @ p["w2"], split, a.dtype)
+        b = torch.tanh(tp.enter(y, None) @ p["w3"])
+        return y + tp.leave(b, None, b.dtype)
+
+
+def _sp_toy(mesh, r: int, m: int, gen) -> dict:
+    """``_toy_sp`` on this rank's T slice and its shares against the
+    whole toy: the forward, ``torch.func.jvp``, ``linearize``, ``vjp``
+    and autograd, the largest difference over the largest entry of the
+    whole toy's (its T slice, or this rank's share of a gradient)."""
+    from repro_torch.launch import fsdp
+    B, T, d, n = 2, 4 * m, 6, 8
+    shapes = {"x": (B, T, d), "u": (d,), "w1": (d, n), "w2": (n, d),
+              "w3": (d, d)}
+    whole = {k: torch.randn(s, generator=gen) for k, s in shapes.items()}
+    tan = {k: torch.randn(s, generator=gen) for k, s in shapes.items()}
+    ct = torch.randn(B, T, d, generator=gen)
+    c, t = n // m, T // m
+    rows = slice(r * t, (r + 1) * t)
+
+    def share(tree):
+        tree = dict(tree)
+        tree["x"] = tree["x"][:, rows].contiguous()
+        tree["w1"] = tree["w1"][:, r * c:(r + 1) * c].contiguous()
+        tree["w2"] = tree["w2"][r * c:(r + 1) * c].contiguous()
+        return tree
+
+    seq = fsdp.Split("sequence", mesh.group("model"), r, m)
+    want_y = _toy_sp(whole, None)[:, rows]
+    want_j = torch.func.jvp(lambda q: _toy_sp(q, None), (whole,),
+                            (tan,))[1][:, rows]
+    _, pull = torch.func.vjp(lambda q: _toy_sp(q, None), whole)
+    want_g = share(pull(ct)[0])
+    mine, tmine = share(whole), share(tan)
+
+    def rel(got, want) -> float:
+        return float((got - want).abs().max() / want.abs().max())
+
+    out = {"forward": rel(_toy_sp(mine, seq), want_y)}
+    out["jvp"] = rel(torch.func.jvp(lambda q: _toy_sp(q, seq), (mine,),
+                                    (tmine,))[1], want_j)
+    lin_y, lin = torch.func.linearize(lambda q: _toy_sp(q, seq), mine)
+    out["linearize"] = max(rel(lin(tmine), want_j),
+                           rel(lin({k: 2 * v for k, v in tmine.items()}),
+                               2 * want_j), rel(lin_y, want_y))
+    _, pull = torch.func.vjp(lambda q: _toy_sp(q, seq), mine)
+    g = pull(ct[:, rows])[0]
+    out["vjp"] = max(rel(g[k], want_g[k]) for k in want_g)
+    leaves = {k: v.clone().requires_grad_(True) for k, v in mine.items()}
+    (_toy_sp(leaves, seq) * ct[:, rows]).sum().backward()
+    out["autograd"] = max(rel(leaves[k].grad, want_g[k]) for k in want_g)
+    return {"sp_toy_" + k: np.asarray(v) for k, v in out.items()}
+
+
+# the dispatch MoE on its own: (E, k) with capacity factor 1.25 at 64
+# (token, expert) pairs, most tokens routed to the first experts, so that
+# pairs are dropped: E 4 splits by experts over 2 or 4 "model" ranks, E 3
+# by every expert's columns
+DISPATCH = {"experts": (4, 2), "columns": (3, 2)}
+DISPATCH_SHAPE = (4, 8, 16, 8)                  # B, T, d, d_ff
+
+
+def dispatch_cfg(E: int, k: int):
+    from repro_torch.configs.base import get_config
+    _, _, d, ff = DISPATCH_SHAPE
+    return get_config("granite-moe-3b-a800m").smoke().replace(
+        compute_dtype="float32", d_model=d, d_ff=ff, num_experts=E,
+        num_experts_per_tok=k, moe_impl="dispatch")
+
+
+def dispatch_inputs(E: int, seed: int = 21) -> dict:
+    """x, the router (its first two columns along x's common direction),
+    the expert matrices and the output's cotangent, from a numpy seed."""
+    B, T, d, ff = DISPATCH_SHAPE
+    rng = np.random.default_rng(seed + E)
+    base = rng.normal(size=d)
+    x = 0.3 * rng.normal(size=(B, T, d)) + base
+    router = 0.3 * rng.normal(size=(d, E))
+    router[:, 0] += base / (base @ base) * 3.0
+    router[:, 1] += base / (base @ base) * 2.0
+    out = dict(x=x, router=router,
+               w_in=rng.normal(size=(E, d, ff)) / d ** 0.5,
+               w_gate=rng.normal(size=(E, d, ff)) / d ** 0.5,
+               w_out=rng.normal(size=(E, ff, d)) / ff ** 0.5,
+               ct=rng.normal(size=(B, T, d)), aux_ct=np.asarray(0.7))
+    return {k: v.astype(np.float32) for k, v in out.items()}
+
+
+def _dispatch(mesh, r: int, m: int) -> dict:
+    """``moe_apply_dispatch`` on this rank's rows (split over the data
+    group) and T slice (with the stream split, where "model" spans
+    ranks), its share of the experts or of their columns: the output, the
+    aux share and the dropped pairs (``layers.dispatch_drops``), and the
+    gradients of (out · ct) + aux_ct · aux by autograd: x's (its rows and
+    T slice), the router's and the experts' shares (their data-group sums
+    are the test's to take)."""
+    from repro_torch.launch import fsdp
+    from repro_torch.models import layers as L
+    out = {}
+    B, T, _, _ = DISPATCH_SHAPE
+    nb, t = B // mesh.data_extent, T // m
+    rows = slice(mesh.data_index * nb, (mesh.data_index + 1) * nb)
+    cols = slice(r * t, (r + 1) * t)
+    for by, (E, k) in DISPATCH.items():
+        cfg = dispatch_cfg(E, k)
+        x = {n: torch.from_numpy(v) for n, v in dispatch_inputs(E).items()}
+        split = None
+        leaves = {"router": x["router"]}
+        for n in ("w_in", "w_gate", "w_out"):
+            w = x[n]
+            if m > 1 and by == "experts":
+                w = w[r * E // m:(r + 1) * E // m]
+            elif m > 1:
+                dim = 1 if n == "w_out" else 2
+                f = w.shape[dim] // m
+                w = w.narrow(dim, r * f, f)
+            leaves[n] = w.contiguous()
+        leaves = {n: v.clone().requires_grad_(True) for n, v in leaves.items()}
+        p = dict(leaves)
+        if m > 1:
+            split = fsdp.Split(by, mesh.group("model"), r, m)
+            p = fsdp.SplitUnit(p, split, frozenset({"router"}))
+        h = x["x"][rows][:, cols if m > 1 else slice(None)].clone()
+        h.requires_grad_(True)
+        seq = (fsdp.Split("sequence", mesh.group("model"), r, m) if m > 1
+               else None)
+        group = mesh.data_group if mesh.data_extent > 1 else None
+        with fsdp.batch_rows(group), fsdp.sequence_rows(seq), \
+                L.dispatch_drops() as drops:
+            y, aux = L.moe_apply_dispatch(cfg, p, h)
+        ct = x["ct"][rows][:, cols if m > 1 else slice(None)]
+        ((y * ct).sum() + x["aux_ct"] * aux).backward()
+        out[f"dispatch_{by}/out"] = y.detach().numpy()
+        out[f"dispatch_{by}/aux"] = aux.detach().numpy()
+        out[f"dispatch_{by}/drops"] = np.asarray([int(c) for c in drops])
+        out[f"dispatch_{by}/g.x"] = h.grad.numpy()
+        for n, v in leaves.items():
+            out[f"dispatch_{by}/g.{n}"] = v.grad.numpy()
+    return out
+
+
+class _Record:
+    """Within the block: the residual stream's shape at every block
+    boundary (``models.blocks.block_apply``'s input and output, in call
+    order, "residual") and every collective (``fsdp.collective_log``)
+    as strings "<kind> <model|other> <shape> <bytes an element>" with
+    their calls ("coll", "coll_calls")."""
+
+    def __init__(self, mesh):
+        self.mesh, self.shapes = mesh, []
+
+    def __enter__(self):
+        from repro_torch.launch import fsdp
+        from repro_torch.models import blocks
+        self.apply = blocks.block_apply
+
+        def apply(cfg, kind, p, x, positions):
+            y, aux = self.apply(cfg, kind, p, x, positions)
+            self.shapes += [tuple(x.shape), tuple(y.shape)]
+            return y, aux
+
+        blocks.block_apply = apply
+        self.log = fsdp.collective_log()
+        self.counts = self.log.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import blocks
+        blocks.block_apply = self.apply
+        self.log.__exit__(*exc)
+
+    def arrays(self) -> dict:
+        from repro_torch.launch import fsdp
+        model = fsdp._group_id(self.mesh.group("model"))
+        keys = sorted(self.counts)
+        return {"residual": np.asarray(self.shapes).reshape(-1, 3),
+                "coll": np.asarray([
+                    f"{kind} {'model' if gid == model else 'other'} "
+                    f"{'x'.join(map(str, shape))} {size}"
+                    for kind, gid, shape, size in keys] or [""]),
+                "coll_calls": np.asarray([self.counts[k] for k in keys]
+                                         or [0])}
+
+
+def tp_units(*, tmp: str, mesh: str, cases=None, products: bool = True
+             ) -> dict:
     """On a ``mesh`` of this run's ranks, with tensor-parallel compute
     registered: f and g on a toy under the forward, ``torch.func.jvp``,
     ``linearize``, ``vjp`` and autograd against the whole toy; the
     vocab-parallel embedding and the chunked CE (loss, acc, gradient, GN
     and Fisher factors) on ``ce_inputs.npz`` against the whole vocab's
     (whose results go back for the reference); ``gather_from_model`` on a
-    second toy likewise; each ``TP_GRAD_CASES``
-    gradient through ``core.curvature.grad_and_loss`` and a GN product in
-    both curvature modes, whole, its forward's logits (the vocab gathered
-    whole) and the paths of the units it split; the test process holds
-    them against one process's (``tp_one_process``)."""
+    second toy likewise; the sequence-parallel unit edges on a third
+    (``_sp_toy``); the dispatch MoE on split rows, T and experts
+    (``_dispatch``); each case of ``cases`` (``TP_GRAD_CASES``' by
+    default; ``SP_CASES``' too): its gradient through ``core.curvature.
+    grad_and_loss`` (the residual stream's shapes and the collectives
+    recorded, ``_Record``) and, with ``products``, a GN product in both
+    curvature modes, whole, its forward's logits on the whole batch and on this rank's
+    rows (the vocab gathered whole) and the paths of the units it split;
+    the test process holds them against one process's
+    (``tp_one_process``)."""
     import torch.nn.functional as F
     from repro_torch.configs.base import get_config
     from repro_torch.core import tree_math as tm
@@ -475,6 +712,9 @@ def tp_units(*, tmp: str, mesh: str) -> dict:
         t["w1"] = t["w1"][:, r * n:(r + 1) * n].contiguous()
         t["w2"] = t["w2"][r * n:(r + 1) * n].contiguous()
         return t
+
+    out.update(_sp_toy(mesh, r, m, torch.Generator().manual_seed(13)))
+    out.update(_dispatch(mesh, r, m))
 
     ce_cfg = get_config("qwen2.5-3b").smoke()
     with np.load(os.path.join(tmp, "ce_inputs.npz")) as f:
@@ -577,18 +817,21 @@ def tp_units(*, tmp: str, mesh: str) -> dict:
             res[kind + "_h"], res[kind + "_W"] = ch, cw
         return res
 
-    whole_ce = run_ce(ce["W"], ce["uW"], False)
-    with reg():
-        split_ce = run_ce(ce["W"][:, cols].contiguous(),
-                          ce["uW"][:, cols].contiguous(), True)
-    for k, v in whole_ce.items():
-        out["ce_whole." + k] = v.numpy()
-        out["ce_split." + k] = split_ce[k].numpy()
-    out["ce_cols"] = np.asarray([cols.start, cols.stop])
+    if m > 1:               # a vocabulary split over "model"
+        whole_ce = run_ce(ce["W"], ce["uW"], False)
+        with reg():
+            split_ce = run_ce(ce["W"][:, cols].contiguous(),
+                              ce["uW"][:, cols].contiguous(), True)
+        for k, v in whole_ce.items():
+            out["ce_whole." + k] = v.numpy()
+            out["ce_split." + k] = split_ce[k].numpy()
+        out["ce_cols"] = np.asarray([cols.start, cols.stop])
 
     # gradients and GN products of whole models (the test process holds
     # them against one process's, ``tp_one_process``)
-    for name in TP_GRAD_CASES:
+    from repro_torch.data.pipeline import batch_splits, shard_batch
+    out["data_index"] = np.asarray(mesh.data_index)
+    for name in (TP_GRAD_CASES if cases is None else cases):
         cfg, model, params, b, fwd, spec, v = _tp_case(name)
         ss = param_shardings(cfg, mesh, params)
         mine = {k: ss[k].place(p) for k, p in params.items()}
@@ -599,15 +842,21 @@ def tp_units(*, tmp: str, mesh: str) -> dict:
         with fsdp.step_context(cfg, mesh, ss), tm.reducing(layout):
             out[f"{name}/units"] = np.asarray(
                 sorted(fsdp._REGISTRY.get().units), dtype=str)
-            _, _, g = grad_and_loss(fwd, spec, mine, b, mesh=mesh,
-                                    data_split=split)
+            with _Record(mesh) as rec:
+                _, _, g = grad_and_loss(fwd, spec, mine, b, mesh=mesh,
+                                        data_split=split)
+            out.update({f"{name}/{k}": a for k, a in rec.arrays().items()})
             gv = {mode: make_curvature_ops(fwd, spec, mine, b, mode=mode,
                                            mesh=mesh, data_split=split
                                            ).gnvp(vmine)
-                  for mode in ("rematvp", "linearize")}
+                  for mode in (("rematvp", "linearize") if products else ())}
             dots = torch.stack([tm.vdot(g, vmine), tm.norm(g)])
             with torch.no_grad():
                 out[f"{name}/logits"] = model.forward(mine, b)[0].numpy()
+                rows = batch_splits(b, mesh)
+                with fsdp.batch_rows(mesh.data_group if rows else None):
+                    out[f"{name}/logits_rows"] = model.forward(
+                        mine, shard_batch(b, mesh))[0].numpy()
         out[f"{name}/dots"] = dots.numpy()
         for k in params:
             out[f"{name}/g.{k}"] = fsdp.gather_whole(g[k], ss[k]).numpy()
@@ -619,21 +868,27 @@ def tp_units(*, tmp: str, mesh: str) -> dict:
 
 
 def _tp_case(name: str):
-    """(cfg, model, whole parameters, batch, forward, loss, tangent) of a
-    ``TP_GRAD_CASES`` case, the same on every rank and in the test
-    process."""
+    """(cfg, model, whole parameters (the norms' scales and biases, the
+    q/k/v biases and q/k norms moved off their initial values), batch,
+    forward, loss, tangent) of a ``TP_GRAD_CASES`` or ``SP_CASES`` case,
+    the same on every rank and in the test process."""
     from repro_torch.data.synthetic import lm_batch as draw
     from repro_torch.launch.steps import lm_forward
     from repro_torch.losses.chunked_lm import ChunkedCELoss
     from repro_torch.models.registry import get_model
     cfg = tp_grad_cfg(name)
     model = get_model(cfg)
-    params = model.init(0, device="cpu")
-    b = draw(0, batch=TP_BATCH, seq_len=SEQ, vocab=cfg.vocab_size,
-             device="cpu")
+    rng = np.random.default_rng(17)
+    params = {k: p + 0.1 * torch.from_numpy(
+                  rng.normal(size=p.shape).astype(np.float32))
+              if k.split(".")[-1] in PERTURBED else p
+              for k, p in model.init(0, device="cpu").items()}
+    n = tp_case(name).get("batch", TP_BATCH)
+    b = draw(0, batch=n, seq_len=tp_case(name).get("seq", SEQ),
+             vocab=cfg.vocab_size, device="cpu")
     b["labels"] = b["tokens"]
     if cfg.is_encoder_decoder:
-        b["encoder_input"] = torch.from_numpy(encoder_input(cfg, TP_BATCH))
+        b["encoder_input"] = torch.from_numpy(encoder_input(cfg, n))
     gen = torch.Generator().manual_seed(3)
     v = {k: torch.randn(p.shape, generator=gen) * 1e-2
          for k, p in params.items()}
@@ -641,17 +896,17 @@ def _tp_case(name: str):
             v)
 
 
-def tp_one_process(name: str) -> dict:
-    """One process's gradient ("g_one.<key>"), GN products in both
-    curvature modes ("gv_one_<mode>.<key>"), ``vdot``/``norm``
-    ("dots_one") and logits ("logits_one") of ``tp_units``' case
-    ``name``."""
+def tp_one_process(name: str, products: bool = True) -> dict:
+    """One process's gradient ("g_one.<key>"), with ``products`` GN
+    products in both curvature modes ("gv_one_<mode>.<key>"),
+    ``vdot``/``norm`` ("dots_one") and logits ("logits_one") of
+    ``tp_units``' case ``name``."""
     from repro_torch.core import tree_math as tm
     from repro_torch.core.curvature import grad_and_loss, make_curvature_ops
     cfg, model, params, b, fwd, spec, v = _tp_case(name)
     _, _, g = grad_and_loss(fwd, spec, params, b)
     out = {"dots_one": torch.stack([tm.vdot(g, v), tm.norm(g)]).numpy()}
-    for mode in ("rematvp", "linearize"):
+    for mode in ("rematvp", "linearize") if products else ():
         gv = make_curvature_ops(fwd, spec, params, b, mode=mode).gnvp(v)
         out.update({f"gv_one_{mode}.{k}": t.numpy() for k, t in gv.items()})
     out.update({f"g_one.{k}": t.numpy() for k, t in g.items()})
