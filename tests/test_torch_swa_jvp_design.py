@@ -65,6 +65,17 @@ _JAX_SHAPES = [(1, (65, 200)[i % 2], G * K, K, 32,
 _JAX_SHAPES += [(1, 200, 16, 2, 136, 70)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """PyTorch on one thread for this module: its emulated tiles are small
+    tensor ops, and beside the suite's parallel workers the default
+    thread pool oversubscribes the cores and multiplies the file's time."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(B, T, H, K, hd, seed):
     """q, k, v, tq, tk, tv as bf16 tensors from a numpy normal draw."""
     rng = np.random.default_rng(seed)
@@ -77,62 +88,74 @@ def _jvp_emulation(q, k, v, tq, tk, tv, window, *, split=True):
     """The jvp kernel's arithmetic in f32 on bf16 storage, a query tile of
     ``swa_geometry`` and a key tile (``_key_tile``) at a time: (f32
     accumulator, its bf16 rounding), each (B, T, H, hd).  ``split=False``
-    rounds X and P to bf16 once instead of splitting them."""
+    rounds X and P to bf16 once instead of splitting them.
+
+    Every query tile runs at once: tile x's j-th key tile starts at its
+    first key + j key tiles (``key_span``), and a tile past a query
+    tile's span is wholly outside its band, so it leaves the online
+    softmax's m, l and dsum and the accumulator exactly as they were."""
     B, T, H, hd = q.shape
     K = k.shape[2]
     G = H // K
     geo = SWA.swa_geometry(B, T, H, K, hd, window)
     scale = 1.0 / math.sqrt(hd)
-    qf, tqf = (x.float().reshape(B, T, K, G, hd) for x in (q, tq))
-    kf, tkf, vf, tvf = (x.float() for x in (k, tk, v, tv))
-    out = torch.empty(B, T, K, G, hd)
+    X, Q, kt = geo.grid[0], geo.queries, _key_tile(geo.hd_pad)
+    pad = X * Q - T
+
+    def tiles(x):               # (B, X, Q, K, G, hd), rows past T zero
+        x = torch.nn.functional.pad(x.float().reshape(B, T, K, G, hd),
+                                    (0, 0, 0, 0, 0, 0, 0, pad))
+        return x.reshape(B, X, Q, K, G, hd)
+
+    qf, tqf = tiles(q), tiles(tq)
+    t0 = torch.arange(X) * Q
+    first = torch.clamp(t0 - geo.window, min=0)
+    n_tiles = -(-(torch.clamp(t0 + Q, max=T) - first) // kt)
+    keys = (first[:, None, None] + torch.arange(int(n_tiles.max()))[:, None]
+            * kt + torch.arange(kt))                       # (X, J, kt)
+    rows = t0[:, None] + torch.arange(Q)                   # (X, Q)
+    # (X, J, Q, kt): the band, tile by tile
+    band = ((keys[:, :, None, :] <= rows[:, None, :, None])
+            & (keys[:, :, None, :] >= rows[:, None, :, None] - geo.window))
+    band = band[None, :, :, None, None]                    # (1,X,J,1,1,Q,kt)
+    at = torch.clamp(keys, max=T - 1)
+    kf, tkf, vf, tvf = (x.float()[:, at] for x in (k, tk, v, tv))
+    s = torch.einsum("bxtkgd,bxjskd->bxjkgts", qf, kf)
+    ds = (torch.einsum("bxtkgd,bxjskd->bxjkgts", tqf, kf)
+          + torch.einsum("bxtkgd,bxjskd->bxjkgts", qf, tkf))
+    J = keys.shape[1]
+    # pass 1: each row's LSE and dsbar
+    m = torch.full((B, X, K, G, Q), NEG)
+    l = torch.zeros_like(m)
+    dsum = torch.zeros_like(m)
+    for j in range(J):
+        bj = band[:, :, j]
+        sc = torch.where(bj, s[:, :, j] * scale, NEG)
+        mn = torch.maximum(m, sc.amax(-1))
+        e = torch.where(bj, torch.exp(sc - mn[..., None]), 0.0)
+        corr = torch.exp(m - mn)
+        l = l * corr + e.sum(-1)
+        dsum = dsum * corr + (e * (ds[:, :, j] * scale)).sum(-1)
+        m = mn
+    safe = torch.clamp(l, min=1e-30)
+    lse = (m + torch.log(safe))[..., None]
+    dsbar = (dsum / safe)[..., None]
 
     def parts(x):
         hi = x.to(torch.bfloat16).float()
         return (hi, (x - hi).to(torch.bfloat16).float()) if split else (hi,)
 
-    for x in range(geo.grid[0]):
-        t0 = x * geo.queries
-        t1 = min(t0 + geo.queries, T)
-        rows = torch.arange(t0, t1)
-        qb, tqb = qf[:, t0:t1], tqf[:, t0:t1]
-        first, _ = geo.key_span(x)
-        tiles = []
-        for k0 in range(first, t1, _key_tile(geo.hd_pad)):
-            k1 = min(k0 + _key_tile(geo.hd_pad), T)
-            keys = torch.arange(k0, k1)
-            band = ((keys[None, :] <= rows[:, None])
-                    & (keys[None, :] >= rows[:, None] - geo.window))
-            s = torch.einsum("btkgd,bskd->bkgts", qb, kf[:, k0:k1])
-            ds = (torch.einsum("btkgd,bskd->bkgts", tqb, kf[:, k0:k1])
-                  + torch.einsum("btkgd,bskd->bkgts", qb, tkf[:, k0:k1]))
-            tiles.append((k0, k1, band, s, ds))
-        # pass 1: each row's LSE and dsbar
-        m = torch.full((B, K, G, t1 - t0), NEG)
-        l = torch.zeros_like(m)
-        dsum = torch.zeros_like(m)
-        for _, _, band, s, ds in tiles:
-            sc = torch.where(band, s * scale, NEG)
-            mn = torch.maximum(m, sc.amax(-1))
-            e = torch.where(band, torch.exp(sc - mn[..., None]), 0.0)
-            corr = torch.exp(m - mn)
-            l = l * corr + e.sum(-1)
-            dsum = dsum * corr + (e * (ds * scale)).sum(-1)
-            m = mn
-        safe = torch.clamp(l, min=1e-30)
-        lse = (m + torch.log(safe))[..., None]
-        dsbar = (dsum / safe)[..., None]
-        # pass 2: tout = sum_j X V + sum_j P TV
-        acc = torch.zeros(B, t1 - t0, K, G, hd)
-        for k0, k1, band, s, ds in tiles:
-            p = torch.where(band, torch.exp(s * scale - lse), 0.0)
-            xx = torch.where(band, p * (ds * scale - dsbar), 0.0)
-            for a in parts(xx):
-                acc += torch.einsum("bkgts,bskd->btkgd", a, vf[:, k0:k1])
-            for a in parts(p):
-                acc += torch.einsum("bkgts,bskd->btkgd", a, tvf[:, k0:k1])
-        out[:, t0:t1] = acc
-    out = out.reshape(B, T, H, hd)
+    # pass 2: tout = sum_j X V + sum_j P TV
+    acc = torch.zeros(B, X, Q, K, G, hd)
+    for j in range(J):
+        bj = band[:, :, j]
+        p = torch.where(bj, torch.exp(s[:, :, j] * scale - lse), 0.0)
+        xx = torch.where(bj, p * (ds[:, :, j] * scale - dsbar), 0.0)
+        for a in parts(xx):
+            acc += torch.einsum("bxkgts,bxskd->bxtkgd", a, vf[:, :, j])
+        for a in parts(p):
+            acc += torch.einsum("bxkgts,bxskd->bxtkgd", a, tvf[:, :, j])
+    out = acc.reshape(B, X * Q, H, hd)[:, :T]
     return out, out.to(torch.bfloat16)
 
 
