@@ -92,6 +92,12 @@ port").
 ``step_context(cfg, mesh, shardings)`` registers the stored shardings
 for one step (``launch.steps.build_step``); with no mesh, and outside
 it, every call here is the identity, so one-device numbers do not move.
+A serving step also registers its decode cache's layout (``cache``:
+``launch.sharding.cache_shardings``, the reference's ``input_shardings``),
+and ``cache_for_compute`` hands each layer's cache to the model with the
+``Split`` of every leaf whose share is cut over "model" (attention k/v
+slots, the recurrent states' channels; ``models.blocks``' decode reads
+them).
 With a "model" extent of 1 nothing is split over "model", and every
 leaf is gathered as before tensor-parallel compute.
 
@@ -156,6 +162,7 @@ class _Registry(NamedTuple):
     seq: Optional[Split]  # the residual stream's split over "model"
                           # where the arch takes sequence-parallel
                           # activations (``_sequence``), or None
+    cache: dict          # {decode cache path: spec} of a serving step
 
 
 _REGISTRY: contextvars.ContextVar[Optional[_Registry]] = \
@@ -184,33 +191,37 @@ def _group_id(group) -> int:
 
 
 @contextlib.contextmanager
-def compute_specs(mesh, specs: dict, cast: bool, cfg=None):
+def compute_specs(mesh, specs: dict, cast: bool, cfg=None, cache=None):
     """Register ``specs`` ({path: stored spec}) on ``mesh``; ``cast``:
     cast float matrices to the compute dtype before gathering; ``cfg``:
     the arch config, which turns on tensor-parallel compute over "model"
-    (None: every leaf is gathered whole)."""
+    (None: every leaf is gathered whole); ``cache``: {decode cache path:
+    spec} of a serving step's cache shares."""
     token = _REGISTRY.set(_Registry(mesh, specs, cast, cfg,
                                     _split_units(cfg, mesh, specs),
-                                    _sequence(cfg, mesh)))
+                                    _sequence(cfg, mesh), cache or {}))
     try:
         yield
     finally:
         _REGISTRY.reset(token)
 
 
-def step_context(cfg, mesh, shardings: Optional[dict]):
+def step_context(cfg, mesh, shardings: Optional[dict],
+                 cache: Optional[dict] = None):
     """The gather context of one step: ``shardings`` ({path:
     ``NamedSharding``}, the stored layout) registered, with the cast
     before the gather under ``cfg.param_sharding == "2d"`` (the
     reference's 1d archs run without it), and tensor-parallel compute
-    over "model" where its extent is above 1.  With ``mesh=None`` it is
-    an empty stack (identity)."""
+    over "model" where its extent is above 1; ``cache`` ({path:
+    ``NamedSharding``}) the layout of a serving step's decode cache.
+    With ``mesh=None`` it is an empty stack (identity)."""
     stack = contextlib.ExitStack()
     if mesh is not None:
         tp = "model" in mesh.axis_names and mesh.extent("model") > 1
         stack.enter_context(compute_specs(
             mesh, {k: s.spec for k, s in shardings.items()},
-            cast=cfg.param_sharding == "2d", cfg=cfg if tp else None))
+            cast=cfg.param_sharding == "2d", cfg=cfg if tp else None,
+            cache={k: s.spec for k, s in (cache or {}).items()}))
     return stack
 
 
@@ -288,6 +299,41 @@ def seq_split() -> Optional[Split]:
     """The running forward's split of the residual stream over T, or
     None."""
     return _SEQ.get()
+
+
+class CacheShare(dict):
+    """A layer's decode cache leaves as ``cache_for_compute`` hands them
+    to the model: ``splits`` ({leaf name: ``Split``} by "cache") of the
+    leaves this rank holds a share of over "model" (the dim
+    ``launch.sharding.input_shardings`` cuts: an attention cache's
+    slots, a recurrent state's channels); ``rows``, a ``Split`` by
+    "rows" over the data group where the mesh has more than one data
+    rank: a leaf the layout keeps whole (the xLSTM's m) holds every batch
+    row, of which the step's rows are this rank's share."""
+
+    def __init__(self, leaves: dict, splits: dict, rows=None):
+        super().__init__(leaves)
+        self.splits, self.rows = splits, rows
+
+
+def cache_for_compute(tree: dict, prefix: str = "") -> dict:
+    """A layer's cache leaves (``prefix`` + name is a leaf's cache path)
+    as a ``CacheShare`` under a serving step's registered cache layout;
+    ``tree`` itself without one."""
+    reg = _REGISTRY.get()
+    if reg is None or not reg.cache:
+        return tree
+    mesh = reg.mesh
+    splits = {}
+    for k in tree:
+        if _model_split(mesh, reg.cache.get(prefix + k, ())):
+            coord = dict(zip(mesh.axis_names,
+                             mesh.device_mesh.get_coordinate()))
+            splits[k] = Split("cache", mesh.group("model"), coord["model"],
+                              mesh.extent("model"))
+    rows = (Split("rows", mesh.data_group, mesh.data_index,
+                  mesh.data_extent) if mesh.data_extent > 1 else None)
+    return CacheShare(tree, splits, rows)
 
 
 def unit_split(path: str) -> Optional[Split]:

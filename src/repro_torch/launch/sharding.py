@@ -31,8 +31,11 @@ heads, channels, FFN columns, experts, positions or vocabulary
 (``launch.tensor_parallel``): the attention-family blocks, the RG-LRU,
 mLSTM and sLSTM blocks, an encoder-decoder arch's layers and
 ``dec_pos``, the embedding; and whole for any other leaf.
-``input_shardings`` is held against the reference's by the tests;
-placing the serving caches by it is ROADMAP 1.4 part 2, step 5.
+The serving steps place their inputs by ``input_shardings`` (the
+reference's dry run does, ``repro.launch.dryrun``): the batch rows over
+the data axes, and each rank allocates only its share of the decode
+caches (``place_cache``): attention k/v slots over "model", the
+recurrent states' channels over "model", ``enc_out`` over the data axes.
 ``placements`` maps a spec to ``torch.distributed.tensor`` placements.
 """
 from __future__ import annotations
@@ -313,6 +316,13 @@ class NamedSharding:
                 out += list(axes)
         return tuple(out)
 
+    def share_shape(self, shape) -> tuple:
+        """The shape of a rank's share of a leaf of the whole ``shape``."""
+        entries = list(self.spec) + [None] * (len(shape) - len(self.spec))
+        return tuple(n if e is None else n // math.prod(
+            self.mesh.shape[a] for a in ((e,) if isinstance(e, str) else e))
+            for n, e in zip(shape, entries))
+
     def place(self, tensor: torch.Tensor) -> torch.Tensor:
         """This rank's share of the whole ``tensor``, on the mesh's
         device, in storage of its own (the whole tensor can be freed)."""
@@ -466,3 +476,36 @@ def input_shardings(cfg, mesh, specs: dict) -> dict:
         return per_leaf(name.split(".")[-1], shape)
 
     return {k: walk(k, v) for k, v in specs.items()}
+
+
+class CacheShares(dict):
+    """A rank's shares of the decode cache leaves ({path: tensor}, the
+    model's cache layout), with ``shardings`` ({path: ``NamedSharding``})
+    saying how each leaf of the whole cache is cut: what the serving
+    step registers (``launch.fsdp.step_context``) so that the model knows
+    which dims of its cache are this rank's share."""
+
+    def __init__(self, leaves: dict, shardings: dict):
+        super().__init__(leaves)
+        self.shardings = shardings
+
+
+def cache_shardings(cfg, mesh, shapes: dict) -> dict:
+    """{path: NamedSharding} of a decode cache's leaves ({path: (shape,
+    dtype)}, ``Model.cache_shapes``) by ``input_shardings``' rule."""
+    specs = input_shardings(cfg, mesh, {"cache": shapes})["cache"]
+    return {k: NamedSharding(mesh, specs[k]) for k in shapes}
+
+
+def place_cache(cfg, mesh, shapes: dict, fill: dict) -> CacheShares:
+    """This rank's share of every decode cache leaf, on the mesh's
+    device: ``shapes`` ({path: (shape, dtype)}) of the whole cache, each
+    leaf cut by ``cache_shardings`` and allocated at the share's shape
+    (never whole), filled with ``fill[name]`` (the leaf's last path
+    key; 0 where it is absent), as the whole cache is initialised."""
+    shardings = cache_shardings(cfg, mesh, shapes)
+    leaves = {k: torch.full(shardings[k].share_shape(shape),
+                            fill.get(k.split(".")[-1], 0.0), dtype=dtype,
+                            device=mesh.device)
+              for k, (shape, dtype) in shapes.items()}
+    return CacheShares(leaves, shardings)

@@ -41,7 +41,15 @@ LM serving: ``build_prefill_step(cfg)`` runs a prompt batch through the
 backbone and returns the last position's logits (the prefill_32k step;
 its windowed-attention layers go through the hand-written kernel on the
 card); ``build_serve_step(cfg, long_mode=...)`` is one token of batched
-decode.  Both run without autograd (``torch.no_grad``).
+decode.  Both run without autograd (``torch.no_grad``).  Both take a
+``mesh=``: parameters stored as each rank's share, the batch's rows and
+the decode caches placed by ``launch.sharding.input_shardings`` (the
+reference's dry run places them so), each rank allocating only its share
+of the caches (``Model.init_cache(..., mesh=)``):
+
+    step = build_serve_step(cfg, mesh=mesh)
+    cache = model.init_cache(B, S, mesh=mesh)      # this rank's share
+    logits, cache = step(my_params, cache, tokens, pos)  # its rows
 """
 from __future__ import annotations
 
@@ -52,6 +60,9 @@ import torch
 from repro_torch.core.optim import Optimizer, get_optimizer
 from repro_torch.core.optim.base import mesh_of
 from repro_torch.launch import fsdp
+from repro_torch.launch import tensor_parallel as tp
+from repro_torch.launch.sharding import (NamedSharding, input_shardings,
+                                         param_shardings)
 from repro_torch.losses.chunked_lm import ChunkedCELoss
 from repro_torch.losses.sequence import get_loss
 from repro_torch.models import acoustic
@@ -200,30 +211,82 @@ def build_sequence_step(acfg, opt_spec, *, loss: str = "mpe",
     return sequence_step, opt
 
 
-def build_prefill_step(cfg) -> Callable:
+def _placed_rows(cfg, mesh, batch: dict):
+    """(this rank's rows of every tensor of ``batch``, the data group they
+    are split over or None): each tensor cut by ``launch.sharding.
+    input_shardings`` (rows over the data axes where they divide, 0-d
+    leaves whole)."""
+    specs = input_shardings(cfg, mesh, {k: v for k, v in batch.items()
+                                        if isinstance(v, torch.Tensor)})
+    rows = {k: NamedSharding(mesh, specs[k]).place(v) if k in specs else v
+            for k, v in batch.items()}
+    split = any(e is not None for k in specs for e in specs[k][:1])
+    return rows, (mesh.data_group if split else None)
+
+
+def build_prefill_step(cfg, *, mesh=None) -> Callable:
     """``prefill_step(params, batch) -> (B, 1, V) f32`` logits of the last
-    position, ``batch["tokens"]`` of shape (B, T)."""
+    position, ``batch["tokens"]`` of shape (B, T).
+
+    On a ``mesh`` (a ``launch.mesh.Mesh``) ``params`` are this rank's
+    shares by ``launch.sharding.param_shardings``, ``batch`` the global
+    batch, of which the step keeps this rank's rows by ``input_shardings``
+    (the rows over the data axes); the backbone runs as a train step's
+    forward does (``launch.fsdp.step_context``: the gathers, the
+    tensor-parallel units, sequence-parallel rows), and the logits are
+    this rank's rows' (B_local, 1, V), the vocabulary gathered whole where
+    the head is split over it."""
     model = get_model(cfg)
+    shardings = (None if mesh is None
+                 else param_shardings(cfg, mesh, model.param_shapes()))
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        hidden, _ = model.forward_hidden(params, batch)
-        last = hidden[:, -1:]
-        logits = last @ model.head_matrix(params).to(last.dtype)
+        group = None
+        if mesh is not None:
+            batch, group = _placed_rows(cfg, mesh, batch)
+        with fsdp.step_context(cfg, mesh, shardings), fsdp.batch_rows(group):
+            hidden, _ = model.forward_hidden(params, batch)
+            last = hidden[:, -1:]
+            logits = last @ model.head_matrix(params).to(last.dtype)
+            split = fsdp.unit_split("embed")
+            if split:
+                logits = tp.gather_vocab(logits, split)
         return logits.float()
 
     return prefill_step
 
 
-def build_serve_step(cfg, *, long_mode: bool = False) -> Callable:
+def build_serve_step(cfg, *, long_mode: bool = False, mesh=None) -> Callable:
     """``serve_step(params, cache, tokens, pos) -> (logits (B,1,V) f32,
     cache)``; the cache is updated in place.  ``long_mode``: the cache
-    is the bounded one of ``init_cache(..., long_mode=True)``."""
+    is the bounded one of ``init_cache(..., long_mode=True)``.
+
+    On a ``mesh``: ``params`` are this rank's shares by
+    ``param_shardings``, ``cache`` this rank's shares of the caches
+    (``Model.init_cache(..., mesh=)``, which says how they are cut),
+    ``tokens`` the global (B, 1) of which the step keeps this rank's rows
+    (``input_shardings``), and the logits are those rows' (B_local, 1,
+    V).  Each layer is gathered where it is used, and each kind of cache
+    is read as the rank's share of it (``models.blocks``: the attention
+    slots split over "model" combine flash-decoding style)."""
     model = get_model(cfg)
+    shardings = (None if mesh is None
+                 else param_shardings(cfg, mesh, model.param_shapes()))
 
     @torch.no_grad()
     def serve_step(params, cache, tokens, pos):
-        return model.decode_step(params, cache, tokens, pos,
-                                 long_mode=long_mode)
+        if mesh is None:
+            return model.decode_step(params, cache, tokens, pos,
+                                     long_mode=long_mode)
+        placed = getattr(cache, "shardings", None)
+        if placed is None:
+            raise ValueError("build_serve_step(mesh=): the cache must be "
+                             "this rank's shares, placed by "
+                             "Model.init_cache(..., mesh=)")
+        tokens = _placed_rows(cfg, mesh, {"tokens": tokens})[0]["tokens"]
+        with fsdp.step_context(cfg, mesh, shardings, cache=placed):
+            return model.decode_step(params, cache, tokens, pos,
+                                     long_mode=long_mode)
 
     return serve_step

@@ -168,6 +168,54 @@ def shard(x: torch.Tensor, split: fsdp.Split, dim: int = -1) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# decode: per-token vectors between the compute and the cache layouts
+# ---------------------------------------------------------------------------
+
+def cache_split(cache, name: str) -> Optional[fsdp.Split]:
+    """The ``Split`` of the decode cache leaf ``name`` of a layer's cache
+    (``launch.fsdp.cache_for_compute``'s ``CacheShare``) where this rank
+    holds its share of it over "model", else None."""
+    return getattr(cache, "splits", {}).get(name)
+
+
+def cache_rows(cache, name: str, n: int):
+    """(the ``n`` batch rows of the step in the cache leaf ``name``, the
+    data ``Split`` to write them back over or None): where the leaf holds
+    every row of a batch split over the data group (a leaf the layout
+    keeps whole), this rank's rows of it."""
+    t = cache[name]
+    rows = getattr(cache, "rows", None)
+    if rows is None or t.shape[0] == n:
+        return t, None
+    return t.narrow(0, rows.index * n, n), rows
+
+
+def put_rows(cache, name: str, new: torch.Tensor, rows) -> None:
+    """Write ``new`` (the step's rows) into the cache leaf ``name``:
+    with ``rows`` (``cache_rows``') every data rank's rows, all-gathered,
+    so that the leaf stays the same on every rank."""
+    cache[name].copy_(new if rows is None else all_gather(new, rows, 0))
+
+
+def all_gather(x: torch.Tensor, split: fsdp.Split, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` over ``split``'s group (the model group, or the
+    data group of a ``cache_rows`` split), concatenated along ``dim`` in
+    the group's order (no derivative: the serving steps)."""
+    return fsdp._gather_op(x, dim % x.dim(), fsdp._group_id(split.group))
+
+
+def gather_parts(parts: list, split: fsdp.Split, dim: int) -> list:
+    """``all_gather`` of each tensor of ``parts`` along ``dim``, in one
+    collective: the parts, equal in every other dim, travel side by
+    side."""
+    sizes = [t.shape[dim] for t in parts]
+    both = all_gather(torch.cat(parts, dim), split, dim)
+    dim %= both.dim()
+    both = both.unflatten(dim, (split.extent, sum(sizes)))
+    return [t.flatten(dim, dim + 1) for t in both.split(sizes, dim + 1)]
+
+
+# ---------------------------------------------------------------------------
 # attention heads
 # ---------------------------------------------------------------------------
 

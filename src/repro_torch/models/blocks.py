@@ -59,7 +59,15 @@ at the entry and g at the exit.  Inside a unit, T is whole:
 A vector the unit holds whole but reads in part (``conv_b``,
 ``log_lambda``, ``b_if``, ``b_zifo``) passes through f on its way in
 (``launch.fsdp.gather_for_compute``) and is cut to the rank's channels
-here (``tensor_parallel.shard``).  Decode never runs split.
+here (``tensor_parallel.shard``).
+
+Decode on a mesh (``launch.steps.build_serve_step(mesh=)``) reads each
+layer's cache as this rank's share (``tensor_parallel.cache_split``,
+``launch.sharding.input_shardings``' layout): an attention cache's slots
+over "model", attended flash-decoding style (``attend_decode``); the
+RG-LRU's and the xLSTM blocks' states by channels, stepped on the rank's
+channels with only per-token vectors moving between the unit's layout
+and the cache's (each kind's ``*_block_decode``).
 """
 from __future__ import annotations
 
@@ -170,23 +178,59 @@ def init_attention_cache(cfg, kind, batch, cache_len, *, lead=(),
             "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
 
 
+def attend_decode(cfg, p, h, cache, pos: int, *, ring: bool,
+                  rope: bool = True):
+    """The new token's attention against its cache, out-projected: h
+    (B,1,d) normed, ``p`` the attention leaves, ``cache`` {"k", "v"}
+    (B, S, K, hd).  Writes the token's k/v in place at ring slot ``pos %
+    slots`` with ``ring``, else at ``min(pos, slots - 1)`` (the
+    reference's rule: past ``cache_len`` the last slot is overwritten),
+    and attends ``min(pos + 1, slots)`` slots.  ``rope=False`` (the
+    enc-dec decoder) writes at ``pos`` and attends ``pos + 1``.
+
+    On a mesh, with the slots split over "model" (``tensor_parallel.
+    cache_split``), slot ``ix`` of the whole lies on rank ``ix // S`` of
+    the S it holds: only that rank writes the token's k/v, and the ranks
+    combine their slots' partial softmaxes (``layers.decode_attention``).
+    On a share of the heads (``tensor_parallel.split_of``) the token's q
+    and k/v are all-gathered over "model" first (B H hd numbers, never a
+    cache), every rank attends its slots with every head, and this
+    rank's heads of the context enter ``wo``'s rows."""
+    split = tp.split_of(p)
+    slots = tp.cache_split(cache, "k")
+    q, k, v = L.qkv_project(cfg, p, h, torch.full((1,), pos, device=h.device)
+                            if rope else None, apply_rope=rope,
+                            local_kv=False)
+    if split:
+        if "wk" in p.whole:
+            q, = tp.gather_parts([q], split, 2)
+        else:
+            q, k, v = tp.gather_parts([q, k, v], split, 2)
+    S = cache["k"].shape[1]
+    total = S * (slots.extent if slots else 1)
+    if not rope:
+        ix, valid = pos, pos + 1
+    else:
+        ix = pos % total if ring else min(pos, total - 1)
+        valid = min(pos + 1, total)
+    own = ix - slots.index * S if slots else ix
+    if slots is None or 0 <= own < S:
+        cache["k"][:, own] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, own] = v[:, 0].to(cache["v"].dtype)
+    ctx = L.decode_attention(q, cache["k"], cache["v"], valid, slots)
+    if split:
+        ctx = tp.shard(ctx, split, dim=2)
+    return L.out_project(cfg, p, ctx)
+
+
 def attention_block_decode(cfg, kind, p, x, cache, pos: int, *,
                            long_mode=False):
-    """x: (B,1,d); pos: absolute position of the new token.  Writes the
-    token's k/v into ``cache`` in place: at ring slot ``pos % slots`` for
-    a windowed kind or in ``long_mode``, else at ``min(pos, slots - 1)``
-    (the reference's rule: past ``cache_len`` the last slot is
-    overwritten).  The token attends ``min(pos + 1, slots)`` slots."""
+    """x: (B,1,d); pos: absolute position of the new token.  The token's
+    attention (``attend_decode``) over a ring for a windowed kind or in
+    ``long_mode``, then the FFN."""
     h = L.norm_apply(cfg, p["ln1"], x)
-    q, k, v = L.qkv_project(cfg, p["attn"], h,
-                            torch.full((1,), pos, device=x.device))
-    slots = cache["k"].shape[1]
-    ring = _uses_window(kind) or long_mode
-    ix = pos % slots if ring else min(pos, slots - 1)
-    cache["k"][:, ix] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, ix] = v[:, 0].to(cache["v"].dtype)
-    ctx = L.decode_attention(q, cache["k"], cache["v"], min(pos + 1, slots))
-    x = x + L.out_project(cfg, p["attn"], ctx)
+    x = x + attend_decode(cfg, p["attn"], h, cache, pos,
+                          ring=_uses_window(kind) or long_mode)
     h = L.norm_apply(cfg, p["ln2"], x)
     if _uses_moe(kind):
         y, _ = L.moe_apply(cfg, p["moe"], h)
@@ -364,15 +408,37 @@ def init_rglru_cache(cfg, batch, *, lead=(), device=None):
 
 def rglru_block_decode(cfg, p, x, cache, pos: int):
     """One token; writes the new state and conv buffer into ``cache`` in
-    place."""
+    place.  On a mesh whose "model" splits the cache's channels
+    (``tensor_parallel.cache_split``) the rank updates its channels:
+    on a share of the unit (``split_of``, whose channels are the
+    cache's: both are the contiguous rg/m blocks in model order) as the
+    sequence forward computes them; on a unit held whole, its channels
+    of the conv, the gates read the whole conv output (all-gathered),
+    and its rows of ``w_out`` give a partial output summed over the
+    model group."""
     h = L.norm_apply(cfg, p["ln1"], x)               # (B,1,d)
+    split = tp.split_of(p)
+    cs = split or tp.cache_split(cache, "state")
+    h, conv_b = _unit_input(h, p, split)
     u = (h @ p["w_x"].to(h.dtype))[:, 0]
     y = (h @ p["w_y"].to(h.dtype))[:, 0]
-    u, conv_buf = conv1d_step(u, cache["conv"], p["conv_w"], p["conv_b"])
-    log_a, x_in = _rglru_gates(p, u)
+    if split or cs is None:
+        u, conv_buf = conv1d_step(u, cache["conv"], p["conv_w"], conv_b)
+        log_a, x_in = _rglru_gates(p, u, split)
+    else:
+        u, conv_buf = conv1d_step(tp.shard(u, cs), cache["conv"],
+                                  tp.shard(p["conv_w"], cs),
+                                  tp.shard(p["conv_b"], cs))
+        log_a, x_in = (tp.shard(t, cs) for t in _rglru_gates(
+            p, tp.all_gather(u, cs, -1)))
+        y = tp.shard(y, cs)
     state = torch.exp(log_a) * cache["state"] + x_in
-    out = ((state.to(h.dtype) * F.gelu(y, approximate="tanh"))
-           @ p["w_out"].to(h.dtype))[:, None]
+    gated = state.to(h.dtype) * F.gelu(y, approximate="tanh")
+    if cs is None:
+        out = (gated @ p["w_out"].to(h.dtype))[:, None]
+    else:
+        out = L.row_parallel(gated[:, None], p["w_out"] if split else
+                             tp.shard(p["w_out"], cs, dim=0), cs)
     x = x + out
     hh = L.norm_apply(cfg, p["ln2"], x)
     x = x + L.mlp_apply(cfg, p["mlp"], hh)
@@ -527,6 +593,11 @@ def mlstm_block_apply(cfg, p, x, positions, *, time_chunk: int = 64):
     return x + L.row_parallel(hs * F.silu(g), p["w_down"], split), 0.0
 
 
+# the value every decode cache leaf starts from, by leaf name (0 where it
+# is absent): the stabiliser m of the xLSTM blocks starts at -1e30
+CACHE_FILL = {"m": -1e30}
+
+
 def init_mlstm_cache(cfg, batch, *, lead=(), device=None):
     inner, H, hd = _mlstm_dims(cfg)
     f32 = torch.float32
@@ -540,24 +611,84 @@ def init_mlstm_cache(cfg, batch, *, lead=(), device=None):
                                 dtype=cfg.cdtype, device=device)}
 
 
+def _mlstm_share_step(cache, m, inp, cs):
+    """``_mlstm_step`` on this rank's share of the state: with ``cs`` (the
+    cache's ``Split``) C's value rows and n's key columns of every head,
+    from every head's per-token q, k, v and gates (``inp``) and the
+    replicated m.  n.q, a sum over the key dim, is all-reduced over the
+    model group; h's value rows are all-gathered whole.  Returns ((C, n,
+    m) shares, h (B,H,hd))."""
+    q, k, v, log_i, log_f = inp
+    m_new = torch.maximum(log_f + m, log_i)
+    i = torch.exp(log_i - m_new)[..., None]
+    f = torch.exp(log_f + m - m_new)[..., None]
+    kn, vc, qn = ((tp.shard(k, cs), tp.shard(v, cs), tp.shard(q, cs)) if cs
+                  else (k, v, q))
+    n_new = f * cache["n"] + i * kn
+    C_new = f[..., None] * cache["C"] + i[..., None] * (vc[..., :, None]
+                                                         * k[..., None, :])
+    dot = torch.sum(n_new * qn, -1)
+    if cs:
+        dot = tp.all_reduce(dot, cs.group)
+    h = torch.einsum("bhvk,bhk->bhv", C_new, q) / _max1(torch.abs(dot))[
+        ..., None]
+    if cs:
+        h = tp.all_gather(h, cs, -1)
+    return (C_new, n_new, m_new), h
+
+
 def mlstm_block_decode(cfg, p, x, cache, pos: int):
     """One token through ``_mlstm_step``; writes the new state and conv
-    buffer into ``cache`` in place."""
+    buffer into ``cache`` in place.
+
+    On a mesh the cache's layout and the unit's differ: the cache holds
+    C's value rows, n's key columns and the conv's channels over
+    "model" (``launch.sharding.input_shardings``; m whole), the unit its
+    heads (``split_of``).  The token's q, k, v and gates of the rank's
+    heads are all-gathered (B H (3 hd + 2) numbers) and each rank steps
+    its share of every head's state (``_mlstm_share_step``); h comes
+    back whole and the rank's heads enter ``w_down``'s rows.  A unit
+    held whole with its conv's channels split runs the conv on its
+    channels and all-gathers the conv output.  Only per-token vectors
+    move, never the state."""
     inner, H, hd = _mlstm_dims(cfg)
     B = x.shape[0]
+    split = tp.split_of(p)
+    cs, conv_s = tp.cache_split(cache, "C"), tp.cache_split(cache, "conv")
     h0 = L.norm_apply(cfg, p["ln"], x)
+    h0, conv_b = _unit_input(h0, p, split)
     u = (h0 @ p["w_up"].to(h0.dtype))[:, 0]
     g = (h0 @ p["w_gate"].to(h0.dtype))[:, 0]
-    u, conv_buf = conv1d_step(u, cache["conv"], p["conv_w"], p["conv_b"])
-    q, k, v, log_i, log_f = _mlstm_qkvif(cfg, p, F.silu(u)[:, None])
-    (C, n, m), h = _mlstm_step(
-        (cache["C"], cache["n"], cache["m"]),
-        (q[:, 0].float(), k[:, 0].float(), v[:, 0].float(), log_i[:, 0],
-         log_f[:, 0]))
-    h = h.reshape(B, inner).to(x.dtype)
-    out = ((h * F.silu(g)) @ p["w_down"].to(x.dtype))[:, None]
-    for key, val in (("C", C), ("n", n), ("m", m), ("conv", conv_buf)):
+    if split or conv_s is None:
+        u, conv_buf = conv1d_step(u, cache["conv"], p["conv_w"], conv_b)
+    else:
+        u, conv_buf = conv1d_step(tp.shard(u, conv_s), cache["conv"],
+                                  tp.shard(p["conv_w"], conv_s),
+                                  tp.shard(p["conv_b"], conv_s))
+        u = tp.all_gather(u, conv_s, -1)
+    q, k, v, log_i, log_f = _mlstm_qkvif(cfg, p, F.silu(u)[:, None], split)
+    inp = (q[:, 0].float(), k[:, 0].float(), v[:, 0].float(), log_i[:, 0],
+           log_f[:, 0])
+    m_prev, rows = tp.cache_rows(cache, "m", B)
+    if split is None and cs is None:
+        (C, n, m), h = _mlstm_step((cache["C"], cache["n"], m_prev), inp)
+        h = h.reshape(B, inner).to(x.dtype)
+        out = ((h * F.silu(g)) @ p["w_down"].to(x.dtype))[:, None]
+    else:
+        if split:
+            vecs = torch.cat([*inp[:3], inp[3][..., None], inp[4][..., None]],
+                             -1)
+            vecs = tp.all_gather(vecs, split, 1)
+            inp = vecs.split([hd, hd, hd, 1, 1], -1)
+            inp = (*inp[:3], inp[3][..., 0], inp[4][..., 0])
+        (C, n, m), h = _mlstm_share_step(cache, m_prev, inp, cs)
+        if split:
+            h = tp.shard(h, split, dim=1)
+        h = h.reshape(B, -1).to(x.dtype)
+        out = L.row_parallel((h * F.silu(g))[:, None], p["w_down"], split)
+    for key, val in (("C", C), ("n", n), ("conv", conv_buf)):
         cache[key].copy_(val)
+    tp.put_rows(cache, "m", m, rows)
     return x + out, cache
 
 
@@ -850,13 +981,13 @@ def _slstm_reverse_step(consts, carry, xs):
     return (gc, gn, gm, f, g_pre), (g_pre,)
 
 
-def _slstm_inputs(cfg, p, x, split=None):
+def _slstm_inputs(cfg, p, x, split=None, heads=True):
     """The input pre-activations (z, i, f, o) of x (B,T,d) in f32, laid
     out head-major for ``_slstm_step``: (T,H,B,4*hd).  On a share of the
     heads (``split``) the rank's columns of ``w_zifo`` (gate-major: z, i,
     f, o of every head) are gathered whole and its H/m heads taken:
-    (T,H/m,B,4*hd).  The normed x enters the unit (``tensor_parallel.
-    enter``), so T is whole."""
+    (T,H/m,B,4*hd), or with ``heads=False`` every head's.  The normed x
+    enters the unit (``tensor_parallel.enter``), so T is whole."""
     H = cfg.num_heads
     h0 = tp.enter(L.norm_apply(cfg, p["ln"], x), split)
     B, T, d = h0.shape
@@ -865,7 +996,7 @@ def _slstm_inputs(cfg, p, x, split=None):
     if split is not None:
         wx = tp.gather_from_model(wx, split)
     wx = wx.float().reshape(B, T, 4, H, d // H)
-    if split is not None:
+    if split is not None and heads:
         wx = tp.shard(wx, split, dim=3)
     return wx.permute(1, 3, 0, 2, 4).reshape(T, wx.shape[3], B, 4 * (d // H))
 
@@ -909,15 +1040,56 @@ def init_slstm_cache(cfg, batch, *, lead=(), device=None):
 
 def slstm_block_decode(cfg, p, x, cache, pos: int):
     """One token; writes the new (c, n, h, m) into ``cache`` in place (its
-    tensors keep the reference's (B,H,hd) layout)."""
+    tensors keep the reference's (B,H,hd) layout).
+
+    On a mesh the cache holds c, n and h split over hd ("model"; m whole)
+    and the unit its heads (``split_of``).  The recurrence ``h @ R`` needs
+    each head's whole h: h is all-gathered (B H hd numbers), each rank
+    multiplies its heads' R, and the products are all-gathered by head,
+    so every rank has every head's pre-activations; the rank then steps m
+    whole and its channels of c, n and h, and the new h is all-gathered
+    whole for the block's output (the rank's heads entering ``w_up``'s
+    gather, as in the sequence forward)."""
     B, _, d = x.shape
-    carry = tuple(cache[key].transpose(0, 1) for key in "cnhm")
-    new, _ = _slstm_step(_slstm_recurrent(p["r_zifo"]), carry,
-                         _slstm_inputs(cfg, p, x)[0])
-    for key, val in zip("cnhm", new):
+    split = tp.split_of(p)
+    cs = tp.cache_split(cache, "c")
+    m_prev, rows = tp.cache_rows(cache, "m", B)
+    if split is None and cs is None:
+        carry = tuple(cache[key].transpose(0, 1) for key in "cnh") + (
+            m_prev.transpose(0, 1),)
+        new, _ = _slstm_step(_slstm_recurrent(p["r_zifo"]), carry,
+                             _slstm_inputs(cfg, p, x)[0])
+        for key, val in zip("cnh", new):
+            cache[key].copy_(val.transpose(0, 1))
+        tp.put_rows(cache, "m", new[3].transpose(0, 1), rows)
+        hs = new[2].transpose(0, 1).reshape(B, 1, d).to(x.dtype)
+        return _slstm_out(p, hs, x), cache
+    wx = _slstm_inputs(cfg, p, x, split, heads=False)[0]     # (H,B,4hd)
+    h = cache["h"] if cs is None else tp.all_gather(cache["h"], cs, -1)
+    h = h.transpose(0, 1)                                     # (H,B,hd)
+    R = _slstm_recurrent(p["r_zifo"])
+    if split:
+        rec = tp.all_gather(torch.bmm(tp.shard(h, split, dim=0), R), split, 0)
+    else:
+        rec = torch.bmm(h, R)
+    zp, log_i, fp, op = (wx + rec).unflatten(-1, (4, -1)).unbind(-2)
+    a = F.logsigmoid(fp) + m_prev.transpose(0, 1)
+    m_new = torch.maximum(a, log_i)
+    gates = (torch.tanh(zp), torch.exp(log_i - m_new), torch.exp(a - m_new),
+             torch.sigmoid(op))
+    z, i, f, o = (tp.shard(t, cs) for t in gates) if cs else gates
+    c_new = torch.addcmul(f * cache["c"].transpose(0, 1), i, z)
+    n_new = torch.addcmul(i, f, cache["n"].transpose(0, 1))
+    h_new = o * c_new / n_new.clamp(min=1.0)
+    for key, val in zip("cnh", (c_new, n_new, h_new)):
         cache[key].copy_(val.transpose(0, 1))
-    hs = new[2].transpose(0, 1).reshape(B, 1, d).to(x.dtype)
-    return _slstm_out(p, hs, x), cache
+    tp.put_rows(cache, "m", m_new.transpose(0, 1), rows)
+    if cs:
+        h_new = tp.all_gather(h_new, cs, -1)
+    hs = h_new.transpose(0, 1).reshape(B, 1, d).to(x.dtype)
+    if split:
+        hs = tp.shard(hs, split)
+    return _slstm_out(p, hs, x, split), cache
 
 
 # ---------------------------------------------------------------------------

@@ -29,8 +29,10 @@ blocks do: the heads of the encoder's and the decoder's attention and
 of the cross attention (``_cross``: the decoder states and the encoder
 output both enter through f, so the encoder's gradient is the group's
 sum), the MLPs' columns, the vocabulary where "model" divides it, and
-``dec_pos``'s rows (``tensor_parallel.position_embed``).  Decode runs
-whole.
+``dec_pos``'s rows (``tensor_parallel.position_embed``).  Decode on a
+mesh runs the same shares against this rank's share of the caches
+(``init_cache(mesh=)``: ``enc_out`` over the data axes, the decoder's
+self-attention slots over "model").
 """
 from __future__ import annotations
 
@@ -41,6 +43,8 @@ import torch
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.launch import fsdp
 from repro_torch.launch import tensor_parallel as tp
+from repro_torch.launch.sharding import place_cache
+from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import flatten, gathered, nest
 
@@ -219,9 +223,14 @@ def forward(cfg, params, batch):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, batch_size: int, cache_len: int, *, long_mode=False,
-               device=DEFAULT_DEVICE) -> dict:
+               device=DEFAULT_DEVICE, mesh=None) -> dict:
     """Zeroed caches of ``cache_len`` slots; ``long_mode`` is taken and
-    ignored, as the reference's enc-dec does."""
+    ignored, as the reference's enc-dec does.  On a ``mesh`` this rank's
+    shares (``launch.sharding.place_cache``): ``enc_out``'s rows over the
+    data axes, the self-attention slots over "model"."""
+    if mesh is not None:
+        return place_cache(cfg, mesh, cache_shapes(cfg, batch_size,
+                                                   cache_len), {})
     return _cache_tree(cfg, batch_size, cache_len, resolve_device(device))
 
 
@@ -256,26 +265,36 @@ def decode_step(cfg, params, cache, tokens, pos: int, *, long_mode=False):
     """One decode step.  tokens: (B,1) integer; pos: the absolute position
     being written (an int).  Returns (logits (B,1,V) f32, cache), the
     cache's k/v rows at ``pos`` written in place (``long_mode`` ignored,
-    as in the reference)."""
+    as in the reference).  Each layer's leaves are gathered where they
+    are used; on a mesh the self-attention reads its cache's share
+    (``blocks.attend_decode``), the position's row comes from the rank
+    that holds it where "model" splits ``dec_pos``, and a head split
+    over the vocabulary gives its columns, gathered whole."""
     pos = int(pos)
-    emb = nest(params, "embed.")
+    emb = gathered(cfg, params, "embed.")
     x = L.embed_apply(cfg, emb, tokens)
-    x = x + params["dec_pos"][pos:pos + 1].to(x.dtype)[None]
+    dec = fsdp.gather_for_compute({"dec_pos": params["dec_pos"]}, cfg.cdtype)
+    split = tp.split_of(dec)
+    if split:
+        x = x + tp.vocab_embed(torch.full((1,), pos, device=x.device),
+                               dec["dec_pos"], x.dtype, split)[None]
+    else:
+        x = x + dec["dec_pos"][pos:pos + 1].to(x.dtype)[None]
     enc_out = cache["enc_out"].to(x.dtype)
     for i in range(cfg.num_layers):
-        p = nest(params, f"decoder.layer{i}.")
-        kc, vc = cache[f"layer{i}.k"], cache[f"layer{i}.v"]
+        p = gathered(cfg, params, f"decoder.layer{i}.")
+        c = fsdp.cache_for_compute({"k": cache[f"layer{i}.k"],
+                                    "v": cache[f"layer{i}.v"]}, f"layer{i}.")
         h = L.norm_apply(cfg, p["ln1"], x)
-        q, k, v = L.qkv_project(cfg, p["self_attn"], h, None,
-                                apply_rope=False)
-        kc[:, pos] = k[:, 0].to(kc.dtype)
-        vc[:, pos] = v[:, 0].to(vc.dtype)
-        ctx = L.decode_attention(q, kc, vc, pos + 1)
-        x = x + L.out_project(cfg, p["self_attn"], ctx)
+        x = x + B.attend_decode(cfg, p["self_attn"], h, c, pos, ring=False,
+                                rope=False)
         h = L.norm_apply(cfg, p["ln_x"], x)
         x = x + _cross(cfg, p["cross_attn"], h, enc_out)
         h = L.norm_apply(cfg, p["ln2"], x)
         x = x + L.mlp_apply(cfg, p["mlp"], h)
-    x = L.norm_apply(cfg, nest(params, "final_norm."), x)
+    x = L.norm_apply(cfg, gathered(cfg, params, "final_norm."), x)
+    split = tp.split_of(emb)
     logits = L.lm_head_apply(cfg, emb, x)
+    if split:
+        logits = tp.gather_vocab(logits, split)
     return logits.float(), cache

@@ -169,14 +169,16 @@ def init_attention(cfg, init: Init, *, lead=()):
     return p
 
 
-def qkv_project(cfg, p, x, positions, *, apply_rope=True):
+def qkv_project(cfg, p, x, positions, *, apply_rope=True, local_kv=True):
     """x: (B, T, d) -> q (B,T,H,hd), k/v (B,T,K,hd): the biases added
     after each matmul and the q/k norms applied per head when ``p`` has
     them, then RoPE on q and k unless ``apply_rope`` is False.  H and K
     are the projections' head counts; x enters the unit
     (``tensor_parallel.enter``: on a share of the query heads through f,
     and with the stream split over T gathered whole), and on a share k/v
-    are the kv heads those queries read (``tensor_parallel.local_kv``)."""
+    are the kv heads those queries read (``tensor_parallel.local_kv``),
+    or with ``local_kv=False`` the kv projections' own heads (all K when
+    the unit holds them whole)."""
     hd = cfg.resolved_head_dim
     split = tp.split_of(p)
     x = tp.enter(x, split)
@@ -193,7 +195,7 @@ def qkv_project(cfg, p, x, positions, *, apply_rope=True):
     q = q.reshape(B, T, H, hd)
     k = k.reshape(B, T, K, hd)
     v = v.reshape(B, T, K, hd)
-    if split and "wk" in p.whole:
+    if split and "wk" in p.whole and local_kv:
         k, v = tp.local_kv(k, v, split, cfg.num_heads)
     if "q_norm" in p:
         q = _rms(q) * p["q_norm"].to(dt)
@@ -365,13 +367,21 @@ def windowed_attention(q, k, v, window: int, *, q_chunk=512, q_offset=0):
                          q_offset=q_offset)
 
 
-def decode_attention(q, k_cache, v_cache, valid_len):
+def decode_attention(q, k_cache, v_cache, valid_len, slots=None):
     """Single-token attention against a cache.
 
     q: (B,1,H,hd); k/v_cache: (B,S,K,hd); valid_len: an int or (B,)
     number of valid cache positions (including the newly-written token).
     Scores, softmax and P.V in f32, as the reference's
     ``preferred_element_type=f32`` einsums.
+
+    ``slots`` (a ``launch.fsdp.Split``): the cache is this rank's share
+    of the slots, slots ``[index S, (index + 1) S)`` of the whole, and
+    ``valid_len`` counts the whole's.  Each rank scores its own slots,
+    masked by their global positions, and the ranks' partial softmaxes
+    combine in f32 over ``slots.group`` (flash decoding): an all-reduce
+    max of the row maxima, then one all-reduce sum of the rescaled P.V
+    and denominators.  No collective moves a cache.
     """
     B, _, H, hd = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
@@ -380,14 +390,27 @@ def decode_attention(q, k_cache, v_cache, valid_len):
     s = torch.einsum("bqkgd,bskd->bkgqs", qb, k_cache.float()) \
         * (1.0 / math.sqrt(hd))                                   # (B,K,G,1,S)
     pos = torch.arange(S, device=q.device)
+    if slots is not None:
+        pos = pos + slots.index * S
     if isinstance(valid_len, torch.Tensor):
         valid = pos[None] < valid_len.reshape(-1, 1)
     else:
         valid = (pos < valid_len)[None]
     s = torch.where(valid[:, None, None, None, :], s, NEG)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", p, v_cache.float())
-    return out.reshape(B, 1, H, hd).to(q.dtype)
+    if slots is None:
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bkgqs,bskd->bqkgd", p, v_cache.float())
+        return out.reshape(B, 1, H, hd).to(q.dtype)
+    top = tp.all_reduce(s.amax(-1, keepdim=True), slots.group,
+                        op=dist.ReduceOp.MAX)
+    e = torch.exp(s - top)
+    pv = torch.einsum("bkgqs,bskd->bqkgd", e, v_cache.float())
+    den = e.sum(-1).permute(0, 3, 1, 2)                           # (B,1,K,G)
+    both = tp.all_reduce(torch.cat([pv.reshape(B, -1), den.reshape(B, -1)],
+                                   -1), slots.group)
+    pv, den = both.split([H * hd, H], -1)
+    out = pv.reshape(B, 1, H, hd) / den.reshape(B, 1, H, 1)
+    return out.to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

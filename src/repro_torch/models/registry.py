@@ -5,7 +5,8 @@ Port of ``repro.models.registry``.  Model(cfg) exposes:
     forward(params, batch)                          -> (logits, aux)
     forward_hidden(params, batch)                   -> (hidden, aux)
     head_matrix(params)                             -> (d, V)
-    init_cache(batch, cache_len, long_mode, device) -> cache
+    init_cache(batch, cache_len, long_mode, device, mesh) -> cache
+    cache_shapes(batch, cache_len, long_mode)       -> by shape only
     decode_step(params, cache, tokens, pos, long_mode) -> (logits, cache)
     param_shapes() / param_count()                  -> by shape only
     input_specs(shape_name)                         -> {name: (shape, dtype)}
@@ -52,9 +53,17 @@ class Model:
         return self._mod.head_matrix(self.cfg, params)
 
     def init_cache(self, batch: int, cache_len: int, *, long_mode=False,
-                   device=DEFAULT_DEVICE):
+                   device=DEFAULT_DEVICE, mesh=None):
+        """Zeroed decode caches; on a ``mesh`` this rank's shares of them
+        (``launch.sharding.place_cache``)."""
         return self._mod.init_cache(self.cfg, batch, cache_len,
-                                    long_mode=long_mode, device=device)
+                                    long_mode=long_mode, device=device,
+                                    mesh=mesh)
+
+    def cache_shapes(self, batch: int, cache_len: int, *, long_mode=False):
+        """{path: (shape, dtype)} of the whole decode cache."""
+        return self._mod.cache_shapes(self.cfg, batch, cache_len,
+                                      long_mode=long_mode)
 
     def decode_step(self, params, cache, tokens, pos, *, long_mode=False):
         return self._mod.decode_step(self.cfg, params, cache, tokens, pos,

@@ -34,7 +34,9 @@ stacked over periods as in the reference:
 so ``convert.lm_params_from_numpy`` carries a reference tree across
 without a transpose.  The decode cache is a flat dict of the same kind
 (``"periods.slot2.k"`` of shape (n_periods, B, slots, K, hd), ...), and
-``decode_step`` updates it in place.
+``decode_step`` updates it in place.  On a mesh each rank holds its
+share of it (``init_cache(mesh=)``), cut by the reference's
+``input_shardings``.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ import torch
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.launch import fsdp
 from repro_torch.launch import tensor_parallel as tp
+from repro_torch.launch.sharding import place_cache
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 
@@ -220,9 +223,15 @@ def forward(cfg, params, batch):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg, batch_size: int, cache_len: int, *, long_mode=False,
-               device=DEFAULT_DEVICE) -> dict:
+               device=DEFAULT_DEVICE, mesh=None) -> dict:
     """Zeroed decode caches; ``long_mode`` bounds the global-attention
-    caches to rings of ``cfg.long_context_window`` slots."""
+    caches to rings of ``cfg.long_context_window`` slots.  On a ``mesh``
+    (a ``launch.mesh.Mesh``; ``device`` is then the mesh's) this rank's
+    shares of the caches of a global batch of ``batch_size``, allocated
+    at their shapes (``launch.sharding.place_cache``)."""
+    if mesh is not None:
+        return place_cache(cfg, mesh, cache_shapes(
+            cfg, batch_size, cache_len, long_mode=long_mode), B.CACHE_FILL)
     return _cache_tree(cfg, batch_size, cache_len, long_mode,
                        resolve_device(device))
 
@@ -255,12 +264,22 @@ def _cache_tree(cfg, batch_size: int, cache_len: int, long_mode: bool,
 def decode_step(cfg, params, cache, tokens, pos: int, *, long_mode=False):
     """One decode step.  tokens: (B,1) integer; pos: the absolute position
     being written (an int).  Returns (logits (B,1,V) f32, cache), the
-    cache updated in place.  ``long_mode`` as the cache was made."""
+    cache updated in place.  ``long_mode`` as the cache was made.  Each
+    layer's leaves are gathered where they are used, as in the sequence
+    forward (the reference's ``decode_step``); under a serving step on a
+    mesh each layer reads its cache as this rank's share
+    (``launch.fsdp.cache_for_compute``), and a head split over the
+    vocabulary gives its columns, gathered whole."""
     pos = int(pos)
-    emb = nest(params, "embed.")
+    emb = gathered(cfg, params, "embed.")
     x = L.embed_apply(cfg, emb, tokens)
-    for (kind, p), (_, c) in zip(_layers(cfg, params), _layers(cfg, cache)):
-        x, _ = B.block_decode(cfg, kind, p, x, c, pos, long_mode=long_mode)
-    x = L.norm_apply(cfg, nest(params, "final_norm."), x)
+    for kind, prefix, i in _layer_slots(cfg):
+        c = fsdp.cache_for_compute(nest(cache, prefix, i), prefix)
+        x, _ = B.block_decode(cfg, kind, gathered(cfg, params, prefix, i), x,
+                              c, pos, long_mode=long_mode)
+    x = L.norm_apply(cfg, gathered(cfg, params, "final_norm."), x)
+    split = tp.split_of(emb)
     logits = L.lm_head_apply(cfg, emb, x)
+    if split:
+        logits = tp.gather_vocab(logits, split)
     return logits.float(), cache
