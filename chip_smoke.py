@@ -49,7 +49,11 @@ paths against its plain PyTorch version on the card:
     θ-sized state leaf; and tensor-parallel compute over "model"
     (``launch.tensor_parallel``): qwen2.5-3b's NGHF update and
     recurrentgemma-9b's gradient and SGD step on two gloo ranks of a
-    1x2 mesh, each computing its share of the heads, FFN and vocab.
+    1x2 mesh, each computing its share of the heads, FFN and vocab;
+    and serving on a mesh: qwen2.5-3b's prefill and decode at world size
+    1 over NCCL, and qwen2.5-3b's, recurrentgemma-9b's and xlstm-125m's
+    on two gloo ranks of a 1x2 mesh, each holding its share of the decode
+    caches.
 
 Phases:
 
@@ -346,7 +350,25 @@ Phases:
      reduce-scatters and all-reduces over "model", each rank's peak
      memory, a layer's forward whole, split and split with the stream
      split over T, and for (b) one gradient with the stream whole beside
-     one with it split, beside what PERF.md records from before it.
+     one with it split, beside what PERF.md records from before it;
+ 17. serving on a mesh (after phase 16, before phase 7): the prefill and
+     decode steps with a mesh (``launch.steps.build_prefill_step(mesh=)``,
+     ``build_serve_step(mesh=)``), each rank holding its share of the
+     parameters and only its share of the decode caches, placed by
+     ``input_shardings`` (``Model.init_cache(mesh=)``).  (a) World 1
+     over NCCL: qwen2.5-3b at full width and 2 layers, a B 2 x T 4096
+     prefill and 16 decode steps at B 8 over 32768 slots against the
+     no-mesh steps (rel max 1e-3; bitwise equality printed).  (b) Two
+     gloo processes on the card, a 1x2 mesh, against one process on the
+     card: qwen2.5-3b's decode as (a)'s at f32, each rank holding 16384
+     slots; recurrentgemma-9b at 3 layers, its bf16 prefill at B 2 x T
+     4096 (rel-L2 0.032; one ``swa_attention_sm90`` launch a rank, on its
+     8 heads) and 16 f32 decode steps at B 8 writing its local ring's
+     last slots; xlstm-125m at full depth, 16 f32 decode steps at B 128:
+     the logits within rel max 1e-3 of the largest, each rank's cache
+     bytes half of one process's (xlstm's whole stabilisers aside), its
+     peak memory, the ms a step (gloo: every collective staged through
+     the host).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; without a card, or outside a checkout of the repo,
@@ -3551,9 +3573,12 @@ RG_TRAIN_LR = 0.3                  # launch.train's SGD default
 # the forward kernels' outputs differ from the plain version's by a bf16
 # ulp in under 1 % of the entries (phase 2)
 RG_GRAD_REL_L2 = 2e-2
-# NGHF at the smoke configs (window 16) at T 64 > window, B 8 (CG batch 2)
+# NGHF at the smoke configs (window 16) at T 64 > window, B 8 (CG batch 2);
+# mixtral-8x22b's smoke depth cut from 2 layers to 1 (one windowed MoE
+# layer still runs every derivative kernel) to leave phase 17 its time
 SMOKE_TRAIN_ARCHS = ("recurrentgemma-9b", "mixtral-8x22b")
 SMOKE_TRAIN_BATCH, SMOKE_TRAIN_SEQ = 8, 64
+SMOKE_TRAIN_LAYERS = {"mixtral-8x22b": 1}
 
 
 def bwd_counts() -> tuple:
@@ -3928,6 +3953,8 @@ def smoke_nghf(dev) -> dict:
     out = {"jvp": 0, "dq": 0, "dkdv": 0}
     for arch in SMOKE_TRAIN_ARCHS:
         cfg = get_config(arch).smoke()
+        cfg = cfg.replace(num_layers=SMOKE_TRAIN_LAYERS.get(arch,
+                                                            cfg.num_layers))
         params = get_model(cfg).init(SEED, device=dev)
         b = lm_batch(0, batch=SMOKE_TRAIN_BATCH, seq_len=SMOKE_TRAIN_SEQ,
                      vocab=cfg.vocab_size, device=dev)
@@ -6266,6 +6293,313 @@ def tp_keys(row: dict, tp: dict, name: str, key: str) -> None:
                 "tp_shape": f"B,T,H,K,hd,window={list(TP_RG_LOCAL)} bf16"})
 
 
+# ---------------------------------------------------------------------------
+# phase 17: serving on a mesh (prefill and decode steps with a mesh, each
+# rank holding its share of the caches by ``input_shardings``)
+# ---------------------------------------------------------------------------
+
+# (a) world 1 over NCCL: qwen2.5-3b at full width and FSDP_RANK_LAYERS
+# layers (2d storage, bf16), a B 2 x T 4096 prefill and 16 decode steps at
+# B 8 over 32768 slots (the last 16 positions), each against the no-mesh
+# steps on the same inputs
+SM_PREFILL_B, SM_PREFILL_T = 2, 4096
+SM_DECODE_B, SM_STEPS = 8, 16
+SM_CACHE = DENSE_CACHE
+# (b) two gloo ranks of the card on a (1, 2) mesh, against one process on
+# the card, at f32 compute for the decode (PERF.md section 2's decode
+# rule): qwen2.5-3b's decode as (a)'s, each rank holding 16384 of the
+# 32768 slots; recurrentgemma-9b at 3 layers (one period: two RG-LRU
+# blocks, a local layer's 2048-slot ring, 1024 a rank), its bf16 prefill
+# at B 2 x T 4096 (the local layer's kernel on each rank's 8 heads) and
+# 16 decode steps at B 8 writing the ring's last slots; xlstm-125m at
+# full depth, 16 decode steps at B 128 from the zero state
+SM_RANKS = 2
+SM_TIMEOUT_S = 600
+SM_RG_CACHE = 4096
+SM_XL_CACHE = 16
+SM_CACHE_SHARE_SLACK = 0.01     # xlstm's m, kept whole on every rank
+
+
+def sm_cases() -> dict:
+    """{name: (f32 config, decode batch, cache slots, first position)} of
+    (b)'s decode cases."""
+    from repro_torch.configs.base import get_config
+    f32 = dict(compute_dtype="float32")
+    return {
+        DENSE_ARCH: (get_config(DENSE_ARCH).replace(
+            num_layers=FSDP_RANK_LAYERS, **f32), SM_DECODE_B, SM_CACHE,
+            SM_CACHE - SM_STEPS),
+        LM_ARCH: (get_config(LM_ARCH).replace(
+            num_layers=RG_TRAIN_LAYERS, **f32), SM_DECODE_B, SM_RG_CACHE,
+            SM_RG_CACHE - SM_STEPS),
+        XLSTM_ARCH: (get_config(XLSTM_ARCH).replace(**f32), XLSTM_DECODE_B,
+                     SM_XL_CACHE, 0)}
+
+
+def sm_tokens(cfg, B: int, dev) -> torch.Tensor:
+    """(SM_STEPS, B, 1) decode tokens from a numpy seed."""
+    rng = np.random.default_rng(SEED + 17)
+    return torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(SM_STEPS, B, 1))).to(dev)
+
+
+def sm_prefill_batch(cfg, dev) -> dict:
+    from repro_torch.data.synthetic import lm_batch
+    return lm_batch(0, batch=SM_PREFILL_B, seq_len=SM_PREFILL_T,
+                    vocab=cfg.vocab_size, device=dev)
+
+
+def sm_decode(step, params, cache, tokens, start: int):
+    """SM_STEPS decode steps from position ``start``: (logits (steps, B,
+    V) f32, ms a step, each between two synchronizes)."""
+    out, ms = [], []
+    for t in range(tokens.shape[0]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = step(params, cache, tokens[t], start + t)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(logits[:, 0])
+    return torch.stack(out), ms
+
+
+def rel_max(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def cache_bytes(cache: dict) -> int:
+    return sum(v.numel() * v.element_size() for v in cache.values())
+
+
+def serve_world1(dev) -> dict:
+    """(a): the prefill and decode steps on a world-1 NCCL mesh against
+    the no-mesh steps on the same inputs."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import init_distributed, make_debug_mesh
+    from repro_torch.launch.sharding import param_shardings
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.models.registry import get_model
+    init_distributed(dev)
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          "phase 17: no world-1 NCCL group")
+    mesh = make_debug_mesh(1, 1, device=dev)
+    cfg = get_config(DENSE_ARCH).replace(num_layers=FSDP_RANK_LAYERS)
+    model = get_model(cfg)
+    params = model.init(SEED, device=dev)
+    ss = param_shardings(cfg, mesh, params)
+    mine = {k: ss[k].place(v) for k, v in params.items()}
+    batch = sm_prefill_batch(cfg, dev)
+    plain = build_prefill_step(cfg)(params, batch)
+    on = build_prefill_step(cfg, mesh=mesh)(mine, batch)
+    check(on.shape == plain.shape == (SM_PREFILL_B, 1, cfg.vocab_size)
+          and bool(torch.isfinite(on).all()), "phase 17 (a): prefill shape")
+    rel_p = rel_max(on, plain)
+    tokens = sm_tokens(cfg, SM_DECODE_B, dev)
+    start = SM_CACHE - SM_STEPS
+    c0 = model.init_cache(SM_DECODE_B, SM_CACHE, device=dev)
+    d0, ms0 = sm_decode(build_serve_step(cfg), params, c0, tokens, start)
+    c1 = model.init_cache(SM_DECODE_B, SM_CACHE, mesh=mesh)
+    d1, ms1 = sm_decode(build_serve_step(cfg, mesh=mesh), mine, c1, tokens,
+                        start)
+    rel_d = rel_max(d1, d0)
+    same_cache = all(torch.equal(c1[k], c0[k]) for k in c0)
+    check(rel_p <= DECODE_REL and rel_d <= DECODE_REL,
+          f"phase 17 (a): the mesh's prefill rel max {rel_p:.3g}, decode "
+          f"{rel_d:.3g} (limit {DECODE_REL})")
+    log(f"phase 17 (a) world 1 over NCCL, {DENSE_ARCH} at full width and "
+        f"{FSDP_RANK_LAYERS} layers (2d storage, bf16): prefill B="
+        f"{SM_PREFILL_B} x T={SM_PREFILL_T} on the mesh vs no mesh rel max "
+        f"{rel_p:.3g} (bitwise {torch.equal(on, plain)}); {SM_STEPS} decode "
+        f"steps at B={SM_DECODE_B} over {SM_CACHE} slots (positions "
+        f"{start}..{SM_CACHE - 1}) rel max {rel_d:.3g} (bitwise "
+        f"{torch.equal(d1, d0)}, caches bitwise equal {same_cache}; limit "
+        f"{DECODE_REL}); ms a step on the mesh "
+        f"{[round(x, 3) for x in ms1]}, without {[round(x, 3) for x in ms0]}")
+    dist.destroy_process_group()
+    del params, mine, c0, c1
+    torch.cuda.empty_cache()
+    return {"prefill_rel": rel_p, "decode_rel": rel_d,
+            "ms_mesh": ms1, "ms_plain": ms0}
+
+
+def serve_one_process(dev, tmp: str) -> dict:
+    """(b)'s references on the card, saved to ``tmp``: each case's decode
+    logits, and recurrentgemma-9b's bf16 prefill logits; the whole
+    caches' bytes and the decode's ms a step."""
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.models.registry import get_model
+    out = {}
+    for name, (cfg, B, slots, start) in sm_cases().items():
+        model = get_model(cfg)
+        params = model.init(SEED, device=dev)
+        rec = {}
+        if name == LM_ARCH:
+            cfg16 = cfg.replace(compute_dtype="bfloat16")
+            torch.save(build_prefill_step(cfg16)(
+                params, sm_prefill_batch(cfg, dev)).cpu(),
+                Path(tmp, f"{name}_prefill.pt"))
+        cache = model.init_cache(B, slots, device=dev)
+        logits, rec["ms"] = sm_decode(build_serve_step(cfg), params, cache,
+                                      sm_tokens(cfg, B, dev), start)
+        rec["cache_bytes"] = cache_bytes(cache)
+        torch.save(logits.cpu(), Path(tmp, f"{name}_decode.pt"))
+        out[name] = rec
+        del params, cache, logits
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_rank(rank: int, world: int, tmp: str, device: str) -> None:
+    """One of (b)'s gloo ranks on the card, a (1, world) mesh: each case's
+    parameters placed as its shares, recurrentgemma-9b's sharded bf16
+    prefill (its kernel launches counted), each case's decode on its
+    cache shares; logits, cache bytes, peak memory and ms a step written
+    to ``tmp``."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.sharding import param_shardings
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.models.registry import get_model
+    try:
+        dev = torch.device(device)
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
+            rank=rank, world_size=world)
+        mesh = make_debug_mesh(1, world, device=dev, backend="gloo")
+        recs = {}
+        for name, (cfg, B, slots, start) in sm_cases().items():
+            model = get_model(cfg)
+            whole = model.init(SEED, device=dev)
+            ss = param_shardings(cfg, mesh, whole)
+            mine = {k: ss[k].place(v) for k, v in whole.items()}
+            del whole
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            rec = {}
+            if name == LM_ARCH:
+                cfg16 = cfg.replace(compute_dtype="bfloat16")
+                step = build_prefill_step(cfg16, mesh=mesh)
+                batch = sm_prefill_batch(cfg, dev)
+                step(mine, batch)                       # warm
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits = step(mine, batch)
+                torch.cuda.synchronize()
+                rec["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+                rec["prefill_launches"] = list(swa_counts())
+                torch.save(logits.cpu(), Path(tmp, f"{name}_prefill{rank}.pt"))
+            cache = model.init_cache(B, slots, mesh=mesh)
+            rec["cache_bytes"] = cache_bytes(cache)
+            reset_counts()
+            logits, rec["ms"] = sm_decode(build_serve_step(cfg, mesh=mesh),
+                                          mine, cache, sm_tokens(cfg, B, dev),
+                                          start)
+            rec["decode_swa"] = list(swa_counts())
+            rec["peak"] = torch.cuda.max_memory_allocated()
+            torch.save(logits.cpu(), Path(tmp, f"{name}_decode{rank}.pt"))
+            recs[name] = rec
+            del mine, cache, logits
+            torch.cuda.empty_cache()
+        coord = dict(zip(mesh.axis_names, mesh.device_mesh.get_coordinate()))
+        recs["model_index"] = coord["model"]
+        dist.barrier()
+        dist.destroy_process_group()
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(recs, f)
+    except BaseException:
+        import traceback
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def phase_serve_mesh(dev) -> dict:
+    """Phase 17: the prefill and decode steps on a mesh, (a) at world 1
+    over NCCL against the no-mesh steps, (b) on two gloo ranks of the card
+    (1x2) against one process: logits, each rank's cache bytes against
+    one process's, peak memory, ms a step (gloo: every collective staged
+    through the host)."""
+    import tempfile
+    t_phase = time.perf_counter()
+    out = {"world1": serve_world1(dev)}
+    t_a = time.perf_counter() - t_phase
+    with tempfile.TemporaryDirectory() as tmp:
+        one = serve_one_process(dev, tmp)
+        spawn_ranks(serve_rank, SM_RANKS, dev, SM_TIMEOUT_S, tmp)
+        recs = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                for r in range(SM_RANKS)]
+        logits = {name: ([torch.load(Path(tmp, f"{name}_decode{r}.pt"))
+                          for r in range(SM_RANKS)],
+                         torch.load(Path(tmp, f"{name}_decode.pt")))
+                  for name in one}
+        pre = ([torch.load(Path(tmp, f"{LM_ARCH}_prefill{r}.pt"))
+                for r in range(SM_RANKS)],
+               torch.load(Path(tmp, f"{LM_ARCH}_prefill.pt")))
+    card = card_line()
+    for name, (cfg, B, slots, start) in sm_cases().items():
+        ranks, want = logits[name]
+        rel = [rel_max(got, want) for got in ranks]
+        ratio = [rec[name]["cache_bytes"] / one[name]["cache_bytes"]
+                 for rec in recs]
+        check(max(rel) <= DECODE_REL, f"phase 17 (b) {name}: decode logits "
+              f"rel max {rel} against one process (limit {DECODE_REL})")
+        check(all(0.5 <= x <= 0.5 + SM_CACHE_SHARE_SLACK for x in ratio),
+              f"phase 17 (b) {name}: cache bytes a rank {ratio} of one "
+              f"process's")
+        check(all(rec[name]["decode_swa"] == [0, 0] or name == LM_ARCH
+                  for rec in recs), f"phase 17 (b) {name}: a decode step "
+              f"launched swa_attention")
+        log(f"phase 17 (b) gloo 1x2 on one card [{card}], {name} "
+            f"(f32 compute, {cfg.num_layers} layers), {SM_STEPS} decode "
+            f"steps at B={B} from position {start} over {slots} slots: "
+            f"logits vs one process rel max "
+            + ", ".join(f"{x:.3g}" for x in rel)
+            + f" (limit {DECODE_REL}); cache bytes a rank "
+            + ", ".join(str(rec[name]["cache_bytes"]) for rec in recs)
+            + f" against one process's {one[name]['cache_bytes']} (ratio "
+            + ", ".join(f"{x:.4f}" for x in ratio)
+            + "); peak device memory a rank "
+            + ", ".join(f"{rec[name]['peak'] / 1e9:.3f}" for rec in recs)
+            + " GB; gloo (host-staged) ms a step, median a rank "
+            + ", ".join(f"{float(np.median(rec[name]['ms'])):.3f}"
+                        for rec in recs)
+            + f" (one process on the card "
+            f"{float(np.median(one[name]['ms'])):.3f})")
+        out[name] = {"rel": rel, "ratio": ratio,
+                     "ms": [float(np.median(rec[name]["ms"]))
+                            for rec in recs],
+                     "peak_gb": [rec[name]["peak"] / 1e9 for rec in recs]}
+    ranks, want = pre
+    rel = [rel_max(got, want) for got in ranks]
+    l2 = [float((got.float() - want.float()).norm() / want.float().norm())
+          for got in ranks]
+    launches = [rec[LM_ARCH]["prefill_launches"] for rec in recs]
+    check(max(l2) <= PREFILL_BF16_REL_L2, f"phase 17 (b) {LM_ARCH}: bf16 "
+          f"prefill on 1x2 vs one process rel-L2 {l2}")
+    check(all(x == [RG_TRAIN_LAYERS // 3, 0] for x in launches),
+          f"phase 17 (b) {LM_ARCH}: the sharded prefill's swa_attention "
+          f"launches (tensor-core, CUDA-core) a rank {launches}")
+    heads = sm_cases()[LM_ARCH][0].num_heads
+    log(f"phase 17 (b) gloo 1x2, {LM_ARCH} bf16 prefill B={SM_PREFILL_B} x "
+        f"T={SM_PREFILL_T} on each rank's {heads // SM_RANKS} of {heads} "
+        f"heads, the stream split over T: logits vs one process rel-L2 "
+        + ", ".join(f"{x:.3g}" for x in l2)
+        + f" (limit {PREFILL_BF16_REL_L2}), rel max "
+        + ", ".join(f"{x:.3g}" for x in rel)
+        + f"; swa_attention launches (tensor-core, CUDA-core) a rank "
+        f"{launches}; ms a rank (gloo) "
+        + ", ".join(f"{rec[LM_ARCH]['prefill_ms']:.3f}" for rec in recs))
+    out["prefill"] = {"rel_l2": l2, "launches": launches[0][0],
+                      "ms": [rec[LM_ARCH]["prefill_ms"] for rec in recs]}
+    dt = time.perf_counter() - t_phase
+    log(f"phase 17 (serving on a mesh) {dt:.3f} s ((a) {t_a:.3f})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[chip_smoke] torch.cuda.is_available() is False: this "
@@ -6348,6 +6682,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     tp = phase_tp(dev, errs)
     cg_row.update(tp["cg"])
+    torch.cuda.empty_cache()
+    served = phase_serve_mesh(dev)
     cg_row["max_abs_err"] = max(v for k, v in errs.items()
                                 if k.startswith("cg_fused_update["))
     torch.cuda.empty_cache()
@@ -6356,6 +6692,8 @@ def main() -> int:
     kernels[-1].update(swa_moe)
     kernels += bwd_entries(rg, errs)
     tp_keys(kernels[-4], tp, "swa_attention", "forward")
+    kernels[-4].update(serve_mesh_launches=served["prefill"]["launches"],
+                       serve_mesh_prefill_ms=served["prefill"]["ms"])
     for row, key in zip(kernels[-3:], ("dq", "dkdv", "jvp")):
         tp_keys(row, tp, row["name"], key)
     check(len(kernels) == len(TPU_KERNELS) + len(BWD_KERNELS),

@@ -28,7 +28,7 @@ CFG = get_config("qwen2.5-3b").smoke()
 BATCH, SEQ, CG_ROWS = 32, 64, 8
 
 
-def train(cfg, model, params, *, steps: int, device, say=print) -> tuple:
+def train(cfg, model, params, *, steps: int, device) -> tuple:
     """``steps`` NGHF updates of ``params`` on ``lm_batch(step)``; the CG
     batch is the gradient batch's first ``CG_ROWS`` rows.  Returns (the
     new parameters, each update's metrics)."""
@@ -56,10 +56,10 @@ def train(cfg, model, params, *, steps: int, device, say=print) -> tuple:
         cb = {k: v[:CG_ROWS] for k, v in gb.items()}
         params, opt_state, metrics = opt.step(params, opt_state, gb, cb)
         log.append(metrics)
-        say(f"step {step}: ce={float(metrics['ce']):.4f} "
-            f"acc={float(metrics['acc']):.3f} "
-            f"cg_best_iter={int(metrics['cg_best_iter'])} "
-            f"accepted={bool(metrics['cg_accepted'])}")
+        print(f"step {step}: ce={float(metrics['ce']):.4f} "
+              f"acc={float(metrics['acc']):.3f} "
+              f"cg_best_iter={int(metrics['cg_best_iter'])} "
+              f"accepted={bool(metrics['cg_accepted'])}")
     return params, log
 
 

@@ -92,8 +92,9 @@ port").
 ``step_context(cfg, mesh, shardings)`` registers the stored shardings
 for one step (``launch.steps.build_step``); with no mesh, and outside
 it, every call here is the identity, so one-device numbers do not move.
-A serving step also registers its decode cache's layout (``cache``:
-``launch.sharding.cache_shardings``, the reference's ``input_shardings``),
+A serving step also registers its decode cache's layout (``cache``: the
+``shardings`` of ``launch.sharding.place_cache``'s shares, cut by the
+reference's ``input_shardings``),
 and ``cache_for_compute`` hands each layer's cache to the model with the
 ``Split`` of every leaf whose share is cut over "model" (attention k/v
 slots, the recurrent states' channels; ``models.blocks``' decode reads

@@ -490,20 +490,14 @@ class CacheShares(dict):
         self.shardings = shardings
 
 
-def cache_shardings(cfg, mesh, shapes: dict) -> dict:
-    """{path: NamedSharding} of a decode cache's leaves ({path: (shape,
-    dtype)}, ``Model.cache_shapes``) by ``input_shardings``' rule."""
-    specs = input_shardings(cfg, mesh, {"cache": shapes})["cache"]
-    return {k: NamedSharding(mesh, specs[k]) for k in shapes}
-
-
 def place_cache(cfg, mesh, shapes: dict, fill: dict) -> CacheShares:
     """This rank's share of every decode cache leaf, on the mesh's
     device: ``shapes`` ({path: (shape, dtype)}) of the whole cache, each
-    leaf cut by ``cache_shardings`` and allocated at the share's shape
-    (never whole), filled with ``fill[name]`` (the leaf's last path
+    leaf cut by ``input_shardings``' rule and allocated at the share's
+    shape (never whole), filled with ``fill[name]`` (the leaf's last path
     key; 0 where it is absent), as the whole cache is initialised."""
-    shardings = cache_shardings(cfg, mesh, shapes)
+    specs = input_shardings(cfg, mesh, {"cache": shapes})["cache"]
+    shardings = {k: NamedSharding(mesh, specs[k]) for k in shapes}
     leaves = {k: torch.full(shardings[k].share_shape(shape),
                             fill.get(k.split(".")[-1], 0.0), dtype=dtype,
                             device=mesh.device)

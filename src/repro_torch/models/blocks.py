@@ -201,11 +201,10 @@ def attend_decode(cfg, p, h, cache, pos: int, *, ring: bool,
     q, k, v = L.qkv_project(cfg, p, h, torch.full((1,), pos, device=h.device)
                             if rope else None, apply_rope=rope,
                             local_kv=False)
-    if split:
-        if "wk" in p.whole:
-            q, = tp.gather_parts([q], split, 2)
-        else:
-            q, k, v = tp.gather_parts([q, k, v], split, 2)
+    if split and "wk" in p.whole:
+        q = tp.all_gather(q, split, 2)
+    elif split:
+        q, k, v = tp.gather_parts([q, k, v], split, 2)
     S = cache["k"].shape[1]
     total = S * (slots.extent if slots else 1)
     if not rope:
@@ -605,7 +604,7 @@ def init_mlstm_cache(cfg, batch, *, lead=(), device=None):
                              device=device),
             "n": torch.zeros((*lead, batch, H, hd), dtype=f32,
                              device=device),
-            "m": torch.full((*lead, batch, H), -1e30, dtype=f32,
+            "m": torch.full((*lead, batch, H), CACHE_FILL["m"], dtype=f32,
                             device=device),
             "conv": torch.zeros((*lead, batch, cfg.conv_kernel - 1, inner),
                                 dtype=cfg.cdtype, device=device)}
@@ -1035,7 +1034,7 @@ def init_slstm_cache(cfg, batch, *, lead=(), device=None):
     shape = (*lead, batch, H, cfg.d_model // H)
     return {key: torch.full(shape, val, dtype=torch.float32, device=device)
             for key, val in (("c", 0.0), ("n", 0.0), ("h", 0.0),
-                             ("m", -1e30))}
+                             ("m", CACHE_FILL["m"]))}
 
 
 def slstm_block_decode(cfg, p, x, cache, pos: int):
