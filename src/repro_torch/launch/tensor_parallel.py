@@ -88,6 +88,13 @@ chunked CE with ``vocab_shard``.  Whether the arch takes
 sequence-parallel activations is decided there too; a forward's shapes
 settle it (``models.transformer.forward_hidden``).  Outside a step with tensor-parallel
 compute every unit is whole, and nothing here runs.
+
+A serving step on a mesh (``launch.steps.build_serve_step(mesh=)``) also
+reads its decode caches as this rank's shares: ``cache_split`` gives a
+leaf's split over "model", ``cache_rows``/``put_rows`` a whole leaf's
+rows of a batch split over the data ranks, and ``all_gather`` /
+``gather_parts`` move the per-token vectors between a unit's layout and
+its cache's (no derivative runs there).
 """
 from __future__ import annotations
 
