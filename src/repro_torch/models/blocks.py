@@ -503,20 +503,33 @@ def _mlstm_qkvif(cfg, p, u, split=None):
     return q, k, v, log_i, F.logsigmoid(log_f)
 
 
-def _mlstm_step(carry, inp):
+def _mlstm_step(carry, inp, cs=None):
     """Stabilised mLSTM recurrence, one step (the reference's, kept as the
     plain oracle of ``mlstm_chunkwise`` and run by decode).  State per
-    head: C (hd,hd), n (hd), m ()."""
+    head: C (hd,hd), n (hd), m ().  With ``cs`` (a decode cache's
+    ``Split`` over "model") the carry is this rank's share of every
+    head's state, C's value rows and n's key columns (m whole), stepped
+    from every head's per-token q, k, v and gates: n.q, a sum over the
+    key dim, is all-reduced over the model group and h's value rows are
+    all-gathered whole."""
     C, n, m = carry
     q, k, v, log_i, log_f = inp
     m_new = torch.maximum(log_f + m, log_i)
     i = torch.exp(log_i - m_new)[..., None]                   # (B,H,1)
     f = torch.exp(log_f + m - m_new)[..., None]
-    n_new = f * n + i * k
-    C_new = f[..., None] * C + i[..., None] * (v[..., :, None]
+    kn, vc, qn = (k, v, q) if cs is None else (tp.shard(k, cs),
+                                                tp.shard(v, cs),
+                                                tp.shard(q, cs))
+    n_new = f * n + i * kn
+    C_new = f[..., None] * C + i[..., None] * (vc[..., :, None]
                                                * k[..., None, :])
-    denom = _max1(torch.abs(torch.sum(n_new * q, -1)))[..., None]
-    h = torch.einsum("bhvk,bhk->bhv", C_new, q) / denom
+    dot = torch.sum(n_new * qn, -1)
+    if cs is not None:
+        dot = tp.all_reduce(dot, cs.group)
+    h = torch.einsum("bhvk,bhk->bhv", C_new, q) / _max1(torch.abs(dot))[
+        ..., None]
+    if cs is not None:
+        h = tp.all_gather(h, cs, -1)
     return (C_new, n_new, m_new), h
 
 
@@ -610,32 +623,6 @@ def init_mlstm_cache(cfg, batch, *, lead=(), device=None):
                                 dtype=cfg.cdtype, device=device)}
 
 
-def _mlstm_share_step(cache, m, inp, cs):
-    """``_mlstm_step`` on this rank's share of the state: with ``cs`` (the
-    cache's ``Split``) C's value rows and n's key columns of every head,
-    from every head's per-token q, k, v and gates (``inp``) and the
-    replicated m.  n.q, a sum over the key dim, is all-reduced over the
-    model group; h's value rows are all-gathered whole.  Returns ((C, n,
-    m) shares, h (B,H,hd))."""
-    q, k, v, log_i, log_f = inp
-    m_new = torch.maximum(log_f + m, log_i)
-    i = torch.exp(log_i - m_new)[..., None]
-    f = torch.exp(log_f + m - m_new)[..., None]
-    kn, vc, qn = ((tp.shard(k, cs), tp.shard(v, cs), tp.shard(q, cs)) if cs
-                  else (k, v, q))
-    n_new = f * cache["n"] + i * kn
-    C_new = f[..., None] * cache["C"] + i[..., None] * (vc[..., :, None]
-                                                         * k[..., None, :])
-    dot = torch.sum(n_new * qn, -1)
-    if cs:
-        dot = tp.all_reduce(dot, cs.group)
-    h = torch.einsum("bhvk,bhk->bhv", C_new, q) / _max1(torch.abs(dot))[
-        ..., None]
-    if cs:
-        h = tp.all_gather(h, cs, -1)
-    return (C_new, n_new, m_new), h
-
-
 def mlstm_block_decode(cfg, p, x, cache, pos: int):
     """One token through ``_mlstm_step``; writes the new state and conv
     buffer into ``cache`` in place.
@@ -645,12 +632,12 @@ def mlstm_block_decode(cfg, p, x, cache, pos: int):
     "model" (``launch.sharding.input_shardings``; m whole), the unit its
     heads (``split_of``).  The token's q, k, v and gates of the rank's
     heads are all-gathered (B H (3 hd + 2) numbers) and each rank steps
-    its share of every head's state (``_mlstm_share_step``); h comes
-    back whole and the rank's heads enter ``w_down``'s rows.  A unit
-    held whole with its conv's channels split runs the conv on its
-    channels and all-gathers the conv output.  Only per-token vectors
-    move, never the state."""
-    inner, H, hd = _mlstm_dims(cfg)
+    its share of every head's state (``_mlstm_step`` with the cache's
+    ``Split``); h comes back whole and the rank's heads enter
+    ``w_down``'s rows.  A unit held whole with its conv's channels split
+    runs the conv on its channels and all-gathers the conv output.  Only
+    per-token vectors move, never the state."""
+    hd = _mlstm_dims(cfg)[2]
     B = x.shape[0]
     split = tp.split_of(p)
     cs, conv_s = tp.cache_split(cache, "C"), tp.cache_split(cache, "conv")
@@ -669,22 +656,16 @@ def mlstm_block_decode(cfg, p, x, cache, pos: int):
     inp = (q[:, 0].float(), k[:, 0].float(), v[:, 0].float(), log_i[:, 0],
            log_f[:, 0])
     m_prev, rows = tp.cache_rows(cache, "m", B)
-    if split is None and cs is None:
-        (C, n, m), h = _mlstm_step((cache["C"], cache["n"], m_prev), inp)
-        h = h.reshape(B, inner).to(x.dtype)
-        out = ((h * F.silu(g)) @ p["w_down"].to(x.dtype))[:, None]
-    else:
-        if split:
-            vecs = torch.cat([*inp[:3], inp[3][..., None], inp[4][..., None]],
-                             -1)
-            vecs = tp.all_gather(vecs, split, 1)
-            inp = vecs.split([hd, hd, hd, 1, 1], -1)
-            inp = (*inp[:3], inp[3][..., 0], inp[4][..., 0])
-        (C, n, m), h = _mlstm_share_step(cache, m_prev, inp, cs)
-        if split:
-            h = tp.shard(h, split, dim=1)
-        h = h.reshape(B, -1).to(x.dtype)
-        out = L.row_parallel((h * F.silu(g))[:, None], p["w_down"], split)
+    if split:
+        vecs = torch.cat([*inp[:3], inp[3][..., None], inp[4][..., None]], -1)
+        vecs = tp.all_gather(vecs, split, 1)
+        inp = vecs.split([hd, hd, hd, 1, 1], -1)
+        inp = (*inp[:3], inp[3][..., 0], inp[4][..., 0])
+    (C, n, m), h = _mlstm_step((cache["C"], cache["n"], m_prev), inp, cs)
+    if split:
+        h = tp.shard(h, split, dim=1)
+    h = h.reshape(B, -1).to(x.dtype)
+    out = L.row_parallel((h * F.silu(g))[:, None], p["w_down"], split)
     for key, val in (("C", C), ("n", n), ("conv", conv_buf)):
         cache[key].copy_(val)
     tp.put_rows(cache, "m", m, rows)
@@ -720,14 +701,19 @@ def _slstm_recurrent(r_zifo):
     return r_zifo.float().permute(1, 3, 0, 2).reshape(H, hd, g * hd)
 
 
-def _slstm_step(R, carry, pre_x):
+def _slstm_step(R, carry, pre_x, rec=None, cs=None):
     """One sLSTM step, head-major: carry (c, n, h, m) each (H,B,hd) f32,
     pre_x (H,B,4*hd) f32 the input pre-activations (z, i, f, o), R from
     ``_slstm_recurrent``.  Returns the new carry and the step's
     pre-activations (H,B,4*hd).  Autograd never differentiates it: the
-    sequence path runs ``_SLSTMScan``'s derivatives, decode none."""
+    sequence path runs ``_SLSTMScan``'s derivatives, decode none.
+
+    On a mesh (decode): ``rec`` is every head's ``h @ R``, which the
+    caller formed from the whole h (the carry's h is then not read), and
+    ``cs`` the cache's ``Split`` over "model": c and n are this rank's hd
+    channels of every head (m whole), and so are the new c, n and h."""
     c, n, h, m = carry
-    pre = torch.baddbmm(pre_x, h, R)
+    pre = torch.baddbmm(pre_x, h, R) if rec is None else pre_x + rec
     zp, log_i, fp, op = pre.unflatten(-1, (4, -1)).unbind(-2)
     z = torch.tanh(zp)
     log_f = F.logsigmoid(fp)
@@ -736,6 +722,8 @@ def _slstm_step(R, carry, pre_x):
     m_new = torch.maximum(a, log_i)
     i = torch.exp(log_i - m_new)
     f = torch.exp(a - m_new)
+    if cs is not None:
+        z, i, f, o = (tp.shard(t, cs) for t in (z, i, f, o))
     c_new = torch.addcmul(f * c, i, z)
     n_new = torch.addcmul(i, f, n)
     h_new = o * c_new / n_new.clamp(min=1.0)
@@ -1053,38 +1041,23 @@ def slstm_block_decode(cfg, p, x, cache, pos: int):
     split = tp.split_of(p)
     cs = tp.cache_split(cache, "c")
     m_prev, rows = tp.cache_rows(cache, "m", B)
-    if split is None and cs is None:
-        carry = tuple(cache[key].transpose(0, 1) for key in "cnh") + (
-            m_prev.transpose(0, 1),)
-        new, _ = _slstm_step(_slstm_recurrent(p["r_zifo"]), carry,
-                             _slstm_inputs(cfg, p, x)[0])
-        for key, val in zip("cnh", new):
-            cache[key].copy_(val.transpose(0, 1))
-        tp.put_rows(cache, "m", new[3].transpose(0, 1), rows)
-        hs = new[2].transpose(0, 1).reshape(B, 1, d).to(x.dtype)
-        return _slstm_out(p, hs, x), cache
-    wx = _slstm_inputs(cfg, p, x, split, heads=False)[0]     # (H,B,4hd)
-    h = cache["h"] if cs is None else tp.all_gather(cache["h"], cs, -1)
-    h = h.transpose(0, 1)                                     # (H,B,hd)
+    carry = tuple(cache[key].transpose(0, 1) for key in "cnh") + (
+        m_prev.transpose(0, 1),)
     R = _slstm_recurrent(p["r_zifo"])
-    if split:
-        rec = tp.all_gather(torch.bmm(tp.shard(h, split, dim=0), R), split, 0)
+    if split is None and cs is None:
+        new, _ = _slstm_step(R, carry, _slstm_inputs(cfg, p, x)[0])
     else:
-        rec = torch.bmm(h, R)
-    zp, log_i, fp, op = (wx + rec).unflatten(-1, (4, -1)).unbind(-2)
-    a = F.logsigmoid(fp) + m_prev.transpose(0, 1)
-    m_new = torch.maximum(a, log_i)
-    gates = (torch.tanh(zp), torch.exp(log_i - m_new), torch.exp(a - m_new),
-             torch.sigmoid(op))
-    z, i, f, o = (tp.shard(t, cs) for t in gates) if cs else gates
-    c_new = torch.addcmul(f * cache["c"].transpose(0, 1), i, z)
-    n_new = torch.addcmul(i, f, cache["n"].transpose(0, 1))
-    h_new = o * c_new / n_new.clamp(min=1.0)
-    for key, val in zip("cnh", (c_new, n_new, h_new)):
+        h = carry[2] if cs is None else tp.all_gather(
+            cache["h"], cs, -1).transpose(0, 1)               # (H,B,hd)
+        rec = (tp.all_gather(torch.bmm(tp.shard(h, split, dim=0), R), split,
+                             0) if split else torch.bmm(h, R))
+        new, _ = _slstm_step(R, carry, _slstm_inputs(cfg, p, x, split,
+                                                     heads=False)[0],
+                             rec=rec, cs=cs)
+    for key, val in zip("cnh", new):
         cache[key].copy_(val.transpose(0, 1))
-    tp.put_rows(cache, "m", m_new.transpose(0, 1), rows)
-    if cs:
-        h_new = tp.all_gather(h_new, cs, -1)
+    tp.put_rows(cache, "m", new[3].transpose(0, 1), rows)
+    h_new = new[2] if cs is None else tp.all_gather(new[2], cs, -1)
     hs = h_new.transpose(0, 1).reshape(B, 1, d).to(x.dtype)
     if split:
         hs = tp.shard(hs, split)

@@ -43,7 +43,7 @@ import torch
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.launch import fsdp
 from repro_torch.launch import tensor_parallel as tp
-from repro_torch.launch.sharding import place_cache
+from repro_torch.launch.sharding import param_shardings, place_cache
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import flatten, gathered, nest
@@ -255,9 +255,22 @@ def _cache_tree(cfg, batch_size: int, cache_len: int, dev) -> dict:
     return cache
 
 
-def prefill_cache(cfg, params, cache, enc_input):
-    """Encode ``enc_input`` into ``cache["enc_out"]``; returns the cache."""
-    cache["enc_out"] = encode(cfg, params, enc_input)
+def prefill_cache(cfg, params, cache, enc_input, *, mesh=None):
+    """Encode ``enc_input`` into ``cache["enc_out"]``; returns the cache.
+
+    On a ``mesh``: ``params`` are this rank's shares by ``launch.sharding.
+    param_shardings``, ``cache`` this rank's shares (``init_cache(...,
+    mesh=)``) and ``enc_input`` the global batch, of which this rank's
+    rows (``enc_out``'s placement: the data axes) are encoded as a train
+    step's forward would encode them (``launch.fsdp.step_context``) into
+    the rank's ``enc_out``."""
+    if mesh is None:
+        cache["enc_out"] = encode(cfg, params, enc_input)
+        return cache
+    rows = cache.shardings["enc_out"].place(enc_input)
+    shardings = param_shardings(cfg, mesh, param_shapes(cfg))
+    with torch.no_grad(), fsdp.step_context(cfg, mesh, shardings):
+        cache["enc_out"].copy_(encode(cfg, params, rows))
     return cache
 
 

@@ -167,10 +167,9 @@ def serve(*, tmp: str, mesh: str, cases: list) -> dict:
             mine, batch).numpy()
         cache = model.init_cache(BATCH, case["slots"], long_mode=long_mode,
                                  mesh=mesh)
-        if cfg.is_encoder_decoder:     # the encoder on the mesh, its rows
-            rows = cache.shardings["enc_out"].place(batch["encoder_input"])
-            with torch.no_grad(), fsdp.step_context(cfg, mesh, ss):
-                cache["enc_out"].copy_(encdec.encode(cfg, mine, rows))
+        if cfg.is_encoder_decoder:
+            encdec.prefill_cache(cfg, mine, cache, batch["encoder_input"],
+                                 mesh=mesh)
         step = build_serve_step(cfg, long_mode=long_mode, mesh=mesh)
         logits, tops = [], []
         with _Collectives() as watch:
