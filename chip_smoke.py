@@ -53,7 +53,9 @@ paths against its plain PyTorch version on the card:
     and serving on a mesh: qwen2.5-3b's prefill and decode at world size
     1 over NCCL, and qwen2.5-3b's, recurrentgemma-9b's and xlstm-125m's
     on two gloo ranks of a 1x2 mesh, each holding its share of the decode
-    caches.
+    caches;
+  * analysis: the port's kernel sanitizer over every launcher of the
+    seven CUDA libraries (``repro_torch.analysis.sanitize_kernels``).
 
 Phases:
 
@@ -139,7 +141,8 @@ Phases:
      before phase 7): first the paper's example
      (``repro_torch.examples.train_asr_mpe.run_pipeline``) on the
      full-width LSTM with its frames (T = 32) and batches: CE pretraining,
-     8 NGHF updates, SGD and Adam with 160 each, its table, each NGHF
+     4 NGHF updates (8 before the script outgrew its time), SGD and Adam
+     with 80 each, its table, each NGHF
      update's acceptance, best iterate and outer-CG vᵀBv; then the
      training CLI ``launch.train.main`` at the training phase's widths (T
      = 200, batch 32, CG batch 8, 6 CG and 2 NG iterations,
@@ -179,8 +182,9 @@ Phases:
      (the ``lm_*`` keys of its row in the kernels line);
  10. the dense archs (run after phase 9, before phase 7, on a card freed
      with ``empty_cache``): qwen2.5-3b at full width and depth, drawn on
-     the card — ``build_prefill_step`` over B = 1 x T = 32768
-     (prefill_32k, its batch cut from 32 to 1) after a T = 4096 warm-up,
+     the card — ``build_prefill_step`` over B = 1 x T = 16384
+     (prefill_32k, its batch cut from 32 to 1, its T halved) after a
+     T = 4096 warm-up,
      logits (1, 1, 151936) finite, no kernel launched, the attention
      layers timed apart by CUDA events; ``serve`` over 8 requests against
      a 32768-slot cache (decode_32k, batch cut from 128 to 8), the B = 8
@@ -206,7 +210,7 @@ Phases:
      ``dense_*`` keys of its row);
  11. the MoE archs (run after phase 10, before phase 7, on a card freed
      with ``empty_cache``): granite-moe-3b-a800m served at full width and
-     depth as phase 10's qwen2.5-3b (B = 1 x T = 32768 prefill, logits
+     depth as phase 10's qwen2.5-3b (B = 1 x T = 16384 prefill, logits
      (1, 1, 49155) finite, no kernel launched, attention and expert FFN
      timed apart; ``serve`` over a 32768-slot cache, the B = 8 step split
      into attention, expert FFN and the FFN's per-step expert casts; f32
@@ -242,22 +246,23 @@ Phases:
      against 512 decode steps within relative max 1e-3; 16 long_500k
      steps at B = 1 from position 524,272, the state's bytes against
      ``input_specs``; layer 0's chunkwise mLSTM against the step
-     recurrence (f32, B 2, T 2048): the residual branch within relative L2
+     recurrence (f32, B 2, T 1024): the residual branch within relative L2
      1e-5, one vjp's parameter gradient and one jvp's tangent within 1e-4;
      layer 3's sLSTM with its loops as CUDA graphs against plain loops
      (the same, within 1e-6, bitwise printed); NGHF through the
      CLI at 4 of the 12 layers (``--layers 4``: one period, 3 mLSTM + 1
-     sLSTM; 75,863,064 parameters; B 8, T 512, CG batch 2, 8 CG and 4 NG
+     sLSTM; 75,863,064 parameters; B 8, T 256, CG batch 2, 8 CG and 4 NG
      iterations, the share-counts preconditioner, ``--cg-fused``): 2
      updates with a
      checkpoint, then ``--resume`` to 3, with phase 9's checks (12
      ``cg_fused_update`` launches an update and no other kernel); one
      update through the kernel and the plain path (the same decision,
      last-iterate Δθ within relative L2 2e-2, the stage split, a device
-     trace of one of its curvature products at T 512); Adam through the
+     trace of one of its curvature products at T 256); Adam through the
      CLI, 3 steps (the update at train_4k's T 4096, 133-162 s, was cut
-     when phase 14 came, and the depth to 4 layers when phase 15 came, to
-     keep the script near 1000 s); ``cg_fused_update`` timed at N =
+     when phase 14 came, the depth to 4 layers when phase 15 came, and T
+     512 to 256 when phase 18 came, to keep the script near 1000 s);
+     ``cg_fused_update`` timed at N =
      75,863,064 against its bound (the ``xlstm_*`` keys of its row);
  13. training recurrentgemma-9b and mixtral-8x22b (run after phase 12,
      before phase 7, on a card freed with ``empty_cache``): (a) the
@@ -281,7 +286,7 @@ Phases:
      no jvp, the step time and peak memory; one
      step's gradient against the plain path (attention's plain version on
      the card) within relative L2 2e-2; (c) both archs' smoke configs
-     trained by NGHF at T 64 past their window of 16, one update per
+     (mixtral-8x22b's at 1 layer) trained by NGHF at T 64 past their window of 16, one update per
      curvature mode (``rematvp``, ``linearize``): the kernel path (the
      attention kernels, the tensor-core backward among them, fused CG)
      takes the plain path's decision (or a
@@ -372,6 +377,22 @@ Phases:
      bytes half of one process's (xlstm's whole stabilisers aside), its
      peak memory, the ms a step (gloo: every collective staged through
      the host).
+ 18. the port's kernel sanitizer on the card
+     (``repro_torch.analysis.sanitize_kernels``, run after every other
+     phase): ``run_sanitize`` over the five adversarial corpus cases in f32
+     and bf16 and the vector kernels (the attention forward, vjp and jvp
+     on the tensor-core route at bf16, hd 64, and on the CUDA-core route at
+     f32 and bf16; the fused CG at f32 and bf16), zero KS001-KS005
+     failures; ``self_test``'s two seeded mutants (an off-by-one frontier
+     into the real ``dag_forward``, bf16 loss-only sums) flagged by KS003
+     and KS005; the captured records equal to the ``build.launch`` calls,
+     and every launcher of the seven libraries run on its route (the
+     tensor-core launchers at bf16, the CUDA-core ones at f32); the
+     launches per launcher and the KS001 facts (threads, dynamic shared
+     bytes, static shared bytes from ptxas) logged.  NVIDIA's
+     ``compute-sanitizer`` is not run: on the H100 machine of the port's
+     card runs its tools answer "Device not supported", even for a plain
+     CUDA program (``scripts/compute_sanitizer_probe.sh``; ROADMAP 1.5.1).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; without a card, or outside a checkout of the repo,
@@ -1819,8 +1840,9 @@ CLI_ARGS = ["--optimizer", "nghf", "--loss", "mpe", "--frames", "200",
                "--ng-iters", "2", "--cg-fused", "--device", "cuda"]
 CLI_ARCHS = ("rnn-asr", "rnn-relu-asr", "tdnn-asr", "tdnn-relu-asr")
 # NGHF updates of the example's pipeline on the full-width LSTM (SGD and
-# Adam take 20x as many); its frames and batches are the example's
-EXAMPLE_UPDATES = 8
+# Adam take 20x as many); its frames and batches are the example's, its
+# updates cut from 8 to 4 to keep the script in its time
+EXAMPLE_UPDATES = 4
 EXAMPLE_FRAMES = 32
 # held-out batches the example evaluates: 4 after each of its 4 stages,
 # each one pass of the sausage statistics (forward and backward)
@@ -2212,20 +2234,22 @@ def device_trace(fn) -> dict:
         wall = time.perf_counter() - t0
         t_post = time.perf_counter()
     spans, by_name = [], {}
-    for e in prof.events():
-        a, b = e.time_range.start, e.time_range.end
-        if e.device_type != DeviceType.CUDA or b <= a:
+    # the raw events (ns): ``prof.events()`` would first build the tree of
+    # every host op, 17 s for an LM update's events on a slow host
+    for e in prof.profiler.kineto_results.events():
+        a, b = e.start_ns(), e.end_ns()
+        if e.device_type() != DeviceType.CUDA or b <= a:
             continue
         spans.append((a, b))
-        t, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + (b - a) * 1e-3, n + 1)
+        t, n = by_name.get(e.name(), (0.0, 0))
+        by_name[e.name()] = (t + (b - a) * 1e-6, n + 1)
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):
         busy += max(b, end) - max(a, end)
         end = max(end, b)
     top = sorted(((k, ms, n) for k, (ms, n) in by_name.items()),
                  key=lambda t: -t[1])
-    return {"wall_s": wall, "busy_s": busy * 1e-6, "device_events":
+    return {"wall_s": wall, "busy_s": busy * 1e-9, "device_events":
             len(spans), "top": top[:6],
             "post_s": time.perf_counter() - t_post}
 
@@ -2431,13 +2455,15 @@ def lm_cg_times(lm_train: dict, dev) -> dict:
 # Phase 10: the dense attn archs (qwen2.5-3b served and trained, the CLIs)
 # ---------------------------------------------------------------------------
 
-# qwen2.5-3b at full width and depth for serving: prefill_32k's T with its
-# batch cut from 32 to 1 (after a T = 4096 warm-up), decode_32k's cache
-# with its batch cut from 128 to 8, long_500k's bounded cache from the
-# position 16 short of its end
+# qwen2.5-3b at full width and depth for serving: prefill_32k with its
+# batch cut from 32 to 1 and its T from 32768 to 16384 (after a T = 4096
+# warm-up; no kernel runs there, and the plain causal attention took
+# 40-47 s at T 32768 on a slow host), decode_32k's cache with its batch
+# cut from 128 to 8, long_500k's bounded cache from the position 16 short
+# of its end
 DENSE_ARCH = "qwen2.5-3b"
 DENSE_PARAMS = 3_085_938_688
-DENSE_PREFILL_T, DENSE_WARM_T = 32768, 4096
+DENSE_PREFILL_T, DENSE_WARM_T = 16384, 4096
 DENSE_CACHE = 32768
 DENSE_LONG_SLOTS, DENSE_LONG_STEPS = 8192, 16
 DENSE_LONG_START = 524_288 - DENSE_LONG_STEPS
@@ -2816,7 +2842,8 @@ def dense_cg_times(dense: dict, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 # granite-moe-3b-a800m at full width and depth for serving (phase 10's
-# cuts: prefill_32k's B 32 -> 1, decode_32k's B 128 -> 8, long_500k's
+# cuts: prefill_32k's B 32 -> 1 and T 32768 -> 16384, decode_32k's B 128
+# -> 8, long_500k's
 # ring from the position 16 short of its end); NGHF at full width with the
 # depth cut to what one card holds (32 layers need about 185 GB of
 # θ-sized f32 state, ROADMAP 1.4), B 8, T 512
@@ -3163,17 +3190,19 @@ XLSTM_DECODE_T = 512               # f32 prefill vs this many decode steps
 XLSTM_LONG_START = 524_288 - 16
 # the chunkwise mLSTM (layer 0) against the step recurrence on the card,
 # f32: the block's output and one vjp's parameter gradient, relative L2
-XLSTM_ORACLE_B, XLSTM_ORACLE_T = 2, 2048
+# (T 2048 -> 1024, 16 chunks of 64: the step recurrence took 23 s)
+XLSTM_ORACLE_B, XLSTM_ORACLE_T = 2, 1024
 XLSTM_ORACLE_L2, XLSTM_ORACLE_GRAD_L2 = 1e-5, 1e-4
 # the sLSTM's loops as CUDA graphs against plain loops: the same kernels
 # on the same inputs (relative L2; bitwise printed)
 XLSTM_GRAPH_L2 = 1e-6
-# NGHF through the CLI: train_4k's B 256 x T 4096 cut to B 8 x T 512 (CG
+# NGHF through the CLI: train_4k's B 256 x T 4096 cut to B 8 x T 256 (CG
 # batch 2), the share-counts preconditioner; depth 12 -> 4 (one period:
 # 3 mLSTM + 1 sLSTM blocks): the host sets its updates' time (24-27 s
 # each at full depth on an H100 80GB HBM3, 233 s of phase 12, and the
-# script took 1157.6 s with phase 15 beside it)
-XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ = 8, 512
+# script took 1157.6 s with phase 15 beside it; at T 512 the training
+# took 62.5 s of a 1034.1 s script, so T went to 256 with phase 18)
+XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ = 8, 256
 XLSTM_TRAIN_LAYERS = 4
 XLSTM_TRAIN_PARAMS = 75_863_064
 XLSTM_TRAIN_ARGS = ["--arch", XLSTM_ARCH, "--optimizer", "nghf",
@@ -3502,7 +3531,7 @@ def curvature_product(cfg, params, batch, dev) -> tuple:
     """One Gauss-Newton product of an NGHF update on ``batch`` (a jvp and
     a vjp through the model on its CG batch, a quarter of ``batch``), as
     (name, call) for ``lm_paths_compared``'s trace.  An update at
-    xlstm-125m's T 512 runs about 1.8 M kernels (the sLSTM's steps), each
+    xlstm-125m's T 512 ran about 1.8 M kernels (the sLSTM's steps), each
     a profiler event that the host reads back one by one; a product is
     one of the update's 12 and most of its time."""
     from repro_torch.core.curvature import make_curvature_ops
@@ -3576,9 +3605,12 @@ RG_TRAIN_LR = 0.3                  # launch.train's SGD default
 # the forward kernels' outputs differ from the plain version's by a bf16
 # ulp in under 1 % of the entries (phase 2)
 RG_GRAD_REL_L2 = 2e-2
-# NGHF at the smoke configs (window 16) at T 64 > window, B 8 (CG batch 2)
+# NGHF at the smoke configs (window 16) at T 64 > window, B 8 (CG batch 2);
+# mixtral-8x22b's smoke depth cut from 2 layers to 1 (one windowed MoE
+# layer still runs every derivative kernel) to keep the script in its time
 SMOKE_TRAIN_ARCHS = ("recurrentgemma-9b", "mixtral-8x22b")
 SMOKE_TRAIN_BATCH, SMOKE_TRAIN_SEQ = 8, 64
+SMOKE_TRAIN_LAYERS = {"mixtral-8x22b": 1}
 
 
 def bwd_counts() -> tuple:
@@ -3953,6 +3985,8 @@ def smoke_nghf(dev) -> dict:
     out = {"jvp": 0, "dq": 0, "dkdv": 0}
     for arch in SMOKE_TRAIN_ARCHS:
         cfg = get_config(arch).smoke()
+        cfg = cfg.replace(num_layers=SMOKE_TRAIN_LAYERS.get(arch,
+                                                            cfg.num_layers))
         params = get_model(cfg).init(SEED, device=dev)
         b = lm_batch(0, batch=SMOKE_TRAIN_BATCH, seq_len=SMOKE_TRAIN_SEQ,
                      vocab=cfg.vocab_size, device=dev)
@@ -5097,7 +5131,7 @@ def phase_fsdp(dev, dense_path: dict, dense_log: list) -> dict:
 # heads (1 of the 2 kv heads), half the FFN's columns and half the vocab
 TP_RANKS = 2
 TP_DELTA_REL_L2 = 1e-2
-TP_LAYER_REPS = 5
+TP_LAYER_REPS = 2                  # calls a turn (5 before; cut for time)
 TP_TIMEOUT_S = 600
 # the row-parallel products of (a)'s rank (``layers.partial_matmul``, bf16
 # operands, an f32 result): against the f32 upcast's GEMM, the f32 result
@@ -5618,12 +5652,13 @@ def tp_rank(rank: int, world: int, tmp: str, device: str) -> None:
         mesh = make_debug_mesh(1, world, device=dev, backend="gloo")
         coord = dict(zip(mesh.axis_names,
                          mesh.device_mesh.get_coordinate()))
-        rec = {"model_index": coord["model"],
-               "a": tp_rank_qwen(mesh, dev, tmp, rank),
-               "b": tp_rank_rg(mesh, dev, tmp, rank),
-               "c": tp_rank_xlstm(mesh, dev, tmp, rank),
-               "d": tp_rank_whisper(mesh, dev, tmp, rank),
-               "e": tp_rank_granite(mesh, dev, tmp, rank)}
+        rec = {"model_index": coord["model"], "seconds": {}}
+        for key, fn in (("a", tp_rank_qwen), ("b", tp_rank_rg),
+                        ("c", tp_rank_xlstm), ("d", tp_rank_whisper),
+                        ("e", tp_rank_granite)):
+            t0 = time.perf_counter()
+            rec[key] = fn(mesh, dev, tmp, rank)
+            rec["seconds"][key] = round(time.perf_counter() - t0, 3)
         dist.barrier()
         dist.destroy_process_group()
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
@@ -6039,7 +6074,8 @@ def phase_tp(dev, errs: dict) -> dict:
     log(f"phase 16 (tensor-parallel compute, (a) to (e)) {dt:.3f} s (local "
         f"kernels and "
         f"row products {t_kern:.3f}, one process {t_one:.3f}, ranks "
-        f"{dt - t_kern - t_one:.3f})")
+        f"{dt - t_kern - t_one:.3f}; a rank's (a) to (e) "
+        f"{[rec['seconds'] for rec in recs]})")
     tp_launches = {"dq": b[0]["grad_launches"][0] + b[0]["step_launches"][0],
                    "dkdv": b[0]["grad_launches"][1]
                    + b[0]["step_launches"][1],
@@ -6601,6 +6637,60 @@ def phase_serve_mesh(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the kernel sanitizer on the card
+# ---------------------------------------------------------------------------
+
+def phase_sanitizer(dev) -> dict:
+    """Phase 18: ``sanitize_kernels.run_sanitize`` and ``self_test`` on the
+    card; every launcher run on its route (the tensor-core attention at
+    hd_pad 64, 128 and 256, the DAG kernels with their state in global
+    scratch, ``sausage_loss_only`` spilled), records equal to launches;
+    the launches per launcher and the KS001 facts logged."""
+    from repro_torch.analysis import rules_kernel, sanitize_kernels
+    t0 = time.perf_counter()
+    report, failures = sanitize_kernels.run_sanitize(dev)
+    check(not failures, f"phase 18: {len(failures)} sanitizer failures, "
+          f"first {failures[:3]}")
+    problems = sanitize_kernels.self_test(dev)
+    check(not problems, f"phase 18: {problems}")
+    missing = sorted(set(rules_kernel.STEM_OF) - set(report["launches"]))
+    check(not missing, f"phase 18: launchers never run: {missing}")
+    check(report["records"] == report["build_launches"],
+          f"phase 18: {report['records']} records, "
+          f"{report['build_launches']} build.launch calls")
+    for name, facts in report["ks001"].items():
+        want = "bfloat16" if "sm90" in name else "float32"
+        check(want in facts["dtype"],
+              f"phase 18: {name} never ran at {want} ({facts['dtype']})")
+    static = report["static_smem"]
+    log(f"phase 18 kernel sanitizer on {card_line()}: 0 failures over "
+        f"{len(report['cases'])} cases, {report['records']} captured "
+        f"launches == {report['build_launches']} build.launch calls; "
+        f"mutants flagged (KS003 off-by-one frontier, KS005 bf16 sums)")
+    for name in sorted(rules_kernel.STEM_OF):
+        facts = {k: v for k, v in report["ks001"][name].items()
+                 if k != "dtype"}
+        log(f"phase 18 {name} ({rules_kernel.STEM_OF[name]}): "
+            f"{report['launches'][name]} launches at "
+            f"{report['ks001'][name]['dtype']}; KS001 {facts}, static "
+            f"shared bytes {static.get(name)} (ptxas)")
+    dt = time.perf_counter() - t0
+    log(f"phase 18 (kernel sanitizer) {dt:.3f} s")
+    return {"s": dt, "launches": report["launches"]}
+
+
+PHASE_S: dict = {}              # phase function -> its seconds in this run
+
+
+def timed(fn, *args):
+    """``fn(*args)``, its seconds kept in ``PHASE_S`` for the summary."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_S[fn.__name__[len("phase_"):]] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[chip_smoke] torch.cuda.is_available() is False: this "
@@ -6643,52 +6733,52 @@ def main() -> int:
                 str(SWA.sm90_bwd_smem_bytes(kern, p)) for p in (64, 128, 256))
             + " bytes")
     errs: dict = {}
-    phase_kernels(dev, errs)
-    phase_sausage_kernels(dev, errs)
-    phase_swa_kernel(dev, errs)
-    service = phase_service(dev)
-    stream = phase_streaming(dev, errs)
-    training = phase_training(dev)
+    timed(phase_kernels, dev, errs)
+    timed(phase_sausage_kernels, dev, errs)
+    timed(phase_swa_kernel, dev, errs)
+    service = timed(phase_service, dev)
+    stream = timed(phase_streaming, dev, errs)
+    training = timed(phase_training, dev)
     kernels = dag_times(service, stream, training, errs) \
         + train_times(training, errs)
     kernel_path = training["kernel_path"]
     del service, stream, training
     torch.cuda.empty_cache()
-    phase_cli(dev)
+    timed(phase_cli, dev)
     torch.cuda.empty_cache()
-    lm_train = phase_lm_train(dev)
+    lm_train = timed(phase_lm_train, dev)
     cg_row = next(k for k in kernels if k["name"] == "cg_fused_update")
     cg_row.update(lm_cg_times(lm_train, dev))
     torch.cuda.empty_cache()
-    dense = phase_dense(dev)
+    dense = timed(phase_dense, dev)
     cg_row.update(dense_cg_times(dense, dev))
     dense_path = dense["training"].pop("kernel_path")
     dense_log = dense["training"]["log"]
     del dense
     torch.cuda.empty_cache()
-    moe = phase_moe(dev, errs)
+    moe = timed(phase_moe, dev, errs)
     cg_row.update(moe_cg_times(moe, dev))
     swa_moe = moe["mixtral"]["swa"]
     del moe
     torch.cuda.empty_cache()
-    xl = phase_xlstm(dev)
+    xl = timed(phase_xlstm, dev)
     cg_row.update(xlstm_cg_times(xl, dev))
     del xl
     torch.cuda.empty_cache()
-    rg = phase_rg_train(dev, errs)
+    rg = timed(phase_rg_train, dev, errs)
     torch.cuda.empty_cache()
-    cg_row.update(phase_mesh(dev, errs, kernel_path))
-    cg_row.update(phase_fsdp(dev, dense_path, dense_log))
+    cg_row.update(timed(phase_mesh, dev, errs, kernel_path))
+    cg_row.update(timed(phase_fsdp, dev, dense_path, dense_log))
     del dense_path
     torch.cuda.empty_cache()
-    tp = phase_tp(dev, errs)
+    tp = timed(phase_tp, dev, errs)
     cg_row.update(tp["cg"])
     torch.cuda.empty_cache()
-    served = phase_serve_mesh(dev)
+    served = timed(phase_serve_mesh, dev)
     cg_row["max_abs_err"] = max(v for k, v in errs.items()
                                 if k.startswith("cg_fused_update["))
     torch.cuda.empty_cache()
-    lm = phase_lm(dev)
+    lm = timed(phase_lm, dev)
     kernels.append(swa_times(lm, errs, dev))
     kernels[-1].update(swa_moe)
     kernels += bwd_entries(rg, errs)
@@ -6697,8 +6787,12 @@ def main() -> int:
                        serve_mesh_prefill_ms=served["prefill"]["ms"])
     for row, key in zip(kernels[-3:], ("dq", "dkdv", "jvp")):
         tp_keys(row, tp, row["name"], key)
+    torch.cuda.empty_cache()
+    timed(phase_sanitizer, dev)
     check(len(kernels) == len(TPU_KERNELS) + len(BWD_KERNELS),
           "a kernel has no entry")
+    log("phase seconds: " + ", ".join(f"{k} {v:.3f}"
+                                      for k, v in PHASE_S.items()))
     log(f"total {time.perf_counter() - t_start:.3f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

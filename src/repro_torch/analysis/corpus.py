@@ -19,7 +19,9 @@ built to sit on an edge the production generators rarely hit:
                         padded up.
 
 The dict builders draw from the generator in the reference's order, so
-one seed gives identical arrays in both packages.
+one seed gives identical arrays in both packages.  ``SPILL_CASES``
+holds one case of the port's own: a bucket whose kernel state passes the
+shared memory a block has, so the global-state branches run.
 """
 from __future__ import annotations
 
@@ -153,6 +155,19 @@ def packed_bucket_case(seed: int = 0, device=DEFAULT_DEVICE) -> Case:
     return lat, _T, _K
 
 
+def spilled_state_case(seed: int = 0, device=DEFAULT_DEVICE) -> Case:
+    """One long, wide sausage utterance (400 levels of 40 arcs, every arc
+    valid) whose kernel state passes ``lattice_fb.SMEM_MAX``: the DAG
+    kernels keep their compact state in global scratch (``gstride`` > 0)
+    and ``sausage_loss_only`` spills its slots to its global scratch, as
+    a long streaming session's bucket does.  Not a reference case."""
+    rng = np.random.default_rng(seed)
+    T, K = 400, 48
+    d = make_sausage_lattice(rng, num_frames=T, num_states=K, seg_len=1,
+                             n_alt=40)
+    return batch_lattices([d], device=device), T, K
+
+
 ADVERSARIAL_CASES: Dict[str, object] = {
     "zero_arc": zero_arc_case,
     "single_level": single_level_case,
@@ -160,3 +175,5 @@ ADVERSARIAL_CASES: Dict[str, object] = {
     "padded_row": padded_row_case,
     "packed_bucket": packed_bucket_case,
 }
+# the cases past the kernels' shared memory, beside the reference's five
+SPILL_CASES: Dict[str, object] = {"spilled_state": spilled_state_case}

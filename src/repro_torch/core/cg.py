@@ -215,7 +215,8 @@ def cg_solve(bv_fn: Callable, b, *, iters: int, precond=None,
             gain = q_prev - quad
             converged = (gain <= tol * quad.abs().clamp(min=1e-12))
             syncs += 1
-            bad_h, conv_h = torch.stack([dead, converged]).tolist()
+            # the loop decides on the host by design: one sync an iteration
+            bad_h, conv_h = torch.stack([dead, converged]).tolist()  # reprolint: disable=RL002
             evaled = eval_fn is not None and m % eval_every == 0 \
                 and not bad_h
             loss = inf

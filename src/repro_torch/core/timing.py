@@ -22,7 +22,7 @@ class StageTimer:
         self.totals = defaultdict(float)     # stage -> seconds
         self.calls = defaultdict(int)        # stage -> sections timed
 
-    def _sync(self):
+    def _sync(self):  # reprolint: host: a timer waits for the card
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 

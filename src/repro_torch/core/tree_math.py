@@ -49,7 +49,7 @@ def scalar_like(s, x: torch.Tensor):
     sync), a number is rounded to ``x``'s dtype on the host."""
     if isinstance(s, torch.Tensor):
         return s.to(dtype=x.dtype)
-    return torch.tensor(s, dtype=x.dtype).item()
+    return torch.tensor(s, dtype=x.dtype).item()  # reprolint: disable=RL002 (a CPU tensor)
 
 
 def add(a, b):

@@ -18,6 +18,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from repro_torch.kernels import instrument
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -114,9 +116,11 @@ def library(stem: str, signatures: dict) -> ctypes.CDLL:
 def launch(stem: str, signatures: dict, fn: str, device, *args) -> None:
     """Call launcher ``fn`` of ``csrc/<stem>.cu`` with ``args`` and the
     current stream of CUDA ``device``; raise if it returns a CUDA error
-    (a refused launch never runs, and no synchronize would report it)."""
+    (a refused launch never runs, and no synchronize would report it).
+    Counted by ``instrument.count_launch`` while a capture is open."""
     import torch
 
+    instrument.count_launch()
     lib = library(stem, signatures)
     if device.index in (None, torch.cuda.current_device()):
         err = getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream)

@@ -25,7 +25,7 @@ import ctypes
 import torch
 import torch.distributed
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, instrument, ref
 from repro_torch.kernels.lattice_fb import (_check_kernel_input,
                                             _check_shape, _on_cuda)
 
@@ -35,6 +35,9 @@ _STORAGE = {torch.float32: 0, torch.bfloat16: 1}
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # alpha x v r bv x_out r_out partial rr | n storage
 _SIGNATURES = {"cg_fused_update_launch": [_PTR] * 9 + [_LL, _INT, _PTR]}
+# launcher -> the library (``csrc/<stem>.cu``) that holds it
+LAUNCHERS = {"cg_fused_update_launch": "cg_fused"}
+(_LAUNCHER, _STEM), = LAUNCHERS.items()
 
 
 def cg_fused_update(alpha, x, v, r, bv):
@@ -44,7 +47,10 @@ def cg_fused_update(alpha, x, v, r, bv):
     (N,) = x.shape
     for arg, t in (("v", v), ("r", r), ("bv", bv)):
         _check_shape(name, arg, t, (N,))
+    config = {"grid": (-(-N // TILE),)}
     if not _on_cuda(name, x, v, r, bv):
+        instrument.record(_STEM, _LAUNCHER, "plain", config, x=x, v=v,
+                          r=r, bv=bv)
         return ref.cg_fused_update_ref(alpha, x, v, r, bv)
     if x.dtype not in _STORAGE:
         raise TypeError(f"{name}: x is {x.dtype}, the kernel stores "
@@ -64,7 +70,9 @@ def cg_fused_update(alpha, x, v, r, bv):
     partial = torch.empty((max(1, -(-N // TILE)),), dtype=torch.float32,
                           device=dev)
     rr = torch.empty((), dtype=torch.float32, device=dev)
-    build.launch("cg_fused", _SIGNATURES, "cg_fused_update_launch", dev,
+    instrument.record(_STEM, _LAUNCHER, "cuda", config, x=x, v=v, r=r,
+                      bv=bv)
+    build.launch(_STEM, _SIGNATURES, _LAUNCHER, dev,
                  alpha_t.data_ptr(), x.data_ptr(), v.data_ptr(),
                  r.data_ptr(), bv.data_ptr(), x_out.data_ptr(),
                  r_out.data_ptr(), partial.data_ptr(), rr.data_ptr(), N,

@@ -13,7 +13,13 @@ tensors on the CPU it returns its plain version from ``kernels.ref``;
 for tensors on a CUDA device it checks dtype and contiguity, allocates
 outputs and scratch, launches its kernel on the current stream and
 raises if the launch was refused.  There is no fallback from the kernel
-to the plain version.
+to the plain version.  The kernels compute in f32: a float input of
+another dtype (bf16) is cast to f32 on entry, as the plain versions
+compute, and the outputs are f32 on both routes.
+
+Each launch, and each plain call on the CPU, is recorded for the kernel
+sanitizer inside ``instrument.capture_calls`` (``instrument.record``:
+the launcher, its plan and its index operands).
 
 Each wrapper keeps a plain integer ``launches`` (``dag_forward.launches``
 ...), raised by one at each kernel launch and nowhere else, so a run can
@@ -27,7 +33,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, instrument, ref
 
 MAX_THREADS = 512           # threads per block (one block per utterance)
 # dynamic shared memory a block may take on the H100 (232,448 bytes), less
@@ -65,8 +71,16 @@ _SIGNATURES = {
 }
 
 
+# launcher -> the library (``csrc/<stem>.cu``) that holds it
+LAUNCHERS = {fn: stem for stem, fns in _SIGNATURES.items() for fn in fns}
+
+
 def launch(stem: str, fn: str, device: torch.device, *args) -> None:
     build.launch(stem, _SIGNATURES[stem], fn, device, *args)
+
+
+def _record(fn: str, route: str, config: dict, **operands) -> None:
+    instrument.record(LAUNCHERS[fn], fn, route, config, **operands)
 
 
 def _launch(fn: str, device: torch.device, *args) -> None:
@@ -105,6 +119,24 @@ def _check_kernel_input(name: str, arg: str, t, dtype) -> None:
                         f"{dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: {arg} is not contiguous")
+
+
+def _f32_inputs(name: str, ts: dict) -> list:
+    """The float inputs of a kernel that computes in f32, cast to f32 as
+    the plain versions do (a bf16 caller gets f32 outputs); an input that
+    is not contiguous is refused, whatever its dtype."""
+    out = []
+    for arg, t in ts.items():
+        t = t.to(torch.float32)
+        _check_kernel_input(name, arg, t, torch.float32)
+        out.append(t)
+    return out
+
+
+def _dag_config(B: int, plan: tuple) -> dict:
+    threads, smem, gstride = plan
+    return {"grid": (B,), "threads": threads, "smem": smem,
+            "gstride": gstride}
 
 
 def dag_forward_state_bytes(n_valid: int, L: int, P: int) -> int:
@@ -150,7 +182,7 @@ _STATE_BYTES = {"dag_forward": dag_forward_state_bytes,
                 "dag_backward": dag_backward_state_bytes}
 
 
-def dag_branches(kernel: str, skip, ok, R: int) -> list:
+def dag_branches(kernel: str, skip, ok, R: int) -> list:  # reprolint: host: logs, tests
     """Per utterance of (B, L, W) ``skip``/``ok`` flags, the branches the
     DAG kernel ``kernel`` ("dag_forward", "dag_loss_only" or
     "dag_backward") takes after its prepass, as ("warp" | "block",
@@ -170,6 +202,19 @@ def dag_branches(kernel: str, skip, ok, R: int) -> list:
     return [("block" if w > 32 else "warp",
              "shared" if state_bytes(n, L, R) <= SMEM_MAX else "global")
             for w, n in zip(widest, n_valid)]
+
+
+def sausage_loss_only_plan(S: int, W: int) -> tuple:
+    """(threads, dynamic shared bytes, global scratch) of a
+    ``sausage_loss_only`` launch over (S, W) slots: scores, correctness,
+    mask and the long-span list take 16 B a slot in shared memory; past
+    ``SMEM_MAX`` they go to a (B, 4, S*W) f32 global scratch and the
+    launch takes 0 shared bytes."""
+    SW = S * W
+    threads = min(1024, max(32, -(-SW // 32) * 32))
+    if 16 * SW > SMEM_MAX:
+        return threads, 0, True
+    return threads, 16 * SW, False
 
 
 def _scratch(B: int, LW: int, gstride: int, dev) -> tuple:
@@ -211,15 +256,19 @@ def dag_forward(own, corr, start, ok, final, pidx):
                    ("final", final)):
         _check_shape(name, arg, t, (B, L, W))
     _check_shape(name, "pidx", pidx, (B, L, W, pidx.shape[-1]))
-    if not _on_cuda(name, own, corr, start, ok, final, pidx):
-        return ref.dag_forward_ref(own, corr, start, ok, final, pidx)
-    for arg, t in (("own", own), ("corr", corr), ("start", start),
-                   ("ok", ok), ("final", final)):
-        _check_kernel_input(name, arg, t, torch.float32)
-    _check_kernel_input(name, "pidx", pidx, torch.int32)
     P, LW, dev = pidx.shape[-1], L * W, own.device
+    threads, smem, gstride = plan = dag_forward_plan(L, W, P)
+    if not _on_cuda(name, own, corr, start, ok, final, pidx):
+        if B:
+            _record("dag_forward_launch", "plain", _dag_config(B, plan),
+                    own=own, corr=corr, start=start, ok=ok, final=final,
+                    pidx=pidx)
+        return ref.dag_forward_ref(own, corr, start, ok, final, pidx)
+    own, corr, start, ok, final = _f32_inputs(
+        name, {"own": own, "corr": corr, "start": start, "ok": ok,
+               "final": final})
+    _check_kernel_input(name, "pidx", pidx, torch.int32)
     _check_ids(name, LW)
-    threads, smem, gstride = dag_forward_plan(L, W, P)
     # outputs: alpha and c_alpha (2, B, LW+1), then logZ and c_avg (2, B)
     n_out = 2 * B * (LW + 1)
     buf = torch.empty(n_out + 2 * B, dtype=torch.float32, device=dev)
@@ -227,6 +276,9 @@ def dag_forward(own, corr, start, ok, final, pidx):
         scratch, idx, pos, gstate = _scratch(B, LW, gstride, dev)
         base = buf.data_ptr()
         red = base + 4 * n_out
+        _record("dag_forward_launch", "cuda", _dag_config(B, plan),
+                own=own, corr=corr, start=start, ok=ok, final=final,
+                pidx=pidx)
         _launch("dag_forward_launch", dev, own.data_ptr(), corr.data_ptr(),
                 start.data_ptr(), ok.data_ptr(), final.data_ptr(),
                 pidx.data_ptr(), idx, pos, gstate, gstride, base,
@@ -252,19 +304,23 @@ def dag_backward(own, corr, final, ok, sidx):
     for arg, t in (("corr", corr), ("final", final), ("ok", ok)):
         _check_shape(name, arg, t, (B, L, W))
     _check_shape(name, "sidx", sidx, (B, L, W, sidx.shape[-1]))
-    if not _on_cuda(name, own, corr, final, ok, sidx):
-        return ref.dag_backward_ref(own, corr, final, ok, sidx)
-    for arg, t in (("own", own), ("corr", corr), ("final", final),
-                   ("ok", ok)):
-        _check_kernel_input(name, arg, t, torch.float32)
-    _check_kernel_input(name, "sidx", sidx, torch.int32)
     S, LW, dev = sidx.shape[-1], L * W, own.device
+    threads, smem, gstride = plan = dag_backward_plan(L, W, S)
+    if not _on_cuda(name, own, corr, final, ok, sidx):
+        if B:
+            _record("dag_backward_launch", "plain", _dag_config(B, plan),
+                    own=own, corr=corr, final=final, ok=ok, sidx=sidx)
+        return ref.dag_backward_ref(own, corr, final, ok, sidx)
+    own, corr, final, ok = _f32_inputs(
+        name, {"own": own, "corr": corr, "final": final, "ok": ok})
+    _check_kernel_input(name, "sidx", sidx, torch.int32)
     _check_ids(name, LW)
-    threads, smem, gstride = dag_backward_plan(L, W, S)
     buf = torch.empty(2 * B * (LW + 1), dtype=torch.float32, device=dev)
     if B:
         scratch, idx, pos, gstate = _scratch(B, LW, gstride, dev)
         base = buf.data_ptr()
+        _record("dag_backward_launch", "cuda", _dag_config(B, plan),
+                own=own, corr=corr, final=final, ok=ok, sidx=sidx)
         _launch("dag_backward_launch", dev, own.data_ptr(), corr.data_ptr(),
                 final.data_ptr(), ok.data_ptr(), sidx.data_ptr(), idx, pos,
                 gstate, gstride, base, base + 4 * B * (LW + 1), B, L, W, S,
@@ -299,14 +355,19 @@ def dag_loss_only(log_probs, start, end, label, lm, corr, arc_mask,
         _check_shape(name, arg, t, (B, A))
     _check_shape(name, "level_arcs", level_arcs, (B, L, W))
     _check_shape(name, "pidx", pidx, (B, L, W, pidx.shape[-1]))
+    P, LW, dev = pidx.shape[-1], L * W, log_probs.device
+    plan = dag_forward_plan(L, W, P)
     if not _on_cuda(name, log_probs, start, end, label, lm, corr, arc_mask,
                     is_start, is_final, level_arcs, pidx):
+        if B:
+            _record("dag_loss_only_launch", "plain", _dag_config(B, plan),
+                    log_probs=log_probs, start=start, end=end, label=label,
+                    arc_mask=arc_mask, level_arcs=level_arcs, pidx=pidx)
         return ref.dag_loss_only_ref(log_probs, start, end, label, lm, corr,
                                      arc_mask, is_start, is_final,
                                      level_arcs, pidx, kappa=kappa)
     if K == 0 and A:
         raise ValueError(f"{name}: K = 0 log-prob columns for {A} arcs")
-    P, LW, dev = pidx.shape[-1], L * W, log_probs.device
     _check_ids(name, LW)
     flags = [f.contiguous() if f.dtype == torch.bool else _f32(f)
              for f in (arc_mask, is_start, is_final)]
@@ -315,10 +376,13 @@ def dag_loss_only(log_probs, start, end, label, lm, corr, arc_mask,
     lp, lm, corr = _f32(log_probs), _f32(lm), _f32(corr)
     start, end, label = _i32(start), _i32(end), _i32(label)
     la, pidx = _i32(level_arcs), _i32(pidx)
-    threads, smem, gstride = dag_forward_plan(L, W, P)
+    threads, smem, gstride = plan
     out = torch.empty(2 * B, dtype=torch.float32, device=dev)
     if B:
         scratch, idx, pos, gstate = _scratch(B, LW, gstride, dev)
+        _record("dag_loss_only_launch", "cuda", _dag_config(B, plan),
+                log_probs=lp, start=start, end=end, label=label,
+                arc_mask=flags[0], level_arcs=la, pidx=pidx)
         _launch("dag_loss_only_launch", dev, lp.data_ptr(), start.data_ptr(),
                 end.data_ptr(), label.data_ptr(), lm.data_ptr(),
                 corr.data_ptr(), *(f.data_ptr() for f in flags), bool_flags,
@@ -346,17 +410,22 @@ def sausage_forward(scores, corr, mask=None):
     Returns (alpha (B,S,A), c_alpha (B,S,A), logZ (B,), c_avg (B,))."""
     name = "sausage_forward"
     mask = _sausage_inputs(name, scores, corr, mask)
-    if not _on_cuda(name, scores, corr, mask):
-        return ref.sausage_forward_ref(scores, corr, mask)
-    for arg, t in (("scores", scores), ("corr", corr), ("mask", mask)):
-        _check_kernel_input(name, arg, t, torch.float32)
     B, S, A = scores.shape
+    if not _on_cuda(name, scores, corr, mask):
+        if B:
+            _record("sausage_forward_launch", "plain", {}, scores=scores,
+                    corr=corr, mask=mask)
+        return ref.sausage_forward_ref(scores, corr, mask)
+    scores, corr, mask = _f32_inputs(
+        name, {"scores": scores, "corr": corr, "mask": mask})
     dev = scores.device
     alpha = torch.empty((B, S, A), dtype=torch.float32, device=dev)
     c_alpha = torch.empty_like(alpha)
     logz = torch.empty((B,), dtype=torch.float32, device=dev)
     cavg = torch.empty_like(logz)
     if B:
+        _record("sausage_forward_launch", "cuda", {}, scores=scores,
+                corr=corr, mask=mask)
         launch("lattice_sausage", "sausage_forward_launch", dev,
                scores.data_ptr(), corr.data_ptr(), mask.data_ptr(),
                alpha.data_ptr(), c_alpha.data_ptr(), logz.data_ptr(),
@@ -371,15 +440,20 @@ def sausage_backward(scores, corr, mask=None):
     score (FBStats convention), so gamma = exp(alpha + beta - logZ)."""
     name = "sausage_backward"
     mask = _sausage_inputs(name, scores, corr, mask)
-    if not _on_cuda(name, scores, corr, mask):
-        return ref.sausage_backward_ref(scores, corr, mask)
-    for arg, t in (("scores", scores), ("corr", corr), ("mask", mask)):
-        _check_kernel_input(name, arg, t, torch.float32)
     B, S, A = scores.shape
+    if not _on_cuda(name, scores, corr, mask):
+        if B:
+            _record("sausage_backward_launch", "plain", {}, scores=scores,
+                    corr=corr, mask=mask)
+        return ref.sausage_backward_ref(scores, corr, mask)
+    scores, corr, mask = _f32_inputs(
+        name, {"scores": scores, "corr": corr, "mask": mask})
     dev = scores.device
     beta = torch.empty((B, S, A), dtype=torch.float32, device=dev)
     c_beta = torch.empty_like(beta)
     if B:
+        _record("sausage_backward_launch", "cuda", {}, scores=scores,
+                corr=corr, mask=mask)
         launch("lattice_sausage", "sausage_backward_launch", dev,
                scores.data_ptr(), corr.data_ptr(), mask.data_ptr(),
                beta.data_ptr(), c_beta.data_ptr(), B, S, A)
@@ -406,14 +480,21 @@ def sausage_loss_only(log_probs, start, end, label, lm, corr, arc_mask,
         _check_shape(name, arg, t, (B, A))
     _check_shape(name, "level_arcs", level_arcs,
                  (B,) + tuple(level_arcs.shape[1:]))
+    S, W = level_arcs.shape[1], level_arcs.shape[2]
+    threads, smem, spill = sausage_loss_only_plan(S, W)
+    config = {"grid": (B,), "threads": threads, "smem": smem,
+              "scratch": spill}
     if not _on_cuda(name, log_probs, start, end, label, lm, corr, arc_mask,
                     level_arcs):
+        if B:
+            _record("sausage_loss_only_launch", "plain", config,
+                    log_probs=log_probs, start=start, end=end, label=label,
+                    arc_mask=arc_mask, level_arcs=level_arcs)
         return ref.sausage_loss_only_ref(log_probs, start, end, label, lm,
                                          corr, arc_mask, level_arcs,
                                          kappa=kappa)
     if K == 0 and A:
         raise ValueError(f"{name}: K = 0 log-prob columns for {A} arcs")
-    S, W = level_arcs.shape[1], level_arcs.shape[2]
     dev = log_probs.device
     is_bool = arc_mask.dtype == torch.bool
     mask = arc_mask.contiguous() if is_bool else _f32(arc_mask)
@@ -423,13 +504,11 @@ def sausage_loss_only(log_probs, start, end, label, lm, corr, arc_mask,
     lm, corr = _f32(lm), _f32(corr)
     out = torch.empty(2 * B, dtype=torch.float32, device=dev)
     if B:
-        # scores, correctness, mask and the long-span list: 16 B a slot
-        SW = S * W
-        smem, scratch = 16 * SW, None
-        if smem > SMEM_MAX:
-            smem, scratch = 0, torch.empty((B, 4, SW), dtype=torch.float32,
-                                           device=dev)
-        threads = min(1024, max(32, -(-SW // 32) * 32))
+        scratch = torch.empty((B, 4, S * W), dtype=torch.float32,
+                              device=dev) if spill else None
+        _record("sausage_loss_only_launch", "cuda", config, log_probs=lp,
+                start=start, end=end, label=label, arc_mask=mask,
+                level_arcs=la)
         launch("lattice_sausage", "sausage_loss_only_launch", dev,
                lp.data_ptr(), start.data_ptr(), end.data_ptr(),
                label.data_ptr(), lm.data_ptr(), corr.data_ptr(),

@@ -64,7 +64,7 @@ import torch
 from repro_torch.core.functorch_levels import (first_order_only,
                                                outside_transforms, rewrap,
                                                unwrap_one_level)
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, instrument, ref
 from repro_torch.kernels.lattice_fb import _check_kernel_input, _on_cuda
 
 MAX_HEAD_DIM = 256
@@ -227,12 +227,56 @@ def swa_bwd_geometry(B: int, T: int, H: int, K: int, hd: int,
         (-(-T // KEY_TILE), K, B), T, group, min(window, T))
 
 
+# kind -> ((stem, launcher) of the CUDA-core kernel, of the tensor-core one)
+_LAUNCHERS = {
+    "forward": (("swa_attention", "swa_attention_launch"),
+                ("swa_attention_sm90", "swa_attention_sm90_launch")),
+    "dq": (("swa_attention_bwd", "swa_attention_dq_launch"),
+           ("swa_attention_bwd_sm90", "swa_attention_dq_sm90_launch")),
+    "dkdv": (("swa_attention_bwd", "swa_attention_dkdv_launch"),
+             ("swa_attention_bwd_sm90", "swa_attention_dkdv_sm90_launch")),
+    "jvp": (("swa_attention_bwd", "swa_attention_jvp_launch"),
+            ("swa_attention_bwd_sm90", "swa_attention_jvp_sm90_launch")),
+}
+# launcher -> the library (``csrc/<stem>.cu``) that holds it
+LAUNCHERS = {fn: stem for pair in _LAUNCHERS.values() for stem, fn in pair}
+
+
+def _record(kind: str, tc: bool, route: str, config: dict,
+            **operands) -> tuple:
+    """Record the ``kind`` launch of the tensor-core (``tc``) or CUDA-core
+    kernel (``instrument.record``); returns its (stem, launcher)."""
+    stem, launcher = _LAUNCHERS[kind][tc]
+    instrument.record(stem, launcher, route, config, **operands)
+    return stem, launcher
+
+
+def _record_plain(kinds: tuple, window: int, core: bool, **operands) -> None:
+    """The plain route's capture records: for each of ``kinds`` the
+    launcher the card would run on ``operands`` (q, k, ...), with its
+    configuration."""
+    if not instrument.capturing():
+        return
+    B, T, H, hd = operands["q"].shape
+    K = operands["k"].shape[2]
+    tc = not core and _tensor_core(operands["q"])
+    for kind in kinds:
+        config = {"window": min(window, T)}
+        if tc:
+            geo = (swa_bwd_geometry if kind == "dkdv" else swa_geometry)(
+                B, T, H, K, hd, window)
+            config["geometry"] = geo
+        _record(kind, tc, "plain", config, **operands)
+
+
 def _launch_sm90(q, k, v, out, window: int) -> None:
     B, T, H, hd = q.shape
     K = k.shape[2]
     geo = swa_geometry(B, T, H, K, hd, window)
-    build.launch("swa_attention_sm90", _SM90_SIGNATURES,
-                 "swa_attention_sm90_launch", q.device, q.data_ptr(),
+    stem, fn = _record("forward", True, "cuda",
+                       {"window": geo.window, "geometry": geo}, q=q, k=k,
+                       v=v)
+    build.launch(stem, _SM90_SIGNATURES, fn, q.device, q.data_ptr(),
                  k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, H, K, hd,
                  geo.window, geo.queries, geo.heads, geo.head_tiles,
                  geo.hd_pad, geo.grid[0], geo.grid[1], 1.0 / math.sqrt(hd))
@@ -280,11 +324,14 @@ def _forward(q, k, v, window: int, core: bool):
     """The forward kernels' routing on validated CUDA inputs (``core``
     forces the CUDA-core kernel), or the plain version on CPU inputs."""
     if not q.is_cuda:
+        _record_plain(("forward",), window, core, q=q, k=k, v=v)
         return ref.swa_attention_ref(q, k, v, window)
     out = torch.empty_like(q)
     if core or not _tensor_core(q):
-        build.launch("swa_attention", _CORE_SIGNATURES,
-                     "swa_attention_launch", q.device, q.data_ptr(),
+        stem, fn = _record("forward", False, "cuda",
+                           {"window": min(window, q.shape[1])}, q=q, k=k,
+                           v=v)
+        build.launch(stem, _CORE_SIGNATURES, fn, q.device, q.data_ptr(),
                      k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      *_shape_args(q, k, window))
         swa_attention.cuda_core_launches += 1
@@ -312,8 +359,9 @@ def launch_dq(q, k, v, g, window: int, core: bool = False) -> tuple:
     if core or not _tensor_core(q):
         lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
         dd = torch.empty_like(lse)
-        build.launch("swa_attention_bwd", _BWD_SIGNATURES,
-                     "swa_attention_dq_launch", q.device, q.data_ptr(),
+        stem, fn = _record("dq", False, "cuda", {"window": min(window, T)},
+                           q=q, k=k, v=v, g=g)
+        build.launch(stem, _BWD_SIGNATURES, fn, q.device, q.data_ptr(),
                      k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(),
                      lse.data_ptr(), dd.data_ptr(),
                      *_shape_args(q, k, window))
@@ -323,8 +371,10 @@ def launch_dq(q, k, v, g, window: int, core: bool = False) -> tuple:
     geo = swa_geometry(B, T, H, K, hd, window)
     lse = torch.empty(B, K, T, H // K, dtype=torch.float32, device=q.device)
     dd = torch.empty_like(lse)
-    build.launch("swa_attention_bwd_sm90", _SM90_BWD_SIGNATURES,
-                 "swa_attention_dq_sm90_launch", q.device, q.data_ptr(),
+    stem, fn = _record("dq", True, "cuda",
+                       {"window": geo.window, "geometry": geo}, q=q, k=k,
+                       v=v, g=g)
+    build.launch(stem, _SM90_BWD_SIGNATURES, fn, q.device, q.data_ptr(),
                  k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(),
                  lse.data_ptr(), dd.data_ptr(), B, T, H, K, hd, geo.window,
                  geo.queries, geo.heads, geo.head_tiles, geo.hd_pad,
@@ -343,8 +393,10 @@ def launch_dkdv(q, k, v, g, lse, dd, window: int,
     K = k.shape[2]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if core or not _tensor_core(q):
-        build.launch("swa_attention_bwd", _BWD_SIGNATURES,
-                     "swa_attention_dkdv_launch", q.device, q.data_ptr(),
+        stem, fn = _record("dkdv", False, "cuda",
+                           {"window": min(window, T)}, q=q, k=k, v=v, g=g,
+                           lse=lse, dd=dd)
+        build.launch(stem, _BWD_SIGNATURES, fn, q.device, q.data_ptr(),
                      k.data_ptr(), v.data_ptr(), g.data_ptr(),
                      lse.data_ptr(), dd.data_ptr(), dk.data_ptr(),
                      dv.data_ptr(), *_shape_args(q, k, window))
@@ -356,8 +408,10 @@ def launch_dkdv(q, k, v, g, lse, dd, window: int,
                          f"{tuple(dd.shape)} are not the tensor-core dq "
                          f"kernel's (B, K, T, G) side outputs")
     geo = swa_bwd_geometry(B, T, H, K, hd, window)
-    build.launch("swa_attention_bwd_sm90", _SM90_BWD_SIGNATURES,
-                 "swa_attention_dkdv_sm90_launch", q.device, q.data_ptr(),
+    stem, fn = _record("dkdv", True, "cuda",
+                       {"window": geo.window, "geometry": geo}, q=q, k=k,
+                       v=v, g=g, lse=lse, dd=dd)
+    build.launch(stem, _SM90_BWD_SIGNATURES, fn, q.device, q.data_ptr(),
                  k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
                  dd.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, H, K, hd,
                  geo.window, geo.queries, geo.heads, geo.head_tiles, geo.mag,
@@ -376,6 +430,7 @@ def swa_attention_vjp(q, k, v, g, window: int, *, core: bool = False):
     ``ref.swa_attention_vjp_ref``."""
     name = "swa_attention_vjp"
     if not _on_cuda(name, q, k, v, g):
+        _record_plain(("dq", "dkdv"), window, core, q=q, k=k, v=v, g=g)
         return ref.swa_attention_vjp_ref(q, k, v, g, window)
     _check_like(name, {"q": q, "k": k, "v": v, "g": g}, q)
     dq, lse, dd = launch_dq(q, k, v, g, window, core)
@@ -395,13 +450,16 @@ def swa_attention_jvp(q, k, v, tq, tk, tv, window: int, *,
     ``ref.swa_attention_jvp_ref``."""
     name = "swa_attention_jvp"
     if not _on_cuda(name, q, k, v, tq, tk, tv):
+        _record_plain(("jvp",), window, core, q=q, k=k, v=v, tq=tq,
+                      tk=tk, tv=tv)
         return ref.swa_attention_jvp_ref(q, k, v, tq, tk, tv, window)
     ts = {"q": q, "k": k, "v": v, "tq": tq, "tk": tk, "tv": tv}
     _check_like(name, ts, q)
     out = torch.empty_like(q)
     if core or not _tensor_core(q):
-        build.launch("swa_attention_bwd", _BWD_SIGNATURES,
-                     "swa_attention_jvp_launch", q.device, q.data_ptr(),
+        stem, fn = _record("jvp", False, "cuda",
+                           {"window": min(window, q.shape[1])}, **ts)
+        build.launch(stem, _BWD_SIGNATURES, fn, q.device, q.data_ptr(),
                      k.data_ptr(), v.data_ptr(), tq.data_ptr(),
                      tk.data_ptr(), tv.data_ptr(), out.data_ptr(),
                      *_shape_args(q, k, window))
@@ -410,8 +468,9 @@ def swa_attention_jvp(q, k, v, tq, tk, tv, window: int, *,
     _check_aligned(name, ts)
     B, T, H, hd = q.shape
     geo = swa_geometry(B, T, H, k.shape[2], hd, window)
-    build.launch("swa_attention_bwd_sm90", _SM90_BWD_SIGNATURES,
-                 "swa_attention_jvp_sm90_launch", q.device,
+    stem, fn = _record("jvp", True, "cuda",
+                       {"window": geo.window, "geometry": geo}, **ts)
+    build.launch(stem, _SM90_BWD_SIGNATURES, fn, q.device,
                  *(t.data_ptr() for t in ts.values()), out.data_ptr(), B, T,
                  H, k.shape[2], hd, geo.window, geo.queries, geo.heads,
                  geo.head_tiles, geo.hd_pad, geo.grid[0], geo.grid[1],
@@ -528,6 +587,8 @@ def swa_attention(q, k, v, window: int, *, q_chunk: int = 512,
     if window < 0:
         raise ValueError(f"{name}: window {window} < 0")
     if not _on_cuda(name, q, k, v):
+        if q_offset == 0 and S == T:
+            _record_plain(("forward",), window, False, q=q, k=k, v=v)
         return ref.swa_attention_ref(q, k, v, window, q_chunk=q_chunk,
                                      q_offset=q_offset)
     if q_offset != 0 or S != T:

@@ -131,7 +131,7 @@ def finalize(lat: Lattice, alpha, beta, c_alpha, c_beta) -> FBStats:
                    c_arc=c_alpha + c_beta)
 
 
-def _is_sausage_uncached(lat: Lattice) -> bool:
+def _is_sausage_uncached(lat: Lattice) -> bool:  # reprolint: host: cached topology check
     # host copies of the index fields; inside a torch.func transform even
     # untransformed tensors refuse .numpy() unless functorch is paused
     with torch._C._DisableFuncTorch():

@@ -152,7 +152,7 @@ def lattice_frontiers(lat: Lattice, *, max_levels: int | None = None,
                      final=final.reshape(B, L, W))
 
 
-def levelize_arcs(preds: np.ndarray, is_start: np.ndarray,
+def levelize_arcs(preds: np.ndarray, is_start: np.ndarray,  # reprolint: host: numpy builder
                   arc_mask: np.ndarray) -> np.ndarray:
     """Topological levelization of one lattice's arc DAG (numpy, unbatched).
 
@@ -186,9 +186,9 @@ def levelize_arcs(preds: np.ndarray, is_start: np.ndarray,
     return out
 
 
-def make_sausage_lattice(rng: np.random.Generator, *, num_frames: int,
-                         num_states: int, seg_len: int = 4, n_alt: int = 3,
-                         max_arcs: int | None = None) -> dict:
+def make_sausage_lattice(rng: np.random.Generator, *,  # reprolint: host: numpy builder
+                         num_frames: int, num_states: int, seg_len: int = 4,
+                         n_alt: int = 3, max_arcs: int | None = None) -> dict:
     """Generate one synthetic sausage lattice as numpy arrays (unbatched):
     ``num_frames // seg_len`` segments of ``n_alt`` competing arcs (the
     first carries the reference label), consecutive segments fully
@@ -244,8 +244,9 @@ def make_sausage_lattice(rng: np.random.Generator, *, num_frames: int,
     return out
 
 
-def make_random_dag_lattice(rng: np.random.Generator, *, num_frames: int,
-                            num_states: int, skip_prob: float = 0.4,
+def make_random_dag_lattice(rng: np.random.Generator, *,  # reprolint: host: numpy builder
+                            num_frames: int, num_states: int,
+                            skip_prob: float = 0.4,
                             max_alt: int = 3,
                             max_arcs: int | None = None) -> dict:
     """Generate one random general-DAG lattice as numpy arrays (unbatched).
@@ -318,7 +319,7 @@ def make_random_dag_lattice(rng: np.random.Generator, *, num_frames: int,
     return out
 
 
-def as_tensor(x, device: torch.device) -> torch.Tensor:
+def as_tensor(x, device: torch.device) -> torch.Tensor:  # reprolint: host: numpy to the device
     """array -> tensor (a copy) with the reference's dtypes: int32 for
     integers, f32 for floats, bool for flags."""
     x = np.asarray(x)
@@ -331,7 +332,7 @@ def as_tensor(x, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=dtype)).to(device)
 
 
-def batch_lattices(lats: list[dict], device=DEFAULT_DEVICE) -> Lattice:
+def batch_lattices(lats: list[dict], device=DEFAULT_DEVICE) -> Lattice:  # reprolint: host: numpy
     """Stack per-utterance lattice dicts into one ``Lattice`` on
     ``device``, levelizing any dict that lacks ``level_arcs`` and padding
     the ragged pred/succ fan and level shapes with -1 (ragged *arc*
@@ -358,9 +359,9 @@ def batch_lattices(lats: list[dict], device=DEFAULT_DEVICE) -> Lattice:
                       for k in Lattice._fields})
 
 
-def make_lattice_batch(seed: int, *, batch: int, num_frames: int,
-                       num_states: int, seg_len: int = 4, n_alt: int = 3,
-                       device=DEFAULT_DEVICE) -> Lattice:
+def make_lattice_batch(seed: int, *, batch: int,  # reprolint: host: numpy builder
+                       num_frames: int, num_states: int, seg_len: int = 4,
+                       n_alt: int = 3, device=DEFAULT_DEVICE) -> Lattice:
     rng = np.random.default_rng(seed)
     return batch_lattices([
         make_sausage_lattice(rng, num_frames=num_frames,

@@ -101,7 +101,7 @@ def derive_buckets(dicts, *, batch: int, tiers: int = 2):
     return tuple(dict.fromkeys(out))
 
 
-def empty_lattice_dict(spec: BucketSpec) -> dict:
+def empty_lattice_dict(spec: BucketSpec) -> dict:  # reprolint: host: numpy packing
     """A fully-masked lattice filling one idle bucket slot: every frontier
     position is the dump slot and every masked reduction is over the
     empty set (the ``zero_arc`` corpus case)."""
@@ -123,7 +123,7 @@ def empty_lattice_dict(spec: BucketSpec) -> dict:
     )
 
 
-def pad_to_bucket(d: dict, spec: BucketSpec) -> dict:
+def pad_to_bucket(d: dict, spec: BucketSpec) -> dict:  # reprolint: host: numpy packing
     """Pad one lattice dict up to the bucket envelope.  Padded arcs are
     masked; padded ``level_arcs``/``preds``/``succs`` slots are -1;
     padded frames extend ``ref_states`` edge-style (no arc spans them)."""
@@ -167,7 +167,7 @@ def pack_requests(dicts, spec: BucketSpec, device=DEFAULT_DEVICE) -> tuple:
     return batch_lattices(rows, device=device), n_live
 
 
-def pack_log_probs(lps, spec: BucketSpec) -> np.ndarray:
+def pack_log_probs(lps, spec: BucketSpec) -> np.ndarray:  # reprolint: host: numpy packing
     """Stack per-request (T_i, K) log-probs to (B, T, K) numpy, zero-
     padding frames and idle slots.  Arc scores are padding-invariant: the
     mean-centred cumsum's ``mu`` term cancels exactly over every arc span,
@@ -183,7 +183,7 @@ def pack_log_probs(lps, spec: BucketSpec) -> np.ndarray:
     return out
 
 
-def unpack(values, n_live: int) -> np.ndarray:
+def unpack(values, n_live: int) -> np.ndarray:  # reprolint: host: results to the host
     """Per-request rows of a batched statistic (a tensor on any device):
     drop the idle slots, as numpy."""
     return values.detach().cpu().numpy()[:n_live]

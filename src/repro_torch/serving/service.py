@@ -42,7 +42,7 @@ from repro_torch.serving.streaming import (StreamSession, session_bucket,
                                            truncate_levels)
 
 
-def _sync(device: torch.device) -> None:
+def _sync(device: torch.device) -> None:  # reprolint: host: the serving clock waits for the card
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -50,7 +50,7 @@ def _sync(device: torch.device) -> None:
 class RescoreRequest:
     """One rescoring request: a lattice dict + (T, K) log-probs."""
 
-    def __init__(self, rid, lattice: dict, log_probs, *,
+    def __init__(self, rid, lattice: dict, log_probs, *,  # reprolint: host: numpy request
                  arrival_s: float = 0.0, deadline_s=None):
         self.rid = rid
         self.lattice = lattice
@@ -94,7 +94,7 @@ class RescoringService:
         return lattice_stats(lat, lp, self.kappa, backend=self.backend,
                              accumulators="loss_only", topology="dag")
 
-    def warmup(self, num_states: int):
+    def warmup(self, num_states: int):  # reprolint: host: numpy inputs, off the clock
         """Run every bucket once off the serving clock (builds the kernels
         and warms the allocator).  ``num_states`` must match the traffic's
         log-prob K — one acoustic model, hence one K, per deployment."""
@@ -224,7 +224,7 @@ class RescoringService:
                              device=self.device)
 
 
-def synthetic_workload(seed: int, n_requests: int, *,
+def synthetic_workload(seed: int, n_requests: int, *,  # reprolint: host: numpy request generator
                        rate_hz: float = 200.0, num_states: int = 6,
                        deadline_s: float | None = None):
     """Poisson-arrival mixed-size workload: small/large sausages and
@@ -257,7 +257,7 @@ def synthetic_workload(seed: int, n_requests: int, *,
     return reqs
 
 
-def main(argv=None):
+def main(argv=None):  # reprolint: host: the CLI
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.serving.service",
         description="bucket-batched lattice rescoring service")

@@ -57,7 +57,7 @@ def session_bucket(d: dict, *, batch: int = 1) -> BucketSpec:
     )
 
 
-def truncate_levels(d: dict, n_levels_done: int) -> dict:
+def truncate_levels(d: dict, n_levels_done: int) -> dict:  # reprolint: host: numpy lattice edit
     """The partial lattice a streaming client would send after the first
     ``n_levels_done`` topological levels: later arcs masked out, the
     current frontier (arcs with no surviving successor) marked final."""
@@ -82,7 +82,7 @@ def truncate_levels(d: dict, n_levels_done: int) -> dict:
     return out
 
 
-def resume_lattice_dict(d: dict, done, alpha, c_alpha) -> dict:
+def resume_lattice_dict(d: dict, done, alpha, c_alpha) -> dict:  # reprolint: host: numpy edit
     """Rewrite the completed arcs of ``d`` as virtual start arcs carrying
     the checkpointed (alpha, c_alpha) — see the module docstring.  Arc
     ids/positions are preserved, so per-arc outputs line up with ``d``."""
@@ -157,7 +157,7 @@ class StreamSession:
                                          backend=self.backend)
         return alpha, c_alpha, finalize_loss_only(lat, alpha, c_alpha)
 
-    def _dispatch(self, d: dict, log_probs,
+    def _dispatch(self, d: dict, log_probs,  # reprolint: host: the checkpoint lives on the host
                   spec: BucketSpec | None = None) -> tuple:
         spec = spec or self.spec
         lat = batch_lattices([pad_to_bucket(d, spec)], device=self.device)
@@ -168,7 +168,7 @@ class StreamSession:
                 LossStats(logZ=fin.logZ.cpu().numpy()[0],
                           c_avg=fin.c_avg.cpu().numpy()[0]))
 
-    def rescore(self, d: dict, log_probs) -> LossStats:
+    def rescore(self, d: dict, log_probs) -> LossStats:  # reprolint: host: numpy checkpoint
         """Rescore the current snapshot, resuming from the checkpoint."""
         padded = pad_to_bucket(d, self.spec)
         mask = np.asarray(padded["arc_mask"], bool)
@@ -212,7 +212,7 @@ class StreamSession:
         return (self._done.copy(), self._alpha.copy(),
                 self._c_alpha.copy())
 
-    def restore(self, done, alpha, c_alpha) -> None:
+    def restore(self, done, alpha, c_alpha) -> None:  # reprolint: host: numpy checkpoint
         """Load a (done_mask, alpha, c_alpha) checkpoint — this session's
         own ``checkpoint`` or one carried over by
         ``convert.stream_checkpoint_from_numpy`` — as the frontier the

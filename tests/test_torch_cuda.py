@@ -450,3 +450,44 @@ def test_sausage_loss_only_adversarial_spans(cuda, shape):
     for g, w in zip(got, want):
         assert torch.all((g - w).abs() <= 1e-3 + 1e-5 * w.abs())
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("kernel", ["sausage_forward", "sausage_backward",
+                                    "dag_forward", "dag_backward"])
+def test_bf16_inputs_give_f32_outputs(cuda, kernel):
+    """The card routes take bf16 scores as the CPU routes and the JAX
+    functions do: cast to f32 on entry, f32 out, the same bits as for the
+    inputs cast to f32 by the caller."""
+    if kernel.startswith("sausage"):
+        args = _sausage_case(cuda, 4, 9, 3, seed=4)
+    else:
+        lat, T, Kc = ADVERSARIAL_CASES["max_fanin"](0, device=cuda)
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        lp = torch.randn(1, T, Kc, generator=gen, device=cuda).log_softmax(-1)
+        fr = lattice_frontiers(lat)
+        own, corr, start, ok, final = dag_level_tensors(
+            lat, arc_scores(lat, lp, KAPPA) + lat.lm, fr)
+        args = ((own, corr, start, ok, final, fr.pidx)
+                if kernel == "dag_forward"
+                else (own, corr, final, ok, fr.sidx))
+    fn = getattr(K, kernel)
+    low = [a.to(torch.bfloat16) if a.is_floating_point() else a
+           for a in args]
+    got = fn(*low)
+    want = fn(*[a.float() if a.is_floating_point() else a for a in low])
+    torch.cuda.synchronize()
+    assert all(g.dtype == torch.float32 for g in got)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_kernel_sanitizer_on_the_card(cuda):
+    """The port's kernel sanitizer on the card: KS001-KS005 clean over the
+    corpus and the vector kernels, every launcher of the seven libraries
+    run, each capture's records equal to its ``build.launch`` calls, and
+    both seeded mutants flagged."""
+    from repro_torch.analysis import rules_kernel, sanitize_kernels
+    report, failures = sanitize_kernels.run_sanitize(cuda)
+    assert failures == []
+    assert set(report["launches"]) == set(rules_kernel.STEM_OF)
+    assert report["records"] == report["build_launches"] > 0
+    assert sanitize_kernels.self_test(cuda) == []
